@@ -1,0 +1,16 @@
+"""TARL-TPU on PyTorch and CUDA: the port of ``tarl_tpu`` to an NVIDIA
+Hopper GPU.
+
+The package mirrors the reference's layout (``tarl_tpu_torch/core/
+withdraw.py`` answers to ``tarl_tpu/core/withdraw.py``) and imports torch
+and numpy only.  Its slice runs the headline episode: scenario ingestion,
+the per-SRC backlog insert, withdraw, random route choice and the
+direction+confirm core, whose winner kernel is hand-written CUDA
+(``csrc/fused_winner.cu``) built at first use.
+"""
+
+from .config import PhysicsConfig, SimConfig
+from .network import Network, build_network, default_selected_road
+from .state import AgentState, MetricState, RoadState, SimState
+
+__version__ = "0.1.0"

@@ -1,0 +1,71 @@
+"""Typed configuration of the PyTorch port (ports ``tarl_tpu/config.py``).
+
+``PhysicsConfig`` and ``SimConfig`` keep the reference's field names and
+defaults so one configuration reads the same in both packages.  A few
+``SimConfig`` fields only choose between bitwise-identical evaluation
+strategies of the TPU build (``insert_compact``, ``withdraw_compact``); the
+port accepts and ignores them.  ``fused_core`` selects a different random
+stream and is not ported: :func:`tarl_tpu_torch.core.step.tick` refuses it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class PhysicsConfig:
+    """Constants of the queueing / congestion model."""
+
+    # Slots at the tail of every FIFO reserved for gridlock resolution.
+    congestion_buffer: int = 3
+    # Softening constant in ``tt = max(fftt, cc / (cap + softening - n))``.
+    congestion_softening: float = 10.0
+    # Seconds past the scheduled departure after which the gridlock-escape
+    # submask activates.
+    gridlock_patience: float = 10.0
+    # Critical-density factor: capacity [veh/h] * fftt [s] / 3600.
+    seconds_per_hour: float = 3600.0
+    # MATSim default effective cell size [m] when the XML omits it.
+    effective_cell_size: float = 7.5
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """Parameters of a simulation run (same fields as the reference)."""
+
+    timestep: int = 1                 # seconds between ticks
+    start_time: int = 0               # seconds since midnight
+    end_time: int = 86400             # seconds since midnight
+    seed: int = 0
+    # Maximum withdrawals per road per tick scanned from the FIFO head
+    # (None = the whole queue).
+    withdraw_depth: int | None = None
+    # Re-scan roads whose pop run hit the depth bound until none saturates.
+    withdraw_escalate: bool = True
+    # Insertion candidate window (None = the whole population).
+    insert_window: int | None = None
+    # Ids 1..A-1 are in nondecreasing departure order.
+    sorted_population: bool = False
+    # Extra window passes on saturated ticks (windowed insert).
+    insert_escalate: bool = True
+    # Per-SRC candidate queue depth of the backlog insert (None = off).
+    insert_backlog: int | None = None
+    # TPU scatter-compaction budgets; bitwise-neutral, ignored by the port.
+    insert_compact: int | str | None = "auto"
+    withdraw_compact: int | str | None = "auto"
+    # Per-tick [T, R] road-optimality series.
+    record_road_optimality: bool = True
+    # Hourly [H, R] road-optimality accumulator.
+    record_road_optimality_hourly: bool = True
+    # The TPU-only fused direction+response kernel (different random stream).
+    fused_core: bool = False
+    # Hour buckets of the traffic-count accumulator.
+    num_hours: int = 30
+
+    @property
+    def num_steps(self) -> int:
+        return (self.end_time - self.start_time) // self.timestep
+
+
+DEFAULT_PHYSICS = PhysicsConfig()
+DEFAULT_SIM = SimConfig()

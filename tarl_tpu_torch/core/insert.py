@@ -1,0 +1,280 @@
+"""Agent insertion: place due agents onto their entry road (ports
+``tarl_tpu/core/insert.py``: ``insert_agents`` with its admission core,
+``backlog_frontier_append``, ``insert_agents_backlogged`` and
+``reconstruct_inserted``).
+
+Admission is the reference's: candidates in agent-id order, per road a
+capacity prefix of ``capacity - CONGESTION_FILE - count`` agents, ring
+slots ``head + count + rank``, arrival stamped ``time`` and departure
+``time + max(fftt, cc / (cap + 10 - count_at_tick_start))``.
+
+Not ported here: the windowed insert (``insert_agents_windowed``) and the
+TPU-only evaluation devices that are bitwise-neutral — the top_k
+compaction of the admission scatters and the float32 folding of the agent
+and road tables into one gather.  Each data-dependent ``while_loop`` of the
+reference is a Python loop whose condition costs one host read
+(:mod:`~tarl_tpu_torch.core.sync`).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import DEFAULT_PHYSICS, PhysicsConfig
+from ..network import Network
+from ..ops.scatter import scatter_add, scatter_set
+from ..state import AgentState, BacklogState, RoadState
+from .sync import host_read
+
+# Queue entries a drain pass pops per SRC (the reference's default).
+POP_WIDTH = 4
+
+
+def _write_rings(road: RoadState, rows, slots, ok, ids, dests, dep_stamp,
+                 time: float):
+    """The four ring writes of an admission at ``(rows, slots)`` where
+    ``ok``.  Admitted (row, slot) pairs are distinct: ranks within a road
+    are distinct and never exceed the free slots."""
+    flat = rows.to(torch.int64) * road.nmax + slots.to(torch.int64)
+    return road._replace(
+        fifo_ids=scatter_set(road.fifo_ids, flat, ids, ok),
+        fifo_arrival=scatter_set(road.fifo_arrival, flat, time, ok),
+        fifo_departure=scatter_set(road.fifo_departure, flat, dep_stamp, ok),
+        fifo_dest=scatter_set(road.fifo_dest, flat, dests, ok),
+    )
+
+
+def _admit_candidates(
+    road: RoadState,
+    agents: AgentState,
+    network: Network,
+    time: float,
+    physics: PhysicsConfig,
+    candidate_ids: torch.Tensor,   # int32[K] agent ids
+    road_key: torch.Tensor,        # int32[K] entry road, R = not a candidate
+    cand_dest: torch.Tensor,       # int32[K] dest per candidate
+) -> tuple[RoadState, AgentState, torch.Tensor]:
+    """Capacity-clipped group insert of candidates; ranks within a road are
+    candidate order (a stable sort by road, then the offset from the group
+    start).  Returns ``(road, agents, admitted)`` with ``admitted`` in
+    candidate order."""
+    r = road.num_roads
+    nmax = road.nmax
+    k = candidate_ids.shape[0]
+    dev = road_key.device
+
+    road_sorted, order = torch.sort(road_key, stable=True)
+    pos = torch.arange(k, dtype=torch.int64, device=dev)
+    is_start = torch.ones(k, dtype=torch.bool, device=dev)
+    is_start[1:] = road_sorted[1:] != road_sorted[:-1]
+    group_start = torch.cummax(torch.where(is_start, pos, 0), dim=0).values
+    rank_sorted = (pos - group_start).to(torch.int32)
+    rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+
+    safe = torch.clamp(road_key, max=r - 1).long()
+    head_c = road.head[safe]
+    count_before = road.count[safe]
+    cap_c = network.capacity[safe]
+    cc_c = network.congestion_constant[safe]
+    ff_c = network.free_flow[safe]
+
+    remaining = (
+        cap_c - physics.congestion_buffer - count_before.to(torch.float32)
+    ).to(torch.int32)
+    ok = (road_key < r) & (rank < remaining) & (remaining > 0)
+    slot = torch.remainder(head_c + count_before + rank, nmax)
+
+    time_congestion = cc_c / (
+        cap_c + physics.congestion_softening - count_before.to(torch.float32)
+    )
+    dep_stamp = time + torch.maximum(ff_c, time_congestion)
+    road = _write_rings(road, road_key, slot, ok, candidate_ids, cand_dest,
+                        dep_stamp, time)
+    count = scatter_add(road.count, road_key, ok.to(torch.int32), ok)
+    inserted = scatter_set(agents.inserted, candidate_ids, True, ok)
+    return (road._replace(count=count), agents._replace(inserted=inserted),
+            ok)
+
+
+def insert_agents(
+    road: RoadState,
+    agents: AgentState,
+    selected_road: torch.Tensor,
+    network: Network,
+    time: float,
+    physics: PhysicsConfig = DEFAULT_PHYSICS,
+) -> tuple[RoadState, AgentState]:
+    """Insert every ready agent (departure reached, not yet inserted) whose
+    entry road ``selected_road[origin]`` has spare capacity, over the whole
+    population."""
+    r = road.num_roads
+    ready = (agents.departure <= time) & ~agents.inserted
+    entry_road = selected_road[agents.origin.long()]
+    valid_road = (entry_road >= 0) & (entry_road < r)
+    road_key = torch.where(ready & valid_road, entry_road, r).to(torch.int32)
+    candidate_ids = torch.arange(agents.num_agents, dtype=torch.int32,
+                                 device=road_key.device)
+    road, agents, _ = _admit_candidates(
+        road, agents, network, time, physics, candidate_ids, road_key,
+        agents.dest,
+    )
+    return road, agents
+
+
+def backlog_frontier_append(
+    qpack: torch.Tensor, qcount: torch.Tensor, qhead: torch.Tensor,
+    departure: torch.Tensor, origin: torch.Tensor, dest: torch.Tensor,
+    ptr: int, time: float, *, num_roads: int, window: int,
+    escalate: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, int, float]:
+    """Departure-frontier appends into the per-SRC queues (phase 1 of
+    :func:`insert_agents_backlogged`).
+
+    Each pass scans the ``window``-wide id slice past ``ptr`` of the
+    departure-sorted population, appends its due prefix to the agents' SRC
+    queues in id order, and advances ``ptr`` past what it consumed; with
+    ``escalate`` it repeats while a whole slice was consumed.  A due agent
+    whose queue is full stops the frontier and counts as one overflow.
+    One host read per pass.  Returns ``(qpack, qcount, new_ptr,
+    overflow)``.
+    """
+    s, q, _ = qpack.shape
+    a = departure.shape[0]
+    f = min(window, a - 1)
+    dev = qpack.device
+    pos = torch.arange(f, dtype=torch.int64, device=dev)
+    earlier = pos[None, :] < pos[:, None]
+    overflow = 0.0
+    while True:
+        lo = min(ptr + 1, a - f)
+        skip = ptr + 1 - lo        # clamped-slice prefix already consumed
+        ids = (lo + pos).to(torch.int32)
+        dep = departure[lo:lo + f]
+        o = torch.clamp(
+            torch.div(origin[lo:lo + f] - num_roads, 2, rounding_mode="floor"),
+            0, s - 1,
+        ).long()
+        fresh = pos >= skip
+        due = (dep <= time) & fresh
+        # Append rank among earlier due same-SRC entries of the slice.
+        rank = ((o[None, :] == o[:, None]) & due[None, :] & earlier).sum(
+            dim=1, dtype=torch.int32)
+        qpos = qcount[o] + rank
+        roomok = qpos < q
+        consumable = ~fresh | (due & roomok)
+        adv_t = torch.min(torch.where(consumable, f, pos))
+        band = due & roomok & (pos < adv_t)
+        col = torch.remainder(qhead[o] + qpos, q).long()
+        flat = (o * q + col) * 2
+        qpack = scatter_set(qpack, flat, ids, band)
+        qpack = scatter_set(qpack, flat + 1, dest[lo:lo + f], band)
+        qcount = scatter_add(qcount, o, torch.ones_like(rank), band)
+        stall = torch.where(pos == adv_t, due & ~roomok, False).sum()
+        adv, due_at_stop = host_read(adv_t, stall)
+        overflow += float(due_at_stop)
+        ptr = lo - 1 + adv
+        if not (escalate and adv == f and ptr < a - 1):
+            return qpack, qcount, ptr, overflow
+
+
+def insert_agents_backlogged(
+    road: RoadState,
+    agents: AgentState,
+    backlog: BacklogState,
+    selected_road: torch.Tensor,
+    network: Network,
+    time: float,
+    ptr: int,
+    window: int,
+    physics: PhysicsConfig = DEFAULT_PHYSICS,
+    escalate: bool = True,
+    update_inserted: bool = True,
+):
+    """Exact insertion via per-SRC candidate queues and a departure
+    frontier.
+
+    With the entry rule ``entry = selected_road[origin]`` a road is only
+    ever bid by its tail SRC node, and all candidates of one SRC bid the
+    same road each tick.  So every due agent flows through one ring per SRC
+    in ascending id order: the frontier appends due agents, then a drain
+    pops ``min(qcount, remaining, POP_WIDTH)`` entries per SRC straight into
+    the road FIFOs, repeated while some queue still faces spare capacity
+    (one host read per check).  Bitwise-identical to :func:`insert_agents`
+    on a departure-sorted population while no queue overflows; ``overflow``
+    counts the stalls of this tick.
+
+    Returns ``(road, agents, backlog, new_ptr, overflow)``.
+    """
+    r = road.num_roads
+    nmax = road.nmax
+    s, q, _ = backlog.qpack.shape
+    p = POP_WIDTH
+    dev = road.count.device
+
+    g = selected_road[r:r + 2 * s:2]                  # each SRC's re-bid
+    gvalid = (g >= 0) & (g < r)
+    g_safe = torch.where(gvalid, g, 0).long()
+    count0 = road.count                               # stamp snapshot
+
+    qpack, qcount, new_ptr, overflow = backlog_frontier_append(
+        backlog.qpack, backlog.qcount, backlog.qhead, agents.departure,
+        agents.origin, agents.dest, ptr, time, num_roads=r, window=window,
+        escalate=escalate,
+    )
+
+    head_g = road.head[g_safe]
+    c0_s = count0[g_safe]
+    cap_g = network.capacity[g_safe]
+    tt_g = torch.maximum(
+        network.free_flow[g_safe],
+        network.congestion_constant[g_safe]
+        / (cap_g + physics.congestion_softening - c0_s.to(torch.float32)),
+    )
+    dep_p = (time + tt_g)[:, None].expand(s, p).reshape(-1)
+    pcol = torch.arange(p, dtype=torch.int32, device=dev)[None, :]
+    rem_cap = (cap_g - physics.congestion_buffer).to(torch.int32)
+    rows = g_safe[:, None].expand(s, p).reshape(-1)
+
+    cnt_s, qhead = c0_s, backlog.qhead
+    inserted = agents.inserted
+    while host_read(torch.any(gvalid & (qcount > 0) & (rem_cap > cnt_s)))[0]:
+        take = torch.clamp(torch.minimum(qcount, rem_cap - cnt_s), 0, p)
+        take = torch.where(gvalid, take, 0)
+        phys = torch.remainder(qhead[:, None] + pcol, q).long()
+        pk = qpack.gather(1, phys[:, :, None].expand(s, p, 2))
+        ids_p = pk[..., 0].reshape(-1)
+        active = (pcol < take[:, None]).reshape(-1)
+        slot = torch.remainder(head_g[:, None] + cnt_s[:, None] + pcol,
+                               nmax).reshape(-1)
+        # Drained rows are distinct across SRCs (a road is bid only by its
+        # tail SRC), and slots within one SRC are distinct.
+        road = _write_rings(road, rows, slot, active, ids_p,
+                            pk[..., 1].reshape(-1), dep_p, time)
+        if update_inserted:
+            inserted = scatter_set(inserted, ids_p, True, active)
+        cnt_s = cnt_s + take
+        qhead = torch.remainder(qhead + take, q).to(torch.int32)
+        qcount = qcount - take
+
+    total_take = cnt_s - c0_s
+    count = scatter_add(count0, g_safe, total_take, total_take > 0)
+    road = road._replace(count=count)
+    agents = agents._replace(inserted=inserted)
+    backlog = backlog._replace(qpack=qpack, qhead=qhead, qcount=qcount)
+    return road, agents, backlog, new_ptr, overflow
+
+
+def reconstruct_inserted(agents: AgentState, backlog: BacklogState,
+                         ptr: int) -> AgentState:
+    """Closed form of the inserted flag under backlog insertion:
+    ``1 <= i <= ptr`` and ``i`` not waiting in any SRC queue."""
+    a = agents.num_agents
+    s, q, _ = backlog.qpack.shape
+    dev = backlog.qpack.device
+    iota = torch.arange(a, dtype=torch.int64, device=dev)
+    base = (iota >= 1) & (iota <= ptr)
+    qpos = torch.arange(q, dtype=torch.int32, device=dev)[None, :]
+    in_ring = (torch.remainder(qpos - backlog.qhead[:, None], q)
+               < backlog.qcount[:, None])
+    inq = scatter_set(torch.zeros(a, dtype=torch.bool, device=dev),
+                      backlog.qids.reshape(-1), True, in_ring.reshape(-1))
+    return agents._replace(inserted=base & ~inq)

@@ -1,0 +1,252 @@
+"""Each phase of the port's tick against the JAX reference, bitwise.
+
+States are captured in reference episodes — a Grid8x8 run with the default
+configuration, and a 4x4 burst in the exact backlog mode whose SRC queues
+run deep — then carried across with ``tarl_tpu_torch.convert``.  Each phase
+gets the same inputs on both sides, with the reference's own Gumbel
+matrices and keys, and must give the same ring fields, heads, counts,
+winners, stamps and masks, exactly.  The kernel wrapper
+``direction_confirm`` takes its plain version here (CPU tensors).
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tarl_tpu.config import DEFAULT_PHYSICS, SimConfig
+from tarl_tpu.core.direction import direction_step
+from tarl_tpu.core.insert import (
+    backlog_frontier_append,
+    insert_agents,
+    insert_agents_backlogged,
+    reconstruct_inserted,
+)
+from tarl_tpu.core.response import confirm_step
+from tarl_tpu.core.rng import choice_gumbel, direction_gumbel
+from tarl_tpu.core.step import Policy, init_sim_state, run_episode
+from tarl_tpu.core.withdraw import withdraw_agents
+from tarl_tpu.io.scenarios import grid_scenario
+from tarl_tpu.routing.policies import random_choice
+from tarl_tpu.state import sort_agents_by_departure
+
+from tarl_tpu_torch import convert
+from tarl_tpu_torch.core import direction as p_direction
+from tarl_tpu_torch.core import fused_winner as p_fused
+from tarl_tpu_torch.core import insert as p_insert
+from tarl_tpu_torch.core import response as p_response
+from tarl_tpu_torch.core import withdraw as p_withdraw
+from tarl_tpu_torch.routing import policies as p_policies
+
+from test_torch_network import assert_tree_equal, load_both
+
+torch.set_num_threads(1)
+
+
+def _port(ref_state, pnet):
+    return convert.sim_state_from_numpy(convert.to_numpy(ref_state))
+
+
+def _np(x):
+    return convert.to_numpy(x)
+
+
+@pytest.fixture(scope="module")
+def grid8(tmp_path_factory):
+    """A Grid8x8 state 400 ticks into the default-configuration episode."""
+    root = str(tmp_path_factory.mktemp("torch_core_scen"))
+    net, agents, pnet, _ = load_both(root, "Grid8x8")
+    sim = SimConfig(start_time=6 * 3600, record_road_optimality=False)
+    policy = Policy(choice=random_choice)
+    state = init_sim_state(net, agents, sim=sim, policy=policy)
+    state, _ = run_episode(state, net, policy, 400, sim=sim)
+    return net, pnet, state
+
+
+@pytest.fixture(scope="module")
+def burst(tmp_path_factory):
+    """A 4x4 grid with 2,000 departures in one minute, 45 ticks into the
+    exact backlog mode: capacity blocks hundreds of entrants, so the SRC
+    queues hold deep backlogs while the frontier is still mid-burst."""
+    root = str(tmp_path_factory.mktemp("torch_burst_scen"))
+    grid_scenario(root, "Burst4", rows=4, cols=4, num_agents=2000,
+                  peak_start=6 * 3600, peak_spread=60)
+    net, agents, pnet, _ = load_both(root, "Burst4")
+    agents = sort_agents_by_departure(agents)
+    sim = SimConfig(start_time=6 * 3600, record_road_optimality=False,
+                    insert_window=16, insert_backlog=1024,
+                    sorted_population=True, withdraw_depth=2)
+    policy = Policy(choice=random_choice)
+    state = init_sim_state(net, agents, sim=sim, policy=policy)
+    state, logs = run_episode(state, net, policy, 45, sim=sim)
+    assert float(np.asarray(logs.window_saturated).sum()) == 0.0
+    assert int(np.asarray(state.backlog.qcount).sum()) > 100
+    assert int(state.insert_ptr) < agents.num_agents - 1
+    return net, pnet, state
+
+
+def test_random_choice(grid8):
+    net, pnet, state = grid8
+    pstate = _port(state, pnet)
+    ref, _ = random_choice(state, net)
+    sub = jax.random.split(state.key)[1]
+    noise = torch.as_tensor(np.array(choice_gumbel(sub, net)))
+    got, _ = p_policies.random_choice(pstate, pnet, gumbel=noise)
+    assert_tree_equal(_np(ref.selected_road), _np(got.selected_road))
+    assert got.key == tuple(int(w) for w in np.asarray(ref.key))
+    # The port's own draw (Gumbel within an ulp) picks the same roads.
+    own, _ = p_policies.random_choice(pstate, pnet)
+    assert_tree_equal(_np(ref.selected_road), _np(own.selected_road))
+
+
+@pytest.mark.parametrize("depth", [1, 2, None])
+@pytest.mark.parametrize("dt", [0.0, 150.0])
+def test_withdraw(grid8, depth, dt):
+    net, pnet, state = grid8
+    pstate = _port(state, pnet)
+    road, agents, wcount = withdraw_agents(
+        state.road, state.agents, net, state.time + dt, depth=depth,
+        compact=None, escalate=True)
+    proad, pagents, pwcount = p_withdraw.withdraw_agents(
+        pstate.road, pstate.agents, pnet, pstate.time + dt, depth=depth,
+        escalate=True)
+    assert_tree_equal(_np(road), _np(proad), "road")
+    assert_tree_equal(_np(agents), _np(pagents), "agents")
+    assert_tree_equal(_np(wcount), _np(pwcount), "wcount")
+    assert int(np.asarray(wcount).sum()) > 0
+    if depth == 1:
+        assert int(np.asarray(wcount).max()) >= 1   # escalation pass ran
+
+
+@pytest.mark.parametrize("dt", [30.0, 120.0])
+def test_insert_agents(grid8, dt):
+    net, pnet, state = grid8
+    pstate = _port(state, pnet)
+    road, agents = insert_agents(state.road, state.agents,
+                                 state.selected_road, net, state.time + dt)
+    proad, pagents = p_insert.insert_agents(
+        pstate.road, pstate.agents, pstate.selected_road, pnet,
+        pstate.time + dt)
+    assert_tree_equal(_np(road), _np(proad), "road")
+    assert_tree_equal(_np(agents), _np(pagents), "agents")
+    assert int(np.asarray(road.count).sum()) > int(
+        np.asarray(state.road.count).sum())
+
+
+@pytest.mark.parametrize("window", [16, 256])
+def test_backlog_frontier_append(burst, window):
+    net, pnet, state = burst
+    pstate = _port(state, pnet)
+    ag = state.agents
+    static_tab = jax.numpy.stack(
+        [ag.departure, ag.origin.astype(jax.numpy.float32),
+         ag.dest.astype(jax.numpy.float32)], axis=1)
+    b = state.backlog
+    t = state.time + 40.0
+    qpack, qcount, ptr, overflow = backlog_frontier_append(
+        b.qpack, b.qcount, b.qhead, static_tab, state.insert_ptr, t,
+        R=net.num_roads, window=window, escalate=True)
+    pb, pag = pstate.backlog, pstate.agents
+    pqpack, pqcount, pptr, poverflow = p_insert.backlog_frontier_append(
+        pb.qpack, pb.qcount, pb.qhead, pag.departure, pag.origin, pag.dest,
+        pstate.insert_ptr, pstate.time + 40.0, num_roads=pnet.num_roads,
+        window=window, escalate=True)
+    assert_tree_equal(_np(qpack), _np(pqpack), "qpack")
+    assert_tree_equal(_np(qcount), _np(pqcount), "qcount")
+    assert int(ptr) == pptr
+    assert float(overflow) == poverflow
+    assert pptr > pstate.insert_ptr
+
+
+@pytest.mark.parametrize("update_inserted", [True, False])
+def test_insert_agents_backlogged(burst, update_inserted):
+    net, pnet, state = burst
+    pstate = _port(state, pnet)
+    out = insert_agents_backlogged(
+        state.road, state.agents, state.backlog, state.selected_road, net,
+        state.time, state.insert_ptr, 16, update_inserted=update_inserted)
+    pout = p_insert.insert_agents_backlogged(
+        pstate.road, pstate.agents, pstate.backlog, pstate.selected_road,
+        pnet, pstate.time, pstate.insert_ptr, 16,
+        update_inserted=update_inserted)
+    for name, a, b in zip(("road", "agents", "backlog"), out[:3], pout[:3]):
+        assert_tree_equal(_np(a), _np(b), name)
+    assert int(out[3]) == pout[3]
+    assert float(out[4]) == pout[4]
+    drained = (np.asarray(out[0].count).sum()
+               - np.asarray(state.road.count).sum())
+    assert drained > 0
+
+
+def test_reconstruct_inserted(burst):
+    net, pnet, state = burst
+    pstate = _port(state, pnet)
+    ref = reconstruct_inserted(state.agents, state.backlog, state.insert_ptr)
+    got = p_insert.reconstruct_inserted(pstate.agents, pstate.backlog,
+                                        pstate.insert_ptr)
+    assert_tree_equal(_np(ref.inserted), _np(got.inserted))
+    # The flag equals the one the episode maintained eagerly.
+    assert_tree_equal(_np(state.agents.inserted), _np(got.inserted))
+
+
+def _steps(state, n):
+    """``n`` consecutive (time, direction key) pairs from ``state``."""
+    key, t = state.key, state.time
+    for _ in range(n):
+        key, k = jax.random.split(key)
+        yield t, k
+        t = t + 1.0
+
+
+def test_direction_and_confirm_steps(grid8):
+    net, pnet, state = grid8
+    pstate = _port(state, pnet)
+    road, proad = state.road, pstate.road
+    accepted = 0
+    for t, k in _steps(state, 12):
+        gumbel = torch.as_tensor(np.array(direction_gumbel(k, net)))
+        r1, delta, acc, win = direction_step(
+            road, state.selected_road, net, t, k, DEFAULT_PHYSICS)
+        p1, pdelta, pacc, pwin = p_direction.direction_step(
+            proad, pstate.selected_road, pnet, float(t), gumbel)
+        assert_tree_equal(_np(r1), _np(p1), "pushed road")
+        for name, a, b in (("delta", delta, pdelta), ("accept", acc, pacc),
+                           ("win_src", win, pwin)):
+            assert_tree_equal(_np(a), _np(b), name)
+        road, popped = confirm_step(r1, acc, win, net)
+        proad, ppopped = p_response.confirm_step(p1, pacc, pwin)
+        assert_tree_equal(_np(road), _np(proad), "popped road")
+        assert_tree_equal(_np(popped), _np(ppopped), "popped")
+        accepted += int(np.asarray(acc).sum())
+    assert accepted > 0
+
+
+def test_direction_confirm_wrapper_matches_reference(grid8):
+    """The kernel wrapper (plain version on CPU) and the transfer epilogue
+    against the reference's ``direction_step`` + ``confirm_step``."""
+    net, pnet, state = grid8
+    pstate = _port(state, pnet)
+    road, proad = state.road, pstate.road
+    for t, k in _steps(state, 12):
+        gumbel = torch.as_tensor(np.array(direction_gumbel(k, net)))
+        r1, delta, acc, win = direction_step(
+            road, state.selected_road, net, t, k, DEFAULT_PHYSICS)
+        road, popped = confirm_step(r1, acc, win, net)
+        accept, win_src, agent, dest, ppopped = p_fused.direction_confirm(
+            proad, pstate.selected_road, pnet, float(t), gumbel)
+        assert_tree_equal(_np(acc), _np(accept), "accept")
+        assert_tree_equal(_np(win), _np(win_src), "win_src")
+        assert_tree_equal(_np(popped), _np(ppopped), "popped")
+        # agent / dest are what the reference pushed at each tail.
+        tail = (np.asarray(proad.head) + np.asarray(proad.count)) % pnet.nmax
+        rows = np.arange(pnet.num_roads)
+        a = np.asarray(acc)
+        np.testing.assert_array_equal(
+            np.where(a, np.asarray(r1.fifo_ids)[rows, tail], 0),
+            agent.numpy())
+        np.testing.assert_array_equal(
+            np.where(a, np.asarray(r1.fifo_dest)[rows, tail], 0),
+            dest.numpy())
+        proad, pdelta = p_fused.apply_transfers(
+            proad, pnet, float(t), accept, agent, dest, ppopped)
+        assert_tree_equal(_np(road), _np(proad), "road")
+        assert_tree_equal(_np(delta), _np(pdelta), "delta")

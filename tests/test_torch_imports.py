@@ -1,0 +1,145 @@
+"""The port's package boundary and its kernel wrapper, on the CPU.
+
+* ``tarl_tpu_torch`` and every submodule import with ``jax``, ``flax`` and
+  ``tarl_tpu`` blocked.
+* The fused-winner wrapper sends CPU tensors to its plain version (without
+  counting a launch) and raises on inputs the kernel would not take.
+* The kernel's CUDA source exists and the build targets ``sm_90a``.
+* On a machine with an NVIDIA GPU, the kernel equals its plain version
+  (marked ``cuda``; skipped here).
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import tarl_tpu_torch
+from tarl_tpu_torch import _build
+from tarl_tpu_torch.config import DEFAULT_PHYSICS
+from tarl_tpu_torch.core import fused_winner, rng
+from tarl_tpu_torch.core.step import init_sim_state
+from tarl_tpu_torch.io.matsim import load_network, load_population
+from tarl_tpu_torch.io.scenarios import ensure_scenario
+from tarl_tpu_torch.state import RoadState
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_imports_without_jax():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        for name in ("jax", "jaxlib", "flax", "tarl_tpu"):
+            sys.modules[name] = None
+        import tarl_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            tarl_tpu_torch.__path__, "tarl_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        assert "tarl_tpu_torch.core.fused_winner" in names
+        assert sys.modules["jax"] is None
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+@pytest.fixture(scope="module")
+def grid4(tmp_path_factory):
+    """A Grid4x4 network with a random ring state and selections."""
+    base = ensure_scenario(str(tmp_path_factory.mktemp("torch_imp")),
+                           "Grid4x4")
+    net = load_network(os.path.join(base, "network"))
+    agents, _ = load_population(os.path.join(base, "population"),
+                                os.path.join(base, "network"))
+    state = init_sim_state(net, agents)
+    r, nmax = net.num_roads, net.nmax
+    g = np.random.default_rng(0)
+    count = torch.as_tensor(g.integers(0, 20, r).astype(np.int32))
+    road = RoadState(
+        fifo_ids=torch.as_tensor(g.integers(1, 500, (r, nmax)).astype(
+            np.int32)),
+        fifo_arrival=torch.zeros((r, nmax)),
+        fifo_departure=torch.full((r, nmax), 21590.0),
+        fifo_dest=torch.as_tensor(g.integers(0, 50, (r, nmax)).astype(
+            np.int32)),
+        head=torch.as_tensor(g.integers(0, nmax, r).astype(np.int32)),
+        count=count,
+    )
+    gumbel = rng.gumbel(rng.prng_key(4), tuple(net.in_src_tab.shape))
+    return net, road, state.selected_road, gumbel
+
+
+def test_wrapper_takes_plain_version_on_cpu(grid4):
+    net, road, sel, gumbel = grid4
+    before = fused_winner.LAUNCHES
+    got = fused_winner.direction_confirm(road, sel, net, 21600.0, gumbel)
+    want = fused_winner.direction_confirm_plain(road, sel, net, 21600.0,
+                                                gumbel)
+    assert fused_winner.LAUNCHES == before
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert [t.dtype for t in got] == [torch.bool, torch.int32, torch.int32,
+                                      torch.int32, torch.bool]
+    assert bool(got[0].any())
+
+
+@pytest.mark.parametrize("bad", ["gumbel_dtype", "gumbel_shape",
+                                 "count_dtype", "fifo_layout",
+                                 "selection_shape"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(grid4, bad):
+    net, road, sel, gumbel = grid4
+    if bad == "gumbel_dtype":
+        gumbel = gumbel.double()
+    elif bad == "gumbel_shape":
+        gumbel = gumbel[:, :-1]
+    elif bad == "count_dtype":
+        road = road._replace(count=road.count.long())
+    elif bad == "fifo_layout":
+        road = road._replace(
+            fifo_ids=road.fifo_ids.t().contiguous().t())
+    else:
+        sel = sel[:-1]
+    with pytest.raises((TypeError, ValueError)):
+        fused_winner.direction_confirm(road, sel, net, 21600.0, gumbel,
+                                       DEFAULT_PHYSICS)
+
+
+def test_kernel_source_and_build_target():
+    source = os.path.join(os.path.dirname(tarl_tpu_torch.__file__), "csrc",
+                          "fused_winner.cu")
+    assert os.path.isfile(source)
+    text = open(source).read()
+    assert 'extern "C" int tarl_fused_winner(' in text
+    assert "tarl_tpu/core/fused_winner.py::_kernel" in text
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-shared" in flags and "--use_fast_math" not in flags
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "tarl_tpu_torch")
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card(grid4):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py checks the "
+                    "kernel on the card")
+    net, road, sel, gumbel = grid4
+    dev = torch.device("cuda", 0)
+    net = net.to(dev)
+    road = RoadState(*(t.to(dev) for t in road))
+    sel, gumbel = sel.to(dev), gumbel.to(dev)
+    before = fused_winner.LAUNCHES
+    got = fused_winner.direction_confirm(road, sel, net, 21600.0, gumbel)
+    want = fused_winner.direction_confirm_plain(road, sel, net, 21600.0,
+                                                gumbel)
+    torch.cuda.synchronize()
+    assert fused_winner.LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
