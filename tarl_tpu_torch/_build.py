@@ -5,6 +5,7 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds).  Libraries go to ``build/tarl_tpu_torch/`` at the root of the
 checkout, keyed by a hash of the source and the command, so an edited
 source rebuilds.  A failed compile raises with nvcc's stderr.
+:func:`check_tensor` is the wrappers' check of what a kernel takes.
 """
 from __future__ import annotations
 
@@ -24,6 +25,20 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "--fmad=false", "-shared",
                            "-Xcompiler", "-fPIC"]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def check_tensor(name: str, t, dtype, shape, device) -> None:
+    """Raise unless tensor ``t`` lies on ``device`` with ``dtype``,
+    ``shape`` and a contiguous layout."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
 
 
 def nvcc_path() -> str:

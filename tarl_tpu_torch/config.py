@@ -1,8 +1,8 @@
 """Typed configuration of the PyTorch port (ports ``tarl_tpu/config.py``).
 
-``PhysicsConfig`` and ``SimConfig`` keep the reference's field names and
-defaults so one configuration reads the same in both packages.  A few
-``SimConfig`` fields only choose between bitwise-identical evaluation
+``PhysicsConfig``, ``SimConfig`` and ``RoutingConfig`` keep the reference's
+field names and defaults so one configuration reads the same in both
+packages.  A few ``SimConfig`` fields only choose between bitwise-identical evaluation
 strategies of the TPU build (``insert_compact``, ``withdraw_compact``); the
 port accepts and ignores them.  ``fused_core`` selects a different random
 stream and is not ported: :func:`tarl_tpu_torch.core.step.tick` refuses it.
@@ -67,5 +67,24 @@ class SimConfig:
         return (self.end_time - self.start_time) // self.timestep
 
 
+@dataclasses.dataclass(frozen=True)
+class RoutingConfig:
+    """Routing-policy knobs (same fields and defaults as the reference)."""
+
+    # Ticks between shortest-path table refreshes.
+    refresh_rate: int = 10
+    # Cap on Bellman-Ford sweeps per refresh (None = until converged).
+    max_bf_iters: int | None = None
+    # The reference simulator's own entry-road and edge-cost quirks; needs
+    # the dual backend, which the port does not have yet.
+    strict_compat: bool = False
+    # "primal" (intersection tables), "dual" (not ported) or "auto".
+    backend: str = "auto"
+    # "travel_time" (user-equilibrium seeking) or "marginal" (system
+    # optimal: tt + n * dtt/dn).
+    cost_mode: str = "travel_time"
+
+
 DEFAULT_PHYSICS = PhysicsConfig()
 DEFAULT_SIM = SimConfig()
+DEFAULT_ROUTING = RoutingConfig()

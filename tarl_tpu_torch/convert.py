@@ -6,8 +6,9 @@ reference's ``Network``, ``AgentState`` and ``SimState`` (nested states as
 nested dicts) — and build the port's objects on a given device.
 :func:`to_numpy` goes back: port objects become the same nested dicts, with
 the reference's dtypes (the host scalars ``time``, ``key`` and
-``insert_ptr`` as float32, uint32[2] and int32).  Fields the port does not
-keep (the roll plans, the routing tables) are ignored on the way in.
+``insert_ptr`` as float32, uint32[2] and int32).  The routing scratch
+``next_hop`` and ``sel_dest`` cross as they are.  Fields the port does not
+keep (the roll plans, the dual ``nbr`` tables) are ignored on the way in.
 """
 from __future__ import annotations
 

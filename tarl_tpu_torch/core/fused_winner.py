@@ -22,6 +22,7 @@ import ctypes
 
 import torch
 
+from .._build import check_tensor
 from ..config import DEFAULT_PHYSICS, PhysicsConfig
 from ..network import Network
 from ..state import RoadState
@@ -68,18 +69,6 @@ def _kernel_fn():
     return _FN
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def _checked_inputs(road, selected_road, network, gumbel):
     """The kernel's inputs in argument order, after checking that each lies
     on the road state's device with the dtype, shape and layout the kernel
@@ -104,7 +93,7 @@ def _checked_inputs(road, selected_road, network, gumbel):
         ("gumbel", gumbel, f32, (kin, r)),
     ]
     for name, t, dtype, shape in inputs:
-        _check(name, t, dtype, shape, dev)
+        check_tensor(name, t, dtype, shape, dev)
     return [t for _, t, _, _ in inputs]
 
 

@@ -1,19 +1,19 @@
 """Agent insertion: place due agents onto their entry road (ports
 ``tarl_tpu/core/insert.py``: ``insert_agents`` with its admission core,
-``backlog_frontier_append``, ``insert_agents_backlogged`` and
-``reconstruct_inserted``).
+``insert_agents_windowed``, ``backlog_frontier_append``,
+``insert_agents_backlogged`` and ``reconstruct_inserted``).
 
 Admission is the reference's: candidates in agent-id order, per road a
 capacity prefix of ``capacity - CONGESTION_FILE - count`` agents, ring
 slots ``head + count + rank``, arrival stamped ``time`` and departure
 ``time + max(fftt, cc / (cap + 10 - count_at_tick_start))``.
 
-Not ported here: the windowed insert (``insert_agents_windowed``) and the
-TPU-only evaluation devices that are bitwise-neutral — the top_k
-compaction of the admission scatters and the float32 folding of the agent
-and road tables into one gather.  Each data-dependent ``while_loop`` of the
-reference is a Python loop whose condition costs one host read
-(:mod:`~tarl_tpu_torch.core.sync`).
+Not ported: the TPU-only evaluation devices that are bitwise-neutral — the
+top_k compaction of the admission scatters, the pairwise rank and count
+forms, and the float32 folding of the agent and road tables into one
+gather.  Each data-dependent ``while_loop`` of the reference is a Python
+loop whose condition costs one host read (:mod:`~tarl_tpu_torch.core.
+sync`); the windowed insert reads its pointer advance once per pass.
 """
 from __future__ import annotations
 
@@ -52,11 +52,18 @@ def _admit_candidates(
     candidate_ids: torch.Tensor,   # int32[K] agent ids
     road_key: torch.Tensor,        # int32[K] entry road, R = not a candidate
     cand_dest: torch.Tensor,       # int32[K] dest per candidate
+    update_inserted: bool = True,
+    stamp_count: torch.Tensor | None = None,  # int32[R] tick-start occupancy
 ) -> tuple[RoadState, AgentState, torch.Tensor]:
     """Capacity-clipped group insert of candidates; ranks within a road are
     candidate order (a stable sort by road, then the offset from the group
     start).  Returns ``(road, agents, admitted)`` with ``admitted`` in
-    candidate order."""
+    candidate order.
+
+    ``stamp_count`` replaces the occupancy in the departure stamp: the
+    windowed insert's escalation passes stamp with the tick-start count, as
+    one whole-population insert would.  Ranks and capacity use the current
+    count.  Without ``update_inserted`` the caller sets the flag itself."""
     r = road.num_roads
     nmax = road.nmax
     k = candidate_ids.shape[0]
@@ -83,16 +90,18 @@ def _admit_candidates(
     ok = (road_key < r) & (rank < remaining) & (remaining > 0)
     slot = torch.remainder(head_c + count_before + rank, nmax)
 
+    stamp_c = count_before if stamp_count is None else stamp_count[safe]
     time_congestion = cc_c / (
-        cap_c + physics.congestion_softening - count_before.to(torch.float32)
+        cap_c + physics.congestion_softening - stamp_c.to(torch.float32)
     )
     dep_stamp = time + torch.maximum(ff_c, time_congestion)
     road = _write_rings(road, road_key, slot, ok, candidate_ids, cand_dest,
                         dep_stamp, time)
     count = scatter_add(road.count, road_key, ok.to(torch.int32), ok)
-    inserted = scatter_set(agents.inserted, candidate_ids, True, ok)
-    return (road._replace(count=count), agents._replace(inserted=inserted),
-            ok)
+    if update_inserted:
+        agents = agents._replace(
+            inserted=scatter_set(agents.inserted, candidate_ids, True, ok))
+    return road._replace(count=count), agents, ok
 
 
 def insert_agents(
@@ -102,13 +111,16 @@ def insert_agents(
     network: Network,
     time: float,
     physics: PhysicsConfig = DEFAULT_PHYSICS,
+    entry_road: torch.Tensor | None = None,
 ) -> tuple[RoadState, AgentState]:
     """Insert every ready agent (departure reached, not yet inserted) whose
-    entry road ``selected_road[origin]`` has spare capacity, over the whole
-    population."""
+    entry road has spare capacity, over the whole population.  The entry
+    road is ``entry_road`` (int32[A], e.g. a shortest-path policy's per-agent
+    roads) or ``selected_road[origin]``."""
     r = road.num_roads
     ready = (agents.departure <= time) & ~agents.inserted
-    entry_road = selected_road[agents.origin.long()]
+    if entry_road is None:
+        entry_road = selected_road[agents.origin.long()]
     valid_road = (entry_road >= 0) & (entry_road < r)
     road_key = torch.where(ready & valid_road, entry_road, r).to(torch.int32)
     candidate_ids = torch.arange(agents.num_agents, dtype=torch.int32,
@@ -118,6 +130,111 @@ def insert_agents(
         agents.dest,
     )
     return road, agents
+
+
+def insert_agents_windowed(
+    road: RoadState,
+    agents: AgentState,
+    selected_road: torch.Tensor,
+    network: Network,
+    time: float,
+    order: torch.Tensor,
+    ptr: int,
+    window: int,
+    physics: PhysicsConfig = DEFAULT_PHYSICS,
+    entry_road: torch.Tensor | None = None,
+    entry_lookup=None,
+    sorted_fast: bool = False,
+    escalate: bool = False,
+) -> tuple[RoadState, AgentState, int, float]:
+    """Windowed insertion: candidates are the ``window`` agents of the
+    departure order from position ``ptr`` (``order[ptr:ptr + W]``, or ids
+    ``ptr + 1 ..`` with ``sorted_fast`` on a departure-sorted population).
+
+    Entry roads come from ``entry_lookup(agent_ids)``, else from the full
+    ``entry_road[A]``, else ``selected_road[origin]``.  The pointer advances
+    past the leading run of settled (inserted) candidates.  Without
+    ``escalate`` the overflow monitor reads 1.0 when the window's tail agent
+    is already due (due agents may lie beyond the window), else 0.0.  With
+    ``escalate`` further passes run at offsets ``ptr + k * W`` while the
+    last pass's tail was due; the run then equals a whole-population insert
+    bitwise, and the monitor counts the extra passes.  Each pass costs one
+    host read (its pointer advance and tail flag).
+
+    Returns ``(road, agents, new_ptr, saturated)``.
+    """
+    a = agents.num_agents
+    w = min(window, a)
+    if sorted_fast:
+        w = min(w, a - 1)
+        limit = a - 1 - w
+    else:
+        limit = a - w
+    dev = road.count.device
+    pos_w = torch.arange(w, dtype=torch.int32, device=dev)
+
+    def one_pass(road, inserted, off, stamp_count):
+        start = min(off, limit)
+        if sorted_fast:
+            lo = start + 1
+            win_ids = lo + pos_w
+            win_dep = agents.departure[lo:lo + w]
+            win_origin = agents.origin[lo:lo + w]
+            win_dest = agents.dest[lo:lo + w]
+            win_inserted = inserted[lo:lo + w]
+        else:
+            win_ids = order[start:start + w]
+            idx = win_ids.long()
+            win_dep = agents.departure[idx]
+            win_origin = agents.origin[idx]
+            win_dest = agents.dest[idx]
+            win_inserted = inserted[idx]
+        ready = (win_dep <= time) & ~win_inserted
+        if entry_lookup is not None:
+            win_entry = entry_lookup(win_ids)
+        elif entry_road is not None:
+            win_entry = entry_road[win_ids.long()]
+        else:
+            win_entry = selected_road[win_origin.long()]
+        valid = (win_entry >= 0) & (win_entry < road.num_roads)
+        road_key = torch.where(ready & valid, win_entry,
+                               road.num_roads).to(torch.int32)
+        road, agents2, admitted = _admit_candidates(
+            road, agents._replace(inserted=inserted), network, time, physics,
+            win_ids, road_key, win_dest, update_inserted=not sorted_fast,
+            stamp_count=stamp_count)
+        settled = win_inserted | admitted
+        if sorted_fast:
+            inserted = inserted.clone()
+            inserted[lo:lo + w] = settled
+        else:
+            inserted = agents2.inserted
+        adv_t = torch.min(torch.where(settled, w, pos_w))
+        adv, sat = host_read(adv_t, win_dep[w - 1] <= time)
+        return road, inserted, adv, bool(sat), start
+
+    count0 = road.count            # tick-start occupancy (stamp snapshot)
+    road, inserted, adv, sat, start0 = one_pass(road, agents.inserted, ptr,
+                                                None)
+    if not escalate:
+        return (road, agents._replace(inserted=inserted),
+                min(start0 + adv, a), float(sat))
+
+    # Further passes while the last window's tail was due and a further
+    # window covers new candidates.  The pointer advance chains only across
+    # contiguous (unclamped) fully settled windows.
+    adv_open, extra, start = adv == w, 0.0, start0
+    while sat and start < limit:
+        off = start + w
+        road, inserted, adv_k, sat, start = one_pass(road, inserted, off,
+                                                     count0)
+        contiguous = start == off
+        if adv_open and contiguous:
+            adv += adv_k
+        adv_open = adv_open and contiguous and adv_k == w
+        extra += 1.0
+    return (road, agents._replace(inserted=inserted), min(start0 + adv, a),
+            extra)
 
 
 def backlog_frontier_append(

@@ -1,13 +1,13 @@
-"""Tick composition and the episode loop (ports ``tarl_tpu/core/step.py``:
-``Policy``, ``init_sim_state``, ``tick``, ``run_episode`` and
-``average_travel_time``).
+"""Tick composition and the episode loops (ports ``tarl_tpu/core/step.py``:
+``Policy``, ``init_sim_state``, ``tick``, ``run_episode``,
+``run_episode_periodic`` and ``average_travel_time``).
 
 A tick runs insert -> withdraw -> choice -> core, then advances the clock
 and updates the metrics.  The core is :func:`~tarl_tpu_torch.core.
 fused_winner.direction_confirm` at every network size (the CUDA kernel on a
-CUDA device) followed by the tail push and head pop in PyTorch.  ``run_episode`` is a Python loop
-over ticks; the reference's ``lax.scan`` has no counterpart that eager
-PyTorch needs.
+CUDA device) followed by the tail push and head pop in PyTorch.  The
+episode functions are Python loops over ticks; the reference's ``lax.scan``
+has no counterpart that eager PyTorch needs.
 """
 from __future__ import annotations
 
@@ -28,18 +28,37 @@ from ..state import (
     init_road_state,
 )
 from .fused_winner import apply_transfers, direction_confirm
-from .insert import insert_agents, insert_agents_backlogged, \
-    reconstruct_inserted
+from .insert import (
+    insert_agents,
+    insert_agents_backlogged,
+    insert_agents_windowed,
+    reconstruct_inserted,
+)
 from .rng import Key, direction_gumbel, prng_key, split
 from .withdraw import withdraw_agents
 
 
 class Policy(NamedTuple):
     """A route-choice policy: ``choice(state, network) -> (state,
-    entry_road | None)``.  Entrants take ``selected_road[origin]``; policies
-    with per-agent entry roads come with the shortest-path slice."""
+    entry_road | None)``.
+
+    ``entry(state, network) -> int32[A]`` and ``entry_lookup(state, network,
+    agent_ids) -> roads`` give per-agent entry roads (entrants take
+    ``selected_road[origin]`` without them); ``needs_next_hop`` asks for the
+    dual table (not ported); ``table_init(network)`` builds the routing
+    scratch ``state.next_hop``.  ``refresh(state, network) -> buf``,
+    ``lookup(state, network, buf) -> state`` and ``periodic_rate`` split a
+    periodic-refresh choice for :func:`run_episode_periodic`; ``choice``
+    equals ``lookup`` after a refresh on every ``periodic_rate``-th call."""
 
     choice: Callable
+    entry: Optional[Callable] = None
+    entry_lookup: Optional[Callable] = None
+    needs_next_hop: bool = False
+    table_init: Optional[Callable] = None
+    refresh: Optional[Callable] = None
+    lookup: Optional[Callable] = None
+    periodic_rate: Optional[int] = None
 
 
 def init_sim_state(
@@ -51,15 +70,30 @@ def init_sim_state(
     key: Optional[Key] = None,
 ) -> SimState:
     """Fresh :class:`SimState` at ``sim.start_time`` on the network's
-    device."""
+    device; the routing scratch comes from ``policy.table_init``."""
     dev = network.device
     backlog = None
     if sim.insert_backlog is not None:
         if not (sim.sorted_population and sim.insert_window is not None):
             raise ValueError(
                 "insert_backlog requires sorted_population and insert_window")
+        if policy is not None and (policy.entry is not None
+                                   or policy.entry_lookup is not None):
+            raise ValueError(
+                "insert_backlog requires the selected_road[origin] entry "
+                "rule; this policy supplies per-agent entry roads")
         backlog = init_backlog_state(sim.insert_backlog,
                                      network.num_intersections, dev)
+    next_hop = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    sel_dest = None
+    if policy is not None and policy.table_init is not None:
+        next_hop = policy.table_init(network)
+    elif policy is not None and policy.needs_next_hop:
+        raise NotImplementedError("the dual next-hop table is not ported")
+    if policy is not None and (policy.needs_next_hop
+                               or policy.table_init is not None):
+        sel_dest = torch.full((network.num_roads,), -1, dtype=torch.int32,
+                              device=dev)
     order = np.argsort(agents.departure.cpu().numpy(), kind="stable")
     return SimState(
         road=init_road_state(network.num_roads, network.nmax, dev),
@@ -68,12 +102,12 @@ def init_sim_state(
         time=float(np.float32(sim.start_time)),
         key=prng_key(sim.seed) if key is None else key,
         metrics=init_metric_state(network.num_roads, sim.num_hours, dev),
-        next_hop=torch.zeros((1, 1), dtype=torch.int32, device=dev),
+        next_hop=next_hop,
         choice_count=0,
         insert_order=torch.as_tensor(order.astype(np.int32), device=dev),
         insert_ptr=0,
         backlog=backlog,
-        sel_dest=None,
+        sel_dest=sel_dest,
     )
 
 
@@ -85,6 +119,7 @@ def tick(
     physics: PhysicsConfig = DEFAULT_PHYSICS,
     lazy_inserted: bool = False,
     core: Callable = direction_confirm,
+    choice_fn: Optional[Callable] = None,
 ) -> tuple[SimState, TickLog]:
     """One tick: insert -> withdraw -> choice -> core, clock and metrics.
 
@@ -92,7 +127,9 @@ def tick(
     writes; :func:`run_episode` rebuilds the flag once at the end.
     ``core`` is the winner+confirm function;
     pass :func:`~tarl_tpu_torch.core.fused_winner.direction_confirm_plain`
-    to run the plain version on a CUDA device for comparison."""
+    to run the plain version on a CUDA device for comparison.
+    ``choice_fn`` replaces ``policy.choice`` (same signature).  Entry roads
+    read ``state.next_hop`` as it was before this tick's choice."""
     if sim.fused_core:
         raise NotImplementedError(
             "fused_core (the TPU-only fused direction+response kernel) is "
@@ -104,11 +141,8 @@ def tick(
     insert_ptr = state.insert_ptr
     backlog = state.backlog
     saturated = 0.0
-    if sim.insert_window is not None:
-        if sim.insert_backlog is None or backlog is None:
-            raise NotImplementedError(
-                "the windowed insert is not ported; use insert_backlog or "
-                "insert_window=None")
+    if sim.insert_window is not None and \
+            sim.insert_backlog is not None and backlog is not None:
         road, agents, backlog, insert_ptr, saturated = \
             insert_agents_backlogged(
                 state.road, state.agents, backlog, state.selected_road,
@@ -116,10 +150,25 @@ def tick(
                 escalate=sim.insert_escalate,
                 update_inserted=not lazy_inserted,
             )
+    elif sim.insert_window is not None:
+        entry_fn = entry_road = None
+        if policy.entry_lookup is not None:
+            def entry_fn(ids, s=state):
+                return policy.entry_lookup(s, network, ids)
+        elif policy.entry is not None:
+            entry_road = policy.entry(state, network)
+        road, agents, insert_ptr, saturated = insert_agents_windowed(
+            state.road, state.agents, state.selected_road, network, t,
+            state.insert_order, state.insert_ptr, sim.insert_window,
+            physics, entry_road=entry_road, entry_lookup=entry_fn,
+            sorted_fast=sim.sorted_population, escalate=sim.insert_escalate,
+        )
     else:
+        entry_road = (policy.entry(state, network)
+                      if policy.entry is not None else None)
         road, agents = insert_agents(
             state.road, state.agents, state.selected_road, network, t,
-            physics,
+            physics, entry_road=entry_road,
         )
 
     # --- withdraw ---
@@ -131,7 +180,7 @@ def tick(
     state = state._replace(road=road, agents=agents)
 
     # --- choice ---
-    state, _ = policy.choice(state, network)
+    state, _ = (choice_fn or policy.choice)(state, network)
 
     # --- core: direction + confirm ---
     key, k_dir = split(state.key)
@@ -213,13 +262,59 @@ def run_episode(
     if lazy:
         state = state._replace(agents=reconstruct_inserted(
             state.agents, state.backlog, state.insert_ptr))
-    dev = state.road.count.device
-    stacked = TickLog(*(
+    return state, _stack_logs(logs, state.road.count.device)
+
+
+def _stack_logs(logs: list, dev) -> TickLog:
+    return TickLog(*(
         torch.stack([getattr(lg, f) for lg in logs]).to(dev) if logs
         else torch.zeros((0,), device=dev)
         for f in TickLog._fields
     ))
-    return state, stacked
+
+
+def run_episode_periodic(
+    state: SimState,
+    network: Network,
+    policy: Policy,
+    num_steps: int,
+    sim: SimConfig = DEFAULT_SIM,
+    physics: PhysicsConfig = DEFAULT_PHYSICS,
+    core: Callable = direction_confirm,
+) -> tuple[SimState, TickLog]:
+    """:func:`run_episode` for a policy with a periodic refresh, as periods
+    of ``policy.periodic_rate`` ticks: the first tick of a period refreshes
+    the table at its choice phase (so that tick's insert still routes
+    through the previous table, as in :func:`run_episode`), the others only
+    look up.  Bitwise equal to :func:`run_episode` when ``num_steps`` and
+    ``state.choice_count`` are multiples of the rate."""
+    rate = policy.periodic_rate
+    if not rate or policy.refresh is None or policy.lookup is None:
+        raise ValueError("policy carries no periodic refresh/lookup split")
+    if num_steps % rate != 0:
+        raise ValueError(
+            f"num_steps={num_steps} not a multiple of periodic_rate={rate}")
+    if state.choice_count % rate != 0:
+        raise ValueError(f"choice_count={state.choice_count} not a multiple "
+                         f"of periodic_rate={rate}")
+
+    def refresh_choice(s, net):
+        buf = policy.refresh(s, net)
+        return policy.lookup(s, net, buf)._replace(next_hop=buf), None
+
+    def lookup_choice(s, net):
+        return policy.lookup(s, net, s.next_hop), None
+
+    logs = []
+    for _ in range(num_steps // rate):
+        state, log = tick(state, network, policy, sim, physics, core=core,
+                          choice_fn=refresh_choice)
+        logs.append(log)
+        for _ in range(rate - 1):
+            state, log = tick(state, network, policy, sim, physics,
+                              core=core, choice_fn=lookup_choice)
+            logs.append(log)
+    return state, _stack_logs(logs, state.road.count.device)
 
 
 def average_travel_time(agents: AgentState) -> torch.Tensor:

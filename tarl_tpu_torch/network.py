@@ -12,8 +12,9 @@ Not ported, because on a GPU they carry no semantics: the roll plans
 rotations on the TPU, and the roll-friendly renumbering search that served
 them.  The port keeps the identity road order (``road_order = arange(R)``,
 ``renumbered = False``), which is what the reference builds for every grid.
-The routing tables (``nbr``, ``inter_out_*``) wait for the shortest-path
-slice.
+The primal routing tables (``road_to``, ``inter_out_road``,
+``inter_out_ok``) are built as the reference builds them; the dual
+neighbour table (``nbr``, ``nbr_ok``) waits for the dual routing backend.
 """
 from __future__ import annotations
 
@@ -64,6 +65,12 @@ class Network:
     out_dst_tab: torch.Tensor          # int32[KOUT, R]
     choice_ok: torch.Tensor            # bool[KC, N]
     choice_dst_tab: torch.Tensor       # int32[KC, N]
+
+    # Primal (intersection) routing graph; slot order is increasing road
+    # id, so argmin tie-breaks agree with the reference.
+    road_to: torch.Tensor              # int32[R] — intersection at the road's head
+    inter_out_road: torch.Tensor       # int32[I, K] — outgoing roads (0-padded)
+    inter_out_ok: torch.Tensor         # bool[I, K]
 
     inter_x: torch.Tensor              # float32[I]
     inter_y: torch.Tensor              # float32[I]
@@ -164,6 +171,13 @@ def build_network(
         f_dst.append(dest_idx)
         f_w.append(0.0)
 
+    max_out = max(1, max((len(o) for o in outgoing), default=1))
+    inter_out = np.zeros((num_intersections, max_out), dtype=np.int32)
+    inter_ok = np.zeros((num_intersections, max_out), dtype=bool)
+    for k, roads in enumerate(outgoing):
+        inter_out[k, :len(roads)] = roads
+        inter_ok[k, :len(roads)] = True
+
     critical = max_flow * free_flow / physics.seconds_per_hour
     congestion_constant = free_flow * (
         capacity + physics.congestion_softening - critical
@@ -224,6 +238,9 @@ def build_network(
         out_dst_tab=t(out_dst, i32),
         choice_ok=t(ch_tab_ok, bool),
         choice_dst_tab=t(ch_dst, i32),
+        road_to=t(to_inter, i32),
+        inter_out_road=t(inter_out, i32),
+        inter_out_ok=t(inter_ok, bool),
         inter_x=t(np.zeros(num_intersections) if inter_x is None else inter_x,
                   f32),
         inter_y=t(np.zeros(num_intersections) if inter_y is None else inter_y,

@@ -1,0 +1,352 @@
+"""Shortest paths on the primal (intersection) graph by Bellman-Ford
+relaxation (ports ``tarl_tpu/routing/bellman_ford.py``: ``BIG``, the road
+and node cost functions, ``primal_all_pairs_dist``, ``primal_dest_dist``,
+``primal_next_roads`` and ``primal_relax_next_roads``).
+
+Every relaxation goes through :func:`primal_relax_next_roads`: Jacobi
+min-plus sweeps over the out-slot table of each intersection, optionally
+followed by the next-road argmin.  On a CUDA tensor it launches the
+hand-written kernels of ``csrc/primal_relax.cu`` (nvcc into a shared
+library with a C interface, loaded with ctypes) or raises; on a CPU tensor
+it takes :func:`primal_relax_next_roads_plain`, the same function in plain
+PyTorch.  It never falls back from the kernel to the plain version.
+
+A capped relax runs exactly ``max_iters`` sweeps with no host read: the
+reference stops early once a sweep changes nothing, and min-plus
+relaxation is idempotent at its fixpoint, so the tables are equal bit for
+bit.  The uncapped relax (``max_iters=None``, at most ``I - 1`` sweeps)
+reads a convergence flag on the host every :data:`CHECK_EVERY` sweeps
+(every sweep in the plain version), counted by :mod:`~tarl_tpu_torch.core.
+sync`.
+
+Left out: ``primal_delta_buckets``, ``epilogue_slot_tables``,
+``_epilogue_rep_tables``, the row windows, the VMEM plans and every
+``TARL_*`` environment gate.  They choose between bitwise-identical
+evaluations of the same relaxation on the TPU (rotations against row
+gathers, tile widths, row blocks); the GPU kernels gather directly.  The
+dual-graph tables (``all_pairs_next_hop*``) wait for the dual backend.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .._build import check_tensor
+from ..config import DEFAULT_PHYSICS, PhysicsConfig
+from ..core.sync import host_read
+from ..network import Network
+from ..state import RoadState
+
+# The reference's jnp.float32(1e18): exactly representable in float32.
+BIG = float(np.float32(1e18))
+
+# Kernel launches: relax calls through primal_relax_next_roads, and the
+# next-road kernel through primal_next_roads.  The plain version does not
+# count.
+LAUNCHES = 0
+NEXT_ROAD_LAUNCHES = 0
+
+# Sweeps between host reads of the convergence flag (uncapped relax on the
+# card); sweeps past the fixpoint change nothing.
+CHECK_EVERY = 8
+
+_FNS = None
+
+
+def reset_launches() -> None:
+    global LAUNCHES, NEXT_ROAD_LAUNCHES
+    LAUNCHES = 0
+    NEXT_ROAD_LAUNCHES = 0
+
+
+# --- costs -------------------------------------------------------------------
+
+def road_costs(road: RoadState, network: Network,
+               physics: PhysicsConfig = DEFAULT_PHYSICS) -> torch.Tensor:
+    """Congested traversal cost per road: ``max(fftt, cc / (cap + 10 -
+    n))``.  float32[R]."""
+    count_f = road.count.to(torch.float32)
+    tc = network.congestion_constant / (
+        network.capacity + physics.congestion_softening - count_f)
+    return torch.maximum(network.free_flow, tc)
+
+
+def node_entry_costs(road: RoadState, network: Network,
+                     physics: PhysicsConfig = DEFAULT_PHYSICS
+                     ) -> torch.Tensor:
+    """Congested cost of entering each dual node (0 for SRC/DEST nodes).
+    float32[N]."""
+    out = torch.zeros(network.num_nodes, dtype=torch.float32,
+                      device=road.count.device)
+    out[:network.num_roads] = road_costs(road, network, physics)
+    return out
+
+
+def marginal_road_costs(road: RoadState, network: Network,
+                        physics: PhysicsConfig = DEFAULT_PHYSICS
+                        ) -> torch.Tensor:
+    """Marginal social cost per road, ``tt(n) + n * dtt/dn``: the extra
+    term ``n * cc / (cap + 10 - n)^2`` where the congestion branch of ``tt``
+    is active, else 0.  float32[R]."""
+    count_f = road.count.to(torch.float32)
+    denom = network.capacity + physics.congestion_softening - count_f
+    tt_c = network.congestion_constant / denom
+    tt = torch.maximum(network.free_flow, tt_c)
+    ext = torch.where(tt_c > network.free_flow,
+                      count_f * network.congestion_constant / (denom * denom),
+                      0.0)
+    return tt + ext
+
+
+def marginal_node_costs(road: RoadState, network: Network,
+                        physics: PhysicsConfig = DEFAULT_PHYSICS
+                        ) -> torch.Tensor:
+    """Marginal social cost of entering each dual node (0 for SRC/DEST
+    nodes).  float32[N]."""
+    out = torch.zeros(network.num_nodes, dtype=torch.float32,
+                      device=road.count.device)
+    out[:network.num_roads] = marginal_road_costs(road, network, physics)
+    return out
+
+
+# --- the plain version -------------------------------------------------------
+
+def _slot_tables(road_cost, inter_out_road, inter_out_ok, road_to):
+    """``(w[I, K], succ[I, K])``: each out-slot's road cost (BIG on padding)
+    and the intersection its road leads to."""
+    out = inter_out_road.long()
+    w = torch.where(inter_out_ok, road_cost[out], BIG)
+    return w, road_to[out].long()
+
+
+def _sweep_plain(dist, w, succ):
+    """One Jacobi sweep: a slot loop of full-row gathers."""
+    new = dist
+    for k in range(succ.shape[1]):
+        new = torch.minimum(new, w[:, k, None] + dist[succ[:, k]])
+    return new
+
+
+def _next_roads_plain(dist, w, succ, inter_out_road):
+    best = torch.full_like(dist, BIG)
+    road = torch.full_like(dist, -1.0)
+    for k in range(succ.shape[1]):
+        cand = w[:, k, None] + dist[succ[:, k]]
+        take = cand < best
+        best = torch.where(take, cand, best)
+        road = torch.where(
+            take, inter_out_road[:, k].to(torch.float32)[:, None], road)
+    return torch.where(best < BIG, road, -1.0)
+
+
+def primal_relax_next_roads_plain(
+    road_cost: torch.Tensor,
+    inter_out_road: torch.Tensor,
+    inter_out_ok: torch.Tensor,
+    road_to: torch.Tensor,
+    dist0: torch.Tensor,
+    max_iters: int | None,
+    relax_only: bool = False,
+):
+    """The plain PyTorch version of :func:`primal_relax_next_roads`: the
+    reference's gather sweep and ``primal_next_roads``."""
+    i_n = inter_out_road.shape[0]
+    iters = i_n - 1 if max_iters is None else int(max_iters)
+    w, succ = _slot_tables(road_cost, inter_out_road, inter_out_ok, road_to)
+    dist = dist0
+    for _ in range(iters):
+        new = _sweep_plain(dist, w, succ)
+        if max_iters is None and not host_read(torch.any(new < dist))[0]:
+            break
+        dist = new
+    if relax_only:
+        return dist, None
+    return dist, _next_roads_plain(dist, w, succ, inter_out_road)
+
+
+# --- the kernel --------------------------------------------------------------
+
+def _kernel_fns():
+    global _FNS
+    if _FNS is None:
+        from .._build import load_library
+
+        lib = load_library("primal_relax")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        sweeps = lib.tarl_primal_sweeps
+        sweeps.argtypes = [p] * 7 + [i] * 4 + [p, p]
+        sweeps.restype = ctypes.c_int
+        next_road = lib.tarl_primal_next_road
+        next_road.argtypes = [p] * 5 + [i] * 3 + [p, p]
+        next_road.restype = ctypes.c_int
+        _FNS = (sweeps, next_road)
+    return _FNS
+
+
+def _check_inputs(road_cost, inter_out_road, inter_out_ok, road_to, dist):
+    """Raise unless the inputs are what the kernels take: one device,
+    float32 costs and distances, int32 ids, a bool mask, contiguous."""
+    dev = dist.device
+    i_n, k_n = inter_out_road.shape
+    r = road_to.shape[0]
+    if dist.dim() != 2 or dist.shape[0] != i_n:
+        raise ValueError(f"dist has shape {tuple(dist.shape)}, expected "
+                         f"({i_n}, D)")
+    for name, t, dtype, shape in (
+            ("road_cost", road_cost, torch.float32, (r,)),
+            ("inter_out_road", inter_out_road, torch.int32, (i_n, k_n)),
+            ("inter_out_ok", inter_out_ok, torch.bool, (i_n, k_n)),
+            ("road_to", road_to, torch.int32, (r,)),
+            ("dist", dist, torch.float32, tuple(dist.shape))):
+        check_tensor(name, t, dtype, shape, dev)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch_next_road(dist, road_cost, inter_out_road, inter_out_ok,
+                      road_to):
+    i_n, k_n = inter_out_road.shape
+    road = torch.empty_like(dist)
+    _, next_road = _kernel_fns()
+    err = next_road(dist.data_ptr(), road_cost.data_ptr(),
+                    inter_out_road.data_ptr(), inter_out_ok.data_ptr(),
+                    road_to.data_ptr(), i_n, dist.shape[1], k_n,
+                    road.data_ptr(), _stream(dist.device))
+    if err != 0:
+        raise RuntimeError(f"primal_relax next-road launch failed: CUDA "
+                           f"error {err}")
+    return road
+
+
+def _launch_relax(road_cost, inter_out_road, inter_out_ok, road_to, dist0,
+                  max_iters, relax_only):
+    i_n, k_n = inter_out_road.shape
+    d_n = dist0.shape[1]
+    iters = i_n - 1 if max_iters is None else int(max_iters)
+    sweeps, _ = _kernel_fns()
+    tables = (road_cost.data_ptr(), inter_out_road.data_ptr(),
+              inter_out_ok.data_ptr(), road_to.data_ptr())
+    flag = (torch.zeros(1, dtype=torch.int32, device=dist0.device)
+            if max_iters is None else None)
+    bufs = [torch.empty_like(dist0), torch.empty_like(dist0)]
+    dist, done = dist0, 0
+    while done < iters:
+        n = iters - done if flag is None else min(CHECK_EVERY, iters - done)
+        a, b = (bufs if dist is dist0 or dist is bufs[1]
+                else (bufs[1], bufs[0]))
+        err = sweeps(dist.data_ptr(), a.data_ptr(), b.data_ptr(), *tables,
+                     i_n, d_n, k_n, n,
+                     None if flag is None else flag.data_ptr(),
+                     _stream(dist0.device))
+        if err != 0:
+            raise RuntimeError(f"primal_relax sweep launch failed: CUDA "
+                               f"error {err}")
+        dist = a if n % 2 == 1 else b
+        done += n
+        if flag is not None and not host_read(flag[0])[0]:
+            break
+    if dist is dist0:
+        dist = dist0.clone()
+    if relax_only:
+        return dist, None
+    return dist, _launch_next_road(dist, road_cost, inter_out_road,
+                                   inter_out_ok, road_to)
+
+
+def primal_relax_next_roads(
+    road_cost: torch.Tensor,       # float32[R]
+    inter_out_road: torch.Tensor,  # int32[I, K]
+    inter_out_ok: torch.Tensor,    # bool[I, K]
+    road_to: torch.Tensor,         # int32[R]
+    dist0: torch.Tensor,           # float32[I, D] — already anchored
+    max_iters: int | None,
+    relax_only: bool = False,
+):
+    """``(relaxed dist[I, D], next_road[I, D])`` (``next_road`` None with
+    ``relax_only``).
+
+    ``max_iters`` sweeps (``None``: until converged, at most ``I - 1``) of
+    ``new[i, d] = min(dist[i, d], min_k w[i, k] + dist[succ[i, k], d])``
+    from ``dist0``, then ``next_road[i, d]``, the out-road of the first slot
+    attaining the minimum of ``w + dist[succ]`` (float32 id, -1.0 where that
+    minimum is not below BIG).  ``dist0`` must carry its anchor zeros.  The
+    CUDA kernels for CUDA tensors (one launch counted per call), the plain
+    version for CPU tensors; inputs the kernels would not take raise on
+    either device."""
+    global LAUNCHES
+    _check_inputs(road_cost, inter_out_road, inter_out_ok, road_to, dist0)
+    if dist0.device.type == "cuda":
+        out = _launch_relax(road_cost, inter_out_road, inter_out_ok,
+                            road_to, dist0, max_iters, relax_only)
+        LAUNCHES += 1
+        return out
+    return primal_relax_next_roads_plain(
+        road_cost, inter_out_road, inter_out_ok, road_to, dist0, max_iters,
+        relax_only)
+
+
+def primal_next_roads(
+    dist: torch.Tensor,            # float32[I, D]
+    road_cost: torch.Tensor,       # float32[R]
+    inter_out_road: torch.Tensor,  # int32[I, K]
+    inter_out_ok: torch.Tensor,    # bool[I, K]
+    road_to: torch.Tensor,         # int32[R]
+) -> torch.Tensor:
+    """The best outgoing road per (intersection, destination column) of a
+    finished table: float32[I, D], -1.0 where unreachable.  The next-road
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    global NEXT_ROAD_LAUNCHES
+    _check_inputs(road_cost, inter_out_road, inter_out_ok, road_to, dist)
+    if dist.device.type == "cuda":
+        road = _launch_next_road(dist, road_cost, inter_out_road,
+                                 inter_out_ok, road_to)
+        NEXT_ROAD_LAUNCHES += 1
+        return road
+    w, succ = _slot_tables(road_cost, inter_out_road, inter_out_ok, road_to)
+    return _next_roads_plain(dist, w, succ, inter_out_road)
+
+
+def primal_all_pairs_dist(
+    road_cost: torch.Tensor,
+    inter_out_road: torch.Tensor,
+    inter_out_ok: torch.Tensor,
+    road_to: torch.Tensor,
+    max_iters: int | None = None,
+    dist0: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """All-pairs intersection distances, float32[I, I]: the relax from
+    ``dist0`` (any upper bound; default 0 on the diagonal and BIG
+    elsewhere) with its diagonal set to 0."""
+    i_n = inter_out_road.shape[0]
+    eye = torch.eye(i_n, dtype=torch.bool, device=road_cost.device)
+    dist0 = torch.where(eye, 0.0, BIG if dist0 is None else dist0)
+    return primal_relax_next_roads(road_cost, inter_out_road, inter_out_ok,
+                                   road_to, dist0, max_iters,
+                                   relax_only=True)[0]
+
+
+def primal_dest_dist(
+    road_cost: torch.Tensor,
+    inter_out_road: torch.Tensor,
+    inter_out_ok: torch.Tensor,
+    road_to: torch.Tensor,
+    dest_list: torch.Tensor,       # int32[D] destination intersections
+    max_iters: int | None = None,
+    dist0: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Destination-restricted distances, float32[I, D]: column j holds the
+    distances to ``dest_list[j]``; same relaxation and warm start as
+    :func:`primal_all_pairs_dist`."""
+    i_n = inter_out_road.shape[0]
+    anchor = (torch.arange(i_n, device=road_cost.device)[:, None]
+              == dest_list.long()[None, :])
+    dist0 = torch.where(anchor, 0.0, BIG if dist0 is None else dist0)
+    return primal_relax_next_roads(road_cost, inter_out_road, inter_out_ok,
+                                   road_to, dist0, max_iters,
+                                   relax_only=True)[0]

@@ -193,11 +193,15 @@ class SimState(NamedTuple):
     time: float                   # seconds since midnight (float32 values)
     key: tuple[int, int]          # threefry key words (uint32 each)
     metrics: MetricState
-    next_hop: torch.Tensor        # int32[1, 1] placeholder (routing slice)
+    # Routing scratch: the shortest-path policies' packed float32 table
+    # (routing.policies), or an int32[1, 1] placeholder without one.
+    next_hop: torch.Tensor
     choice_count: int
     insert_order: torch.Tensor    # int32[A] — departure-sorted agent order
     insert_ptr: int
     backlog: BacklogState | None = None
+    # int32[R] head destinations of the last shortest-path lookup (None
+    # for policies without a table).
     sel_dest: torch.Tensor | None = None
 
 

@@ -13,20 +13,27 @@ import numpy as np
 import pytest
 import torch
 
-from tarl_tpu.config import DEFAULT_PHYSICS, SimConfig
+from tarl_tpu.config import DEFAULT_PHYSICS, RoutingConfig, SimConfig
 from tarl_tpu.core.direction import direction_step
 from tarl_tpu.core.insert import (
     backlog_frontier_append,
     insert_agents,
     insert_agents_backlogged,
+    insert_agents_windowed,
     reconstruct_inserted,
 )
 from tarl_tpu.core.response import confirm_step
 from tarl_tpu.core.rng import choice_gumbel, direction_gumbel
-from tarl_tpu.core.step import Policy, init_sim_state, run_episode
+from tarl_tpu.core.step import (
+    Policy,
+    init_sim_state,
+    run_episode,
+    run_episode_periodic,
+)
 from tarl_tpu.core.withdraw import withdraw_agents
 from tarl_tpu.io.scenarios import grid_scenario
-from tarl_tpu.routing.policies import random_choice
+from tarl_tpu.routing.policies import primal_entry_lookup, random_choice
+from tarl_tpu.simulator import make_policy
 from tarl_tpu.state import sort_agents_by_departure
 
 from tarl_tpu_torch import convert
@@ -82,6 +89,88 @@ def burst(tmp_path_factory):
     assert int(np.asarray(state.backlog.qcount).sum()) > 100
     assert int(state.insert_ptr) < agents.num_agents - 1
     return net, pnet, state
+
+
+@pytest.fixture(scope="module")
+def sp_states(tmp_path_factory):
+    """Grid8x8 states 60 ticks into shortest-path episodes (primal tables,
+    windowed insert W=64), one on the departure-sorted population and one
+    on the population as loaded, keyed by ``sorted_population``."""
+    root = str(tmp_path_factory.mktemp("torch_sp_core_scen"))
+    net, agents, pnet, _ = load_both(root, "Grid8x8")
+    policy = make_policy("dijkstra", RoutingConfig(
+        refresh_rate=10, max_bf_iters=8, backend="primal"), network=net)
+    out = {}
+    for sort in (True, False):
+        ag = sort_agents_by_departure(agents) if sort else agents
+        sim = SimConfig(start_time=6 * 3600, record_road_optimality=False,
+                        insert_window=64, sorted_population=sort,
+                        insert_escalate=False)
+        state = init_sim_state(net, ag, sim=sim, policy=policy)
+        state, _ = run_episode_periodic(state, net, policy, 60, sim=sim)
+        out[sort] = (net, pnet, state)
+    return out
+
+
+@pytest.mark.parametrize("sorted_fast,escalate,entry", [
+    (sorted_fast, escalate, entry)
+    for sorted_fast in (True, False)
+    for escalate in (False, True)
+    for entry in ("lookup", "selected_road")
+] + [(True, True, "entry_road"), (False, False, "entry_road")])
+def test_insert_agents_windowed(sp_states, sorted_fast, escalate, entry):
+    """A window of 3 with 40 s of departures due: the overflow monitor
+    reads 1 without escalation, and escalation passes run with it.  Entry
+    roads come from the table per window (``entry_lookup``), from the full
+    per-agent array (``entry_road``) or from ``selected_road[origin]``."""
+    net, pnet, state = sp_states[sorted_fast]
+    pstate = _port(state, pnet)
+    lookup = plookup = entry_road = pentry_road = None
+    if entry == "lookup":
+        def lookup(ids):
+            return primal_entry_lookup(state, net, ids)
+
+        def plookup(ids):
+            return p_policies.primal_entry_lookup(pstate, pnet, ids)
+    elif entry == "entry_road":
+        entry_road = primal_entry_lookup(state, net)
+        pentry_road = p_policies.primal_entry_lookup(pstate, pnet)
+    t = state.time + 40.0
+    road, agents, ptr, sat = insert_agents_windowed(
+        state.road, state.agents, state.selected_road, net, t,
+        state.insert_order, state.insert_ptr, 3, entry_road=entry_road,
+        entry_lookup=lookup, sorted_fast=sorted_fast, escalate=escalate)
+    proad, pagents, pptr, psat = p_insert.insert_agents_windowed(
+        pstate.road, pstate.agents, pstate.selected_road, pnet,
+        pstate.time + 40.0, pstate.insert_order, pstate.insert_ptr, 3,
+        entry_road=pentry_road, entry_lookup=plookup,
+        sorted_fast=sorted_fast, escalate=escalate)
+    assert_tree_equal(_np(road), _np(proad), "road")
+    assert_tree_equal(_np(agents), _np(pagents), "agents")
+    assert int(ptr) == pptr
+    assert float(sat) == psat
+    assert psat > 1.0 if escalate else psat == 1.0
+    assert int(proad.count.sum()) > int(pstate.road.count.sum())
+
+
+def test_insert_agents_entry_road(sp_states):
+    """The whole-population insert with per-agent entry roads from the
+    routing table."""
+    net, pnet, state = sp_states[False]
+    pstate = _port(state, pnet)
+    entry = primal_entry_lookup(state, net)
+    pentry = p_policies.primal_entry_lookup(pstate, pnet)
+    assert_tree_equal(_np(entry), _np(pentry), "entry roads")
+    t = state.time + 40.0
+    road, agents = insert_agents(state.road, state.agents,
+                                 state.selected_road, net, t,
+                                 entry_road=entry)
+    proad, pagents = p_insert.insert_agents(
+        pstate.road, pstate.agents, pstate.selected_road, pnet,
+        pstate.time + 40.0, entry_road=pentry)
+    assert_tree_equal(_np(road), _np(proad), "road")
+    assert_tree_equal(_np(agents), _np(pagents), "agents")
+    assert int(proad.count.sum()) > int(pstate.road.count.sum())
 
 
 def test_random_choice(grid8):

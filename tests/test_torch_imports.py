@@ -2,10 +2,11 @@
 
 * ``tarl_tpu_torch`` and every submodule import with ``jax``, ``flax`` and
   ``tarl_tpu`` blocked.
-* The fused-winner wrapper sends CPU tensors to its plain version (without
-  counting a launch) and raises on inputs the kernel would not take.
-* The kernel's CUDA source exists and the build targets ``sm_90a``.
-* On a machine with an NVIDIA GPU, the kernel equals its plain version
+* The fused-winner and primal-relax wrappers send CPU tensors to their
+  plain versions (without counting a launch) and raise on inputs the
+  kernels would not take.
+* The kernels' CUDA sources exist and the build targets ``sm_90a``.
+* On a machine with an NVIDIA GPU, each kernel equals its plain version
   (marked ``cuda``; skipped here).
 """
 import os
@@ -24,6 +25,7 @@ from tarl_tpu_torch.core import fused_winner, rng
 from tarl_tpu_torch.core.step import init_sim_state
 from tarl_tpu_torch.io.matsim import load_network, load_population
 from tarl_tpu_torch.io.scenarios import ensure_scenario
+from tarl_tpu_torch.routing import bellman_ford as bf
 from tarl_tpu_torch.state import RoadState
 
 torch.set_num_threads(1)
@@ -42,6 +44,8 @@ def test_imports_without_jax():
         for name in names:
             importlib.import_module(name)
         assert "tarl_tpu_torch.core.fused_winner" in names
+        assert "tarl_tpu_torch.routing.bellman_ford" in names
+        assert "tarl_tpu_torch.simulator" in names
         assert sys.modules["jax"] is None
         print(len(names))
     """)
@@ -125,6 +129,21 @@ def test_kernel_source_and_build_target():
     assert _build.BUILD_DIR.parts[-2:] == ("build", "tarl_tpu_torch")
 
 
+def test_relax_kernel_source_and_build_command(tmp_path, monkeypatch):
+    source = os.path.join(os.path.dirname(tarl_tpu_torch.__file__), "csrc",
+                          "primal_relax.cu")
+    text = open(source).read()
+    for entry in ("tarl_primal_sweeps", "tarl_primal_next_road"):
+        assert f'extern "C" int {entry}(' in text
+    assert "tarl_tpu/routing/bellman_ford.py::_multisweep_nr_kernel_body" \
+        in text
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    cmd = _build.nvcc_command(_build.PACKAGE_DIR / "csrc" / "primal_relax.cu",
+                              tmp_path / "lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd and "--fmad=false" in cmd
+    assert cmd[-1].endswith("primal_relax.cu")
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(grid4):
     if not torch.cuda.is_available():
@@ -143,3 +162,85 @@ def test_kernel_matches_plain_on_card(grid4):
     assert fused_winner.LAUNCHES == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def relax_inputs(grid4):
+    """Grid4x4 relax inputs: seeded congested costs and the cold start."""
+    net = grid4[0]
+    g = np.random.default_rng(7)
+    cost = net.free_flow * torch.as_tensor(
+        g.uniform(1.0, 4.0, net.num_roads).astype(np.float32))
+    i_n = net.num_intersections
+    dist0 = torch.full((i_n, i_n), bf.BIG)
+    dist0.fill_diagonal_(0.0)
+    return net, cost, dist0
+
+
+@pytest.mark.parametrize("max_iters,relax_only", [(8, False), (1, True),
+                                                  (None, False)])
+def test_relax_wrapper_takes_plain_version_on_cpu(relax_inputs, max_iters,
+                                                  relax_only):
+    net, cost, dist0 = relax_inputs
+    tabs = (net.inter_out_road, net.inter_out_ok, net.road_to)
+    before = (bf.LAUNCHES, bf.NEXT_ROAD_LAUNCHES)
+    got = bf.primal_relax_next_roads(cost, *tabs, dist0, max_iters,
+                                     relax_only)
+    want = bf.primal_relax_next_roads_plain(cost, *tabs, dist0, max_iters,
+                                            relax_only)
+    assert (bf.LAUNCHES, bf.NEXT_ROAD_LAUNCHES) == before
+    assert torch.equal(got[0], want[0]) and got[0].dtype == torch.float32
+    assert not torch.equal(got[0], dist0)
+    if relax_only:
+        assert got[1] is None and want[1] is None
+    else:
+        assert torch.equal(got[1], want[1]) and got[1].dtype == torch.float32
+    if max_iters is None:
+        assert float(got[0].max()) < bf.BIG
+
+
+@pytest.mark.parametrize("bad", ["cost_dtype", "cost_shape", "dist_dtype",
+                                 "dist_rows", "dist_layout", "out_road_dtype",
+                                 "out_ok_dtype"])
+def test_relax_wrapper_rejects_what_the_kernel_does_not_take(relax_inputs,
+                                                             bad):
+    net, cost, dist0 = relax_inputs
+    out_r, ok, road_to = net.inter_out_road, net.inter_out_ok, net.road_to
+    if bad == "cost_dtype":
+        cost = cost.double()
+    elif bad == "cost_shape":
+        cost = cost[:-1]
+    elif bad == "dist_dtype":
+        dist0 = dist0.double()
+    elif bad == "dist_rows":
+        dist0 = dist0[:-1]
+    elif bad == "dist_layout":
+        dist0 = dist0.t().contiguous().t()[:, :-1]
+    elif bad == "out_road_dtype":
+        out_r = out_r.long()
+    else:
+        ok = ok.to(torch.uint8)
+    with pytest.raises((TypeError, ValueError)):
+        bf.primal_relax_next_roads(cost, out_r, ok, road_to, dist0, 8)
+
+
+@pytest.mark.cuda
+def test_relax_kernel_matches_plain_on_card(relax_inputs):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py checks the "
+                    "kernel on the card")
+    net, cost, dist0 = relax_inputs
+    dev = torch.device("cuda", 0)
+    tabs = tuple(t.to(dev) for t in (net.inter_out_road, net.inter_out_ok,
+                                     net.road_to))
+    cost, dist0 = cost.to(dev), dist0.to(dev)
+    for max_iters, relax_only in ((8, False), (1, True), (None, False)):
+        before = bf.LAUNCHES
+        got = bf.primal_relax_next_roads(cost, *tabs, dist0, max_iters,
+                                         relax_only)
+        want = bf.primal_relax_next_roads_plain(cost, *tabs, dist0,
+                                                max_iters, relax_only)
+        torch.cuda.synchronize()
+        assert bf.LAUNCHES == before + 1
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)

@@ -1,0 +1,297 @@
+"""The port's routing layer against the JAX reference, bitwise.
+
+* The primal routing tables of ``Network`` on every builtin scenario.
+* ``road_costs``, ``marginal_road_costs`` and their dual-node forms on
+  random occupancies.
+* ``primal_all_pairs_dist`` (uncapped, and capped from a warm start),
+  ``primal_dest_dist`` and ``primal_next_roads`` with random costs and with
+  the tie-heavy free-flow costs of a grid (every road 14.39 s).
+* The port's relax (its plain version here: CPU tensors) against the
+  reference's Pallas kernels themselves, run in interpret mode: K2
+  (relax + next road), K4 (relax), K6 (one dynamic-shift sweep) on Grid8x8
+  and Grid12x12, and the row-blocked K3/K5 on a synthetic ring given to the
+  port as out-road tables.
+* ``primal_table_init`` on Grid8x8 (device relax) and Grid32x32 (scipy's
+  Dijkstra on the host, I^2 > 10^6).
+
+Inputs come from the scenario files and numpy seeds; each side gets the
+same arrays.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from tarl_tpu.io.scenarios import grid_scenario
+from tarl_tpu.routing import bellman_ford as bf
+from tarl_tpu.routing.policies import primal_table_init
+from tarl_tpu.state import init_road_state
+
+from tarl_tpu_torch import convert
+from tarl_tpu_torch.routing import bellman_ford as pbf
+from tarl_tpu_torch.routing import policies as ppol
+from tarl_tpu_torch.state import init_road_state as p_init_road_state
+
+from test_torch_network import SCENARIOS, assert_tree_equal, load_both
+
+torch.set_num_threads(1)
+
+ROUTING_FIELDS = ("road_to", "inter_out_road", "inter_out_ok")
+
+
+@pytest.fixture(scope="module")
+def scen_root(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("torch_routing_scen"))
+    for n in (12, 32):
+        grid_scenario(root, f"Grid{n}x{n}", rows=n, cols=n, num_agents=20)
+    return root
+
+
+@pytest.fixture(scope="module")
+def grids(scen_root):
+    return {name: load_both(scen_root, name)
+            for name in ("Grid8x8", "Grid12x12")}
+
+
+def _tables(net):
+    return net.inter_out_road, net.inter_out_ok, net.road_to
+
+
+def _ptables(pnet):
+    return pnet.inter_out_road, pnet.inter_out_ok, pnet.road_to
+
+
+def _costs(net, kind, seed):
+    """float32[R]: congested random costs (at least free flow) or the
+    tie-heavy free-flow costs."""
+    ff = np.array(net.free_flow)
+    if kind == "ties":
+        assert np.all(ff == ff[0])
+        return ff
+    rng = np.random.default_rng(seed)
+    return (ff * rng.uniform(1.0, 4.0, ff.shape)).astype(np.float32)
+
+
+def _cold(i_n):
+    return np.where(np.eye(i_n, dtype=bool), 0.0, float(bf.BIG)).astype(
+        np.float32)
+
+
+def _warm(net, cost, seed):
+    """An anchored warm start as the refresh builds it: a free-flow table
+    scaled by the worst cost ratio, capped at BIG."""
+    ff = np.asarray(net.free_flow)
+    d_ff = np.asarray(bf.primal_all_pairs_dist(
+        jnp.asarray(ff), *_tables(net)))
+    ratio = np.float32(np.max(cost / np.maximum(ff, np.float32(1e-6))))
+    d0 = np.minimum(d_ff * max(ratio, np.float32(1.0)),
+                    np.float32(bf.BIG)).astype(np.float32)
+    np.fill_diagonal(d0, 0.0)
+    return d0
+
+
+def _eq(ref, got, what):
+    assert_tree_equal(np.asarray(ref), got.numpy(), what)
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS)
+def test_network_routing_tables(scen_root, scenario):
+    net, _, pnet, _ = load_both(scen_root, scenario)
+    ref, port = convert.to_numpy(net), convert.to_numpy(pnet)
+    for name in ROUTING_FIELDS:
+        assert_tree_equal(ref[name], port[name], name)
+    assert port["inter_out_ok"].sum() == pnet.num_roads
+
+
+@pytest.mark.parametrize("fn", ["road_costs", "marginal_road_costs",
+                                "node_entry_costs", "marginal_node_costs"])
+def test_road_costs(grids, fn):
+    net, _, pnet, _ = grids["Grid8x8"]
+    rng = np.random.default_rng(3)
+    cap = np.asarray(net.capacity).astype(np.int64)
+    count = rng.integers(0, cap + 1).astype(np.int32)
+    road = init_road_state(net.num_roads, net.nmax)._replace(
+        count=jnp.asarray(count))
+    proad = p_init_road_state(pnet.num_roads, pnet.nmax)._replace(
+        count=torch.as_tensor(count))
+    ref = getattr(bf, fn)(road, net)
+    got = getattr(pbf, fn)(proad, pnet)
+    _eq(ref, got, fn)
+    if fn.startswith("marginal"):
+        plain = fn.replace("marginal_", "").replace("node", "node_entry")
+        assert np.any(np.asarray(ref) > np.asarray(getattr(bf, plain)(road,
+                                                                     net)))
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("grid", ["Grid8x8", "Grid12x12"])
+def test_primal_dist_and_next_roads(grids, grid, kind):
+    net, _, pnet, _ = grids[grid]
+    cost = _costs(net, kind, 5)
+    jc, tc = jnp.asarray(cost), torch.as_tensor(cost)
+    full = bf.primal_all_pairs_dist(jc, *_tables(net))
+    pfull = pbf.primal_all_pairs_dist(tc, *_ptables(pnet))
+    _eq(full, pfull, "all-pairs uncapped")
+    assert float(pfull.max()) < bf.BIG
+
+    d0 = _warm(net, cost, 5)
+    for iters in (2, 8):
+        ref = bf.primal_all_pairs_dist(jc, *_tables(net), max_iters=iters,
+                                       dist0=jnp.asarray(d0))
+        got = pbf.primal_all_pairs_dist(tc, *_ptables(pnet),
+                                        max_iters=iters,
+                                        dist0=torch.as_tensor(d0))
+        _eq(ref, got, f"all-pairs warm, {iters} sweeps")
+
+    dests = np.random.default_rng(1).choice(net.num_intersections, 7,
+                                            replace=False).astype(np.int32)
+    ref = bf.primal_dest_dist(jc, *_tables(net), jnp.asarray(dests))
+    got = pbf.primal_dest_dist(tc, *_ptables(pnet), torch.as_tensor(dests))
+    _eq(ref, got, "dest-restricted")
+    _eq(np.asarray(full)[:, dests], got, "dest columns of all-pairs")
+
+    ref = bf.primal_next_roads(full, jc, *_tables(net))
+    got = pbf.primal_next_roads(pfull, tc, *_ptables(pnet))
+    _eq(ref, got, "next roads")
+    off_diag = ~np.eye(net.num_intersections, dtype=bool)
+    assert np.all(got.numpy()[off_diag] >= 0)
+
+
+# The launch function of each reference kernel, and the gate that opens it.
+_LAUNCH = {"K2": ("_multisweep_nr_pallas", "_multisweep_nr_tile", 128),
+           "K4": ("_multisweep_pallas", "_multisweep_tile", 128),
+           "K6": ("_sweep_pallas", "_pallas_sweep_ok", True)}
+
+
+def _interpret_relax(net, cost, d0, iters, monkeypatch, kernel):
+    """The reference's relax through one of its Pallas kernels, in
+    interpret mode, with the delta buckets of the grid; asserts that the
+    kernel was launched."""
+    out_r, ok, road_to = _tables(net)
+    buckets = bf.primal_delta_buckets(out_r, ok, road_to,
+                                      coords=(net.inter_x, net.inter_y))
+    assert buckets is not None
+    jc, jd = jnp.asarray(cost), jnp.asarray(d0)
+    launch, gate, opened = _LAUNCH[kernel]
+    calls = []
+    real = getattr(bf, launch)
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    with monkeypatch.context() as m, pltpu.force_tpu_interpret_mode():
+        m.setattr(bf, gate, lambda *a, **k: opened)
+        m.setattr(bf, launch, spy)
+        if kernel == "K2":
+            epi = bf.epilogue_slot_tables(out_r, ok, road_to, buckets)
+            out = bf.primal_relax_next_roads(jc, out_r, ok, road_to, jd,
+                                             iters, buckets=buckets,
+                                             epi_tables=epi)
+        else:
+            out = bf._primal_relax(jd, jc, out_r, ok, road_to, iters,
+                                   buckets=buckets), None
+    assert calls, f"{kernel} was not launched"
+    return out
+
+
+@pytest.mark.parametrize("iters", [1, 3, 8])
+@pytest.mark.parametrize("grid", ["Grid8x8", "Grid12x12"])
+def test_relax_against_pallas_k2(grids, grid, iters, monkeypatch):
+    """K2 from the cold start (8 sweeps do not converge at Grid12x12: a
+    Gauss-Seidel sweep would differ) with random costs."""
+    net, _, pnet, _ = grids[grid]
+    cost = _costs(net, "random", iters)
+    d0 = _cold(net.num_intersections)
+    ref_d, ref_r = _interpret_relax(net, cost, d0, iters, monkeypatch, "K2")
+    got_d, got_r = pbf.primal_relax_next_roads(
+        torch.as_tensor(cost), *_ptables(pnet), torch.as_tensor(d0), iters)
+    _eq(ref_d, got_d, "K2 dist")
+    _eq(ref_r, got_r, "K2 next road")
+    # Capped below the diameter: some pairs still unreached.
+    if grid == "Grid12x12" or iters < 8:
+        assert float(got_d.max()) == bf.BIG
+        assert float(got_r.min()) == -1.0
+
+
+@pytest.mark.parametrize("kernel,iters", [("K4", 8), ("K4", 3), ("K6", 1),
+                                          ("K6", 3)])
+def test_relax_against_pallas_k4_k6(grids, kernel, iters, monkeypatch):
+    """K4 (multisweep relax) and K6 (one dynamic-shift sweep per launch)
+    from a warm start with tie-heavy costs, and from the cold start."""
+    net, _, pnet, _ = grids["Grid8x8"]
+    for cost, d0 in ((_costs(net, "ties", 0), None),
+                     (_costs(net, "random", 9), _cold(net.num_intersections))):
+        d0 = _warm(net, cost, 0) if d0 is None else d0
+        ref, _ = _interpret_relax(net, cost, d0, iters, monkeypatch, kernel)
+        got, none = pbf.primal_relax_next_roads(
+            torch.as_tensor(cost), *_ptables(pnet), torch.as_tensor(d0),
+            iters, relax_only=True)
+        assert none is None
+        _eq(ref, got, f"{kernel} dist")
+
+
+def test_relax_against_pallas_row_blocked():
+    """K3/K5 (row windows with halo) and K2/K4 (full-resident) on the ring
+    of ``tests/test_roll_gather.py``: intersection i has four out-roads,
+    road 4i+b leading to (i + delta_b) mod 64 with weight w[i, b]."""
+    i_n, iters = 64, 3
+    deltas = (1, i_n - 1, 4, i_n - 4)
+    block, h = 16, (iters + 1) * 4
+    rng = np.random.default_rng(11)
+    b_n, b_pad, d_p = len(deltas), 128, 256
+    w = rng.uniform(1.0, 9.0, (i_n, b_n)).astype(np.float32)
+    d0 = rng.uniform(0.0, 50.0, (i_n, d_p)).astype(np.float32)
+    d0[rng.integers(0, i_n, 8), rng.integers(0, d_p, 8)] = 0.0
+
+    w_cols = np.full((i_n, b_pad), bf.BIG, np.float32)
+    w_cols[:, :b_n] = w
+    road_ids = np.arange(i_n * b_n, dtype=np.int32).reshape(i_n, b_n)
+    road_cols = np.full((i_n, b_pad), -1.0, np.float32)
+    road_cols[:, :b_n] = road_ids
+    slot_cols = np.full((i_n, b_pad), 1e9, np.float32)
+    slot_cols[:, :b_n] = np.arange(b_n)
+    shifts = tuple((i_n - d) % i_n for d in deltas)
+    args = [jnp.asarray(a) for a in (d0, w_cols, road_cols, slot_cols)]
+    with pltpu.force_tpu_interpret_mode():
+        k5 = bf._multisweep_pallas_rowblock(args[0], args[1], deltas, iters,
+                                            (block, h, 128))
+        k4 = bf._multisweep_pallas(args[0], args[1], shifts, iters, 128)
+        k3 = bf._multisweep_nr_pallas_rowblock(*args, deltas, iters,
+                                               (block, h, 128))
+        k2 = bf._multisweep_nr_pallas(*args, shifts, iters, 128)
+
+    road_to = ((np.arange(i_n)[:, None] + np.asarray(deltas)[None, :])
+               % i_n).astype(np.int32).reshape(-1)
+    tabs = (torch.as_tensor(w.reshape(-1)), torch.as_tensor(road_ids),
+            torch.ones((i_n, b_n), dtype=torch.bool),
+            torch.as_tensor(road_to))
+    dist, road = pbf.primal_relax_next_roads(*tabs, torch.as_tensor(d0),
+                                             iters)
+    for name, (ref_d, ref_r) in (("K3", k3), ("K2", k2)):
+        _eq(ref_d, dist, f"{name} dist")
+        _eq(ref_r, road, f"{name} next road")
+    _eq(k5, dist, "K5 dist")
+    _eq(k4, dist, "K4 dist")
+    assert not np.array_equal(d0, dist.numpy())
+
+
+@pytest.mark.parametrize("grid", ["Grid8x8", "Grid32x32"])
+def test_primal_table_init(scen_root, grids, grid):
+    """Device relax (I^2 <= 10^6) and the host Dijkstra path above it."""
+    if grid in grids:
+        net, _, pnet, _ = grids[grid]
+    else:
+        net, _, pnet, _ = load_both(scen_root, grid)
+    assert (net.num_intersections ** 2 > 1_000_000) == (grid == "Grid32x32")
+    ref = np.asarray(primal_table_init(net))
+    got = ppol.primal_table_init(pnet)
+    assert_tree_equal(ref.view(np.uint32), got.numpy().view(np.uint32),
+                      "packed table")
+    i_n = pnet.num_intersections
+    dist, cost, road = ppol._primal_unpack(got, i_n, i_n, pnet.num_roads)
+    assert got.numel() == ppol.primal_buf_size(i_n, i_n, pnet.num_roads)
+    assert float(dist.max()) < bf.BIG and torch.equal(cost, pnet.free_flow)
+    assert int((road < 0).sum()) == 0     # every pair reachable
