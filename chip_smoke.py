@@ -1,55 +1,83 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases (any failure raises and exits nonzero; nothing is caught):
+Phases, in the order they run (any failure raises and exits nonzero;
+nothing is caught).  Every kernel's launch count is set to 0 just before
+the path that uses it runs and read just after; comparisons of a kernel
+with its plain version run outside those windows.
 
 1. Card: name and power limit (``nvidia-smi``), torch and CUDA versions;
-   build the CUDA kernels from ``tarl_tpu_torch/csrc`` (``fused_winner``
-   and ``primal_relax``, one nvcc each, started together) and time the
-   builds.
-2. Kernel against plain: the fused-winner kernel must equal its plain
-   PyTorch version bitwise on all five outputs, on road states captured
-   every 600 ticks of the headline episode and on 20 seeded random states
-   of a Grid64x64 network, each with a fresh Gumbel matrix; both are timed
-   per call with CUDA events.
-3. The headline episode: Grid16x16, 50,000 agents departing over 06:00-08:00,
+   build the CUDA kernels from ``tarl_tpu_torch/csrc`` (``fused_winner``,
+   ``primal_relax`` and ``segment``, one nvcc each, started together),
+   time the builds, and print each kernel's registers and spills
+   (``nvcc -Xptxas -v``, run beside the builds).
+2. The headline episode: Grid16x16, 50,000 agents departing over 06:00-08:00,
    7,200 ticks of 1 s in bitwise-exact mode (per-SRC backlog insert Q=256,
    W=32, withdraw depth 2, both escalations, random route choice).  Asserts
-   a zero overflow monitor, conservation, arrivals, and one kernel call per
+   a zero overflow monitor, conservation, arrivals, and one K1 call per
    tick; prints agent-steps/s measured after a 64-tick warm-up.
-4. The episode in context: the first 600 ticks again with the plain version
-   in the core, from the same key; the state must equal the kernel run's at
-   tick 600 bitwise.
-6. The shortest-path row (``bench.py``'s second row) on the port:
+3. K1 against plain: the fused-winner kernel must equal its plain PyTorch
+   version bitwise on all five outputs, on road states captured every 600
+   ticks of phase 2 and on 20 seeded random states of a Grid64x64 network,
+   each with a fresh Gumbel matrix; both timed per call with CUDA events.
+4. The episode in context: the first 600 ticks again with the plain K1,
+   from the same key; the state must equal phase 2's at tick 600 bitwise.
+5. The shortest-path row (``bench.py``'s second row) on the port:
    Grid64x64, 200,000 agents departing over 06:00-08:00, departure-sorted,
    ``make_policy("dijkstra", RoutingConfig(refresh_rate=10,
    max_bf_iters=8, backend="primal"))``, windowed insert W=1024, withdraw
    depth 2, no escalation, 1,020 ticks of ``run_episode_periodic`` timed
    after two warm-up periods.  Asserts conservation, arrivals, a finite
-   table with a road for every pair, the relax kernel on each of the 102
-   refreshes (the initial table's next-road pass counted apart) and K1 on
-   every tick; prints agent-steps/s, ms/tick, ms per refresh (CUDA
+   table with a road for every pair, the relax kernel (K2) on each of the
+   102 refreshes (the initial table's next-road pass counted apart) and
+   K1 on every tick; prints agent-steps/s, ms/tick, ms per refresh (CUDA
    events), the saturation monitor and host reads per tick.
-7. Relax kernel against plain, bitwise on distances and next roads: K2
-   mode (8 sweeps + next road) on the refresh inputs captured at every
-   20th refresh of phase 6, on 5 seeded random-cost Grid64x64 warm starts
-   and on one tie-heavy cold start (every road at free flow); relax-only
-   at 8 sweeps (K4's function) and at 1 (K6's) on the same inputs;
-   uncapped from the cold start on the Grid16x16 network (the device path
-   of ``primal_table_init``); and Grid128x128 with 512 seeded destination
-   columns at 8 sweeps in both modes (the size at which the TPU needed
-   the row-blocked K3/K5).  Times K2 mode and one sweep at Grid64x64,
-   plain, kernel, kernel, plain.
-8. The row in context: the first 200 ticks of phase 6 again with the
-   plain relax, from the same initial state; the state at tick 200
-   (packed routing table included) must equal the kernel run's bitwise,
-   and the relax kernel must not run.  Prints ms/tick over ticks 20-200
-   of both runs.
-5. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``),
-   the card's name and power limit, then ``{"ok": true, "device":
-   {...}}``.
+6. K2 against plain, bitwise on distances and next roads: K2 mode (8
+   sweeps + next road) on the refresh inputs captured at every 20th
+   refresh of phase 5, on 5 seeded random-cost Grid64x64 warm starts and
+   on one tie-heavy cold start; relax-only at 8 sweeps (K4's function)
+   and at 1 (K6's); uncapped from the cold start on Grid16x16 (the device
+   path of ``primal_table_init``); Grid128x128 with 512 seeded
+   destination columns at 8 sweeps in both modes (the size at which the
+   TPU needed the row-blocked K3/K5).  Times K2 mode and one sweep at
+   Grid64x64, plain, kernel, kernel, plain.
+7. The row in context: the first 200 ticks of phase 5 again with the plain
+   relax; the state at tick 200 must equal the kernel run's bitwise, and
+   K2 must not run.  Prints ms/tick over ticks 20-200 of both runs.
+8. The learned policy, trained weights: the builtin Grid8x8 scenario (5,000
+   commuters) with the recorded run's best parameters
+   (``tarl_tpu_torch/weights/grid8x8_mpnn_best.npz``, carried by
+   ``convert.mpnn_params_from_numpy``) and ``scripts/train_rl_demo.py``'s
+   settings (progress reward, gamma 0.98, distance prior at scale 30,
+   pending entrants observed); the greedy ``PPO.eval_rollout`` for 12,000
+   steps.  Asserts conservation, 5,000 done, an average travel time below
+   90 s, and one K1 and one K11 launch per step; prints ms/step, steps/s,
+   agent rows x steps / s and host reads per step.
+9. Rollout collection: 256 sampled steps of ``PPO.collect_rollout`` on the
+   same scenario; asserts finite log-probs and values and the launches the
+   step's calls imply (per step: K1 once, K11 once, K10 once, K9 three
+   times).
+10. Scale: the Grid16x16 scenario of phase 2 with weights drawn by
+   ``PPO.init`` from a seed; greedy evaluation for 1,000 steps, with the
+   asserts of phase 8 on conservation and launches.
+11. Segment kernels (K9-K11) against plain, bitwise: on the inputs
+   captured in phases 8-10 (Grid8x8 and Grid16x16 shapes) and on seeded
+   random cases with empty segments, +-inf, NaN, out-of-range ids, exact
+   ties, 100,000 segments and ties of -0.0 with +0.0; each against the
+   plain version on a CPU copy of the inputs (the plain sum on the card
+   adds with atomics) and, for max and argmax, on the card (not for the
+   +-0 ties, which the card's plain max resolves in its atomics' order).  Times each at the Grid8x8 shape, plain,
+   kernel, kernel, plain, beside the library call (``index_add_`` for the
+   sum, ``scatter_reduce(..., "amax")`` for the max; none for the argmax).
+12. The learned path in context: the first 200 steps of phase 8 again, once
+   with the kernels and once with the plain segment versions forced
+   (``segment_ops=PLAIN``); the final states must be equal bitwise and
+   K9-K11 must not run in the plain one.
+13. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
+   ``segment_sum``, ``segment_max``, ``segment_argmax``), the card's name
+   and power limit, then ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, where no CUDA device is available or
 the package is missing beside this script.  Scenario files are written
@@ -65,7 +93,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("fused_winner", "primal_relax")
+KERNELS = ("fused_winner", "primal_relax", "segment")
 HEADLINE_TICKS = 7200
 WARMUP_TICKS = 64
 CAPTURE_EVERY = 600
@@ -78,6 +106,16 @@ SP_CAPTURE_EVERY = 20        # refreshes
 SP_RANDOM_STATES = 5
 RELAX_TIMED_CALLS = 20
 BIG_DESTS = 512
+EVAL_STEPS = 12000            # train_rl_demo.EVAL_STEPS["Grid8x8"]
+COLLECT_STEPS = 256
+SCALE_STEPS = 1000
+LEARNED_CONTEXT_STEPS = 200
+CAPTURE_STEPS = 2000          # steps between captured segment inputs
+PRIOR_SCALE = 30.0            # train_rl_demo.PRIOR_SCALE
+WEIGHTS = os.path.join("tarl_tpu_torch", "weights", "grid8x8_mpnn_best.npz")
+# The H100 SXM data sheet's peaks (the card's own limit is printed beside).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -153,8 +191,9 @@ def random_road_state(net, seed: int, time_now: float):
 
 def compare_kernel(cases, net, physics):
     """Kernel vs plain on each (road, selected_road, time, gumbel) case:
-    bitwise on all five outputs.  Returns the largest absolute difference
-    (0 when all match)."""
+    bitwise on all five outputs, with the clock passed as a host float and
+    as a device scalar (the RL environment's form).  Returns the largest
+    absolute difference (0 when all match)."""
     import torch
 
     from tarl_tpu_torch.core.fused_winner import (
@@ -162,8 +201,14 @@ def compare_kernel(cases, net, physics):
 
     names = ("accept", "win_src", "agent", "dest", "popped")
     worst = 0
-    for i, (road, sel, t_now, gumbel) in enumerate(cases):
-        got = direction_confirm(road, sel, net, t_now, gumbel, physics)
+    runs = []
+    for road, sel, t_now, gumbel in cases:
+        t_dev = torch.tensor(t_now, dtype=torch.float32,
+                             device=road.count.device)
+        runs += [(road, sel, t_now, gumbel, t_now),
+                 (road, sel, t_now, gumbel, t_dev)]
+    for i, (road, sel, t_now, gumbel, t_arg) in enumerate(runs):
+        got = direction_confirm(road, sel, net, t_arg, gumbel, physics)
         want = direction_confirm_plain(road, sel, net, t_now, gumbel, physics)
         torch.cuda.synchronize()
         for name, a, b in zip(names, got, want):
@@ -181,8 +226,29 @@ def compare_kernel(cases, net, physics):
     return worst
 
 
-def build_kernels() -> dict:
-    """Build every kernel library in parallel; seconds per kernel."""
+def ptxas_lines(name: str) -> list[str]:
+    """nvcc's ``-Xptxas -v`` report on ``csrc/<name>.cu`` (registers,
+    spills, shared memory per kernel), compiled with the library's flags
+    to an object that is then removed."""
+    from tarl_tpu_torch import _build
+
+    source = _build.PACKAGE_DIR / "csrc" / f"{name}.cu"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = _build.BUILD_DIR / f"{name}.{os.getpid()}.ptxas.o"
+    flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
+    proc = subprocess.run([_build.nvcc_path(), *flags, "-Xptxas", "-v",
+                           "-c", "-o", str(obj), str(source)],
+                          capture_output=True, text=True)
+    obj.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stderr}")
+    return [line.strip() for line in proc.stderr.splitlines()
+            if line.strip()]
+
+
+def build_kernels() -> tuple[dict, dict]:
+    """Build every kernel library, and read each source's ptxas report,
+    all in parallel; seconds per library and the reports."""
     from tarl_tpu_torch import _build
 
     def one(name):
@@ -190,8 +256,10 @@ def build_kernels() -> dict:
         _build.load_library(name)
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        return dict(zip(KERNELS, pool.map(one, KERNELS)))
+    with ThreadPoolExecutor(2 * len(KERNELS)) as pool:
+        reports = pool.map(ptxas_lines, KERNELS)
+        builds = dict(zip(KERNELS, pool.map(one, KERNELS)))
+        return builds, dict(zip(KERNELS, reports))
 
 
 def sp_row_config():
@@ -209,7 +277,7 @@ def sp_row_config():
 
 def sp_row(net, agents, ticks=SP_TICKS, warmup=SP_WARMUP_TICKS,
            context=SP_CONTEXT_TICKS, capture_every=SP_CAPTURE_EVERY):
-    """Phase 6: the shortest-path row through ``make_policy`` and
+    """Phase 5: the shortest-path row through ``make_policy`` and
     ``run_episode_periodic``.  Launch counts are reset just before the
     initial table is built.  Returns a dict of results, with the initial
     state, the state at tick ``context`` and the relax inputs (cost, warm
@@ -304,7 +372,7 @@ def sp_row(net, agents, ticks=SP_TICKS, warmup=SP_WARMUP_TICKS,
 
 
 def check_sp_row(res, net, ticks=SP_TICKS) -> None:
-    """Phase 6's asserts on the final state and the counts."""
+    """Phase 5's asserts on the final state and the counts."""
     import torch
 
     from tarl_tpu_torch.routing import policies
@@ -384,7 +452,7 @@ def relax_tables(net):
 
 
 def grid64_relax_cases(net, captured, seeds=SP_RANDOM_STATES):
-    """Phase 7's Grid64x64 inputs: the captured refresh inputs, seeded
+    """Phase 6's Grid64x64 inputs: the captured refresh inputs, seeded
     random costs warm-started from the free-flow table as a refresh would,
     and the tie-heavy cold start at free flow."""
     import numpy as np
@@ -416,7 +484,7 @@ def grid64_relax_cases(net, captured, seeds=SP_RANDOM_STATES):
 
 
 def big_dest_cases(net, dests=BIG_DESTS):
-    """Phase 7's Grid128x128 inputs: ``dests`` seeded destination columns,
+    """Phase 6's Grid128x128 inputs: ``dests`` seeded destination columns,
     random costs, from the anchored cold start and from a random warm
     start."""
     import numpy as np
@@ -458,12 +526,376 @@ def time_per_call(fn, args, calls: int = TIMED_CALLS) -> float:
     return start.elapsed_time(end) / calls
 
 
+# --- the learned policy (phases 8-12) ---------------------------------------
+
+def learned_ppo(net, collect_steps: int = COLLECT_STEPS):
+    """A ``PPO`` with ``scripts/train_rl_demo.py``'s Grid8x8 settings: the
+    prior-equipped edge-MLP policy and the simple critic."""
+    from tarl_tpu_torch.config import RLConfig
+    from tarl_tpu_torch.models.mpnn import MPNNPolicyNet, MPNNValueNetSimple
+    from tarl_tpu_torch.rl.ppo import PPO
+
+    rl = RLConfig(rollout_steps=collect_steps, minibatch_size=128,
+                  num_epochs=5, entropy_coef=0.003, learning_rate=1e-3,
+                  reward_mode="progress", gamma=0.98, gae_lambda=0.9)
+    policy = MPNNPolicyNet(net.num_nodes, net.num_roads + 1,
+                           use_distance_prior=True, prior_scale=PRIOR_SCALE)
+    return PPO(net, policy, MPNNValueNetSimple(net.num_nodes), rl=rl)
+
+
+class Capture:
+    """Segment ops that go through the kernel wrappers and keep a copy of
+    the inputs of every ``every``-th call of each op."""
+
+    def __init__(self, every: int):
+        from tarl_tpu_torch.ops import segment as seg
+
+        self.every, self.calls = every, {"sum": 0, "max": 0, "argmax": 0}
+        self.inputs = {"sum": [], "max": [], "argmax": []}
+        self.ops = seg.SegmentOps(self._wrap("sum", seg.segment_sum),
+                                  self._wrap("max", seg.segment_max),
+                                  self._wrap("argmax", seg.segment_argmax))
+
+    def _wrap(self, name, fn):
+        def op(data, ids, n, layout=None):
+            if self.calls[name] % self.every == 0:
+                self.inputs[name].append((data.clone(), ids, n))
+            self.calls[name] += 1
+            return fn(data, ids, n, layout)
+        return op
+
+
+def counts() -> dict:
+    from tarl_tpu_torch.core import fused_winner
+    from tarl_tpu_torch.ops import segment as seg
+
+    return {"K1": fused_winner.LAUNCHES, "K9": seg.SUM_LAUNCHES,
+            "K10": seg.MAX_LAUNCHES, "K11": seg.ARGMAX_LAUNCHES}
+
+
+def reset_counts() -> None:
+    from tarl_tpu_torch.core import fused_winner, sync
+    from tarl_tpu_torch.ops import segment as seg
+
+    fused_winner.reset_launches()
+    seg.reset_launches()
+    sync.reset()
+
+
+def check_eval(env, agents_total: int, steps: int, launches: dict,
+               label: str, want_done=None, max_att=None,
+               on_card: bool = True) -> dict:
+    """Asserts of an evaluation run: conservation, agents on the network
+    or arrived, ``want_done`` arrivals and an average travel time below
+    ``max_att`` where given, and on the card one K1 and one K11 launch per
+    step and no K9/K10; returns the outcome."""
+    from tarl_tpu_torch.core.step import average_travel_time
+
+    a = env.sim.agents
+    on_road = int(env.sim.road.count.sum())
+    on_way = int(a.on_way.sum())
+    done = int(a.done.sum())
+    att = float(average_travel_time(a))
+    if on_road != on_way:
+        raise AssertionError(f"{label}: conservation: {on_road} on roads, "
+                             f"{on_way} inserted and not done")
+    if done + on_road <= 0:
+        raise AssertionError(f"{label}: no agent entered the network")
+    if want_done is not None and done != want_done:
+        raise AssertionError(f"{label}: {done} done, expected {want_done}")
+    if max_att is not None and not att < max_att:
+        raise AssertionError(f"{label}: average travel time {att} s, not "
+                             f"below {max_att} s")
+    want = {"K1": steps, "K11": steps, "K9": 0, "K10": 0}
+    if on_card and launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want}")
+    return {"done": done, "on_road": on_road, "att": att,
+            "time": float(env.sim.time), "agents": agents_total}
+
+
+def random_segment_cases(dev):
+    """Seeded ``(label, data, ids, n, card_ref)`` cases on the card: empty
+    segments, +-inf, NaN, out-of-range ids, exact ties, 100,000 segments,
+    and ties of -0.0 with +0.0.  ``card_ref`` is false for the last: the
+    plain max on the card resolves a +-0 tie in its atomics' order, so that
+    case is held against the plain version on the CPU only, whose
+    sequential max keeps the first value, as the kernel's strict ``>``
+    does."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(11)
+    cases = []
+    for i, (e, n) in enumerate([(1256, 352), (5000, 4000), (700, 37),
+                                (300000, 100000), (64, 1000)]):
+        data = g.normal(size=e).astype(np.float32)
+        if i % 2 == 0:
+            # Exact ties; the shift leaves no -0.0 (see the last case).
+            data = np.round(data * 2.0) / 2.0 + 0.25
+        ids = g.integers(-2, n + 2, size=e).astype(np.int32)
+        k = g.integers(0, e, size=6)
+        data[k[:2]], data[k[2:4]], data[k[4]] = np.inf, -np.inf, np.nan
+        cases.append((f"random {e}x{n}", torch.as_tensor(data, device=dev),
+                      torch.as_tensor(ids, device=dev), n, True))
+    e, n = 1256, 352
+    zeros = np.where(g.random(e) < 0.5, np.float32(-0.0), np.float32(0.0))
+    data = np.where(g.random(e) < 0.8, zeros,
+                    np.float32(-1.0)).astype(np.float32)
+    ids = g.integers(0, n, size=e).astype(np.int32)
+    cases.append((f"signed-zero ties {e}x{n}",
+                  torch.as_tensor(data, device=dev),
+                  torch.as_tensor(ids, device=dev), n, False))
+    return cases
+
+
+def compare_segments(cases) -> dict:
+    """Each segment kernel against its plain version on a CPU copy of the
+    inputs, bitwise (NaN bits included); max and argmax also against the
+    plain version on the card where the case's ``card_ref`` is true.  The
+    sum takes the finite part of the data (a sum with inf is not a
+    comparison of the adds).  Returns the largest absolute difference per
+    kernel (0 when all match)."""
+    import torch
+
+    from tarl_tpu_torch.ops import segment as seg
+
+    worst = {"sum": 0.0, "max": 0.0, "argmax": 0.0}
+    pairs = {"sum": (seg.segment_sum, seg.segment_sum_plain),
+             "max": (seg.segment_max, seg.segment_max_plain),
+             "argmax": (seg.segment_argmax, seg.segment_argmax_plain)}
+    for label, data, ids, n, card_ref in cases:
+        layout = seg.segment_layout(ids, n)
+        for name, (fn, plain) in pairs.items():
+            x = (torch.where(torch.isfinite(data), data, 0.0)
+                 if name == "sum" else data)
+            got = fn(x, ids, n, layout)
+            torch.cuda.synchronize()
+            refs = [("CPU", plain(x.cpu(), ids.cpu(), n))]
+            if name != "sum" and card_ref:
+                refs.append(("card", plain(x, ids, n).cpu()))
+            for where, want in refs:
+                g = got.cpu()
+                diff = float((g.double() - want.double()).abs().nan_to_num(
+                    0.0).max()) if g.numel() else 0.0
+                worst[name] = max(worst[name], diff)
+                if not torch.equal(g.view(torch.int32),
+                                   want.view(torch.int32)):
+                    raise AssertionError(f"{label}: segment {name} kernel "
+                                         f"and plain on the {where} differ "
+                                         f"(max |diff| {diff})")
+    return worst
+
+
+def segment_bound_ms(e: int, n: int) -> float:
+    """The least time for one segment reduction: E data and E ids read, N
+    results written, against the card's memory rate (the E adds or
+    compares take far less at the float32 rate)."""
+    return max((8 * e + 4 * n) / HBM_BYTES_PER_S,
+               e / F32_OPS_PER_S) * 1e3
+
+
+def time_segments(data, ids, n) -> dict:
+    """ms per call of each segment kernel, its plain version and the
+    library call, plain, kernel, kernel, plain."""
+    import torch
+
+    from tarl_tpu_torch.ops import segment as seg
+
+    layout = seg.segment_layout(ids, n)
+    key = ids.long()
+    expd = torch.exp(data - data.max())
+
+    def lib_sum(x):
+        return torch.zeros(n, device=x.device).index_add_(0, key, x)
+
+    def lib_max(x):
+        return torch.full((n,), seg.NEG_LARGE, device=x.device) \
+            .scatter_reduce_(0, key, x, "amax")
+
+    out = {}
+    for name, fn, plain, lib, x in (
+            ("sum", seg.segment_sum, seg.segment_sum_plain, lib_sum, expd),
+            ("max", seg.segment_max, seg.segment_max_plain, lib_max, data),
+            ("argmax", seg.segment_argmax, seg.segment_argmax_plain, None,
+             data)):
+        p1 = time_per_call(plain, (x, ids, n))
+        k1 = time_per_call(fn, (x, ids, n, layout))
+        k2 = time_per_call(fn, (x, ids, n, layout))
+        p2 = time_per_call(plain, (x, ids, n))
+        lib_ms = None if lib is None else time_per_call(lib, (x,))
+        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "library_ms": lib_ms, "all": (p1, k1, k2, p2)}
+    return out
+
+
+def learned_paths(dev, net, agents, card: str, eval_steps=EVAL_STEPS,
+                  collect_steps=COLLECT_STEPS, scale_steps=SCALE_STEPS):
+    """Phases 8-10 on ``dev``, with ``net, agents`` the Grid16x16 headline
+    scenario.  Launch counts are reset just before each path and read just
+    after (on the card; the CPU takes the plain versions and counts
+    nothing).  Returns the objects and numbers the later phases and the
+    results line use."""
+    import torch
+
+    from tarl_tpu_torch.convert import load_params_npz, mpnn_params_from_numpy
+    from tarl_tpu_torch.core import rng, sync
+    from tarl_tpu_torch.core.step import Policy, init_sim_state
+    from tarl_tpu_torch.io.matsim import load_network, load_population
+    from tarl_tpu_torch.io.scenarios import ensure_scenario
+    from tarl_tpu_torch.routing.policies import random_choice
+
+    policy = Policy(choice=random_choice)
+    on_card = dev.type == "cuda"
+
+    def sync_dev():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # --- 8. the learned policy, trained weights ----------------------------
+    t0 = time.perf_counter()
+    base = ensure_scenario(os.path.join(ROOT, "build", "scenarios"),
+                           "Grid8x8")
+    net8 = load_network(os.path.join(base, "network"), device=dev)
+    agents8, _ = load_population(os.path.join(base, "population"),
+                                 os.path.join(base, "network"), device=dev)
+    st8 = init_sim_state(net8, agents8, policy=policy)
+    ppo8 = learned_ppo(net8, collect_steps)
+    trained = mpnn_params_from_numpy(load_params_npz(
+        os.path.join(ROOT, WEIGHTS)), device=dev)
+    sync_dev()
+    log(f"learned Grid8x8: {net8.num_roads} roads, {net8.num_nodes} nodes, "
+        f"{net8.full_src.shape[0]} full edges, {agents8.num_agents} agent "
+        f"rows; set-up {time.perf_counter() - t0:.2f} s (scenario, free-flow "
+        f"all-pairs table, weights)")
+    cap8 = Capture(CAPTURE_STEPS)
+    reset_counts()
+    t0 = time.perf_counter()
+    env8, rewards8, _, logs8 = ppo8.eval_rollout(
+        trained, st8, rng.prng_key(0), eval_steps, segment_ops=cap8.ops)
+    sync_dev()
+    eval_wall = time.perf_counter() - t0
+    eval_launches = counts()
+    eval_reads = sync.HOST_READS
+    full = eval_steps == EVAL_STEPS
+    ev = check_eval(env8, agents8.num_agents, eval_steps, eval_launches,
+                    "learned eval",
+                    want_done=agents8.num_agents - 1 if full else None,
+                    max_att=90.0 if full else None, on_card=on_card)
+    if not bool(torch.isfinite(rewards8).all()):
+        raise AssertionError("learned eval: a reward is not finite")
+    log(f"learned eval (trained, greedy): {eval_steps} steps in "
+        f"{eval_wall:.2f} s, {eval_wall / eval_steps * 1e3:.3f} ms/step, "
+        f"{eval_steps / eval_wall:.1f} steps/s, "
+        f"{agents8.num_agents * eval_steps / eval_wall:.1f} agent rows x "
+        f"steps/s, host reads per step {eval_reads / eval_steps:.3f}; done "
+        f"{ev['done']}, on roads {ev['on_road']}, average travel time "
+        f"{ev['att']:.3f} s, clock {ev['time']:.0f} s; launches "
+        f"{eval_launches} ({card})")
+
+    # --- 9. rollout collection --------------------------------------------
+    ts8 = ppo8.init(st8, rng.prng_key(0), torch.Generator().manual_seed(0))
+    cap_c = Capture(64)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, _, _, traj, last_value = ppo8.collect_rollout(
+        trained, ts8.env, ts8.obs, ts8.key, segment_ops=cap_c.ops)
+    sync_dev()
+    collect_wall = time.perf_counter() - t0
+    collect_launches = counts()
+    collect_reads = sync.HOST_READS
+    want = {"K1": collect_steps, "K9": 3 * collect_steps,
+            "K10": collect_steps, "K11": collect_steps}
+    if on_card and collect_launches != want:
+        raise AssertionError(f"collection launches {collect_launches}, "
+                             f"expected {want}")
+    if not (bool(torch.isfinite(traj.log_prob).all())
+            and bool(torch.isfinite(traj.value).all())
+            and bool(torch.isfinite(last_value))):
+        raise AssertionError("collection: a log-prob or value is not finite")
+    if tuple(traj.action.shape) != (collect_steps, net8.full_src.shape[0]):
+        raise AssertionError(f"collection: action shape "
+                             f"{tuple(traj.action.shape)}")
+    log(f"rollout collection: {collect_steps} steps in {collect_wall:.2f} "
+        f"s, {collect_wall / collect_steps * 1e3:.3f} ms/step, host reads "
+        f"{collect_reads}; mean log-prob "
+        f"{float(traj.log_prob.mean()):.4f}, mean value "
+        f"{float(traj.value.mean()):.4f}, on network at the end "
+        f"{float(traj.on_network[-1]):.0f}; launches {collect_launches} "
+        f"({card})")
+
+    # --- 10. scale: Grid16x16, 50,000 commuters ----------------------------
+    t0 = time.perf_counter()
+    st16 = init_sim_state(net, agents, policy=policy)
+    ppo16 = learned_ppo(net, collect_steps)
+    params16 = ppo16.init(st16, rng.prng_key(1),
+                          torch.Generator().manual_seed(16)).params
+    sync_dev()
+    setup16 = time.perf_counter() - t0
+    cap16 = Capture(scale_steps // 2)
+    reset_counts()
+    t0 = time.perf_counter()
+    env16, _, _, _ = ppo16.eval_rollout(params16, st16, rng.prng_key(2),
+                                        scale_steps, segment_ops=cap16.ops)
+    sync_dev()
+    scale_wall = time.perf_counter() - t0
+    scale_launches = counts()
+    scale_reads = sync.HOST_READS
+    ev16 = check_eval(env16, agents.num_agents, scale_steps, scale_launches,
+                      "scale eval", on_card=on_card)
+    log(f"scale eval (Grid16x16, {agents.num_agents} agent rows, seeded "
+        f"weights, greedy): {scale_steps} steps in {scale_wall:.2f} s, "
+        f"{scale_wall / scale_steps * 1e3:.3f} ms/step, "
+        f"{agents.num_agents * scale_steps / scale_wall:.1f} agent rows x "
+        f"steps/s, host reads per step {scale_reads / scale_steps:.3f}; "
+        f"done {ev16['done']}, on roads {ev16['on_road']}; set-up "
+        f"{setup16:.2f} s; launches {scale_launches} ({card})")
+    return {"net8": net8, "st8": st8, "ppo8": ppo8, "trained": trained,
+            "cap8": cap8, "cap_c": cap_c, "cap16": cap16,
+            "eval_launches": eval_launches,
+            "collect_launches": collect_launches,
+            "scale_launches": scale_launches}
+
+
+def learned_in_context(ppo8, trained, st8, steps=LEARNED_CONTEXT_STEPS):
+    """Phase 12: ``steps`` greedy evaluation steps with the kernels and
+    again with the plain segment versions forced; the final environment
+    states must be equal bitwise, and on the card the plain run must
+    launch no segment kernel.  Returns the plain run's launch counts."""
+    from tarl_tpu_torch.core import rng
+    from tarl_tpu_torch.ops import segment as seg
+
+    on_card = st8.road.count.device.type == "cuda"
+    reset_counts()
+    env_k, _, _, _ = ppo8.eval_rollout(trained, st8, rng.prng_key(0), steps)
+    kernel_counts = counts()
+    reset_counts()
+    env_p, _, _, _ = ppo8.eval_rollout(trained, st8, rng.prng_key(0), steps,
+                                       segment_ops=seg.PLAIN)
+    plain_counts = counts()
+    if on_card and kernel_counts["K11"] != steps:
+        raise AssertionError(f"learned in context: kernel run launches "
+                             f"{kernel_counts}")
+    if plain_counts["K9"] or plain_counts["K10"] or plain_counts["K11"]:
+        raise AssertionError(f"learned in context: the plain run launched "
+                             f"a segment kernel: {plain_counts}")
+    mismatched = _diff_paths(_env_bits(env_k), _env_bits(env_p))
+    if mismatched:
+        raise AssertionError(f"learned in context: kernel and plain runs "
+                             f"differ at step {steps}: {mismatched}")
+    log(f"learned in context: kernel and plain-segment runs equal bitwise "
+        f"at step {steps} (plain run launches {plain_counts})")
+    return plain_counts
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
+    # The learned policy's matrix products in full float32 (PPO checks).
+    torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, ROOT)
     import numpy as np
 
@@ -485,13 +917,17 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    builds = build_kernels()
+    builds, ptxas = build_kernels()
     log("kernel build: " + ", ".join(f"{k} {s:.2f} s"
                                      for k, s in builds.items())
         + f", {time.perf_counter() - t0:.2f} s in all (nvcc "
         f"{' '.join(_build.ARCH_FLAGS)})")
+    for name, lines in ptxas.items():
+        log(f"ptxas -v, {name}.cu:")
+        for line in lines:
+            log(f"  {line}")
 
-    # --- 3. the headline episode (captures phase 2's states) -------------
+    # --- 2. the headline episode (captures phase 3's states) -------------
     t0 = time.perf_counter()
     net, agents = load_scenario("Grid16x16_50000", 16, 16, 50000, dev)
     agents = sort_agents_by_departure(agents)
@@ -553,7 +989,7 @@ def main() -> int:
         f"syncs per tick {syncs_per_tick:.3f}, overflow {overflow}, "
         f"fused_winner calls {launches}")
 
-    # --- 2. kernel against plain ----------------------------------------
+    # --- 3. kernel against plain ----------------------------------------
     kin, r = net.in_src_tab.shape
     cases = [
         (s.road, s.selected_road, s.time,
@@ -572,7 +1008,8 @@ def main() -> int:
                                      dev)))
     err64 = compare_kernel(big_cases, big, physics)
     log(f"kernel vs plain: bitwise equal on {len(cases)} headline states "
-        f"(R={r}) and {len(big_cases)} random Grid64x64 states (R={r64})")
+        f"(R={r}) and {len(big_cases)} random Grid64x64 states (R={r64}), "
+        f"each with the clock on the host and on the device")
 
     timings = {}
     for label, g, (road_c, sel_c, t_c, gum_c) in (
@@ -605,7 +1042,7 @@ def main() -> int:
     log(f"episode in context: kernel and plain states equal bitwise at tick "
         f"{CAPTURE_EVERY}")
 
-    # --- 6. the shortest-path row -------------------------------------------
+    # --- 5. the shortest-path row -------------------------------------------
     t0 = time.perf_counter()
     net64, agents64 = load_scenario("Grid64x64_200000", 64, 64, 200000, dev)
     agents64 = sort_agents_by_departure(agents64)
@@ -629,7 +1066,7 @@ def main() -> int:
         f"next-road pass of the initial table), fused_winner calls "
         f"{sp['winner_launches']}")
 
-    # --- 7. relax kernel against plain --------------------------------------
+    # --- 6. relax kernel against plain --------------------------------------
     from tarl_tpu_torch.routing import bellman_ford as bf
     from tarl_tpu_torch.routing.bellman_ford import BIG
 
@@ -678,7 +1115,7 @@ def main() -> int:
             f"{kern1:.4f} / {kern2:.4f} ms per call, plain {plain1:.4f} / "
             f"{plain2:.4f} ms per call (plain, kernel, kernel, plain)")
 
-    # --- 8. the row in context ---------------------------------------------
+    # --- 7. the row in context ---------------------------------------------
     from tarl_tpu_torch.core.step import run_episode_periodic
     from tarl_tpu_torch.simulator import make_policy
 
@@ -708,8 +1145,71 @@ def main() -> int:
         f"{sp['context_wall'] / span * 1e3:.3f} ms/tick, plain relax "
         f"{plain_wall / span * 1e3:.3f} ms/tick")
 
-    # --- 5. results -------------------------------------------------------
+    res = learned_paths(dev, net, agents, card)
+    net8, st8, ppo8, trained = (res[k] for k in ("net8", "st8", "ppo8",
+                                                  "trained"))
+    cap8, cap_c, cap16 = res["cap8"], res["cap_c"], res["cap16"]
+    eval_launches = res["eval_launches"]
+    collect_launches = res["collect_launches"]
+
+    # --- 11. segment kernels against plain ---------------------------------
+    captured_cases = []
+    for label, cap in (("Grid8x8 eval", cap8), ("Grid8x8 collect", cap_c),
+                       ("Grid16x16 eval", cap16)):
+        for name in ("sum", "max", "argmax"):
+            for i, (data, ids, n) in enumerate(cap.inputs[name]):
+                captured_cases.append((f"{label} {name} {i}", data, ids, n,
+                                       True))
+    seg_cases = captured_cases + random_segment_cases(dev)
+    seg_err = compare_segments(seg_cases)
+    e8, n8 = net8.full_src.shape[0], net8.num_nodes
+    timed_in = cap8.inputs["argmax"][len(cap8.inputs["argmax"]) // 2]
+    seg_t = time_segments(*timed_in)
+    seg_t16 = time_segments(*cap16.inputs["argmax"][-1])
+    log(f"segment kernels vs plain: bitwise equal on {len(captured_cases)} "
+        f"captured inputs (Grid8x8 E={e8}, N={n8}; Grid16x16 "
+        f"E={net.full_src.shape[0]}, N={net.num_nodes}) and "
+        f"{len(seg_cases) - len(captured_cases)} seeded random cases "
+        f"({card})")
+    for label, tt in (("Grid8x8", seg_t), ("Grid16x16", seg_t16)):
+        for name, r in tt.items():
+            p1, k1, k2, p2 = r["all"]
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms'] * 1e3:.2f} us")
+            log(f"segment {name} {label}: kernel {k1 * 1e3:.2f} / "
+                f"{k2 * 1e3:.2f} us per call, plain {p1 * 1e3:.2f} / "
+                f"{p2 * 1e3:.2f} us (plain, kernel, kernel, plain), library "
+                f"{lib} ({card})")
+
+    # --- 12. the learned path in context -----------------------------------
+    learned_in_context(ppo8, trained, st8)
+
+    # --- 13. results ------------------------------------------------------
     kern_ms, plain_ms = timings["Grid16x16"]
+    k1_bound = k1_bound_ms(net)
+    k2_bound = k2_bound_ms(net64, iters)
+    seg_entries = []
+    for name, key, line in (("sum", "K9", 66), ("max", "K10", 121),
+                            ("argmax", "K11", 169)):
+        launches_seg = (eval_launches[key] if key == "K11"
+                        else collect_launches[key])
+        seg_entries.append({
+            "name": f"segment_{name}",
+            "route": "cuda",
+            "source": "tarl_tpu_torch/csrc/segment.cu",
+            "replaces": f"tarl_tpu/ops/pallas_segment.py:{line}",
+            "launches": launches_seg,
+            "launches_from": ("learned eval (phase 8)" if key == "K11"
+                              else "rollout collection (phase 9)"),
+            "max_abs_err": seg_err[name],
+            "ms": seg_t[name]["ms"],
+            "plain_ms": seg_t[name]["plain_ms"],
+            "bound_ms": segment_bound_ms(e8, n8),
+            "bound_by": "bytes",
+            "library_ms": seg_t[name]["library_ms"],
+            "shape": f"E={e8}, N={n8}",
+            "ms_grid16": seg_t16[name]["ms"],
+        })
     print(json.dumps({"kernels": [{
         "name": "fused_winner",
         "route": "cuda",
@@ -719,6 +1219,9 @@ def main() -> int:
         "max_abs_err": float(max(err16, err64)),
         "ms": kern_ms,
         "plain_ms": plain_ms,
+        "bound_ms": k1_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
         "ms_grid64": timings["Grid64x64"][0],
         "plain_ms_grid64": timings["Grid64x64"][1],
         "launches_sp_row": sp["winner_launches"],
@@ -732,10 +1235,13 @@ def main() -> int:
         "max_abs_err": max(errs.values()),
         "ms": relax_t["K2 mode"][0],
         "plain_ms": relax_t["K2 mode"][1],
+        "bound_ms": k2_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
         "ms_one_sweep": relax_t["one sweep"][0],
         "plain_ms_one_sweep": relax_t["one sweep"][1],
         "modes": list(errs),
-    }]}))
+    }] + seg_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -743,6 +1249,43 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
+
+
+def k1_bound_ms(net) -> float:
+    """K1's least time at the headline shape: what the kernel reads once
+    (the head cell of each road in the three ring tables, not the whole
+    rings; head, count, selection and capacity per road; the in-slot and
+    out-slot tables, the Gumbel matrix; the clock) and the five outputs
+    written, against the card's memory rate; its few compares per slot
+    take far less at the float32 rate."""
+    r = net.num_roads
+    kin, kout = net.in_src_tab.shape[0], net.out_dst_tab.shape[0]
+    read = 3 * 4 * r + 4 * 4 * r \
+        + kin * r * (4 + 4 + 4 + 1) + kout * r * (4 + 1) + 4
+    written = r * (1 + 4 + 4 + 4 + 1)
+    return max((read + written) / HBM_BYTES_PER_S,
+               20 * kin * r / F32_OPS_PER_S) * 1e3
+
+
+def k2_bound_ms(net, sweeps: int) -> float:
+    """K2's least time in its refresh mode (I = D): costs, tables and the
+    warm start read once, distances and next roads written once; the
+    operations are an add and a min per slot, sweep and column, plus the
+    next-road pass."""
+    r, (i_n, k_n) = net.num_roads, net.inter_out_road.shape
+    moved = 4 * r + 5 * i_n * k_n + 4 * r + 3 * 4 * i_n * i_n
+    ops = 2 * (sweeps + 1) * i_n * k_n * i_n
+    return max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+
+
+def _env_bits(env) -> dict:
+    """An environment state as nested numpy dicts (the clock as float32)."""
+    from tarl_tpu_torch.convert import to_numpy
+
+    d = {"sim": to_numpy(env.sim), "old_counts": to_numpy(env.old_counts),
+         "done": to_numpy(env.done), "phi": to_numpy(env.phi)}
+    d["sim"]["next_hop"] = d["sim"]["next_hop"].view("uint32")
+    return d
 
 
 def _state_bits(state) -> dict:

@@ -1,11 +1,12 @@
 """Typed configuration of the PyTorch port (ports ``tarl_tpu/config.py``).
 
-``PhysicsConfig``, ``SimConfig`` and ``RoutingConfig`` keep the reference's
-field names and defaults so one configuration reads the same in both
-packages.  A few ``SimConfig`` fields only choose between bitwise-identical evaluation
-strategies of the TPU build (``insert_compact``, ``withdraw_compact``); the
-port accepts and ignores them.  ``fused_core`` selects a different random
-stream and is not ported: :func:`tarl_tpu_torch.core.step.tick` refuses it.
+``PhysicsConfig``, ``SimConfig``, ``RoutingConfig`` and ``RLConfig``
+keep the reference's field names and defaults so one configuration reads
+the same in both packages. A few ``SimConfig`` fields only choose
+between bitwise-identical evaluation strategies of the TPU build
+(``insert_compact``, ``withdraw_compact``); the port accepts and ignores
+them. ``fused_core`` selects a different random stream and is not
+ported: :func:`tarl_tpu_torch.core.step.tick` refuses it.
 """
 from __future__ import annotations
 
@@ -85,6 +86,47 @@ class RoutingConfig:
     cost_mode: str = "travel_time"
 
 
+@dataclasses.dataclass(frozen=True)
+class RLConfig:
+    """PPO and environment parameters (same fields and defaults as the
+    reference; ``rl/env.py`` documents the reward modes)."""
+
+    episode_start: int = 6 * 3600 - 60   # env reset time
+    episode_end: int = 7 * 3600          # done threshold
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_epsilon: float = 0.2
+    learning_rate: float = 1e-3
+    # Terminal cosine lr anneal: hold ``learning_rate`` for
+    # ``lr_anneal_start`` updates, then decay to ``lr_anneal_floor *
+    # learning_rate`` over ``lr_anneal_updates`` updates (None = off).
+    lr_anneal_updates: int | None = None
+    lr_anneal_start: int = 0
+    lr_anneal_floor: float = 0.0
+    entropy_coef: float = 0.0
+    value_coef: float = 1.0
+    rollout_steps: int = 32
+    num_epochs: int = 1
+    minibatch_size: int = 32
+    num_envs: int = 1
+    max_grad_norm: float | None = None
+    # "on_network" (-(agents on the network)), "individual" (100 * 600 /
+    # travel time of this step's arrivals), "throughput" (arrivals),
+    # "system" (-(on the network + due and not inserted) / progress_scale)
+    # or "progress" (decrease of the potential Phi / progress_scale).
+    reward_mode: str = "on_network"
+    progress_scale: float = 100.0
+    # "progress" with the potential's distance-to-go under the current
+    # congested costs (one all-pairs relaxation per step).
+    congested_potential: bool = False
+    # Surface each SRC node's earliest pending entrant in the observation.
+    observe_pending_entrants: bool = True
+    # Append the three congestion columns of
+    # ``rl.observation.extra_node_features`` to the context.
+    extra_obs: bool = False
+
+
 DEFAULT_PHYSICS = PhysicsConfig()
 DEFAULT_SIM = SimConfig()
 DEFAULT_ROUTING = RoutingConfig()
+DEFAULT_RL = RLConfig()

@@ -8,7 +8,13 @@ nested dicts) — and build the port's objects on a given device.
 the reference's dtypes (the host scalars ``time``, ``key`` and
 ``insert_ptr`` as float32, uint32[2] and int32).  The routing scratch
 ``next_hop`` and ``sel_dest`` cross as they are.  Fields the port does not
-keep (the roll plans, the dual ``nbr`` tables) are ignored on the way in.
+keep (the roll plans) are ignored on the way in.
+
+:func:`mpnn_params_from_numpy` carries the reference's MPNN parameters
+(Flax trees as numpy: ``{"policy": {"params": {layer: {"kernel", "bias"}}},
+"value": ...}``) into the port's state dicts, and
+:func:`mpnn_params_to_numpy` goes back; :func:`load_params_npz` reads such a
+tree from an ``.npz`` of flat ``policy/params/edge_fc1/kernel`` keys.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .network import Network
 from .state import (
     AgentState,
@@ -29,10 +36,10 @@ from .state import (
 
 
 def _t(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(a), device=device)
+    return torch.as_tensor(np.array(a), device=resolve_device(device))
 
 
-def network_from_numpy(d: dict, device: torch.device | str = "cpu"
+def network_from_numpy(d: dict, device: torch.device | str | None = None
                        ) -> Network:
     kwargs = {}
     for f in dataclasses.fields(Network):
@@ -45,7 +52,7 @@ def network_from_numpy(d: dict, device: torch.device | str = "cpu"
     return Network(**kwargs)
 
 
-def agents_from_numpy(d: dict, device: torch.device | str = "cpu"
+def agents_from_numpy(d: dict, device: torch.device | str | None = None
                       ) -> AgentState:
     return AgentState(**{f: _t(d[f], device) for f in AgentState._fields})
 
@@ -54,7 +61,7 @@ def _road_from_numpy(d: dict, device) -> RoadState:
     return RoadState(**{f: _t(d[f], device) for f in RoadState._fields})
 
 
-def sim_state_from_numpy(d: dict, device: torch.device | str = "cpu"
+def sim_state_from_numpy(d: dict, device: torch.device | str | None = None
                          ) -> SimState:
     backlog = d.get("backlog")
     sel_dest = d.get("sel_dest")
@@ -86,7 +93,7 @@ def to_numpy(obj: Any) -> Any:
         return obj.detach().cpu().numpy()
     if isinstance(obj, SimState):
         d = {f: to_numpy(getattr(obj, f)) for f in SimState._fields}
-        d["time"] = np.float32(obj.time)
+        d["time"] = np.float32(float(obj.time))
         d["key"] = np.asarray(obj.key, dtype=np.uint32)
         d["insert_ptr"] = np.int32(obj.insert_ptr)
         d["choice_count"] = np.int32(obj.choice_count)
@@ -97,3 +104,69 @@ def to_numpy(obj: Any) -> Any:
         return {f.name: to_numpy(getattr(obj, f.name))
                 for f in dataclasses.fields(obj)}
     return np.asarray(obj)
+
+
+def _module_params_from_numpy(tree: dict, device) -> dict:
+    """One Flax module tree -> a state dict: a Dense ``kernel [in, out]``
+    becomes ``<name>.weight [out, in]``, an Embed ``embedding`` becomes
+    ``<name>.weight``."""
+    tree = tree.get("params", tree)
+    out = {}
+    for name, leaves in tree.items():
+        for leaf, arr in leaves.items():
+            a = np.asarray(arr, dtype=np.float32)
+            if leaf == "kernel":
+                out[f"{name}.weight"] = _t(a.T, device)
+            elif leaf == "bias":
+                out[f"{name}.bias"] = _t(a, device)
+            elif leaf == "embedding":
+                out[f"{name}.weight"] = _t(a, device)
+            else:
+                raise ValueError(f"unknown parameter {name}/{leaf}")
+    return out
+
+
+def mpnn_params_from_numpy(tree: dict, device: torch.device | str | None = None
+                           ) -> dict:
+    """``{"policy": state_dict, "value": state_dict}`` from the reference's
+    ``{"policy": ..., "value": ...}`` parameter trees."""
+    return {part: _module_params_from_numpy(tree[part], device)
+            for part in ("policy", "value")}
+
+
+# The Flax Embed modules of the MPNN nets (the rest are Dense).
+_EMBEDDINGS = ("nodes_embedding",)
+
+
+def mpnn_params_to_numpy(params: dict) -> dict:
+    """The inverse of :func:`mpnn_params_from_numpy`: Flax-shaped trees of
+    numpy arrays."""
+    out = {}
+    for part, state in params.items():
+        layers: dict = {}
+        for key, t in state.items():
+            name, leaf = key.rsplit(".", 1)
+            a = t.detach().cpu().numpy()
+            if name in _EMBEDDINGS:
+                layers.setdefault(name, {})["embedding"] = a
+            elif leaf == "weight":
+                layers.setdefault(name, {})["kernel"] = np.ascontiguousarray(
+                    a.T)
+            else:
+                layers.setdefault(name, {})["bias"] = a
+        out[part] = {"params": layers}
+    return out
+
+
+def load_params_npz(path: str) -> dict:
+    """A nested dict of numpy arrays from an ``.npz`` whose keys are
+    ``/``-separated paths."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[key]
+    return tree

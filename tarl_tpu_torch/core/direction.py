@@ -119,7 +119,8 @@ def push_winners(
     return road._replace(
         fifo_ids=torch.where(hit, agent[:, None], road.fifo_ids),
         fifo_arrival=torch.where(
-            hit, torch.tensor(time, dtype=torch.float32, device=slot.device),
+            hit, torch.as_tensor(time, dtype=torch.float32,
+                                 device=slot.device),
             road.fifo_arrival),
         fifo_departure=torch.where(hit, (time + travel)[:, None],
                                    road.fifo_departure),

@@ -63,7 +63,7 @@ def _kernel_fn():
 
         fn = load_library("fused_winner").tarl_fused_winner
         p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-        fn.argtypes = [p] * 13 + [f] * 4 + [i] * 4 + [p] * 6
+        fn.argtypes = [p] * 13 + [f, p] + [f] * 3 + [i] * 4 + [p] * 6
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -109,9 +109,14 @@ def _launch(road, inputs, network, time, physics):
     dest = torch.empty(r, dtype=i32, device=dev)
     popped = torch.empty(r, dtype=b, device=dev)
     fn = _kernel_fn()
+    if isinstance(time, torch.Tensor):
+        check_tensor("time", time, torch.float32, (), dev)
+        time_host, time_dev = 0.0, time.data_ptr()
+    else:
+        time_host, time_dev = float(time), None
     err = fn(
         *(t.data_ptr() for t in inputs),
-        float(time), float(physics.gridlock_patience),
+        time_host, time_dev, float(physics.gridlock_patience),
         float(physics.congestion_buffer), float(free_space_mask(r, nmax)),
         r, nmax, kin, kout,
         accept.data_ptr(), win_src.data_ptr(), agent.data_ptr(),
@@ -135,7 +140,9 @@ def direction_confirm(
 ):
     """``(accept, win_src, agent, dest, popped)`` for one tick: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors.  Inputs the
-    kernel would not take raise on either device."""
+    kernel would not take raise on either device.  ``time`` is a host
+    float or a float32 0-d tensor on the road state's device (the RL
+    environment's clock, read by the kernel on the device)."""
     inputs = _checked_inputs(road, selected_road, network, gumbel)
     if road.count.device.type == "cuda":
         return _launch(road, inputs, network, time, physics)

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 __all__ = [
     "prng_key", "threefry2x32", "split", "random_bits", "gumbel",
     "gumbel_at_positions", "direction_gumbel", "choice_gumbel",
@@ -73,10 +75,10 @@ def _bits_at(key: Key, q: torch.Tensor) -> torch.Tensor:
 
 
 def random_bits(key: Key, shape: tuple[int, ...],
-                device: torch.device | str = "cpu") -> torch.Tensor:
+                device: torch.device | str | None = None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 values."""
     n = int(np.prod(shape))
-    q = torch.arange(n, dtype=torch.int64, device=device)
+    q = torch.arange(n, dtype=torch.int64, device=resolve_device(device))
     return _bits_at(key, q).reshape(shape)
 
 
@@ -91,7 +93,7 @@ def _gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def gumbel(key: Key, shape: tuple[int, ...],
-           device: torch.device | str = "cpu") -> torch.Tensor:
+           device: torch.device | str | None = None) -> torch.Tensor:
     """``jax.random.gumbel(key, shape, float32)``."""
     return _gumbel_from_bits(random_bits(key, shape, device))
 

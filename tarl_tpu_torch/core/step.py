@@ -1,6 +1,6 @@
 """Tick composition and the episode loops (ports ``tarl_tpu/core/step.py``:
-``Policy``, ``init_sim_state``, ``tick``, ``run_episode``,
-``run_episode_periodic`` and ``average_travel_time``).
+``Policy``, ``init_sim_state``, ``reset_sim_state``, ``tick``,
+``run_episode``, ``run_episode_periodic`` and ``average_travel_time``).
 
 A tick runs insert -> withdraw -> choice -> core, then advances the clock
 and updates the metrics.  The core is :func:`~tarl_tpu_torch.core.
@@ -108,6 +108,33 @@ def init_sim_state(
         insert_ptr=0,
         backlog=backlog,
         sel_dest=sel_dest,
+    )
+
+
+def reset_sim_state(state: SimState, start_time) -> SimState:
+    """Empty queues, agent progress and metric accumulators, with the clock
+    at ``start_time``; selections, key, population order and routing
+    scratch are kept."""
+    dev = state.road.count.device
+    r, nmax = state.road.fifo_ids.shape
+    hours = state.metrics.hourly_counts.shape[0]
+    backlog = state.backlog
+    if backlog is not None:
+        s, q, _ = backlog.qpack.shape
+        backlog = init_backlog_state(q, s, dev)
+    return state._replace(
+        road=init_road_state(r, nmax, dev),
+        agents=state.agents._replace(
+            inserted=torch.zeros_like(state.agents.inserted),
+            arrival=torch.zeros_like(state.agents.arrival),
+        ),
+        time=float(np.float32(start_time)),
+        metrics=init_metric_state(r, hours, dev),
+        choice_count=0,
+        insert_ptr=0,
+        backlog=backlog,
+        sel_dest=(None if state.sel_dest is None
+                  else torch.full_like(state.sel_dest, -1)),
     )
 
 

@@ -38,12 +38,16 @@ __global__ void fw_winner_kernel(
     const int* __restrict__ count, const int* __restrict__ sel,
     const float* __restrict__ cap, const int* __restrict__ in_src,
     const float* __restrict__ in_logit, const unsigned char* __restrict__ in_ok,
-    const float* __restrict__ gumbel, float time, float patience,
+    const float* __restrict__ gumbel, float time_arg,
+    const float* __restrict__ time_dev, float patience,
     float buffer, float free_mask, int R, int nmax, int kin,
     unsigned char* __restrict__ accept, int* __restrict__ win_src,
     int* __restrict__ agent_out, int* __restrict__ dest_out) {
   int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= R) return;
+  // The clock: a host value, or a device scalar (the RL environment's
+  // event-time clock, which the host never reads).
+  const float time = time_dev ? *time_dev : time_arg;
   const float count_v = static_cast<float>(count[v]);
   const float cap_v = cap[v];
   const bool space_ok = count_v < cap_v - buffer;
@@ -113,7 +117,8 @@ extern "C" int tarl_fused_winner(
     const int* head, const int* count, const int* sel, const float* cap,
     const int* in_src, const float* in_logit, const unsigned char* in_ok,
     const int* out_dst, const unsigned char* out_ok, const float* gumbel,
-    float time, float patience, float buffer, float free_mask, int R,
+    float time, const float* time_dev, float patience, float buffer,
+    float free_mask, int R,
     int nmax, int kin, int kout, unsigned char* accept, int* win_src,
     int* agent, int* dest, unsigned char* popped, void* stream) {
   const int threads = 256;
@@ -121,7 +126,8 @@ extern "C" int tarl_fused_winner(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   fw_winner_kernel<<<blocks, threads, 0, s>>>(
       fifo_ids, fifo_dep, fifo_dest, head, count, sel, cap, in_src, in_logit,
-      in_ok, gumbel, time, patience, buffer, free_mask, R, nmax, kin, accept,
+      in_ok, gumbel, time, time_dev, patience, buffer, free_mask, R, nmax,
+      kin, accept,
       win_src, agent, dest);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

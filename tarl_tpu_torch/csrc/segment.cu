@@ -1,0 +1,121 @@
+// Segment sum, max and argmax over an edge list, one thread per segment.
+//
+// Replaces the Pallas TPU kernels of tarl_tpu/ops/pallas_segment.py:
+//   K9  _segment_sum_kernel    (segment_sum_pallas)
+//   K10 _segment_max_kernel    (segment_max_pallas)
+//   K11 _segment_argmax_kernel (segment_argmax_pallas)
+// The TPU kernels streamed edge tiles through VMEM and reduced them with a
+// one-hot contraction on the matrix unit (sum) or a masked max over a
+// [tile, segments] block.  On the learned policy's path a segment is a
+// node's out-edges (at most ~6 elements), so here each thread walks one
+// segment's run of a CSR layout built once per id vector
+// (tarl_tpu_torch/ops/segment.py::SegmentLayout): offsets[N + 1] and a
+// stable element order[E] (ascending element index within a segment;
+// out-of-range ids never enter a run).  No atomics, no shared memory.
+//
+// Semantics (those of the TPU kernels, held bitwise against the plain
+// PyTorch versions in ops/segment.py):
+//   sum:    float32 adds in ascending element order from 0.0f, compiled
+//           with --fmad=false; equal to a sequential scatter-add.
+//   max:    starts at NEG_LARGE (-3.4e38, the empty segment's value); a
+//           NaN anywhere in the segment gives the canonical quiet NaN (the
+//           Pallas kernel's jnp.maximum propagates NaN); otherwise a value
+//           replaces the running max only when strictly greater, so of
+//           -0.0 and +0.0 the first in element order stays.
+//   argmax: a non-finite score counts as NEG_LARGE and only scores above
+//           NEG_LARGE can win; strict > over ascending elements keeps the
+//           lowest index among ties; a segment with no winner returns E.
+//
+// Bound: bytes.  The function reads data[E] and ids[E] (8 bytes an
+// element) and writes N floats or ints: ~12 KB at Grid8x8 (E = 1,256,
+// N = 352), ~4 ns at 3.35 TB/s.  At these shapes the launch (~µs) is the
+// whole cost, so the design spends nothing on bandwidth: one launch, one
+// thread per segment, dependent loads of order[] then data[].
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kNegLarge = -3.4e38f;
+
+__global__ void seg_sum_kernel(const float* __restrict__ data,
+                               const int* __restrict__ order,
+                               const int* __restrict__ offsets, int n,
+                               float* __restrict__ out) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n) return;
+  float acc = 0.0f;
+  for (int j = offsets[s]; j < offsets[s + 1]; ++j) acc += data[order[j]];
+  out[s] = acc;
+}
+
+__global__ void seg_max_kernel(const float* __restrict__ data,
+                               const int* __restrict__ order,
+                               const int* __restrict__ offsets, int n,
+                               float* __restrict__ out) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n) return;
+  float acc = kNegLarge;
+  bool nan = false;
+  for (int j = offsets[s]; j < offsets[s + 1]; ++j) {
+    const float v = data[order[j]];
+    nan = nan || (v != v);
+    acc = (v > acc) ? v : acc;
+  }
+  out[s] = nan ? __int_as_float(0x7fc00000) : acc;
+}
+
+__global__ void seg_argmax_kernel(const float* __restrict__ data,
+                                  const int* __restrict__ order,
+                                  const int* __restrict__ offsets, int n,
+                                  int e_total, int* __restrict__ out) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n) return;
+  float best = kNegLarge;
+  int arg = e_total;
+  for (int j = offsets[s]; j < offsets[s + 1]; ++j) {
+    const int e = order[j];
+    const float v = data[e];
+    if (isfinite(v) && v > best) {
+      best = v;
+      arg = e;
+    }
+  }
+  out[s] = arg;
+}
+
+constexpr int kThreads = 128;
+
+int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+}  // namespace
+
+extern "C" int tarl_segment_sum(const float* data, const int* order,
+                                const int* offsets, int n, float* out,
+                                void* stream) {
+  if (n == 0) return 0;
+  seg_sum_kernel<<<blocks_for(n), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(data, order, offsets,
+                                                        n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tarl_segment_max(const float* data, const int* order,
+                                const int* offsets, int n, float* out,
+                                void* stream) {
+  if (n == 0) return 0;
+  seg_max_kernel<<<blocks_for(n), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(data, order, offsets,
+                                                        n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tarl_segment_argmax(const float* data, const int* order,
+                                   const int* offsets, int n, int e_total,
+                                   int* out, void* stream) {
+  if (n == 0) return 0;
+  seg_argmax_kernel<<<blocks_for(n), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      data, order, offsets, n, e_total, out);
+  return static_cast<int>(cudaGetLastError());
+}

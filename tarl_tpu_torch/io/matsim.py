@@ -126,7 +126,7 @@ def parse_network_xml(file_path: str) -> ParsedNetwork:
 def load_network(
     file_path: str,
     physics: PhysicsConfig = DEFAULT_PHYSICS,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Network:
     """MATSim network file -> :class:`Network` on ``device``."""
     parsed = parse_network_xml(file_path)
@@ -305,7 +305,7 @@ def parse_population_xml(
 def load_population(
     population_path: str,
     network_path: str,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> tuple[AgentState, PopulationStats]:
     """MATSim population + network files -> :class:`AgentState`."""
     from ..schema import agents_from_matrix

@@ -13,8 +13,9 @@ rotations on the TPU, and the roll-friendly renumbering search that served
 them.  The port keeps the identity road order (``road_order = arange(R)``,
 ``renumbered = False``), which is what the reference builds for every grid.
 The primal routing tables (``road_to``, ``inter_out_road``,
-``inter_out_ok``) are built as the reference builds them; the dual
-neighbour table (``nbr``, ``nbr_ok``) waits for the dual routing backend.
+``inter_out_ok``) and the dual neighbour table (``nbr``, ``nbr_ok``, read
+by the all-pairs relaxation of the learned policy's distance prior) are
+built as the reference builds them.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_PHYSICS, PhysicsConfig
+from .device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +68,11 @@ class Network:
     choice_ok: torch.Tensor            # bool[KC, N]
     choice_dst_tab: torch.Tensor       # int32[KC, N]
 
+    # Padded out-neighbour table over the full edges (slot order = edge
+    # order; padding slots hold the node itself and are masked invalid).
+    nbr: torch.Tensor                  # int32[N, D]
+    nbr_ok: torch.Tensor               # bool[N, D]
+
     # Primal (intersection) routing graph; slot order is increasing road
     # id, so argmin tie-breaks agree with the reference.
     road_to: torch.Tensor              # int32[R] — intersection at the road's head
@@ -86,6 +93,14 @@ class Network:
     @property
     def device(self) -> torch.device:
         return self.capacity.device
+
+    def entry_cost(self) -> torch.Tensor:
+        """Free-flow cost of entering each node: ``fftt`` for roads, 0 for
+        SRC/DEST nodes.  float32[N]."""
+        cost = torch.zeros((self.num_nodes,), dtype=torch.float32,
+                           device=self.device)
+        cost[:self.num_roads] = self.free_flow
+        return cost
 
     def to(self, device: torch.device | str) -> "Network":
         """The same network with every tensor on ``device``."""
@@ -124,12 +139,13 @@ def build_network(
     physics: PhysicsConfig = DEFAULT_PHYSICS,
     inter_x: np.ndarray | None = None,
     inter_y: np.ndarray | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Network:
     """Construct a :class:`Network` from raw per-link attributes: cell
     capacity ``int(length*lanes/cell) + 1``, ``Nmax = max(capacity) + 1``,
     turn edges with capacity-share weights normalised per upstream link,
     weight-0 SRC->road and road->DEST edges, and the congestion constants."""
+    device = resolve_device(device)
     length = np.asarray(length, dtype=np.float64)
     max_flow = np.asarray(max_flow, dtype=np.float64)
     free_speed = np.asarray(free_speed, dtype=np.float64)
@@ -171,6 +187,23 @@ def build_network(
         f_dst.append(dest_idx)
         f_w.append(0.0)
 
+    e_src_np = np.asarray(e_src, dtype=np.int32)
+    e_dst_np = np.asarray(e_dst, dtype=np.int32)
+    f_src_np = np.asarray(f_src, dtype=np.int32)
+    f_dst_np = np.asarray(f_dst, dtype=np.int32)
+    choice_mask = f_dst_np < num_roads
+    num_nodes = num_roads + 2 * num_intersections
+
+    degree = np.bincount(f_src_np, minlength=num_nodes)
+    max_deg = max(int(degree.max()), 1)
+    nbr = np.tile(np.arange(num_nodes, dtype=np.int32)[:, None], (1, max_deg))
+    nbr_ok = np.zeros((num_nodes, max_deg), dtype=bool)
+    slot = np.zeros(num_nodes, dtype=np.int64)
+    for u, v in zip(f_src_np, f_dst_np):
+        nbr[u, slot[u]] = v
+        nbr_ok[u, slot[u]] = True
+        slot[u] += 1
+
     max_out = max(1, max((len(o) for o in outgoing), default=1))
     inter_out = np.zeros((num_intersections, max_out), dtype=np.int32)
     inter_ok = np.zeros((num_intersections, max_out), dtype=bool)
@@ -183,12 +216,6 @@ def build_network(
         capacity + physics.congestion_softening - critical
     )
 
-    e_src_np = np.asarray(e_src, dtype=np.int32)
-    e_dst_np = np.asarray(e_dst, dtype=np.int32)
-    f_src_np = np.asarray(f_src, dtype=np.int32)
-    f_dst_np = np.asarray(f_dst, dtype=np.int32)
-    choice_mask = f_dst_np < num_roads
-    num_nodes = num_roads + 2 * num_intersections
 
     e_w_np = np.asarray(e_w, dtype=np.float32)
     in_tab, in_tab_ok = _edge_table(e_dst_np, num_roads)
@@ -238,6 +265,8 @@ def build_network(
         out_dst_tab=t(out_dst, i32),
         choice_ok=t(ch_tab_ok, bool),
         choice_dst_tab=t(ch_dst, i32),
+        nbr=t(nbr, i32),
+        nbr_ok=t(nbr_ok, bool),
         road_to=t(to_inter, i32),
         inter_out_road=t(inter_out, i32),
         inter_out_ok=t(inter_ok, bool),

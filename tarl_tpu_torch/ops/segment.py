@@ -1,0 +1,332 @@
+"""Segment reductions over edge lists (ports ``tarl_tpu/ops/segment.py``:
+``segment_sum``, ``segment_max``, ``segment_min``, ``segment_argmax``,
+``segment_softmax``, ``segment_log_softmax`` and ``segment_sample``).
+
+Float32 1-D ``segment_sum``, ``segment_max`` and ``segment_argmax`` are the
+TPU kernels K9-K11 of ``tarl_tpu/ops/pallas_segment.py``.  On a CUDA
+tensor they launch the hand-written kernels of ``csrc/segment.cu`` (nvcc
+into a shared library with a C interface, loaded with ctypes) at any
+segment count; on a CPU tensor they take the plain PyTorch versions
+(``*_plain``), which compute the same function.  They never fall back from
+a kernel to its plain version.  Other dtypes and ranks, and
+``segment_min``, are plain PyTorch on every device, as the reference leaves
+them to XLA.
+
+Semantics follow the TPU kernels: an id outside ``[0, num_segments)`` is
+dropped; an empty segment's max is ``NEG_LARGE`` (JAX's XLA path gives
+``-inf``; callers only read non-empty segments); argmax treats a
+non-finite score as ``NEG_LARGE``, keeps the lowest index among ties and
+returns ``len(scores)`` for a segment with no finite score above
+``NEG_LARGE``; a segment holding a NaN has max NaN.
+
+The kernels read a :class:`SegmentLayout`, a CSR of the id vector built
+once per vector (for the learned policy, once per ``network.full_src``);
+callers that repeat an id vector pass its layout, and a wrapper given a
+layout raises unless it was built from the very id tensor it is given.  The composite ops
+(softmax, log-softmax, sample) take ``ops``: :data:`KERNELS` by default,
+:data:`PLAIN` to force the plain versions on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, NamedTuple
+
+import torch
+
+from .._build import check_tensor
+from ..core import rng
+
+# The TPU kernels' empty-segment value, as a float32.
+NEG_LARGE = float(torch.tensor(-3.4e38, dtype=torch.float32))
+
+# Kernel launches through the wrappers (one per call on a CUDA tensor);
+# the plain versions do not count.
+SUM_LAUNCHES = 0
+MAX_LAUNCHES = 0
+ARGMAX_LAUNCHES = 0
+
+_FNS = None
+
+
+def reset_launches() -> None:
+    global SUM_LAUNCHES, MAX_LAUNCHES, ARGMAX_LAUNCHES
+    SUM_LAUNCHES = MAX_LAUNCHES = ARGMAX_LAUNCHES = 0
+
+
+class SegmentLayout(NamedTuple):
+    """CSR of an id vector: segment ``s`` holds the elements
+    ``order[offsets[s]:offsets[s + 1]]``, in ascending element order.
+    Elements with an out-of-range id sort past ``offsets[N]``.  ``ids``
+    is the id tensor it was built from."""
+
+    offsets: torch.Tensor  # int32[N + 1]
+    order: torch.Tensor    # int32[E]
+    num_segments: int
+    ids: torch.Tensor
+
+
+def segment_layout(segment_ids: torch.Tensor,
+                   num_segments: int) -> SegmentLayout:
+    """The :class:`SegmentLayout` of ``segment_ids`` (on its device, with
+    no host read)."""
+    key = _drop_key(segment_ids, num_segments)
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=num_segments + 1)[:num_segments]
+    offsets = torch.zeros(num_segments + 1, dtype=torch.int64,
+                          device=key.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return SegmentLayout(offsets.to(torch.int32), order.to(torch.int32),
+                         num_segments, segment_ids)
+
+
+def _drop_key(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """int64 ids with every out-of-range id sent to the spare segment
+    ``num_segments``."""
+    ids = segment_ids.to(torch.int64)
+    ok = (ids >= 0) & (ids < num_segments)
+    return torch.where(ok, ids, num_segments)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (CPU path; the kernels' references on the card)
+# ---------------------------------------------------------------------------
+def segment_sum_plain(data, segment_ids, num_segments: int,
+                      layout=None):
+    """Scatter-add with out-of-range ids dropped.  On a CPU tensor the adds
+    run in element order, as the kernel's do."""
+    key = _drop_key(segment_ids, num_segments)
+    out = torch.zeros((num_segments + 1,) + tuple(data.shape[1:]),
+                      dtype=data.dtype, device=data.device)
+    return out.index_add_(0, key, data)[:num_segments]
+
+
+def segment_max_plain(data, segment_ids, num_segments: int,
+                      layout=None):
+    """Max per segment from ``NEG_LARGE``; NaN where the segment holds
+    one."""
+    key = _drop_key(segment_ids, num_segments)
+    isnan = torch.isnan(data)
+    out = torch.full((num_segments + 1,), NEG_LARGE, dtype=torch.float32,
+                     device=data.device)
+    out.scatter_reduce_(0, key, torch.where(isnan, NEG_LARGE, data), "amax")
+    nans = torch.zeros(num_segments + 1, dtype=torch.int32,
+                       device=data.device).index_add_(
+        0, key, isnan.to(torch.int32))
+    return torch.where(nans > 0, float("nan"), out)[:num_segments]
+
+
+def segment_argmax_plain(scores, segment_ids, num_segments: int,
+                         layout=None):
+    """Lowest index of the segment max over finite scores above
+    ``NEG_LARGE``; ``len(scores)`` where there is none.  int32."""
+    e = scores.shape[0]
+    key = _drop_key(segment_ids, num_segments)
+    s = torch.where(torch.isfinite(scores), scores, NEG_LARGE)
+    best = torch.full((num_segments + 1,), NEG_LARGE, dtype=scores.dtype,
+                      device=scores.device)
+    best.scatter_reduce_(0, key, s, "amax")
+    is_best = (s == best[key]) & (s > NEG_LARGE)
+    idx = torch.where(is_best, torch.arange(e, device=scores.device), e)
+    arg = torch.full((num_segments + 1,), e, dtype=torch.int64,
+                     device=scores.device)
+    arg.scatter_reduce_(0, key, idx, "amin")
+    return arg[:num_segments].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Kernels
+# ---------------------------------------------------------------------------
+def _kernel_fns():
+    global _FNS
+    if _FNS is None:
+        from .._build import load_library
+
+        lib = load_library("segment")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.tarl_segment_sum, lib.tarl_segment_max):
+            fn.argtypes = [p, p, p, i, p, p]
+            fn.restype = ctypes.c_int
+        lib.tarl_segment_argmax.argtypes = [p, p, p, i, i, p, p]
+        lib.tarl_segment_argmax.restype = ctypes.c_int
+        _FNS = (lib.tarl_segment_sum, lib.tarl_segment_max,
+                lib.tarl_segment_argmax)
+    return _FNS
+
+
+def _kernel_ok(data) -> bool:
+    return data.dim() == 1 and data.dtype == torch.float32
+
+
+def _route(name: str, data, segment_ids, num_segments, layout):
+    """``None`` for the plain path (CPU), else the checked kernel inputs
+    ``(data, layout)``; raises on a device that is neither, and on a
+    layout built from another id tensor (on every device, so that the CPU
+    and the card reject the same calls)."""
+    if layout is not None and layout.ids is not segment_ids:
+        raise ValueError(f"{name}: the layout was built from another id "
+                         "tensor")
+    dev = data.device
+    if dev.type == "cpu":
+        return None
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if layout is None:
+        layout = segment_layout(segment_ids, num_segments)
+    e = data.shape[0]
+    check_tensor("data", data, torch.float32, (e,), dev)
+    check_tensor("segment_ids", segment_ids, segment_ids.dtype, (e,), dev)
+    check_tensor("offsets", layout.offsets, torch.int32, (num_segments + 1,),
+                 dev)
+    check_tensor("order", layout.order, torch.int32, (e,), dev)
+    if layout.num_segments != num_segments:
+        raise ValueError(f"{name}: layout has {layout.num_segments} "
+                         f"segments, expected {num_segments}")
+    return data, layout
+
+
+def _check_err(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def segment_sum(data, segment_ids, num_segments: int,
+                layout: SegmentLayout | None = None):
+    """Sum per segment (K9 for float32 1-D data on a CUDA tensor)."""
+    global SUM_LAUNCHES
+    if not _kernel_ok(data):
+        return segment_sum_plain(data, segment_ids, num_segments)
+    routed = _route("segment_sum", data, segment_ids, num_segments, layout)
+    if routed is None:
+        return segment_sum_plain(data, segment_ids, num_segments)
+    data, layout = routed
+    out = torch.empty(num_segments, dtype=torch.float32, device=data.device)
+    _check_err("segment_sum", _kernel_fns()[0](
+        data.data_ptr(), layout.order.data_ptr(), layout.offsets.data_ptr(),
+        num_segments, out.data_ptr(), _stream(data.device)))
+    SUM_LAUNCHES += 1
+    return out
+
+
+def segment_max(data, segment_ids, num_segments: int,
+                layout: SegmentLayout | None = None):
+    """Max per segment, ``NEG_LARGE`` when empty (K10 for float32 1-D
+    data on a CUDA tensor).  Other dtypes and ranks: the reduction with the
+    dtype's lowest value for an empty segment, as XLA's."""
+    global MAX_LAUNCHES
+    if not _kernel_ok(data):
+        return _reduce(data, segment_ids, num_segments, "amax")
+    routed = _route("segment_max", data, segment_ids, num_segments, layout)
+    if routed is None:
+        return segment_max_plain(data, segment_ids, num_segments)
+    data, layout = routed
+    out = torch.empty(num_segments, dtype=torch.float32, device=data.device)
+    _check_err("segment_max", _kernel_fns()[1](
+        data.data_ptr(), layout.order.data_ptr(), layout.offsets.data_ptr(),
+        num_segments, out.data_ptr(), _stream(data.device)))
+    MAX_LAUNCHES += 1
+    return out
+
+
+def segment_argmax(scores, segment_ids, num_segments: int,
+                   layout: SegmentLayout | None = None):
+    """Lowest index of each segment's max score, ``len(scores)`` for a
+    segment without a finite one (K11 on a CUDA tensor).  int32."""
+    global ARGMAX_LAUNCHES
+    if scores.dim() != 1:
+        raise ValueError(f"segment_argmax takes 1-D scores, got rank "
+                         f"{scores.dim()}")
+    if not _kernel_ok(scores):
+        return segment_argmax_plain(scores, segment_ids, num_segments)
+    routed = _route("segment_argmax", scores, segment_ids, num_segments,
+                    layout)
+    if routed is None:
+        return segment_argmax_plain(scores, segment_ids, num_segments)
+    scores, layout = routed
+    out = torch.empty(num_segments, dtype=torch.int32, device=scores.device)
+    _check_err("segment_argmax", _kernel_fns()[2](
+        scores.data_ptr(), layout.order.data_ptr(), layout.offsets.data_ptr(),
+        num_segments, scores.shape[0], out.data_ptr(),
+        _stream(scores.device)))
+    ARGMAX_LAUNCHES += 1
+    return out
+
+
+def _identity(dtype, reduce: str):
+    if dtype.is_floating_point:
+        return float("inf") if reduce == "amin" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if reduce == "amin" else info.min
+
+
+def _reduce(data, segment_ids, num_segments: int, reduce: str):
+    """XLA's segment min/max: out-of-range ids dropped, an empty segment
+    holds the reduction's identity."""
+    key = _drop_key(segment_ids, num_segments)
+    shape = (num_segments + 1,) + tuple(data.shape[1:])
+    out = torch.full(shape, _identity(data.dtype, reduce), dtype=data.dtype,
+                     device=data.device)
+    index = key.reshape((-1,) + (1,) * (data.dim() - 1)).expand(data.shape)
+    out.scatter_reduce_(0, index, data, reduce, include_self=False)
+    return out[:num_segments]
+
+
+def segment_min(data, segment_ids, num_segments: int):
+    """Min per segment (plain on every device; +inf or the dtype's max for
+    an empty segment)."""
+    return _reduce(data, segment_ids, num_segments, "amin")
+
+
+class SegmentOps(NamedTuple):
+    """The sum, max and argmax that the composite ops below call:
+    :data:`KERNELS` (the wrappers) or :data:`PLAIN` (the plain versions on
+    any device, the override for comparing a run with the kernels'
+    against one without them).  Each takes ``(data, segment_ids,
+    num_segments, layout)``; the plain versions ignore the layout."""
+
+    sum: Callable
+    max: Callable
+    argmax: Callable
+
+
+KERNELS = SegmentOps(segment_sum, segment_max, segment_argmax)
+PLAIN = SegmentOps(segment_sum_plain, segment_max_plain, segment_argmax_plain)
+
+
+def _shifted(logits, segment_ids, num_segments, layout, ops):
+    seg_max = ops.max(logits, segment_ids, num_segments, layout)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    return logits - seg_max[segment_ids.long()]
+
+
+def segment_softmax(logits, segment_ids, num_segments: int,
+                    layout: SegmentLayout | None = None,
+                    ops: SegmentOps = KERNELS):
+    """Softmax within each segment, stabilised by the segment max."""
+    expd = torch.exp(_shifted(logits, segment_ids, num_segments, layout, ops))
+    denom = ops.sum(expd, segment_ids, num_segments, layout)
+    return expd / torch.clamp(denom[segment_ids.long()], min=1e-30)
+
+
+def segment_log_softmax(logits, segment_ids, num_segments: int,
+                        layout: SegmentLayout | None = None,
+                        ops: SegmentOps = KERNELS):
+    shifted = _shifted(logits, segment_ids, num_segments, layout, ops)
+    denom = ops.sum(torch.exp(shifted), segment_ids, num_segments, layout)
+    return shifted - torch.log(torch.clamp(denom, min=1e-30))[
+        segment_ids.long()]
+
+
+def segment_sample(key: rng.Key, logits, segment_ids, num_segments: int,
+                   layout: SegmentLayout | None = None,
+                   ops: SegmentOps = KERNELS):
+    """One element per segment with probability ``softmax(logits)`` by the
+    Gumbel-max trick; the noise is ``jax.random.gumbel(key, logits.shape)``
+    (threefry, bit for bit but for ``log``'s last ulp).  ``len(logits)``
+    for a segment with no finite logit.  int32."""
+    g = rng.gumbel(key, tuple(logits.shape), logits.device)
+    scores = torch.where(torch.isfinite(logits), logits + g, float("-inf"))
+    return ops.argmax(scores, segment_ids, num_segments, layout)

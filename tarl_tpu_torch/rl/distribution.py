@@ -1,0 +1,91 @@
+"""Graph action distribution: one outgoing edge per source node, jointly
+(ports ``tarl_tpu/rl/distribution.py``).
+
+A :class:`GraphDistribution` over multi-hot edge actions groups the edges
+by source node; every method runs on unbatched ``logits[E]``.  Sampling is
+the per-segment Gumbel-max of ``ops.segment``, so ``sample`` and ``mode``
+launch K11 and ``log_probs`` K10 and K9 on the card.  It carries the
+:class:`~tarl_tpu_torch.ops.segment.SegmentLayout` of ``edge_src``, built
+once by its owner, and the segment ops it calls (``ops.segment.KERNELS``
+unless the caller forces ``PLAIN``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..core.rng import Key
+from ..ops.scatter import scatter_set
+from ..ops.segment import (
+    KERNELS,
+    SegmentLayout,
+    SegmentOps,
+    segment_log_softmax,
+    segment_sample,
+    segment_softmax,
+)
+
+
+class GraphDistribution(NamedTuple):
+    """Distribution over multi-hot edge actions grouped by source node.
+
+    ``logits`` float32[E]; ``edge_src`` int32[E], the grouping key;
+    ``num_nodes`` the segment count; ``temperature`` the logit scale."""
+
+    logits: torch.Tensor
+    edge_src: torch.Tensor
+    num_nodes: int
+    temperature: float = 1.0
+    layout: Optional[SegmentLayout] = None
+    ops: SegmentOps = KERNELS
+
+    @property
+    def _scaled(self) -> torch.Tensor:
+        return self.logits / self.temperature
+
+    def probs(self) -> torch.Tensor:
+        """Per-edge probability within its source node's group."""
+        return segment_softmax(self._scaled, self.edge_src, self.num_nodes,
+                               self.layout, self.ops)
+
+    def log_probs(self) -> torch.Tensor:
+        return segment_log_softmax(self._scaled, self.edge_src,
+                                   self.num_nodes, self.layout, self.ops)
+
+    def _hot(self, chosen: torch.Tensor) -> torch.Tensor:
+        e = self.logits.shape[0]
+        hot = torch.zeros(e, dtype=torch.bool, device=self.logits.device)
+        return scatter_set(hot, chosen, True, chosen < e)
+
+    def sample(self, key: Key) -> torch.Tensor:
+        """Multi-hot bool[E]: one edge per node that has outgoing edges."""
+        return self._hot(segment_sample(key, self._scaled, self.edge_src,
+                                        self.num_nodes, self.layout,
+                                        self.ops))
+
+    def mode(self) -> torch.Tensor:
+        """Deterministic multi-hot: the per-group argmax."""
+        return self._hot(self.ops.argmax(self._scaled, self.edge_src,
+                                         self.num_nodes, self.layout))
+
+    def log_prob(self, action: torch.Tensor) -> torch.Tensor:
+        """Joint log-probability of a multi-hot action; ``-inf`` unless
+        every group with outgoing edges activates exactly one edge."""
+        act = action.to(torch.float32)
+        lp = self.log_probs()
+        per_group = self.ops.sum(act, self.edge_src, self.num_nodes,
+                                 self.layout)
+        group_sizes = self.ops.sum(torch.ones_like(act), self.edge_src,
+                                   self.num_nodes, self.layout)
+        valid = torch.all(torch.where(group_sizes > 0, per_group == 1.0,
+                                      per_group == 0.0))
+        # Mask by activation: a chosen zero-probability edge gives -inf.
+        total = torch.sum(torch.where(act > 0, lp, 0.0))
+        return torch.where(valid, total, float("-inf"))
+
+    def entropy(self) -> torch.Tensor:
+        """Sum of the per-group categorical entropies."""
+        p = self.probs()
+        lp = self.log_probs()
+        return torch.sum(torch.where(p > 0, -p * lp, 0.0))

@@ -24,7 +24,13 @@ Left out: ``primal_delta_buckets``, ``epilogue_slot_tables``,
 ``TARL_*`` environment gate.  They choose between bitwise-identical
 evaluations of the same relaxation on the TPU (rotations against row
 gathers, tile widths, row blocks); the GPU kernels gather directly.  The
-dual-graph tables (``all_pairs_next_hop*``) wait for the dual backend.
+edge-list form ``all_pairs_next_hop`` waits for the dual backend.
+
+:func:`all_pairs_next_hop_nbr` is the dual-graph all-pairs relaxation over
+the padded neighbour table, plain PyTorch (the reference has no kernel for
+it): it gives the learned policy's distance prior and the progress reward's
+potential.  It reads its convergence flag every :data:`CHECK_EVERY`
+sweeps.
 """
 from __future__ import annotations
 
@@ -59,6 +65,55 @@ def reset_launches() -> None:
     global LAUNCHES, NEXT_ROAD_LAUNCHES
     LAUNCHES = 0
     NEXT_ROAD_LAUNCHES = 0
+
+
+# --- dual all-pairs relaxation ----------------------------------------------
+
+def all_pairs_next_hop_nbr(
+    nbr: torch.Tensor,         # int32[N, D] padded out-neighbour table
+    nbr_ok: torch.Tensor,      # bool[N, D]
+    entry_cost: torch.Tensor,  # float32[N]
+    max_iters: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dist[N, N], next_hop[N, N])`` over all ordered node pairs by
+    Jacobi min-plus sweeps over the neighbour table: ``dist[v, d]`` is the
+    cheapest v -> d cost (the sum of the entry costs of every node after
+    v), ``next_hop[v, d]`` its first node (the lowest slot among ties),
+    ``v`` itself on the diagonal and -1 where d is unreachable.
+
+    At most ``max_iters`` sweeps (``N - 1`` when None), stopping once a
+    sweep changes nothing; the flag is read on the host every
+    :data:`CHECK_EVERY` sweeps, and the sweeps past the fixpoint change
+    nothing, so the tables equal the reference's bit for bit."""
+    n, d = nbr.shape
+    dev = nbr.device
+    iters = (n - 1) if max_iters is None else max_iters
+    nbr_l = nbr.long()
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    dist = torch.full((n, n), BIG, dtype=torch.float32, device=dev)
+    dist.fill_diagonal_(0.0)
+    w = torch.where(nbr_ok, entry_cost[nbr_l], BIG)
+
+    done = 0
+    while done < iters:
+        n_sweeps = min(CHECK_EVERY, iters - done)
+        for k in range(n_sweeps):
+            new = dist
+            for slot in range(d):
+                new = torch.minimum(new, w[:, slot][:, None]
+                                    + dist[nbr_l[:, slot]])
+            if k == n_sweeps - 1:
+                changed = torch.any(new < dist)
+            dist = new
+        done += n_sweeps
+        if not host_read(changed)[0]:
+            break
+
+    cand = w[:, :, None] + dist[nbr_l]                    # [N, D, N]
+    hop = nbr.gather(1, torch.argmin(cand, dim=1))       # first slot on ties
+    next_hop = torch.where((dist < BIG) & ~eye, hop, -1)
+    iota = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+    return dist, torch.where(eye, iota, next_hop).to(torch.int32)
 
 
 # --- costs -------------------------------------------------------------------

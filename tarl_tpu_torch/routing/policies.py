@@ -1,5 +1,5 @@
 """Route-choice policies (ports ``tarl_tpu/routing/policies.py``:
-``random_choice``, the primal shortest-path policy —
+``random_choice``, ``ExternalChoice``, the primal shortest-path policy —
 ``make_shortest_path_choice_primal``, ``primal_table_init``,
 ``primal_entry_lookup`` — and its destination-restricted form,
 ``make_primal_dest_parts``).
@@ -26,6 +26,8 @@ destinations.  The dual-graph policy (``make_shortest_path_choice``,
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -36,6 +38,7 @@ from ..config import (
     RoutingConfig,
 )
 from ..core.rng import choice_gumbel, split
+from ..ops.scatter import scatter_set
 from .bellman_ford import (
     BIG,
     marginal_road_costs,
@@ -48,6 +51,21 @@ from .bellman_ford import (
 
 # A refresh_rate at or above this never refreshes (free-flow table only).
 _NEVER_REFRESH = 10 ** 9
+
+
+class ExternalChoice(NamedTuple):
+    """Apply an externally supplied multi-hot action over the full edges
+    (the RL environment's choice): every active edge (u -> v) sets
+    ``selected_road[u] = v``.  A valid action activates at most one edge
+    per node."""
+
+    action: torch.Tensor  # bool[Ef]
+
+    def __call__(self, state, network):
+        act = self.action.to(torch.bool)
+        sel = scatter_set(state.selected_road, network.full_src,
+                          network.full_dst, act)
+        return state._replace(selected_road=sel), None
 
 
 def random_choice(state, network, gumbel: torch.Tensor | None = None):

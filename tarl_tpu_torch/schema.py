@@ -1,9 +1,12 @@
 """Agent-row column map (ports ``tarl_tpu/schema.py``: the
-``AgentFeatureHelpers`` map and ``agents_from_matrix``)."""
+``AgentFeatureHelpers`` map, ``agent_features_matrix`` and
+``agents_from_matrix``)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .device import resolve_device
 
 
 class AgentFeatureHelpers:
@@ -23,12 +26,13 @@ class AgentFeatureHelpers:
         return 9
 
 
-def agents_from_matrix(mat, device: torch.device | str = "cpu"):
+def agents_from_matrix(mat, device: torch.device | str | None = None):
     """Build an :class:`~tarl_tpu_torch.state.AgentState` on ``device`` from
     an ``[A, 9]`` float matrix; ``inserted`` is rebuilt from ON_WAY | DONE."""
     from .state import AgentState
 
     m = np.asarray(mat, dtype=np.float32)
+    device = resolve_device(device)
     h = AgentFeatureHelpers
 
     def col(c, dtype):
@@ -48,3 +52,19 @@ def agents_from_matrix(mat, device: torch.device | str = "cpu"):
             (m[:, h.ON_WAY] > 0) | (m[:, h.DONE] > 0), device=device
         ),
     )
+
+
+def agent_features_matrix(agents) -> torch.Tensor:
+    """The reference's ``[A, 9]`` float32 agent rows, on the agents'
+    device."""
+    return torch.stack([
+        agents.origin.to(torch.float32),
+        agents.dest.to(torch.float32),
+        agents.departure,
+        agents.arrival,
+        agents.age,
+        agents.sex,
+        agents.employed,
+        agents.on_way.to(torch.float32),
+        agents.done.to(torch.float32),
+    ], dim=1)

@@ -24,6 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 
 class RoadState(NamedTuple):
     """Per-road FIFO queues as ring buffers.  Agent id 0 is the sentinel
@@ -66,7 +68,8 @@ class RoadState(NamedTuple):
 
 
 def init_road_state(num_roads: int, nmax: int,
-                    device: torch.device | str = "cpu") -> RoadState:
+                    device: torch.device | str | None = None) -> RoadState:
+    device = resolve_device(device)
     def z(dtype):
         return torch.zeros((num_roads, nmax), dtype=dtype, device=device)
 
@@ -118,7 +121,8 @@ def sort_agents_by_departure(agents: AgentState) -> AgentState:
 
 def init_agent_state(origin, dest, departure, age=None, sex=None,
                      employed=None,
-                     device: torch.device | str = "cpu") -> AgentState:
+                     device: torch.device | str | None = None) -> AgentState:
+    device = resolve_device(device)
     origin = torch.as_tensor(np.asarray(origin, np.int32), device=device)
     n = origin.shape[0]
 
@@ -154,7 +158,9 @@ class BacklogState(NamedTuple):
 
 
 def init_backlog_state(capacity: int, num_srcs: int,
-                       device: torch.device | str = "cpu") -> BacklogState:
+                       device: torch.device | str | None = None
+                       ) -> BacklogState:
+    device = resolve_device(device)
     return BacklogState(
         qpack=torch.zeros((num_srcs, capacity, 2), dtype=torch.int32,
                           device=device),
@@ -173,7 +179,8 @@ class MetricState(NamedTuple):
 
 
 def init_metric_state(num_roads: int, num_hours: int,
-                      device: torch.device | str = "cpu") -> MetricState:
+                      device: torch.device | str | None = None) -> MetricState:
+    device = resolve_device(device)
     return MetricState(
         hourly_counts=torch.zeros((num_hours, num_roads), dtype=torch.int32,
                                   device=device),

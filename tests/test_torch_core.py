@@ -50,7 +50,8 @@ torch.set_num_threads(1)
 
 
 def _port(ref_state, pnet):
-    return convert.sim_state_from_numpy(convert.to_numpy(ref_state))
+    return convert.sim_state_from_numpy(convert.to_numpy(ref_state),
+                                        device="cpu")
 
 
 def _np(x):

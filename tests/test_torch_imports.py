@@ -1,7 +1,9 @@
 """The port's package boundary and its kernel wrapper, on the CPU.
 
-* ``tarl_tpu_torch`` and every submodule import with ``jax``, ``flax`` and
-  ``tarl_tpu`` blocked.
+* ``tarl_tpu_torch`` and every submodule import with ``jax``, ``flax``,
+  ``optax``, ``orbax`` and ``tarl_tpu`` blocked.
+* No public function of the port places tensors on the CPU by default:
+  every ``device`` parameter defaults to ``None``, the card.
 * The fused-winner and primal-relax wrappers send CPU tensors to their
   plain versions (without counting a launch) and raise on inputs the
   kernels would not take.
@@ -36,7 +38,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_imports_without_jax():
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
-        for name in ("jax", "jaxlib", "flax", "tarl_tpu"):
+        for name in ("jax", "jaxlib", "flax", "optax", "orbax",
+                     "orbax.checkpoint", "tarl_tpu"):
             sys.modules[name] = None
         import tarl_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
@@ -46,13 +49,54 @@ def test_imports_without_jax():
         assert "tarl_tpu_torch.core.fused_winner" in names
         assert "tarl_tpu_torch.routing.bellman_ford" in names
         assert "tarl_tpu_torch.simulator" in names
+        assert "tarl_tpu_torch.ops.segment" in names
+        assert "tarl_tpu_torch.rl.ppo" in names
         assert sys.modules["jax"] is None
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 22
+
+
+def test_no_public_function_defaults_to_the_cpu():
+    import importlib
+    import inspect
+    import pkgutil
+
+    from tarl_tpu_torch import convert, network, schema
+    from tarl_tpu_torch.device import resolve_device
+    from tarl_tpu_torch.io import matsim
+
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    listed = [matsim.load_network, matsim.load_population,
+              network.build_network, convert.network_from_numpy,
+              convert.agents_from_numpy, convert.sim_state_from_numpy,
+              convert.mpnn_params_from_numpy, schema.agents_from_matrix]
+    for fn in listed:
+        assert inspect.signature(fn).parameters["device"].default is None, \
+            fn.__qualname__
+    seen = []
+    for info in pkgutil.walk_packages(tarl_tpu_torch.__path__,
+                                      "tarl_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for obj in vars(mod).values():
+            if not (inspect.isfunction(obj) and obj.__module__ == info.name):
+                continue
+            param = inspect.signature(obj).parameters.get("device")
+            if param is not None and param.default is not param.empty:
+                seen.append(obj.__qualname__)
+                assert param.default is None, f"{info.name}.{obj.__qualname__}"
+    assert len(seen) >= len(listed) + 4
+    # Called without a device, an entry point asks for the card.
+    mat = np.zeros((2, 9), np.float32)
+    if torch.cuda.is_available():
+        assert schema.agents_from_matrix(mat).origin.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            schema.agents_from_matrix(mat)
 
 
 @pytest.fixture(scope="module")
@@ -60,9 +104,9 @@ def grid4(tmp_path_factory):
     """A Grid4x4 network with a random ring state and selections."""
     base = ensure_scenario(str(tmp_path_factory.mktemp("torch_imp")),
                            "Grid4x4")
-    net = load_network(os.path.join(base, "network"))
+    net = load_network(os.path.join(base, "network"), device="cpu")
     agents, _ = load_population(os.path.join(base, "population"),
-                                os.path.join(base, "network"))
+                                os.path.join(base, "network"), device="cpu")
     state = init_sim_state(net, agents)
     r, nmax = net.num_roads, net.nmax
     g = np.random.default_rng(0)
@@ -77,7 +121,8 @@ def grid4(tmp_path_factory):
         head=torch.as_tensor(g.integers(0, nmax, r).astype(np.int32)),
         count=count,
     )
-    gumbel = rng.gumbel(rng.prng_key(4), tuple(net.in_src_tab.shape))
+    gumbel = rng.gumbel(rng.prng_key(4), tuple(net.in_src_tab.shape),
+                        "cpu")
     return net, road, state.selected_road, gumbel
 
 
@@ -155,13 +200,14 @@ def test_kernel_matches_plain_on_card(grid4):
     road = RoadState(*(t.to(dev) for t in road))
     sel, gumbel = sel.to(dev), gumbel.to(dev)
     before = fused_winner.LAUNCHES
-    got = fused_winner.direction_confirm(road, sel, net, 21600.0, gumbel)
     want = fused_winner.direction_confirm_plain(road, sel, net, 21600.0,
                                                 gumbel)
-    torch.cuda.synchronize()
-    assert fused_winner.LAUNCHES == before + 1
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for clock in (21600.0, torch.tensor(21600.0, device=dev)):
+        got = fused_winner.direction_confirm(road, sel, net, clock, gumbel)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert fused_winner.LAUNCHES == before + 2
 
 
 @pytest.fixture(scope="module")

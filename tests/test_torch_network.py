@@ -45,8 +45,9 @@ def load_both(root: str, scenario: str):
     pop_path = os.path.join(base, "population")
     net = load_network(net_path)
     agents, _ = load_population(pop_path, net_path)
-    pnet = port_matsim.load_network(net_path)
-    pagents, _ = port_matsim.load_population(pop_path, net_path)
+    pnet = port_matsim.load_network(net_path, device="cpu")
+    pagents, _ = port_matsim.load_population(pop_path, net_path,
+                                             device="cpu")
     return net, agents, pnet, pagents
 
 
@@ -97,16 +98,19 @@ def test_convert_round_trip(scen_root, scenario):
     """Reference arrays carried across by ``convert`` rebuild the port's own
     objects, and ``to_numpy`` brings them back unchanged."""
     net, agents, pnet, pagents = load_both(scen_root, scenario)
-    carried = convert.network_from_numpy(convert.to_numpy(net))
+    carried = convert.network_from_numpy(convert.to_numpy(net),
+                                         device="cpu")
     assert_tree_equal(convert.to_numpy(pnet), convert.to_numpy(carried),
                       "network")
     assert carried.num_roads == pnet.num_roads
     assert carried.nmax == pnet.nmax
     assert carried.renumbered is False
-    again = convert.network_from_numpy(convert.to_numpy(pnet))
+    again = convert.network_from_numpy(convert.to_numpy(pnet),
+                                      device="cpu")
     assert_tree_equal(convert.to_numpy(pnet), convert.to_numpy(again),
                       "network round trip")
-    back = convert.agents_from_numpy(convert.to_numpy(agents))
+    back = convert.agents_from_numpy(convert.to_numpy(agents),
+                                     device="cpu")
     assert_tree_equal(convert.to_numpy(pagents), convert.to_numpy(back),
                       "agents")
 
@@ -117,4 +121,5 @@ def test_init_agent_state():
                 departure=r.random(7) * 1e4, age=r.random(7) * 80,
                 sex=r.integers(0, 2, 7).astype(float))
     assert_tree_equal(convert.to_numpy(init_agent_state(**cols)),
-                      convert.to_numpy(port_init_agent_state(**cols)))
+                      convert.to_numpy(port_init_agent_state(**cols,
+                                                             device="cpu")))

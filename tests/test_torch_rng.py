@@ -68,7 +68,7 @@ def test_split_chain_bitwise(seed, num):
 def test_random_bits_bitwise(shape):
     key = jax.random.PRNGKey(3)
     ref = np.asarray(jax.random.bits(key, shape, jnp.uint32))
-    got = rng.random_bits(_key(3), shape).numpy()
+    got = rng.random_bits(_key(3), shape, "cpu").numpy()
     np.testing.assert_array_equal(ref.astype(np.int64), got)
 
 
@@ -77,7 +77,7 @@ def test_gumbel_within_one_ulp(seed):
     key = jax.random.PRNGKey(seed)
     shape = (8, 4096)
     ref = np.asarray(jax.random.gumbel(key, shape, jnp.float32))
-    got = rng.gumbel(_key(seed), shape).numpy()
+    got = rng.gumbel(_key(seed), shape, "cpu").numpy()
     assert got.dtype == np.float32 and got.shape == shape
     scale = np.maximum(np.abs(ref), 1.0).astype(np.float32)
     ulp = np.spacing(scale).astype(np.float64)
@@ -91,7 +91,7 @@ def test_gumbel_within_one_ulp(seed):
 def test_uniform_before_the_logs_bitwise():
     """Everything before the two logs is op for op: the uniform ``u`` that
     feeds them matches JAX's transform bitwise."""
-    bits = rng.random_bits(_key(9), (4096,))
+    bits = rng.random_bits(_key(9), (4096,), "cpu")
     ref_bits = np.asarray(jax.random.bits(jax.random.PRNGKey(9), (4096,),
                                           jnp.uint32))
     fb = (ref_bits >> 9) | np.uint32(0x3F800000)
@@ -108,7 +108,7 @@ def test_uniform_before_the_logs_bitwise():
 @pytest.mark.parametrize("n", [257, 4096])
 def test_gumbel_at_positions_permuted(n):
     key = _key(11)
-    full = rng.gumbel(key, (n,))
+    full = rng.gumbel(key, (n,), "cpu")
     perm = np.random.RandomState(0).permutation(n)
     got = rng.gumbel_at_positions(key, torch.as_tensor(perm))
     np.testing.assert_array_equal(full.numpy()[perm], got.numpy())

@@ -114,7 +114,7 @@ def test_road_costs(grids, fn):
     count = rng.integers(0, cap + 1).astype(np.int32)
     road = init_road_state(net.num_roads, net.nmax)._replace(
         count=jnp.asarray(count))
-    proad = p_init_road_state(pnet.num_roads, pnet.nmax)._replace(
+    proad = p_init_road_state(pnet.num_roads, pnet.nmax, "cpu")._replace(
         count=torch.as_tensor(count))
     ref = getattr(bf, fn)(road, net)
     got = getattr(pbf, fn)(proad, pnet)
