@@ -10,7 +10,8 @@ with its plain version run outside those windows.
 
 1. Card: name and power limit (``nvidia-smi``), torch and CUDA versions;
    build the CUDA kernels from ``tarl_tpu_torch/csrc`` (``fused_winner``,
-   ``primal_relax`` and ``segment``, one nvcc each, started together),
+   ``primal_relax``, ``segment`` and ``fused_core``, one nvcc each, started
+   together),
    time the builds, and print each kernel's registers and spills
    (``nvcc -Xptxas -v``, run beside the builds).
 2. The headline episode: Grid16x16, 50,000 agents departing over 06:00-08:00,
@@ -41,8 +42,10 @@ with its plain version run outside those windows.
    and at 1 (K6's); uncapped from the cold start on Grid16x16 (the device
    path of ``primal_table_init``); Grid128x128 with 512 seeded
    destination columns at 8 sweeps in both modes (the size at which the
-   TPU needed the row-blocked K3/K5).  Times K2 mode and one sweep at
-   Grid64x64, plain, kernel, kernel, plain.
+   TPU needed the row-blocked K3/K5).  Times each TPU kernel's mode, plain,
+   kernel, kernel, plain, beside its bound: K2 mode, relax only (K4) and
+   one sweep (K6) at Grid64x64, K2 mode (K3) and relax only (K5) at
+   Grid128x128 with 512 destination columns.
 7. The row in context: the first 200 ticks of phase 5 again with the plain
    relax; the state at tick 200 must equal the kernel run's bitwise, and
    K2 must not run.  Prints ms/tick over ticks 20-200 of both runs.
@@ -75,9 +78,29 @@ with its plain version run outside those windows.
    with the kernels and once with the plain segment versions forced
    (``segment_ops=PLAIN``); the final states must be equal bitwise and
    K9-K11 must not run in the plain one.
-13. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
-   ``segment_sum``, ``segment_max``, ``segment_argmax``), the card's name
-   and power limit, then ``{"ok": true, "device": {...}}``.
+13. The fused-core headline: phase 2's episode with
+   ``SimConfig(fused_core=True)``, the per-downstream Gumbel-max over the
+   turn edges (K12, noise drawn in the kernel) in place of K1.  Asserts a
+   zero overflow monitor, conservation, arrivals, one K12 launch per tick
+   and no K1; prints agent-steps/s after the warm-up and the average travel
+   time beside phase 2's (the same law, another random stream).  Keeps
+   K12's inputs every 600 ticks.
+14. The fused core in context: the first 600 ticks of phase 13 again with
+   the plain K12 from the same key; the state at tick 600 must equal phase
+   13's bitwise, and K12 must not launch.
+15. K1 at the size of the TPU's column-tiled winner (K8a/K8b): a Grid256x256
+   network (R = 261,120) built from ``grid_scenario``'s link arrays with no
+   population; K1 against plain, bitwise on all five outputs, on 3 seeded
+   random road states; both timed, plain, kernel, kernel, plain.
+16. K12 against plain, bitwise on both payloads: on the inputs kept in
+   phase 13 and on seeded random cases (the Grid64x64 and Grid256x256 edge
+   lists, E = 63,752 and 1,041,416; random ids over 40,000 segments with a
+   third of them empty; -inf logits and exact ties in each).  Timed at the
+   headline shape and at Grid256x256, plain, kernel, kernel, plain.
+17. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
+   ``segment_sum``, ``segment_max``, ``segment_argmax``, ``fused_core``,
+   and the K8a/K8b rows covered by ``fused_winner``), the card's name and
+   power limit, then ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, where no CUDA device is available or
 the package is missing beside this script.  Scenario files are written
@@ -93,7 +116,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("fused_winner", "primal_relax", "segment")
+KERNELS = ("fused_winner", "primal_relax", "segment", "fused_core")
 HEADLINE_TICKS = 7200
 WARMUP_TICKS = 64
 CAPTURE_EVERY = 600
@@ -112,6 +135,13 @@ SCALE_STEPS = 1000
 LEARNED_CONTEXT_STEPS = 200
 CAPTURE_STEPS = 2000          # steps between captured segment inputs
 PRIOR_SCALE = 30.0            # train_rl_demo.PRIOR_SCALE
+K8_STATES = 3                 # random Grid256x256 road states for K1
+K8_GRID = 256                 # the TPU's tiled-winner record size
+# Operations of one K12 draw: the threefry block's 117 integer operations
+# (key schedule, 20 rounds of add, rotate and xor), the xor, shift and
+# scale of the uniform, and the Gumbel transform and compare, each log
+# counted as one.
+K12_OPS_PER_DRAW = 130
 WEIGHTS = os.path.join("tarl_tpu_torch", "weights", "grid8x8_mpnn_best.npz")
 # The H100 SXM data sheet's peaks (the card's own limit is printed beside).
 HBM_BYTES_PER_S = 3.35e12
@@ -526,6 +556,240 @@ def time_per_call(fn, args, calls: int = TIMED_CALLS) -> float:
     return start.elapsed_time(end) / calls
 
 
+# --- the headline episode (phases 2 and 13) --------------------------------
+
+def headline_sim(fused_core: bool = False, ticks: int = HEADLINE_TICKS):
+    """The headline's exact mode (``bench.py``'s first row)."""
+    from tarl_tpu_torch.config import SimConfig
+
+    return SimConfig(
+        timestep=1, start_time=6 * 3600, end_time=6 * 3600 + ticks,
+        record_road_optimality=False, insert_window=32, insert_backlog=256,
+        withdraw_depth=2, sorted_population=True, insert_escalate=True,
+        withdraw_escalate=True, fused_core=fused_core,
+    )
+
+
+def headline_run(net, agents, sim, policy, payload=None,
+                 ticks=HEADLINE_TICKS, warmup=WARMUP_TICKS,
+                 capture_every=CAPTURE_EVERY) -> dict:
+    """The headline episode through ``run_episode`` from a fresh state:
+    ``warmup`` ticks, then runs ending at every multiple of
+    ``capture_every``, timed from the end of the warm-up to a synchronise.
+    Launch counts are set to 0 just before the run and read just after.
+    ``payload`` replaces the fused core's sampler.  Returns the state at
+    each run's end and the numbers; :func:`check_headline` asserts."""
+    import torch
+
+    from tarl_tpu_torch.core import fused_core, sync
+    from tarl_tpu_torch.core.step import (
+        average_travel_time, init_sim_state, run_episode)
+
+    payload = payload or fused_core.gumbel_argmax_payload
+    on_card = net.device.type == "cuda"
+    state = init_sim_state(net, agents, sim=sim, policy=policy)
+    if on_card:
+        torch.cuda.synchronize()
+    reset_counts()
+    state, logs = run_episode(state, net, policy, warmup, sim=sim,
+                              payload=payload)
+    overflow = float(logs.window_saturated.sum())
+    if on_card:
+        torch.cuda.synchronize()
+    reads_before = sync.HOST_READS
+    t0 = time.perf_counter()
+    done_ticks, captured = warmup, []
+    while done_ticks < ticks:
+        n = min(capture_every - done_ticks % capture_every,
+                ticks - done_ticks)
+        state, logs = run_episode(state, net, policy, n, sim=sim,
+                                  payload=payload)
+        overflow += float(logs.window_saturated.sum())
+        done_ticks += n
+        captured.append(state)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    measured = ticks - warmup
+    return {
+        "captured": captured, "final": state, "overflow": overflow,
+        "wall": wall, "measured": measured, "launches": launches,
+        "rate": agents.num_agents * measured / wall,
+        "syncs_per_tick": (sync.HOST_READS - reads_before) / measured,
+        "on_road": int(state.road.count.sum()),
+        "on_way": int(state.agents.on_way.sum()),
+        "done": int(state.agents.done.sum()),
+        "avg_tt": float(average_travel_time(state.agents)),
+    }
+
+
+def check_headline(res, label: str, want_launches: dict) -> None:
+    """A headline run's asserts: overflow monitor 0, conservation,
+    arrivals, a finite average travel time and the launch counts."""
+    import numpy as np
+
+    if res["overflow"] != 0.0:
+        raise AssertionError(f"{label}: overflow monitor read "
+                             f"{res['overflow']}, not 0")
+    if res["on_road"] != res["on_way"]:
+        raise AssertionError(f"{label}: conservation: {res['on_road']} on "
+                             f"roads, {res['on_way']} inserted and not done")
+    if res["done"] <= 0:
+        raise AssertionError(f"{label}: no agent arrived")
+    if not (np.isfinite(res["avg_tt"]) and res["avg_tt"] > 0):
+        raise AssertionError(f"{label}: average travel time {res['avg_tt']}")
+    got = {k: res["launches"][k] for k in want_launches}
+    if got != want_launches:
+        raise AssertionError(f"{label}: launches {got}, expected "
+                             f"{want_launches}")
+
+
+class CapturePayload:
+    """The fused core's sampler through the kernel wrapper, keeping a copy
+    of the inputs of every ``every``-th call (the last tick of each run of
+    :func:`headline_run`)."""
+
+    def __init__(self, every: int):
+        self.every, self.calls, self.inputs = every, 0, []
+
+    def __call__(self, logits, ids, pay_a, pay_b, key, n, layout=None):
+        from tarl_tpu_torch.core import fused_core
+
+        self.calls += 1
+        if self.calls % self.every == 0:
+            self.inputs.append((f"tick {self.calls}", logits.clone(), ids,
+                                pay_a.clone(), pay_b, key, n))
+        return fused_core.gumbel_argmax_payload(logits, ids, pay_a, pay_b,
+                                                key, n, layout)
+
+
+def grid_network(rows: int, cols: int, device):
+    """``grid_scenario``'s ``rows x cols`` network (links of 200 m, 600
+    veh/h, 13.9 m/s, one lane, in its link order) built from the link
+    arrays through ``build_network``: no XML, no population."""
+    import numpy as np
+
+    from tarl_tpu_torch.network import build_network
+
+    frm, to = [], []
+    for r in range(rows):
+        for c in range(cols):
+            k = r * cols + c
+            if c + 1 < cols:
+                frm += [k, k + 1]
+                to += [k + 1, k]
+            if r + 1 < rows:
+                frm += [k, k + cols]
+                to += [k + cols, k]
+    n = len(frm)
+    return build_network(
+        length=np.full(n, 200.0), max_flow=np.full(n, 600.0),
+        free_speed=np.full(n, 13.9), perm_lanes=np.ones(n),
+        from_inter=np.asarray(frm), to_inter=np.asarray(to),
+        num_intersections=rows * cols, device=device)
+
+
+def random_payload_cases(nets, dev) -> list:
+    """Seeded K12 inputs ``(label, logits, ids, pay_a, pay_b, key, n)``:
+    each network's turn-edge list with random logits (30% -inf, a third of
+    the rest rounded to exact ties), random agents and the edge sources as
+    payloads; and random ids over 40,000 segments of which a third receive
+    no element."""
+    import numpy as np
+    import torch
+
+    from tarl_tpu_torch.core import rng
+
+    g = np.random.default_rng(12)
+
+    def logits_for(e):
+        x = g.normal(size=e).astype(np.float32)
+        x[::3] = np.round(x[::3] * 2.0) / 2.0
+        x[g.random(e) < 0.3] = -np.inf
+        return torch.as_tensor(x, device=dev)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    cases = []
+    for i, (label, net) in enumerate(nets):
+        e = net.edge_dst.shape[0]
+        cases.append((f"{label} edges (E={e})", logits_for(e), net.edge_dst,
+                      t(g.integers(1, 1 << 30, e).astype(np.int32)),
+                      net.edge_src, rng.prng_key(3000 + i), net.num_roads))
+    e, n = 100_000, 40_000
+    live = g.choice(n, size=2 * n // 3, replace=False)
+    ids = t(live[g.integers(0, live.size, e)].astype(np.int32))
+    cases.append((f"random ids (E={e}, {n} segments)", logits_for(e), ids,
+                  t(g.integers(1, 1 << 30, e).astype(np.int32)),
+                  t(g.integers(0, n, e).astype(np.int32)),
+                  rng.prng_key(3100), n))
+    return cases
+
+
+def compare_payload(cases) -> int:
+    """K12 against its plain version on the same device, bitwise on both
+    payloads, for each ``(label, logits, ids, pay_a, pay_b, key, n)``
+    case.  Returns the largest absolute difference (0 when all match)."""
+    import torch
+
+    from tarl_tpu_torch.core import fused_core
+    from tarl_tpu_torch.ops.segment import segment_layout
+
+    worst = 0
+    for label, logits, ids, pay_a, pay_b, key, n in cases:
+        got = fused_core.gumbel_argmax_payload(
+            logits, ids, pay_a, pay_b, key, n, segment_layout(ids, n))
+        want = fused_core.gumbel_argmax_payload_plain(logits, ids, pay_a,
+                                                      pay_b, key, n)
+        if logits.device.type == "cuda":
+            torch.cuda.synchronize()
+        for name, a, b in zip(("a", "b"), got, want):
+            diff = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+            worst = max(worst, diff)
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"K12 {label}: kernel and plain differ "
+                                     f"in payload {name} (max |diff| "
+                                     f"{diff})")
+        if not bool((got[0] != 0).any()) or bool((got[0] != 0).all()):
+            raise AssertionError(f"K12 {label}: every segment or none has a "
+                                 "winner; the comparison would be vacuous")
+    return worst
+
+
+def k12_bound_ms(logits, ids, n: int) -> tuple[float, str]:
+    """K12's least time on these inputs and what bounds it: the logits and
+    the CSR order read once (8 bytes an edge), the offsets read once, the
+    two payloads read for each segment's winner only (8 bytes a segment
+    with a drawing edge), both payload rows written once (8 bytes a
+    segment), against the card's memory rate; ``K12_OPS_PER_DRAW``
+    operations for each edge this run draws for (finite logit above
+    NEG_LARGE), against its float32 rate."""
+    import torch
+
+    from tarl_tpu_torch.ops.segment import NEG_LARGE
+
+    e = logits.shape[0]
+    drawn = (logits > NEG_LARGE) & (logits < float("inf"))
+    draws = int(drawn.sum())
+    winners = int(torch.unique(ids[drawn]).numel())
+    by_bytes = (8 * e + 4 * (n + 1) + 8 * winners + 8 * n) / HBM_BYTES_PER_S
+    by_ops = K12_OPS_PER_DRAW * draws / F32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def time_pair(kernel, plain, args, calls: int = TIMED_CALLS) -> tuple:
+    """ms per call of a kernel wrapper and its plain version, timed plain,
+    kernel, kernel, plain."""
+    p1 = time_per_call(plain, args, calls)
+    k1 = time_per_call(kernel, args, calls)
+    k2 = time_per_call(kernel, args, calls)
+    p2 = time_per_call(plain, args, calls)
+    return p1, k1, k2, p2
+
+
 # --- the learned policy (phases 8-12) ---------------------------------------
 
 def learned_ppo(net, collect_steps: int = COLLECT_STEPS):
@@ -566,18 +830,20 @@ class Capture:
 
 
 def counts() -> dict:
-    from tarl_tpu_torch.core import fused_winner
+    from tarl_tpu_torch.core import fused_core, fused_winner
     from tarl_tpu_torch.ops import segment as seg
 
     return {"K1": fused_winner.LAUNCHES, "K9": seg.SUM_LAUNCHES,
-            "K10": seg.MAX_LAUNCHES, "K11": seg.ARGMAX_LAUNCHES}
+            "K10": seg.MAX_LAUNCHES, "K11": seg.ARGMAX_LAUNCHES,
+            "K12": fused_core.LAUNCHES}
 
 
 def reset_counts() -> None:
-    from tarl_tpu_torch.core import fused_winner, sync
+    from tarl_tpu_torch.core import fused_core, fused_winner, sync
     from tarl_tpu_torch.ops import segment as seg
 
     fused_winner.reset_launches()
+    fused_core.reset_launches()
     seg.reset_launches()
     sync.reset()
 
@@ -588,7 +854,7 @@ def check_eval(env, agents_total: int, steps: int, launches: dict,
     """Asserts of an evaluation run: conservation, agents on the network
     or arrived, ``want_done`` arrivals and an average travel time below
     ``max_att`` where given, and on the card one K1 and one K11 launch per
-    step and no K9/K10; returns the outcome."""
+    step and no K9/K10/K12; returns the outcome."""
     from tarl_tpu_torch.core.step import average_travel_time
 
     a = env.sim.agents
@@ -606,7 +872,7 @@ def check_eval(env, agents_total: int, steps: int, launches: dict,
     if max_att is not None and not att < max_att:
         raise AssertionError(f"{label}: average travel time {att} s, not "
                              f"below {max_att} s")
-    want = {"K1": steps, "K11": steps, "K9": 0, "K10": 0}
+    want = {"K1": steps, "K11": steps, "K9": 0, "K10": 0, "K12": 0}
     if on_card and launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{want}")
@@ -719,10 +985,7 @@ def time_segments(data, ids, n) -> dict:
             ("max", seg.segment_max, seg.segment_max_plain, lib_max, data),
             ("argmax", seg.segment_argmax, seg.segment_argmax_plain, None,
              data)):
-        p1 = time_per_call(plain, (x, ids, n))
-        k1 = time_per_call(fn, (x, ids, n, layout))
-        k2 = time_per_call(fn, (x, ids, n, layout))
-        p2 = time_per_call(plain, (x, ids, n))
+        p1, k1, k2, p2 = time_pair(fn, plain, (x, ids, n, layout))
         lib_ms = None if lib is None else time_per_call(lib, (x,))
         out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
                      "library_ms": lib_ms, "all": (p1, k1, k2, p2)}
@@ -805,7 +1068,7 @@ def learned_paths(dev, net, agents, card: str, eval_steps=EVAL_STEPS,
     collect_launches = counts()
     collect_reads = sync.HOST_READS
     want = {"K1": collect_steps, "K9": 3 * collect_steps,
-            "K10": collect_steps, "K11": collect_steps}
+            "K10": collect_steps, "K11": collect_steps, "K12": 0}
     if on_card and collect_launches != want:
         raise AssertionError(f"collection launches {collect_launches}, "
                              f"expected {want}")
@@ -900,11 +1163,10 @@ def main() -> int:
     import numpy as np
 
     from tarl_tpu_torch import _build
-    from tarl_tpu_torch.config import DEFAULT_PHYSICS, SimConfig
+    from tarl_tpu_torch.config import DEFAULT_PHYSICS
     from tarl_tpu_torch.convert import to_numpy
-    from tarl_tpu_torch.core import fused_winner, rng, sync
-    from tarl_tpu_torch.core.step import (
-        Policy, average_travel_time, init_sim_state, run_episode)
+    from tarl_tpu_torch.core import fused_core, fused_winner, rng
+    from tarl_tpu_torch.core.step import Policy, init_sim_state, run_episode
     from tarl_tpu_torch.routing.policies import random_choice
     from tarl_tpu_torch.state import sort_agents_by_departure
 
@@ -932,61 +1194,20 @@ def main() -> int:
     net, agents = load_scenario("Grid16x16_50000", 16, 16, 50000, dev)
     agents = sort_agents_by_departure(agents)
     log(f"scenario Grid16x16: {net.num_roads} roads, Nmax {net.nmax}, "
-        f"{agents.num_agents} agent rows, set-up "
-        f"{time.perf_counter() - t0:.1f} s")
-    sim = SimConfig(
-        timestep=1, start_time=6 * 3600,
-        end_time=6 * 3600 + HEADLINE_TICKS,
-        record_road_optimality=False, insert_window=32, insert_backlog=256,
-        withdraw_depth=2, sorted_population=True, insert_escalate=True,
-        withdraw_escalate=True,
-    )
+        f"{net.edge_src.shape[0]} turn edges, {agents.num_agents} agent "
+        f"rows, set-up {time.perf_counter() - t0:.1f} s")
+    sim = headline_sim()
     policy = Policy(choice=random_choice)
-    state = init_sim_state(net, agents, sim=sim, policy=policy)
-
-    fused_winner.reset_launches()
-    sync.reset()
-    overflow = 0.0
-    captured = []
-    state, logs = run_episode(state, net, policy, WARMUP_TICKS, sim=sim)
-    overflow += float(logs.window_saturated.sum())
-    torch.cuda.synchronize()
-    reads_before = sync.HOST_READS
-    t0 = time.perf_counter()
-    done_ticks = WARMUP_TICKS
-    while done_ticks < HEADLINE_TICKS:
-        n = CAPTURE_EVERY - done_ticks % CAPTURE_EVERY
-        state, logs = run_episode(state, net, policy, n, sim=sim)
-        overflow += float(logs.window_saturated.sum())
-        done_ticks += n
-        captured.append(state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = fused_winner.LAUNCHES
-    measured = HEADLINE_TICKS - WARMUP_TICKS
-    syncs_per_tick = (sync.HOST_READS - reads_before) / measured
-
-    on_road = int(state.road.count.sum())
-    on_way = int(state.agents.on_way.sum())
-    done = int(state.agents.done.sum())
-    avg_tt = float(average_travel_time(state.agents))
-    if overflow != 0.0:
-        raise AssertionError(f"overflow monitor read {overflow}, not 0")
-    if on_road != on_way:
-        raise AssertionError(f"conservation: {on_road} on roads, "
-                             f"{on_way} inserted and not done")
-    if done <= 0:
-        raise AssertionError("no agent arrived")
-    if launches != HEADLINE_TICKS:
-        raise AssertionError(f"fused_winner ran {launches} times in "
-                             f"{HEADLINE_TICKS} ticks")
-    if not (np.isfinite(avg_tt) and avg_tt > 0):
-        raise AssertionError(f"average travel time {avg_tt}")
-    rate = agents.num_agents * measured / wall
-    log(f"headline: {rate:.1f} agent-steps/s ({measured} ticks in "
-        f"{wall:.2f} s, {wall / measured * 1e3:.3f} ms/tick), done {done}, "
-        f"on roads {on_road}, average travel time {avg_tt:.3f} s, host "
-        f"syncs per tick {syncs_per_tick:.3f}, overflow {overflow}, "
+    head = headline_run(net, agents, sim, policy)
+    check_headline(head, "headline", {"K1": HEADLINE_TICKS, "K12": 0})
+    captured = head["captured"]
+    launches = head["launches"]["K1"]
+    log(f"headline: {head['rate']:.1f} agent-steps/s ({head['measured']} "
+        f"ticks in {head['wall']:.2f} s, "
+        f"{head['wall'] / head['measured'] * 1e3:.3f} ms/tick), done "
+        f"{head['done']}, on roads {head['on_road']}, average travel time "
+        f"{head['avg_tt']:.3f} s, host syncs per tick "
+        f"{head['syncs_per_tick']:.3f}, overflow {head['overflow']}, "
         f"fused_winner calls {launches}")
 
     # --- 3. kernel against plain ----------------------------------------
@@ -1015,11 +1236,10 @@ def main() -> int:
     for label, g, (road_c, sel_c, t_c, gum_c) in (
             ("Grid16x16", net, cases[len(cases) // 2]),
             ("Grid64x64", big, big_cases[0])):
-        args = (road_c, sel_c, g, t_c, gum_c, physics)
-        plain1 = time_per_call(fused_winner.direction_confirm_plain, args)
-        kern1 = time_per_call(fused_winner.direction_confirm, args)
-        kern2 = time_per_call(fused_winner.direction_confirm, args)
-        plain2 = time_per_call(fused_winner.direction_confirm_plain, args)
+        plain1, kern1, kern2, plain2 = time_pair(
+            fused_winner.direction_confirm,
+            fused_winner.direction_confirm_plain,
+            (road_c, sel_c, g, t_c, gum_c, physics))
         timings[label] = (min(kern1, kern2), min(plain1, plain2))
         log(f"fused_winner {label} (R={g.num_roads}): kernel "
             f"{kern1 * 1e3:.2f} / {kern2 * 1e3:.2f} us per call, plain "
@@ -1089,31 +1309,38 @@ def main() -> int:
         d, _ = bf.primal_relax_next_roads(c, *tabs, d0, None)
         if float(d.max()) >= BIG:
             raise AssertionError("uncapped relax left a pair unreached")
-    big, _ = load_scenario("Grid128x128_10", 128, 128, 10, dev)
+    net128, _ = load_scenario("Grid128x128_10", 128, 128, 10, dev)
+    cases128 = big_dest_cases(net128)
     errs["Grid128, 512 dests"] = compare_relax(
-        big_dest_cases(big), [(iters, False), (iters, True)])
+        cases128, [(iters, False), (iters, True)])
     log(f"primal_relax vs plain: bitwise equal in every mode ("
         + "; ".join(errs) + f") on {len(cases64)} Grid64x64 inputs "
         f"({len(sp['captured'])} captured refreshes), 2 Grid16x16 and 2 "
-        f"Grid128x128 (I={big.num_intersections}) inputs")
+        f"Grid128x128 (I={net128.num_intersections}) inputs")
 
+    # Timed in the modes the TPU kernels K2-K6 computed: K2 mode, relax only
+    # (K4) and one sweep (K6) on a captured Grid64x64 refresh; K2 mode (K3)
+    # and relax only (K5) at Grid128x128 with 512 destination columns.
     relax_t = {}
     label, c, tabs, d0 = cases64[len(sp["captured"]) // 2]
-    for mode, (n_it, only) in (("K2 mode", (iters, False)),
-                               ("one sweep", (1, True))):
-        args = (c, *tabs, d0, n_it, only)
-        plain1 = time_per_call(bf.primal_relax_next_roads_plain, args,
-                               RELAX_TIMED_CALLS)
-        kern1 = time_per_call(bf.primal_relax_next_roads, args,
-                              RELAX_TIMED_CALLS)
-        kern2 = time_per_call(bf.primal_relax_next_roads, args,
-                              RELAX_TIMED_CALLS)
-        plain2 = time_per_call(bf.primal_relax_next_roads_plain, args,
-                               RELAX_TIMED_CALLS)
-        relax_t[mode] = (min(kern1, kern2), min(plain1, plain2))
-        log(f"primal_relax Grid64x64 {mode} ({label}): kernel "
+    for mode, g, (c_m, d_m), (n_it, only) in (
+            ("K2 mode", net64, (c, d0), (iters, False)),
+            ("relax only (K4)", net64, (c, d0), (iters, True)),
+            ("one sweep (K6)", net64, (c, d0), (1, True)),
+            ("Grid128 K2 mode (K3)", net128, cases128[1][1::2],
+             (iters, False)),
+            ("Grid128 relax only (K5)", net128, cases128[1][1::2],
+             (iters, True))):
+        plain1, kern1, kern2, plain2 = time_pair(
+            bf.primal_relax_next_roads, bf.primal_relax_next_roads_plain,
+            (c_m, *relax_tables(g), d_m, n_it, only), RELAX_TIMED_CALLS)
+        bound, by = relax_bound_ms(g, n_it, d_m.shape[1], only)
+        relax_t[mode] = (min(kern1, kern2), min(plain1, plain2), bound, by)
+        log(f"primal_relax {mode} (I={g.num_intersections}, "
+            f"D={d_m.shape[1]}, {label if g is net64 else 'warm'}): kernel "
             f"{kern1:.4f} / {kern2:.4f} ms per call, plain {plain1:.4f} / "
-            f"{plain2:.4f} ms per call (plain, kernel, kernel, plain)")
+            f"{plain2:.4f} ms per call (plain, kernel, kernel, plain), "
+            f"bound {bound:.4f} ms by {by}")
 
     # --- 7. the row in context ---------------------------------------------
     from tarl_tpu_torch.core.step import run_episode_periodic
@@ -1184,10 +1411,93 @@ def main() -> int:
     # --- 12. the learned path in context -----------------------------------
     learned_in_context(ppo8, trained, st8)
 
-    # --- 13. results ------------------------------------------------------
+    # --- 13. the fused-core headline -------------------------------------
+    sim_fc = headline_sim(fused_core=True)
+    cap12 = CapturePayload(CAPTURE_EVERY)
+    fc = headline_run(net, agents, sim_fc, policy, payload=cap12)
+    check_headline(fc, "fused-core headline", {"K12": HEADLINE_TICKS,
+                                               "K1": 0})
+    log(f"fused-core headline: {fc['rate']:.1f} agent-steps/s "
+        f"({fc['measured']} ticks in {fc['wall']:.2f} s, "
+        f"{fc['wall'] / fc['measured'] * 1e3:.3f} ms/tick; phase 2 "
+        f"{head['wall'] / head['measured'] * 1e3:.3f}), done {fc['done']} "
+        f"(phase 2 {head['done']}), on roads {fc['on_road']}, average "
+        f"travel time {fc['avg_tt']:.3f} s (phase 2 {head['avg_tt']:.3f} s; "
+        f"same law, another stream), host syncs per tick "
+        f"{fc['syncs_per_tick']:.3f}, overflow {fc['overflow']}, launches "
+        f"{fc['launches']} ({card})")
+
+    # --- 14. the fused core in context ---------------------------------
+    reset_counts()
+    plain_fc = init_sim_state(net, agents, sim=sim_fc, policy=policy)
+    plain_fc, _ = run_episode(plain_fc, net, policy, CAPTURE_EVERY,
+                              sim=sim_fc,
+                              payload=fused_core.gumbel_argmax_payload_plain)
+    plain_counts = counts()
+    if plain_counts["K12"] or plain_counts["K1"]:
+        raise AssertionError(f"the plain fused-core episode launched a "
+                             f"kernel: {plain_counts}")
+    mismatched = _diff_paths(to_numpy(fc["captured"][0]), to_numpy(plain_fc))
+    if mismatched:
+        raise AssertionError(f"kernel and plain fused-core episodes differ "
+                             f"at tick {CAPTURE_EVERY}: {mismatched}")
+    log(f"fused core in context: kernel and plain-K12 states equal bitwise "
+        f"at tick {CAPTURE_EVERY} (plain run launches {plain_counts})")
+
+    # --- 15. K1 at the tiled winner's size (K8a/K8b) ----------------------
+    t0 = time.perf_counter()
+    net256 = grid_network(K8_GRID, K8_GRID, dev)
+    build256 = time.perf_counter() - t0
+    kin256, r256 = net256.in_src_tab.shape
+    cases256 = []
+    for i in range(K8_STATES):
+        t_now = 6 * 3600.0 + 53 * i
+        road256, sel256 = random_road_state(net256, 256 + i, t_now)
+        cases256.append((road256, sel256, t_now,
+                         rng.gumbel(rng.prng_key(4000 + i), (kin256, r256),
+                                    dev)))
+    reset_counts()
+    err256 = compare_kernel(cases256, net256, physics)
+    k8_launches = counts()["K1"]
+    road_c, sel_c, t_c, gum_c = cases256[0]
+    k8_t = time_pair(fused_winner.direction_confirm,
+                     fused_winner.direction_confirm_plain,
+                     (road_c, sel_c, net256, t_c, gum_c, physics))
+    log(f"fused_winner at Grid256x256 (R={r256}, {kin256} in-slots; network "
+        f"built from arrays in {build256:.1f} s): bitwise equal to plain on "
+        f"{K8_STATES} random states, clock on the host and on the device "
+        f"({k8_launches} K1 launches); kernel {k8_t[1]:.4f} / {k8_t[2]:.4f} ms per call, plain "
+        f"{k8_t[0]:.4f} / {k8_t[3]:.4f} ms (plain, kernel, kernel, plain; "
+        f"{card})")
+
+    # --- 16. K12 against plain --------------------------------------------
+    from tarl_tpu_torch.ops.segment import segment_layout
+
+    rand12 = random_payload_cases([("Grid64x64", big),
+                                   ("Grid256x256", net256)], dev)
+    k12_cases = cap12.inputs + rand12
+    err12 = compare_payload(k12_cases)
+    k12_t = {}    # label: (kernel ms, plain ms, bound ms, bound by)
+    for label, (_, logits, ids, pay_a, pay_b, key, n) in (
+            ("Grid16x16", cap12.inputs[len(cap12.inputs) // 2]),
+            ("Grid256x256", rand12[1])):
+        p1, k1, k2, p2 = time_pair(
+            fused_core.gumbel_argmax_payload,
+            fused_core.gumbel_argmax_payload_plain,
+            (logits, ids, pay_a, pay_b, key, n, segment_layout(ids, n)))
+        bound, by = k12_bound_ms(logits, ids, n)
+        k12_t[label] = (min(k1, k2), min(p1, p2), bound, by)
+        log(f"fused_core K12 {label} (E={logits.shape[0]}, S={n}): kernel "
+            f"{k1 * 1e3:.2f} / {k2 * 1e3:.2f} us per call, plain "
+            f"{p1 * 1e3:.2f} / {p2 * 1e3:.2f} us (plain, kernel, kernel, "
+            f"plain), bound {bound * 1e3:.4f} us by {by} ({card})")
+    log(f"fused_core K12 vs plain: bitwise equal on both payloads on "
+        f"{len(cap12.inputs)} captured headline inputs and seeded random "
+        f"cases: " + "; ".join(case[0] for case in rand12))
+
+    # --- 17. results ------------------------------------------------------
     kern_ms, plain_ms = timings["Grid16x16"]
     k1_bound = k1_bound_ms(net)
-    k2_bound = k2_bound_ms(net64, iters)
     seg_entries = []
     for name, key, line in (("sum", "K9", 66), ("max", "K10", 121),
                             ("argmax", "K11", 169)):
@@ -1235,13 +1545,64 @@ def main() -> int:
         "max_abs_err": max(errs.values()),
         "ms": relax_t["K2 mode"][0],
         "plain_ms": relax_t["K2 mode"][1],
-        "bound_ms": k2_bound,
+        "bound_ms": relax_t["K2 mode"][2],
+        "bound_by": relax_t["K2 mode"][3],
+        "library_ms": None,
+        "modes": list(errs),
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "tarl_tpu_torch/csrc/primal_relax.cu",
+        "replaces": f"tarl_tpu/routing/bellman_ford.py:{line}",
+        "covered_by": "primal_relax",
+        "launches": sp["relax_launches"],
+        "launches_from": "sp row (phase 5), K2's kernels",
+        "max_abs_err": max(errs.values()),
+        "ms": relax_t[mode][0],
+        "plain_ms": relax_t[mode][1],
+        "bound_ms": relax_t[mode][2],
+        "bound_by": relax_t[mode][3],
+        "library_ms": None,
+        "mode": mode,
+    } for name, line, mode in (
+        ("multisweep_nr_rowblock", 518, "Grid128 K2 mode (K3)"),
+        ("multisweep", 436, "relax only (K4)"),
+        ("multisweep_rowblock", 486, "Grid128 relax only (K5)"),
+        ("sweep", 408, "one sweep (K6)"))] + seg_entries + [{
+        "name": "fused_core",
+        "route": "cuda",
+        "source": "tarl_tpu_torch/csrc/fused_core.cu",
+        "replaces": "tarl_tpu/core/fused_core.py:53",
+        "launches": fc["launches"]["K12"],
+        "launches_from": "fused-core headline (phase 13)",
+        "max_abs_err": err12,
+        "ms": k12_t["Grid16x16"][0],
+        "plain_ms": k12_t["Grid16x16"][1],
+        "bound_ms": k12_t["Grid16x16"][2],
+        "bound_by": k12_t["Grid16x16"][3],
+        "library_ms": None,
+        "shape": f"E={net.edge_src.shape[0]}, S={net.num_roads}",
+        "ms_grid256": k12_t["Grid256x256"][0],
+        "plain_ms_grid256": k12_t["Grid256x256"][1],
+        "bound_ms_grid256": k12_t["Grid256x256"][2],
+    }, {
+        "name": "tile_winner+tile_confirm",
+        "route": "cuda",
+        "source": "tarl_tpu_torch/csrc/fused_winner.cu",
+        "replaces": "tarl_tpu/core/fused_winner.py:418",
+        "also_replaces": "tarl_tpu/core/fused_winner.py:494",
+        "covered_by": "fused_winner",
+        "launches": k8_launches,
+        "launches_from": ("K1's comparison calls at R=261,120 (phase 15); "
+                          "no main path of the port reaches this size"),
+        "max_abs_err": float(err256),
+        "ms": min(k8_t[1:3]),
+        "plain_ms": min(k8_t[0], k8_t[3]),
+        "bound_ms": k1_bound_ms(net256),
         "bound_by": "bytes",
         "library_ms": None,
-        "ms_one_sweep": relax_t["one sweep"][0],
-        "plain_ms_one_sweep": relax_t["one sweep"][1],
-        "modes": list(errs),
-    }] + seg_entries}))
+        "shape": f"R={r256} (winner and confirm timed as one call)",
+    }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1267,15 +1628,20 @@ def k1_bound_ms(net) -> float:
                20 * kin * r / F32_OPS_PER_S) * 1e3
 
 
-def k2_bound_ms(net, sweeps: int) -> float:
-    """K2's least time in its refresh mode (I = D): costs, tables and the
-    warm start read once, distances and next roads written once; the
-    operations are an add and a min per slot, sweep and column, plus the
-    next-road pass."""
+def relax_bound_ms(net, sweeps: int, dests: int,
+                   relax_only: bool) -> tuple[float, str]:
+    """The relax's least time on I x ``dests`` distances and what bounds
+    it: costs, tables, the road-to map and the warm start read once,
+    distances (and next roads, in K2 mode) written once; the operations
+    are an add and a min per slot, sweep and column, plus the next-road
+    pass in K2 mode."""
     r, (i_n, k_n) = net.num_roads, net.inter_out_road.shape
-    moved = 4 * r + 5 * i_n * k_n + 4 * r + 3 * 4 * i_n * i_n
-    ops = 2 * (sweeps + 1) * i_n * k_n * i_n
-    return max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    tables = 4 * r + 5 * i_n * k_n + 4 * r
+    moved = tables + (2 if relax_only else 3) * 4 * i_n * dests
+    ops = 2 * (sweeps + (0 if relax_only else 1)) * i_n * k_n * dests
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
 
 
 def _env_bits(env) -> dict:

@@ -3,8 +3,9 @@
 Each kernel source under ``csrc/`` compiles with ``nvcc`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds).  Libraries go to ``build/tarl_tpu_torch/`` at the root of the
-checkout, keyed by a hash of the source and the command, so an edited
-source rebuilds.  A failed compile raises with nvcc's stderr.
+checkout, keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the command, so an edited source rebuilds.  A failed
+compile raises with nvcc's stderr.
 :func:`check_tensor` is the wrappers' check of what a kernel takes.
 """
 from __future__ import annotations
@@ -61,8 +62,10 @@ def load_library(name: str) -> ctypes.CDLL:
     if name in _LOADED:
         return _LOADED[name]
     source = PACKAGE_DIR / "csrc" / f"{name}.cu"
+    headers = sorted((PACKAGE_DIR / "csrc").glob("*.cuh"))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + b"".join(h.read_bytes() for h in headers)
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     if not lib_path.exists():

@@ -5,8 +5,10 @@ keep the reference's field names and defaults so one configuration reads
 the same in both packages. A few ``SimConfig`` fields only choose
 between bitwise-identical evaluation strategies of the TPU build
 (``insert_compact``, ``withdraw_compact``); the port accepts and ignores
-them. ``fused_core`` selects a different random stream and is not
-ported: :func:`tarl_tpu_torch.core.step.tick` refuses it.
+them. ``fused_core`` selects the fused edge-phase core
+(:mod:`tarl_tpu_torch.core.fused_core`) for networks of at most 4,096
+roads, as the reference does on its own chip; it samples the same law as
+the default core from another random stream.
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ class SimConfig:
     record_road_optimality: bool = True
     # Hourly [H, R] road-optimality accumulator.
     record_road_optimality_hourly: bool = True
-    # The TPU-only fused direction+response kernel (different random stream).
+    # The fused edge-phase core (one Gumbel-max over the turn edges per
+    # downstream road, kernel K12) for R <= 4,096; a different random stream.
     fused_core: bool = False
     # Hour buckets of the traffic-count accumulator.
     num_hours: int = 30

@@ -11,6 +11,13 @@ The port reproduces JAX's partitionable threefry stream bit for bit:
   ``minval = tiny``, then ``-log(-log(u))``.  Only ``log`` may round
   differently from XLA's (one ulp at most).
 
+The fused edge-phase core (``tarl_tpu/core/fused_core.py``) draws its noise
+from the TPU's hardware generator, which no other machine has.  The port
+takes the bits of turn edge e from this threefry instead,
+``random_bits(k_dir, (E,))[e]``, and applies that kernel's own transform
+(:func:`payload_gumbel`).  ``csrc/threefry.cuh`` is the same block for
+kernels that draw their noise on the card.
+
 Torch has no full uint32 arithmetic, so words are carried in int64 and
 masked to 32 bits after each add and shift.  :func:`threefry2x32` takes
 Python ints or int64 tensors alike: the key schedule runs on the host on
@@ -27,6 +34,7 @@ from ..device import resolve_device
 __all__ = [
     "prng_key", "threefry2x32", "split", "random_bits", "gumbel",
     "gumbel_at_positions", "direction_gumbel", "choice_gumbel",
+    "payload_gumbel",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -115,6 +123,15 @@ def direction_gumbel(key: Key, network) -> torch.Tensor:
     q = (torch.arange(kin, dtype=torch.int64, device=network.device)[:, None]
          * r + network.road_order.to(torch.int64)[None, :])
     return gumbel_at_positions(key, q)
+
+
+def payload_gumbel(bits: torch.Tensor) -> torch.Tensor:
+    """The fused core's noise from 32 random bits (int64 values), op for op
+    as ``_argmax_payload_kernel`` computes it: ``u = (bits >> 8) * 2**-24``,
+    then ``-log(-log(u + 1e-7) + 1e-7)`` in float32.  Zero bits give the
+    constant that the reference's interpret mode draws."""
+    u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u + 1e-7) + 1e-7)
 
 
 def choice_gumbel(key: Key, network) -> torch.Tensor:

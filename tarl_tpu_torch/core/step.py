@@ -4,10 +4,13 @@
 
 A tick runs insert -> withdraw -> choice -> core, then advances the clock
 and updates the metrics.  The core is :func:`~tarl_tpu_torch.core.
-fused_winner.direction_confirm` at every network size (the CUDA kernel on a
-CUDA device) followed by the tail push and head pop in PyTorch.  The
-episode functions are Python loops over ticks; the reference's ``lax.scan``
-has no counterpart that eager PyTorch needs.
+fused_winner.direction_confirm` (the CUDA kernel K1 on a CUDA device)
+followed by the tail push and head pop in PyTorch; with
+``SimConfig.fused_core`` and at most 4,096 roads it is
+:func:`~tarl_tpu_torch.core.fused_core.fused_core_step` instead (the
+per-downstream Gumbel-max over the turn edges, kernel K12).  The episode
+functions are Python loops over ticks; the reference's ``lax.scan`` has no
+counterpart that eager PyTorch needs.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from ..state import (
     init_metric_state,
     init_road_state,
 )
+from .fused_core import fused_core_step, gumbel_argmax_payload
 from .fused_winner import apply_transfers, direction_confirm
 from .insert import (
     insert_agents,
@@ -147,6 +151,7 @@ def tick(
     lazy_inserted: bool = False,
     core: Callable = direction_confirm,
     choice_fn: Optional[Callable] = None,
+    payload: Callable = gumbel_argmax_payload,
 ) -> tuple[SimState, TickLog]:
     """One tick: insert -> withdraw -> choice -> core, clock and metrics.
 
@@ -154,13 +159,12 @@ def tick(
     writes; :func:`run_episode` rebuilds the flag once at the end.
     ``core`` is the winner+confirm function;
     pass :func:`~tarl_tpu_torch.core.fused_winner.direction_confirm_plain`
-    to run the plain version on a CUDA device for comparison.
-    ``choice_fn`` replaces ``policy.choice`` (same signature).  Entry roads
-    read ``state.next_hop`` as it was before this tick's choice."""
-    if sim.fused_core:
-        raise NotImplementedError(
-            "fused_core (the TPU-only fused direction+response kernel) is "
-            "not ported")
+    to run the plain version on a CUDA device for comparison.  ``payload``
+    is the fused core's sampler (``fused_core`` only); pass
+    :func:`~tarl_tpu_torch.core.fused_core.gumbel_argmax_payload_plain` the
+    same way.  ``choice_fn`` replaces ``policy.choice`` (same signature).
+    Entry roads read ``state.next_hop`` as it was before this tick's
+    choice."""
     t = state.time
     dev = state.road.count.device
 
@@ -212,13 +216,20 @@ def tick(
     # --- core: direction + confirm ---
     key, k_dir = split(state.key)
     want_delta = sim.record_road_optimality or sim.record_road_optimality_hourly
-    accept, _win, agent, dest, popped = core(
-        road, state.selected_road, network, t,
-        direction_gumbel(k_dir, network), physics)
-    road, road_delta_tt = apply_transfers(
-        road, network, t, accept, agent, dest, popped, physics,
-        compute_delta=want_delta,
-    )
+    # The reference's choice on its own chip: the fused core where asked
+    # and R <= 4,096 (past that its one-hot tiles overflowed VMEM).
+    if sim.fused_core and network.num_roads <= 4096:
+        road, popped, road_delta_tt = fused_core_step(
+            road, state.selected_road, network, t, k_dir, physics,
+            compute_delta=want_delta, payload=payload)
+    else:
+        accept, _win, agent, dest, popped = core(
+            road, state.selected_road, network, t,
+            direction_gumbel(k_dir, network), physics)
+        road, road_delta_tt = apply_transfers(
+            road, network, t, accept, agent, dest, popped, physics,
+            compute_delta=want_delta,
+        )
 
     # --- clock + metrics ---
     new_time = t + sim.timestep
@@ -275,16 +286,17 @@ def run_episode(
     sim: SimConfig = DEFAULT_SIM,
     physics: PhysicsConfig = DEFAULT_PHYSICS,
     core: Callable = direction_confirm,
+    payload: Callable = gumbel_argmax_payload,
 ) -> tuple[SimState, TickLog]:
     """Run ``num_steps`` ticks; returns the final state and the per-tick
     logs stacked along a leading axis.  In backlog mode the inserted flag
     is maintained lazily and rebuilt once at the end, as in the reference.
-    ``core`` is passed to :func:`tick`."""
+    ``core`` and ``payload`` are passed to :func:`tick`."""
     lazy = sim.insert_backlog is not None and state.backlog is not None
     logs = []
     for _ in range(num_steps):
         state, log = tick(state, network, policy, sim, physics,
-                          lazy_inserted=lazy, core=core)
+                          lazy_inserted=lazy, core=core, payload=payload)
         logs.append(log)
     if lazy:
         state = state._replace(agents=reconstruct_inserted(

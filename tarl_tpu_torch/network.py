@@ -20,12 +20,14 @@ built as the reference builds them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from .config import DEFAULT_PHYSICS, PhysicsConfig
 from .device import resolve_device
+from .ops.segment import SegmentLayout, segment_layout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +95,12 @@ class Network:
     @property
     def device(self) -> torch.device:
         return self.capacity.device
+
+    @functools.cached_property
+    def edge_layout(self) -> SegmentLayout:
+        """The CSR of ``edge_dst`` over the roads (the fused core's
+        segments: each road's incoming turn edges), built on first use."""
+        return segment_layout(self.edge_dst, self.num_roads)
 
     def entry_cost(self) -> torch.Tensor:
         """Free-flow cost of entering each node: ``fftt`` for roads, 0 for

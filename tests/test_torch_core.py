@@ -340,3 +340,43 @@ def test_direction_confirm_wrapper_matches_reference(grid8):
             proad, pnet, float(t), accept, agent, dest, ppopped)
         assert_tree_equal(_np(road), _np(proad), "road")
         assert_tree_equal(_np(delta), _np(pdelta), "delta")
+
+
+def test_direction_confirm_matches_reference_tiled(grid8, monkeypatch):
+    """K8a/K8b, the column-tiled form of the reference's fused winner
+    (``direction_confirm_fused_tiled``), against the port's
+    ``direction_confirm`` + ``apply_transfers`` (K1's function), bitwise on
+    accept, win_src, popped, the delay row and every road field.  The
+    reference runs in interpret mode on a forced roll plan with exceptions,
+    in tiles of 128 roads, so Grid8x8's R = 224 ends in a partial tile; the
+    port gets the reference's Gumbel matrices."""
+    from tarl_tpu.core.fused_winner import direction_confirm_fused_tiled
+
+    from test_roll_gather import _force_plan
+
+    monkeypatch.setenv("TARL_FUSED_WINNER_INTERPRET", "1")
+    monkeypatch.setenv("TARL_FUSED_TILE", "128")
+    net, pnet, state = grid8
+    net = _force_plan(net)
+    assert net.num_roads % 128 != 0
+    assert int(net.in_roll_exc_src.shape[0]) > 0
+    tiled = jax.jit(lambda road, t, k: direction_confirm_fused_tiled(
+        road, state.selected_road, net, t, k, DEFAULT_PHYSICS,
+        compute_delta=True))
+    pstate = _port(state, pnet)
+    road, proad = state.road, pstate.road
+    accepted = 0
+    for t, k in _steps(state, 8):
+        gumbel = torch.as_tensor(np.array(direction_gumbel(k, net)))
+        road, delta, acc, win, popped = tiled(road, t, k)
+        accept, win_src, agent, dest, ppopped = p_fused.direction_confirm(
+            proad, pstate.selected_road, pnet, float(t), gumbel)
+        proad, pdelta = p_fused.apply_transfers(
+            proad, pnet, float(t), accept, agent, dest, ppopped)
+        for name, a, b in (("accept", acc, accept), ("win_src", win, win_src),
+                           ("popped", popped, ppopped),
+                           ("delta", delta, pdelta)):
+            assert_tree_equal(_np(a), _np(b), name)
+        assert_tree_equal(_np(road), _np(proad), "road")
+        accepted += int(np.asarray(acc).sum())
+    assert accepted > 0

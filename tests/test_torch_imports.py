@@ -4,9 +4,9 @@
   ``optax``, ``orbax`` and ``tarl_tpu`` blocked.
 * No public function of the port places tensors on the CPU by default:
   every ``device`` parameter defaults to ``None``, the card.
-* The fused-winner and primal-relax wrappers send CPU tensors to their
-  plain versions (without counting a launch) and raise on inputs the
-  kernels would not take.
+* The fused-winner, primal-relax and fused-core wrappers send CPU tensors
+  to their plain versions (without counting a launch) and raise on inputs
+  the kernels would not take.
 * The kernels' CUDA sources exist and the build targets ``sm_90a``.
 * On a machine with an NVIDIA GPU, each kernel equals its plain version
   (marked ``cuda``; skipped here).
@@ -23,7 +23,7 @@ import torch
 import tarl_tpu_torch
 from tarl_tpu_torch import _build
 from tarl_tpu_torch.config import DEFAULT_PHYSICS
-from tarl_tpu_torch.core import fused_winner, rng
+from tarl_tpu_torch.core import fused_core, fused_winner, rng
 from tarl_tpu_torch.core.step import init_sim_state
 from tarl_tpu_torch.io.matsim import load_network, load_population
 from tarl_tpu_torch.io.scenarios import ensure_scenario
@@ -47,6 +47,7 @@ def test_imports_without_jax():
         for name in names:
             importlib.import_module(name)
         assert "tarl_tpu_torch.core.fused_winner" in names
+        assert "tarl_tpu_torch.core.fused_core" in names
         assert "tarl_tpu_torch.routing.bellman_ford" in names
         assert "tarl_tpu_torch.simulator" in names
         assert "tarl_tpu_torch.ops.segment" in names
@@ -79,8 +80,10 @@ def test_no_public_function_defaults_to_the_cpu():
         assert inspect.signature(fn).parameters["device"].default is None, \
             fn.__qualname__
     seen = []
+    walked = []
     for info in pkgutil.walk_packages(tarl_tpu_torch.__path__,
                                       "tarl_tpu_torch."):
+        walked.append(info.name)
         mod = importlib.import_module(info.name)
         for obj in vars(mod).values():
             if not (inspect.isfunction(obj) and obj.__module__ == info.name):
@@ -90,6 +93,7 @@ def test_no_public_function_defaults_to_the_cpu():
                 seen.append(obj.__qualname__)
                 assert param.default is None, f"{info.name}.{obj.__qualname__}"
     assert len(seen) >= len(listed) + 4
+    assert "tarl_tpu_torch.core.fused_core" in walked
     # Called without a device, an entry point asks for the card.
     mat = np.zeros((2, 9), np.float32)
     if torch.cuda.is_available():
@@ -290,3 +294,91 @@ def test_relax_kernel_matches_plain_on_card(relax_inputs):
         assert bf.LAUNCHES == before + 1
         for a, b in zip(got, want):
             assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def payload_inputs(grid4):
+    """The fused core's sampler inputs on the Grid4x4 ring state: edge
+    logits with a third of the edges ineligible (-inf), head agents and
+    source roads as payloads."""
+    net, road = grid4[0], grid4[1]
+    e = net.edge_src.shape[0]
+    g = np.random.default_rng(5)
+    logits = torch.as_tensor(g.normal(size=e).astype(np.float32))
+    logits[torch.as_tensor(g.random(e) < 1 / 3)] = float("-inf")
+    agents = road.head_ids()[net.edge_src.long()]
+    return net, logits, agents, net.edge_src
+
+
+def test_payload_wrapper_takes_plain_version_on_cpu(payload_inputs):
+    net, logits, agents, src = payload_inputs
+    key = rng.prng_key(9)
+    before = fused_core.LAUNCHES
+    got = fused_core.gumbel_argmax_payload(
+        logits, net.edge_dst, agents, src, key, net.num_roads,
+        net.edge_layout)
+    want = fused_core.gumbel_argmax_payload_plain(
+        logits, net.edge_dst, agents, src, key, net.num_roads)
+    assert fused_core.LAUNCHES == before
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    assert bool((got[0] > 0).any()) and bool((got[1] == net.num_roads).any())
+    assert net.edge_layout is net.edge_layout
+    assert net.to("cpu").edge_layout is not net.edge_layout
+
+
+@pytest.mark.parametrize("bad", ["logits_dtype", "logits_shape",
+                                 "payload_dtype", "payload_shape",
+                                 "foreign_layout"])
+def test_payload_wrapper_rejects_what_the_kernel_does_not_take(
+        payload_inputs, bad):
+    net, logits, agents, src = payload_inputs
+    ids, layout = net.edge_dst, None
+    if bad == "logits_dtype":
+        logits = logits.double()
+    elif bad == "logits_shape":
+        logits = logits[:-1]
+    elif bad == "payload_dtype":
+        agents = agents.long()
+    elif bad == "payload_shape":
+        src = src[1:]
+    else:
+        layout = net.edge_layout
+        ids = ids.clone()
+    with pytest.raises((TypeError, ValueError)):
+        fused_core.gumbel_argmax_payload(logits, ids, agents, src,
+                                         rng.prng_key(0), net.num_roads,
+                                         layout)
+
+
+def test_payload_kernel_source():
+    csrc = os.path.join(os.path.dirname(tarl_tpu_torch.__file__), "csrc")
+    text = open(os.path.join(csrc, "fused_core.cu")).read()
+    assert 'extern "C" int tarl_gumbel_argmax_payload(' in text
+    assert "tarl_tpu/core/fused_core.py::_argmax_payload_kernel" in text
+    assert '#include "threefry.cuh"' in text
+    header = open(os.path.join(csrc, "threefry.cuh")).read()
+    assert "0x1BD11BDA" in header
+    assert "{13, 15, 26, 6}, {17, 29, 16, 24}" in header
+
+
+@pytest.mark.cuda
+def test_payload_kernel_matches_plain_on_card(payload_inputs):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py checks the "
+                    "kernel on the card")
+    net, logits, agents, src = payload_inputs
+    dev = torch.device("cuda", 0)
+    net = net.to(dev)
+    logits, agents = logits.to(dev), agents.to(dev)
+    key = rng.prng_key(9)
+    before = fused_core.LAUNCHES
+    got = fused_core.gumbel_argmax_payload(
+        logits, net.edge_dst, agents, net.edge_src, key, net.num_roads,
+        net.edge_layout)
+    want = fused_core.gumbel_argmax_payload_plain(
+        logits, net.edge_dst, agents, net.edge_src, key, net.num_roads)
+    torch.cuda.synchronize()
+    assert fused_core.LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
