@@ -97,10 +97,32 @@ with its plain version run outside those windows.
    lists, E = 63,752 and 1,041,416; random ids over 40,000 segments with a
    third of them empty; -inf logits and exact ties in each).  Timed at the
    headline shape and at Grid256x256, plain, kernel, kernel, plain.
-17. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
+17. The sharded headline: phase 2's episode through
+   ``run_episode_shard_map`` on ``make_road_mesh(4)`` (four road blocks of
+   240 roads on the card, no padding).  Asserts bitwise equality with
+   phase 2's final state and the integer-valued fields of its tick logs,
+   ``road_delta_tt`` bitwise or within the reference's ``rtol=1e-5,
+   atol=1e-3`` (printing which held), a zero overflow monitor,
+   conservation, one K7 launch per tick and no K1; prints agent-steps/s
+   after the warm-up, ms/tick beside phase 2's and host reads per tick.
+   Keeps K7's inputs every 600 ticks.
+18. The padded mesh: the first 600 ticks of the same episode on
+   ``make_road_mesh(7)`` (966 rows, six of them inert); the state must
+   equal phase 2's at tick 600 bitwise.
+19. K7 against plain, bitwise on all four outputs, for the whole device's
+   launch and for its last block alone: on the inputs kept in phases 17
+   and 18, on phase 3's 20 random Grid64x64 states and on phase 15's 3
+   Grid256x256 states, each over 4 blocks.  Timed at the headline shape
+   and at Grid256x256, plain, kernel, kernel, plain, beside the bound.
+20. The sharded shortest-path row: the first 200 ticks of phase 5 on
+   ``make_road_mesh(4)`` (4,032 roads a block); the state at tick 200 must
+   equal phase 5's bitwise, with K2 once per refresh (not per block), K7
+   once per tick and no K1; prints ms/tick beside phase 5's.
+21. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
    ``segment_sum``, ``segment_max``, ``segment_argmax``, ``fused_core``,
-   and the K8a/K8b rows covered by ``fused_winner``), the card's name and
-   power limit, then ``{"ok": true, "device": {...}}``.
+   ``fused_shard_winner``, and the K3-K6 and K8a/K8b rows covered by
+   ``primal_relax`` and ``fused_winner``), the card's name and power
+   limit, then ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, where no CUDA device is available or
 the package is missing beside this script.  Scenario files are written
@@ -137,6 +159,11 @@ CAPTURE_STEPS = 2000          # steps between captured segment inputs
 PRIOR_SCALE = 30.0            # train_rl_demo.PRIOR_SCALE
 K8_STATES = 3                 # random Grid256x256 road states for K1
 K8_GRID = 256                 # the TPU's tiled-winner record size
+SHARD_BLOCKS = 4              # road blocks of the sharded phases
+PADDED_BLOCKS = 7             # 960 roads -> 7 blocks of 138, 6 rows inert
+# Operations K7 does for each valid in-slot: the word's decode, the
+# eligibility compares, the score add and the running max.
+K7_OPS_PER_SLOT = 20
 # Operations of one K12 draw: the threefry block's 117 integer operations
 # (key schedule, 20 rounds of add, rotate and xor), the xor, shift and
 # scale of the uniform, and the Gumbel transform and compare, each log
@@ -572,28 +599,34 @@ def headline_sim(fused_core: bool = False, ticks: int = HEADLINE_TICKS):
 
 def headline_run(net, agents, sim, policy, payload=None,
                  ticks=HEADLINE_TICKS, warmup=WARMUP_TICKS,
-                 capture_every=CAPTURE_EVERY) -> dict:
+                 capture_every=CAPTURE_EVERY, runner=None) -> dict:
     """The headline episode through ``run_episode`` from a fresh state:
     ``warmup`` ticks, then runs ending at every multiple of
     ``capture_every``, timed from the end of the warm-up to a synchronise.
     Launch counts are set to 0 just before the run and read just after.
-    ``payload`` replaces the fused core's sampler.  Returns the state at
-    each run's end and the numbers; :func:`check_headline` asserts."""
+    ``payload`` replaces the fused core's sampler; ``runner(state, n) ->
+    (state, logs)`` replaces ``run_episode`` (the sharded headline).
+    Returns the state at each run's end, the logs of every tick and the
+    numbers; :func:`check_headline` asserts."""
     import torch
 
     from tarl_tpu_torch.core import fused_core, sync
     from tarl_tpu_torch.core.step import (
         average_travel_time, init_sim_state, run_episode)
+    from tarl_tpu_torch.state import TickLog
 
     payload = payload or fused_core.gumbel_argmax_payload
+    if runner is None:
+        def runner(state, n):
+            return run_episode(state, net, policy, n, sim=sim,
+                               payload=payload)
     on_card = net.device.type == "cuda"
     state = init_sim_state(net, agents, sim=sim, policy=policy)
     if on_card:
         torch.cuda.synchronize()
     reset_counts()
-    state, logs = run_episode(state, net, policy, warmup, sim=sim,
-                              payload=payload)
-    overflow = float(logs.window_saturated.sum())
+    state, logs = runner(state, warmup)
+    all_logs = [logs]
     if on_card:
         torch.cuda.synchronize()
     reads_before = sync.HOST_READS
@@ -602,9 +635,8 @@ def headline_run(net, agents, sim, policy, payload=None,
     while done_ticks < ticks:
         n = min(capture_every - done_ticks % capture_every,
                 ticks - done_ticks)
-        state, logs = run_episode(state, net, policy, n, sim=sim,
-                                  payload=payload)
-        overflow += float(logs.window_saturated.sum())
+        state, logs = runner(state, n)
+        all_logs.append(logs)
         done_ticks += n
         captured.append(state)
     if on_card:
@@ -612,8 +644,11 @@ def headline_run(net, agents, sim, policy, payload=None,
     wall = time.perf_counter() - t0
     launches = counts()
     measured = ticks - warmup
+    logs = TickLog(*(torch.cat([getattr(lg, f) for lg in all_logs])
+                     for f in TickLog._fields))
     return {
-        "captured": captured, "final": state, "overflow": overflow,
+        "captured": captured, "final": state, "logs": logs,
+        "overflow": float(logs.window_saturated.sum()),
         "wall": wall, "measured": measured, "launches": launches,
         "rate": agents.num_agents * measured / wall,
         "syncs_per_tick": (sync.HOST_READS - reads_before) / measured,
@@ -662,6 +697,131 @@ class CapturePayload:
                                 pay_a.clone(), pay_b, key, n))
         return fused_core.gumbel_argmax_payload(logits, ids, pay_a, pay_b,
                                                 key, n, layout)
+
+
+class CaptureWinner:
+    """The road-block winner (K7) through its kernel wrapper, keeping a
+    copy of the inputs of every ``every``-th call."""
+
+    def __init__(self, every: int, label: str):
+        self.every, self.label, self.calls, self.inputs = every, label, 0, []
+
+    def __call__(self, *args):
+        from tarl_tpu_torch.core import fused_winner
+
+        self.calls += 1
+        if self.calls % self.every == 0:
+            self.inputs.append((f"{self.label} tick {self.calls}",
+                                tuple(a.clone() if hasattr(a, "clone") else a
+                                      for a in args)))
+        return fused_winner.fused_shard_winner(*args)
+
+
+def shard_winner_args(net, road, sel, t_now, gumbel, blocks, physics):
+    """K7's arguments for one device holding all ``blocks`` road blocks of
+    ``net``, built from a ring state as the sharded tick builds them: the
+    padded halo vectors and packed words, the blocks' in-slot columns of
+    the tables and of ``gumbel`` (``[KIN, R]``), counts and capacities."""
+    import torch
+
+    from tarl_tpu_torch.core.direction import (pack_upstream,
+                                               upstream_pack_layout)
+
+    r, nmax = net.num_roads, net.nmax
+    rp = -(-r // blocks) * blocks
+
+    def pad(x, fill):
+        tail = torch.full((rp - r,) + tuple(x.shape[1:]), fill,
+                          dtype=x.dtype, device=x.device)
+        return torch.cat([x, tail])
+
+    def cols(x, fill):
+        return pad(x.t(), fill).t().contiguous()
+
+    s = sel[:r]
+    sel_enc = pad(torch.where((s >= 0) & (s < r), s, r), r)
+    count = pad(road.count, 0)
+    cap = pad(net.capacity, 0.0)
+    pack = pack_upstream(pad(road.head_departure(), 0.0), count, cap,
+                         sel_enc, t_now, physics, r, nmax)
+    return (pack, pad(road.head_ids(), 0), pad(road.head_dests(), 0),
+            cols(gumbel, 0.0), cols(net.in_logit_tab, 0.0),
+            cols(net.in_src_tab, 0), cols(net.in_edge_ok, False),
+            count.to(torch.float32), cap, 0, rp, physics,
+            upstream_pack_layout(r, nmax))
+
+
+def last_block(args, blocks: int):
+    """``args`` of a whole device's K7 launch cut to its last block."""
+    pack, hid, hdst, gum, logit, src, ok, count_f, cap, col0, rp, phys, \
+        layout = args
+    n = count_f.shape[0]
+    rl = n // blocks
+    cut = slice(n - rl, n)
+    return (pack, hid, hdst,
+            *(t[:, cut].contiguous() for t in (gum, logit, src, ok)),
+            count_f[cut].contiguous(), cap[cut].contiguous(), col0 + n - rl,
+            rp, phys, layout)
+
+
+def compare_shard_winner(cases) -> int:
+    """K7 against its plain version on the card, bitwise on all four
+    outputs, for each ``(label, args, blocks)`` case and for its last
+    block alone.  Returns the largest absolute difference (0 when all
+    match)."""
+    import torch
+
+    from tarl_tpu_torch.core import fused_winner
+
+    worst = 0
+    for label, args, blocks in cases:
+        for part, a in (("all blocks", args),
+                        ("last block", last_block(args, blocks))):
+            got = fused_winner.fused_shard_winner(*a)
+            want = fused_winner.fused_shard_winner_plain(*a)
+            if a[0].device.type == "cuda":
+                torch.cuda.synchronize()
+            for name, x, y in zip(("accept", "win", "agent", "dest"), got,
+                                  want):
+                diff = int((x.to(torch.int64) - y.to(torch.int64)).abs()
+                           .max())
+                worst = max(worst, diff)
+                if x.dtype != y.dtype or not torch.equal(x, y):
+                    raise AssertionError(f"K7 {label}, {part}: kernel and "
+                                         f"plain differ in {name} (max "
+                                         f"|diff| {diff})")
+            if a is args and not bool(got[0].any()):
+                raise AssertionError(f"K7 {label}: no transfer accepted; "
+                                     "the comparison would be vacuous")
+    return worst
+
+
+def k7_bound_ms(args) -> tuple[float, str]:
+    """K7's least time on these inputs and what bounds it: per road its
+    count and capacity read and its four outputs written (8 + 13 bytes),
+    every in-slot's valid flag (1 byte), each valid in-slot's source (4
+    bytes), the packed word of each distinct source once (4 bytes), the
+    logit and noise of the eligible in-slots only (8 bytes: the kernel
+    reads them after the packed word's mask), and the winner's head id and
+    dest (8 bytes a winning road), against the card's memory rate;
+    ``K7_OPS_PER_SLOT`` operations for each valid in-slot against its
+    float32 rate."""
+    import torch
+
+    from tarl_tpu_torch.core import fused_winner
+
+    pack, src, ok, count_f, cap, col0 = (args[0], args[5], args[6], args[7],
+                                         args[8], args[9])
+    n, valid = count_f.shape[0], int(ok.sum())
+    sources = int(torch.unique(src[ok]).numel())
+    eligible = int(fused_winner.shard_slot_mask(
+        pack, src, ok, count_f, cap, col0, *args[11:]).sum())
+    wins = int(fused_winner.fused_shard_winner_plain(*args)[0].sum())
+    by_bytes = (21 * n + ok.numel() + 4 * valid + 4 * sources + 8 * eligible
+                + 8 * wins) / HBM_BYTES_PER_S
+    by_ops = K7_OPS_PER_SLOT * valid / F32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
 
 
 def grid_network(rows: int, cols: int, device):
@@ -835,7 +995,7 @@ def counts() -> dict:
 
     return {"K1": fused_winner.LAUNCHES, "K9": seg.SUM_LAUNCHES,
             "K10": seg.MAX_LAUNCHES, "K11": seg.ARGMAX_LAUNCHES,
-            "K12": fused_core.LAUNCHES}
+            "K12": fused_core.LAUNCHES, "K7": fused_winner.SHARD_LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -854,7 +1014,7 @@ def check_eval(env, agents_total: int, steps: int, launches: dict,
     """Asserts of an evaluation run: conservation, agents on the network
     or arrived, ``want_done`` arrivals and an average travel time below
     ``max_att`` where given, and on the card one K1 and one K11 launch per
-    step and no K9/K10/K12; returns the outcome."""
+    step and no K7/K9/K10/K12; returns the outcome."""
     from tarl_tpu_torch.core.step import average_travel_time
 
     a = env.sim.agents
@@ -872,7 +1032,7 @@ def check_eval(env, agents_total: int, steps: int, launches: dict,
     if max_att is not None and not att < max_att:
         raise AssertionError(f"{label}: average travel time {att} s, not "
                              f"below {max_att} s")
-    want = {"K1": steps, "K11": steps, "K9": 0, "K10": 0, "K12": 0}
+    want = {"K1": steps, "K11": steps, "K9": 0, "K10": 0, "K12": 0, "K7": 0}
     if on_card and launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{want}")
@@ -1068,7 +1228,7 @@ def learned_paths(dev, net, agents, card: str, eval_steps=EVAL_STEPS,
     collect_launches = counts()
     collect_reads = sync.HOST_READS
     want = {"K1": collect_steps, "K9": 3 * collect_steps,
-            "K10": collect_steps, "K11": collect_steps, "K12": 0}
+            "K10": collect_steps, "K11": collect_steps, "K12": 0, "K7": 0}
     if on_card and collect_launches != want:
         raise AssertionError(f"collection launches {collect_launches}, "
                              f"expected {want}")
@@ -1199,7 +1359,8 @@ def main() -> int:
     sim = headline_sim()
     policy = Policy(choice=random_choice)
     head = headline_run(net, agents, sim, policy)
-    check_headline(head, "headline", {"K1": HEADLINE_TICKS, "K12": 0})
+    check_headline(head, "headline", {"K1": HEADLINE_TICKS, "K12": 0,
+                                      "K7": 0})
     captured = head["captured"]
     launches = head["launches"]["K1"]
     log(f"headline: {head['rate']:.1f} agent-steps/s ({head['measured']} "
@@ -1416,7 +1577,7 @@ def main() -> int:
     cap12 = CapturePayload(CAPTURE_EVERY)
     fc = headline_run(net, agents, sim_fc, policy, payload=cap12)
     check_headline(fc, "fused-core headline", {"K12": HEADLINE_TICKS,
-                                               "K1": 0})
+                                               "K1": 0, "K7": 0})
     log(f"fused-core headline: {fc['rate']:.1f} agent-steps/s "
         f"({fc['measured']} ticks in {fc['wall']:.2f} s, "
         f"{fc['wall'] / fc['measured'] * 1e3:.3f} ms/tick; phase 2 "
@@ -1495,7 +1656,138 @@ def main() -> int:
         f"{len(cap12.inputs)} captured headline inputs and seeded random "
         f"cases: " + "; ".join(case[0] for case in rand12))
 
-    # --- 17. results ------------------------------------------------------
+    # --- 17. the sharded headline (keeps phase 19's inputs) ---------------
+    from tarl_tpu_torch.parallel.shard_map_episode import (
+        make_road_mesh, run_episode_shard_map)
+
+    mesh = make_road_mesh(SHARD_BLOCKS, dev)
+    cap7 = CaptureWinner(CAPTURE_EVERY, "sharded headline")
+
+    def sharded(state, n):
+        return run_episode_shard_map(state, net, policy, n, mesh, sim=sim,
+                                     winner=cap7)
+
+    sh = headline_run(net, agents, sim, policy, runner=sharded)
+    check_headline(sh, "sharded headline",
+                   {"K7": HEADLINE_TICKS, "K1": 0, "K12": 0})
+    mismatched = _diff_paths(to_numpy(head["final"]), to_numpy(sh["final"]))
+    if mismatched:
+        raise AssertionError(f"sharded and serial headlines differ at tick "
+                             f"{HEADLINE_TICKS}: {mismatched}")
+    logs_a, logs_b = to_numpy(head["logs"]), to_numpy(sh["logs"])
+    exact = ("departures", "arrivals", "on_way", "time", "window_saturated")
+    mismatched = _diff_paths({f: logs_a[f] for f in exact},
+                             {f: logs_b[f] for f in exact}, "logs")
+    if mismatched:
+        raise AssertionError(f"sharded and serial headline logs differ: "
+                             f"{mismatched}")
+    da, db = logs_a["road_delta_tt"], logs_b["road_delta_tt"]
+    if da.shape != db.shape:
+        raise AssertionError(f"road_delta_tt shapes {da.shape}, {db.shape}")
+    if np.array_equal(da, db):
+        delta_held = f"bitwise (shape {da.shape})"
+    elif np.allclose(db, da, rtol=1e-5, atol=1e-3):
+        delta_held = "within rtol 1e-5, atol 1e-3, not bitwise"
+    else:
+        raise AssertionError("sharded road_delta_tt outside rtol 1e-5, "
+                             "atol 1e-3")
+    log(f"sharded headline ({SHARD_BLOCKS} blocks of "
+        f"{net.num_roads // SHARD_BLOCKS} roads): {sh['rate']:.1f} "
+        f"agent-steps/s ({sh['measured']} ticks in {sh['wall']:.2f} s, "
+        f"{sh['wall'] / sh['measured'] * 1e3:.3f} ms/tick; phase 2 "
+        f"{head['wall'] / head['measured'] * 1e3:.3f}), done {sh['done']}, "
+        f"on roads {sh['on_road']}, host reads per tick "
+        f"{sh['syncs_per_tick']:.3f}, overflow {sh['overflow']}, launches "
+        f"{sh['launches']}; final state and the logs' integer fields "
+        f"bitwise equal to phase 2's, road_delta_tt {delta_held} ({card})")
+
+    # --- 18. the padded mesh ----------------------------------------------
+    cap7p = CaptureWinner(CAPTURE_EVERY // 2, "padded mesh")
+    reset_counts()
+    padded, _ = run_episode_shard_map(
+        init_sim_state(net, agents, sim=sim, policy=policy), net, policy,
+        CAPTURE_EVERY, make_road_mesh(PADDED_BLOCKS, dev), sim=sim,
+        winner=cap7p)
+    padded_counts = counts()
+    if padded_counts["K7"] != CAPTURE_EVERY or padded_counts["K1"]:
+        raise AssertionError(f"padded mesh: launches {padded_counts}")
+    mismatched = _diff_paths(to_numpy(captured[0]), to_numpy(padded))
+    if mismatched:
+        raise AssertionError(f"padded mesh and phase 2 differ at tick "
+                             f"{CAPTURE_EVERY}: {mismatched}")
+    rp7 = -(-net.num_roads // PADDED_BLOCKS) * PADDED_BLOCKS
+    log(f"padded mesh ({PADDED_BLOCKS} blocks, {rp7} rows, "
+        f"{rp7 - net.num_roads} inert): state bitwise equal to phase 2's at "
+        f"tick {CAPTURE_EVERY}; launches {padded_counts}")
+
+    # --- 19. K7 against plain ---------------------------------------------
+    k7_cases = ([(lb, a, SHARD_BLOCKS) for lb, a in cap7.inputs]
+                + [(lb, a, PADDED_BLOCKS) for lb, a in cap7p.inputs])
+    for label, g, states in (("Grid64x64", big, big_cases),
+                             ("Grid256x256", net256, cases256)):
+        k7_cases += [(f"{label} random {i}",
+                      shard_winner_args(g, road_c, sel_c, t_c, gum_c,
+                                        SHARD_BLOCKS, physics), SHARD_BLOCKS)
+                     for i, (road_c, sel_c, t_c, gum_c) in enumerate(states)]
+    err7 = compare_shard_winner(k7_cases)
+    k7_t = {}    # label: (kernel ms, plain ms, bound ms, bound by)
+    for label, args in (("Grid16x16", cap7.inputs[len(cap7.inputs) // 2][1]),
+                        ("Grid256x256", k7_cases[-1][1])):
+        p1, k1, k2, p2 = time_pair(fused_winner.fused_shard_winner,
+                                   fused_winner.fused_shard_winner_plain,
+                                   args)
+        bound, by = k7_bound_ms(args)
+        k7_t[label] = (min(k1, k2), min(p1, p2), bound, by)
+        log(f"fused_shard_winner K7 {label} (n={args[7].shape[0]} roads in "
+            f"{SHARD_BLOCKS} blocks, {args[5].shape[0]} in-slots): kernel "
+            f"{k1 * 1e3:.2f} / {k2 * 1e3:.2f} us per call, plain "
+            f"{p1 * 1e3:.2f} / {p2 * 1e3:.2f} us (plain, kernel, kernel, "
+            f"plain), bound {bound * 1e3:.4f} us by {by} ({card})")
+    log(f"fused_shard_winner K7 vs plain: bitwise equal on all four outputs, "
+        f"whole device and last block, on {len(cap7.inputs)} + "
+        f"{len(cap7p.inputs)} inputs kept in phases 17 and 18, "
+        f"{len(big_cases)} random Grid64x64 and {len(cases256)} random "
+        f"Grid256x256 states")
+
+    # --- 20. the sharded shortest-path row -------------------------------
+    sp_policy = make_policy("dijkstra", sp["routing"], network=net64)
+    sp_mesh = make_road_mesh(SHARD_BLOCKS, dev)
+    reset_counts()
+    bf.reset_launches()
+    sp_sh, _ = run_episode_shard_map(sp["state0"], net64, sp_policy,
+                                     SP_WARMUP_TICKS, sp_mesh, sim=sp["sim"],
+                                     routing=sp["routing"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp_sh, _ = run_episode_shard_map(sp_sh, net64, sp_policy,
+                                     SP_CONTEXT_TICKS - SP_WARMUP_TICKS,
+                                     sp_mesh, sim=sp["sim"],
+                                     routing=sp["routing"])
+    torch.cuda.synchronize()
+    sp_sh_wall = time.perf_counter() - t0
+    sp_sh_counts = counts()
+    sp_sh_counts["K2"] = bf.LAUNCHES
+    refreshes = SP_CONTEXT_TICKS // sp["routing"].refresh_rate
+    if (sp_sh_counts["K2"], sp_sh_counts["K7"], sp_sh_counts["K1"]) != (
+            refreshes, SP_CONTEXT_TICKS, 0):
+        raise AssertionError(f"sharded sp row: launches {sp_sh_counts}, "
+                             f"expected K2 {refreshes}, K7 "
+                             f"{SP_CONTEXT_TICKS}, K1 0")
+    mismatched = _diff_paths(_state_bits(sp["at_context"]),
+                             _state_bits(sp_sh))
+    if mismatched:
+        raise AssertionError(f"sharded and serial sp rows differ at tick "
+                             f"{SP_CONTEXT_TICKS}: {mismatched}")
+    span = SP_CONTEXT_TICKS - SP_WARMUP_TICKS
+    log(f"sharded sp row ({SHARD_BLOCKS} blocks of "
+        f"{net64.num_roads // SHARD_BLOCKS} roads): state bitwise equal to "
+        f"phase 5's at tick {SP_CONTEXT_TICKS}, packed table included; ticks "
+        f"{SP_WARMUP_TICKS}-{SP_CONTEXT_TICKS}: "
+        f"{sp_sh_wall / span * 1e3:.3f} ms/tick (phase 5 "
+        f"{sp['context_wall'] / span * 1e3:.3f}); launches {sp_sh_counts} "
+        f"({card})")
+
+    # --- 21. results ------------------------------------------------------
     kern_ms, plain_ms = timings["Grid16x16"]
     k1_bound = k1_bound_ms(net)
     seg_entries = []
@@ -1602,6 +1894,25 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "shape": f"R={r256} (winner and confirm timed as one call)",
+    }, {
+        "name": "fused_shard_winner",
+        "route": "cuda",
+        "source": "tarl_tpu_torch/csrc/fused_winner.cu",
+        "replaces": "tarl_tpu/core/fused_winner.py:647",
+        "launches": sh["launches"]["K7"],
+        "launches_from": "sharded headline (phase 17)",
+        "launches_padded_mesh": padded_counts["K7"],
+        "launches_sp_row": sp_sh_counts["K7"],
+        "max_abs_err": err7,
+        "ms": k7_t["Grid16x16"][0],
+        "plain_ms": k7_t["Grid16x16"][1],
+        "bound_ms": k7_t["Grid16x16"][2],
+        "bound_by": k7_t["Grid16x16"][3],
+        "library_ms": None,
+        "shape": f"n={net.num_roads} roads in {SHARD_BLOCKS} blocks",
+        "ms_grid256": k7_t["Grid256x256"][0],
+        "plain_ms_grid256": k7_t["Grid256x256"][1],
+        "bound_ms_grid256": k7_t["Grid256x256"][2],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,11 @@ winner is pushed at v's tail with arrival ``time`` and departure ``time +
 max(fftt, cc / (cap + 10 - count))``.
 
 The reference packs u's flags, free space and selection into one int32 so
-that each slot costs one TPU gather.  The port reads them directly but
-keeps the packed word's integral free-space semantics: ``u_free`` is
-``clip(cap - count, 0, free_mask)`` truncated to an integer.
+that each slot costs one TPU gather.  The serial path here reads them
+directly but keeps the packed word's integral free-space semantics:
+``u_free`` is ``clip(cap - count, 0, free_mask)`` truncated to an integer.
+The road-sharded episode's winner (K7) takes the packed word itself
+(:func:`pack_upstream`), built from the halo of head summaries.
 """
 from __future__ import annotations
 
@@ -29,6 +31,42 @@ from ..state import RoadState
 def free_space_mask(num_roads: int, nmax: int) -> int:
     """Largest free-space value the reference's packed word can hold."""
     return (1 << max((nmax + 1).bit_length(), 1)) - 1
+
+
+def upstream_pack_layout(num_roads: int, nmax: int) -> tuple[int, int, int]:
+    """Bit layout of the packed upstream word: ``(shift_free, shift_sel,
+    free_mask)``.  Three flag bits (departure reached, non-empty, stuck past
+    the gridlock patience), then the integral free space ``cap - count``
+    (``bit_length(Nmax + 1)`` bits), then the selected road
+    (``bit_length(R + 1)`` bits; R encodes no or an invalid selection).
+    Raises where the word would need more than 31 bits."""
+    bits_free = max((nmax + 1).bit_length(), 1)
+    bits_sel = max((num_roads + 1).bit_length(), 1)
+    if 3 + bits_free + bits_sel > 31:
+        raise ValueError(
+            f"upstream pack overflow: Nmax={nmax} needs {bits_free} bits and "
+            f"R={num_roads} needs {bits_sel}; split the network or widen the "
+            "pack word")
+    return 3, 3 + bits_free, (1 << bits_free) - 1
+
+
+def pack_upstream(head_departure, count, cap, sel_enc, time: float,
+                  physics: PhysicsConfig, num_roads: int,
+                  nmax: int) -> torch.Tensor:
+    """One int32 per road of everything the downstream slot loop reads of
+    its upstream: the flags, ``clip(cap - count, 0, free_mask)`` truncated
+    to an integer, and ``sel_enc`` (int32, R for none), in the layout of
+    :func:`upstream_pack_layout`.  Needs integral capacities, as
+    ``build_network`` makes them."""
+    shift_free, shift_sel, free_mask = upstream_pack_layout(num_roads, nmax)
+    i32 = torch.int32
+    u_free = torch.clamp(cap - count.to(torch.float32), 0.0, float(free_mask))
+    return ((head_departure <= time).to(i32)
+            | ((count > 0).to(i32) << 1)
+            | (((head_departure - time) < -physics.gridlock_patience)
+               .to(i32) << 2)
+            | (u_free.to(i32) << shift_free)
+            | (sel_enc.to(i32) << shift_sel))
 
 
 def winners(

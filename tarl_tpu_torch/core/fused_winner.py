@@ -1,6 +1,7 @@
 """Direction winner + confirm as one kernel call (ports
 ``tarl_tpu/core/fused_winner.py``: ``direction_confirm_fused`` and its
-Pallas kernel ``_kernel``).
+Pallas kernel ``_kernel``; ``fused_shard_winner`` and its kernel
+``_shard_winner_kernel``).
 
 :func:`direction_confirm` returns, per road, ``(accept, win_src, agent,
 dest, popped)``: whether the road received a transfer, the winning upstream
@@ -15,6 +16,13 @@ The TPU kernel's roll plan and exception overlay have no counterpart: on
 the GPU the in-slot and out-slot reads are direct gathers.  The Gumbel
 matrix is drawn outside, as the TPU kernel takes it, and the tail push and
 head pop stay in PyTorch (:func:`apply_transfers`).
+
+:func:`fused_shard_winner` is the winner alone on the road blocks of a
+road-sharded tick (:mod:`tarl_tpu_torch.parallel.shard_map_episode`): it
+reads each in-slot's upstream packed word, head id and head dest from the
+replicated halo vectors, which the TPU kernel took pre-read through the
+roll plan.  Same rule: the kernel on a CUDA tensor, its plain version
+:func:`fused_shard_winner_plain` on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -29,16 +37,20 @@ from ..state import RoadState
 from .direction import free_space_mask, push_winners, road_delta, winners
 from .response import pop_heads, popped_mask
 
-# Kernel launches through :func:`direction_confirm` (one per call); the
-# plain version does not count.
+# Kernel launches through :func:`direction_confirm` (K1) and
+# :func:`fused_shard_winner` (K7), one per call; the plain versions do not
+# count.
 LAUNCHES = 0
+SHARD_LAUNCHES = 0
 
 _FN = None
+_SHARD_FN = None
 
 
 def reset_launches() -> None:
-    global LAUNCHES
+    global LAUNCHES, SHARD_LAUNCHES
     LAUNCHES = 0
+    SHARD_LAUNCHES = 0
 
 
 def direction_confirm_plain(
@@ -172,3 +184,133 @@ def apply_transfers(
                               device=road.count.device))
     road = push_winners(road, network, time, accept, agent, dest, physics)
     return pop_heads(road, popped), delta
+
+
+# --- the road-block winner (K7) ---------------------------------------------
+
+def shard_slot_mask(pack, src, ok, count_f, cap, col0: int,
+                    physics: PhysicsConfig, layout) -> torch.Tensor:
+    """bool ``[KIN, n]``: in-slot ``k`` of local road ``v`` may send its
+    upstream's head into ``v`` this tick (K7's decode of the packed word and
+    its eligibility, gridlock escape included)."""
+    shift_free, shift_sel, free_mask = layout
+    buf = float(physics.congestion_buffer)
+    n = count_f.shape[0]
+    col = col0 + torch.arange(n, dtype=torch.int32, device=count_f.device)
+    space_ok = count_f < cap - buf
+    v_free = cap - count_f
+    v_slot_ok = count_f < cap
+    p = pack[src.long()]
+    dep_ok = (p & 1) > 0
+    nonempty = (p & 2) > 0
+    stuck = (p & 4) > 0
+    u_free = ((p >> shift_free) & free_mask).to(torch.float32)
+    wants_v = (p >> shift_sel) == col
+    mask = dep_ok & space_ok & wants_v & nonempty
+    mask = mask | (stuck & (u_free <= buf) & (u_free <= v_free) & wants_v
+                   & nonempty & v_slot_ok)
+    return mask & ok
+
+
+def fused_shard_winner_plain(pack, head_id, head_dest, gumbel, logit, src,
+                             ok, count_f, cap, col0: int, r_sentinel: int,
+                             physics: PhysicsConfig, layout):
+    """The plain PyTorch version of :func:`fused_shard_winner`: the
+    reference shard tick's winner loop in its non-roll form
+    (``parallel/shard_map_episode.py:1234-1284``) and the sentinel guard
+    that follows it."""
+    n = count_f.shape[0]
+    mask = shard_slot_mask(pack, src, ok, count_f, cap, col0, physics,
+                           layout)
+    neg_inf = torch.tensor(float("-inf"), device=count_f.device)
+    best = torch.full((n,), float("-inf"), dtype=torch.float32,
+                      device=count_f.device)
+    win_slot = torch.zeros((n,), dtype=torch.int64, device=count_f.device)
+    accept = torch.zeros((n,), dtype=torch.bool, device=count_f.device)
+    for k in range(src.shape[0]):
+        s_k = torch.where(mask[k], logit[k] + gumbel[k], neg_inf)
+        take = s_k > best
+        best = torch.where(take, s_k, best)
+        win_slot = torch.where(take, k, win_slot)
+        accept = accept | take
+    win = torch.where(accept, src.gather(0, win_slot[None, :])[0], r_sentinel)
+    safe = torch.clamp(win, max=r_sentinel - 1).long()
+    agent = torch.where(accept, head_id[safe], 0)
+    accept = agent != 0          # sentinel guard
+    win = torch.where(accept, win, r_sentinel).to(torch.int32)
+    dest = torch.where(accept, head_dest[safe], 0)
+    return accept, win, agent, dest
+
+
+def _shard_kernel_fn():
+    global _SHARD_FN
+    if _SHARD_FN is None:
+        from .._build import load_library
+
+        fn = load_library("fused_winner").tarl_fused_shard_winner
+        p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+        fn.argtypes = [p] * 9 + [i] * 5 + [f, i, i] + [p] * 5
+        fn.restype = ctypes.c_int
+        _SHARD_FN = fn
+    return _SHARD_FN
+
+
+def fused_shard_winner(pack, head_id, head_dest, gumbel, logit, src, ok,
+                       count_f, cap, col0: int, r_sentinel: int,
+                       physics: PhysicsConfig, layout):
+    """The winner of each road of a device's road blocks: ``(accept bool,
+    win int32 (r_sentinel = none), agent int32, dest int32)``, each ``[n]``.
+
+    ``pack``, ``head_id`` and ``head_dest`` are the replicated halo vectors
+    over all ``r_sentinel`` (padded) roads: the upstream packed words of
+    :func:`~tarl_tpu_torch.core.direction.pack_upstream` and the head ids
+    and dests.  ``gumbel``, ``logit``, ``src`` (int32) and ``ok`` (bool)
+    are the ``[KIN, n]`` in-slot columns of the ``n`` local roads,
+    ``count_f`` and ``cap`` their float32 counts and capacities; local
+    road ``v`` is global road ``col0 + v``.  ``layout`` is
+    :func:`~tarl_tpu_torch.core.direction.upstream_pack_layout`'s.  The
+    CUDA kernel for CUDA tensors (one launch for every local block), the
+    plain version for CPU tensors; inputs the kernel would not take raise
+    on either device."""
+    dev = count_f.device
+    kin, n = src.shape
+    i32, f32 = torch.int32, torch.float32
+    inputs = [
+        ("pack", pack, i32, (r_sentinel,)),
+        ("head_id", head_id, i32, (r_sentinel,)),
+        ("head_dest", head_dest, i32, (r_sentinel,)),
+        ("gumbel", gumbel, f32, (kin, n)),
+        ("logit", logit, f32, (kin, n)),
+        ("src", src, i32, (kin, n)),
+        ("ok", ok, torch.bool, (kin, n)),
+        ("count_f", count_f, f32, (n,)),
+        ("cap", cap, f32, (n,)),
+    ]
+    for name, t, dtype, shape in inputs:
+        check_tensor(name, t, dtype, shape, dev)
+    if not 0 <= col0 <= r_sentinel - n:
+        raise ValueError(f"columns {col0}..{col0 + n} lie outside the "
+                         f"{r_sentinel} roads")
+    if dev.type == "cpu":
+        return fused_shard_winner_plain(pack, head_id, head_dest, gumbel,
+                                        logit, src, ok, count_f, cap, col0,
+                                        r_sentinel, physics, layout)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_shard_winner: unsupported device {dev}")
+    global SHARD_LAUNCHES
+    shift_free, shift_sel, free_mask = layout
+    accept = torch.empty(n, dtype=torch.bool, device=dev)
+    win, agent, dest = (torch.empty(n, dtype=i32, device=dev)
+                        for _ in range(3))
+    err = _shard_kernel_fn()(
+        *(t.data_ptr() for _, t, _, _ in inputs),
+        col0, r_sentinel, shift_free, shift_sel, free_mask,
+        float(physics.congestion_buffer), n, kin,
+        accept.data_ptr(), win.data_ptr(), agent.data_ptr(), dest.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_shard_winner kernel launch failed: CUDA "
+                           f"error {err}")
+    SHARD_LAUNCHES += 1
+    return accept, win, agent, dest

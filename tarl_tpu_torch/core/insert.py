@@ -29,8 +29,8 @@ from .sync import host_read
 POP_WIDTH = 4
 
 
-def _write_rings(road: RoadState, rows, slots, ok, ids, dests, dep_stamp,
-                 time: float):
+def write_rings(road: RoadState, rows, slots, ok, ids, dests, dep_stamp,
+                time: float):
     """The four ring writes of an admission at ``(rows, slots)`` where
     ``ok``.  Admitted (row, slot) pairs are distinct: ranks within a road
     are distinct and never exceed the free slots."""
@@ -43,30 +43,20 @@ def _write_rings(road: RoadState, rows, slots, ok, ids, dests, dep_stamp,
     )
 
 
-def _admit_candidates(
-    road: RoadState,
-    agents: AgentState,
-    network: Network,
-    time: float,
-    physics: PhysicsConfig,
-    candidate_ids: torch.Tensor,   # int32[K] agent ids
-    road_key: torch.Tensor,        # int32[K] entry road, R = not a candidate
-    cand_dest: torch.Tensor,       # int32[K] dest per candidate
-    update_inserted: bool = True,
-    stamp_count: torch.Tensor | None = None,  # int32[R] tick-start occupancy
-) -> tuple[RoadState, AgentState, torch.Tensor]:
-    """Capacity-clipped group insert of candidates; ranks within a road are
-    candidate order (a stable sort by road, then the offset from the group
-    start).  Returns ``(road, agents, admitted)`` with ``admitted`` in
-    candidate order.
+def admission(head, count, network: Network, time: float,
+              physics: PhysicsConfig, road_key: torch.Tensor, nmax: int,
+              stamp_count: torch.Tensor | None = None):
+    """Capacity-clipped group admission of candidates bidding ``road_key``
+    (int32[K], R = not a candidate) against the ring heads and counts
+    ``head`` and ``count`` (int32, indexed by road id); ranks within a road
+    are candidate order (a stable sort by road, then the offset from the
+    group start).  Returns ``(ok, slot, dep_stamp)`` per candidate.
 
     ``stamp_count`` replaces the occupancy in the departure stamp: the
     windowed insert's escalation passes stamp with the tick-start count, as
-    one whole-population insert would.  Ranks and capacity use the current
-    count.  Without ``update_inserted`` the caller sets the flag itself."""
-    r = road.num_roads
-    nmax = road.nmax
-    k = candidate_ids.shape[0]
+    one whole-population insert would.  Ranks and capacity use ``count``."""
+    r = network.num_roads
+    k = road_key.shape[0]
     dev = road_key.device
 
     road_sorted, order = torch.sort(road_key, stable=True)
@@ -78,8 +68,8 @@ def _admit_candidates(
     rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
 
     safe = torch.clamp(road_key, max=r - 1).long()
-    head_c = road.head[safe]
-    count_before = road.count[safe]
+    head_c = head[safe]
+    count_before = count[safe]
     cap_c = network.capacity[safe]
     cc_c = network.congestion_constant[safe]
     ff_c = network.free_flow[safe]
@@ -94,9 +84,28 @@ def _admit_candidates(
     time_congestion = cc_c / (
         cap_c + physics.congestion_softening - stamp_c.to(torch.float32)
     )
-    dep_stamp = time + torch.maximum(ff_c, time_congestion)
-    road = _write_rings(road, road_key, slot, ok, candidate_ids, cand_dest,
-                        dep_stamp, time)
+    return ok, slot, time + torch.maximum(ff_c, time_congestion)
+
+
+def _admit_candidates(
+    road: RoadState,
+    agents: AgentState,
+    network: Network,
+    time: float,
+    physics: PhysicsConfig,
+    candidate_ids: torch.Tensor,   # int32[K] agent ids
+    road_key: torch.Tensor,        # int32[K] entry road, R = not a candidate
+    cand_dest: torch.Tensor,       # int32[K] dest per candidate
+    update_inserted: bool = True,
+    stamp_count: torch.Tensor | None = None,  # int32[R] tick-start occupancy
+) -> tuple[RoadState, AgentState, torch.Tensor]:
+    """The :func:`admission` of the candidates into ``road``'s rings.
+    Returns ``(road, agents, admitted)`` with ``admitted`` in candidate
+    order.  Without ``update_inserted`` the caller sets the flag itself."""
+    ok, slot, dep_stamp = admission(road.head, road.count, network, time,
+                                    physics, road_key, road.nmax, stamp_count)
+    road = write_rings(road, road_key, slot, ok, candidate_ids, cand_dest,
+                       dep_stamp, time)
     count = scatter_add(road.count, road_key, ok.to(torch.int32), ok)
     if update_inserted:
         agents = agents._replace(
@@ -112,12 +121,15 @@ def insert_agents(
     time: float,
     physics: PhysicsConfig = DEFAULT_PHYSICS,
     entry_road: torch.Tensor | None = None,
+    admit=_admit_candidates,
 ) -> tuple[RoadState, AgentState]:
     """Insert every ready agent (departure reached, not yet inserted) whose
     entry road has spare capacity, over the whole population.  The entry
     road is ``entry_road`` (int32[A], e.g. a shortest-path policy's per-agent
-    roads) or ``selected_road[origin]``."""
-    r = road.num_roads
+    roads) or ``selected_road[origin]``.  ``admit`` places the candidates
+    (the signature of ``_admit_candidates``; the road-sharded tick passes
+    its block-masked form with its own ``road`` object)."""
+    r = network.num_roads
     ready = (agents.departure <= time) & ~agents.inserted
     if entry_road is None:
         entry_road = selected_road[agents.origin.long()]
@@ -125,7 +137,7 @@ def insert_agents(
     road_key = torch.where(ready & valid_road, entry_road, r).to(torch.int32)
     candidate_ids = torch.arange(agents.num_agents, dtype=torch.int32,
                                  device=road_key.device)
-    road, agents, _ = _admit_candidates(
+    road, agents, _ = admit(
         road, agents, network, time, physics, candidate_ids, road_key,
         agents.dest,
     )
@@ -146,6 +158,7 @@ def insert_agents_windowed(
     entry_lookup=None,
     sorted_fast: bool = False,
     escalate: bool = False,
+    admit=_admit_candidates,
 ) -> tuple[RoadState, AgentState, int, float]:
     """Windowed insertion: candidates are the ``window`` agents of the
     departure order from position ``ptr`` (``order[ptr:ptr + W]``, or ids
@@ -159,7 +172,8 @@ def insert_agents_windowed(
     ``escalate`` further passes run at offsets ``ptr + k * W`` while the
     last pass's tail was due; the run then equals a whole-population insert
     bitwise, and the monitor counts the extra passes.  Each pass costs one
-    host read (its pointer advance and tail flag).
+    host read (its pointer advance and tail flag).  ``admit`` as in
+    :func:`insert_agents`; the stamp snapshot is ``road.count`` at entry.
 
     Returns ``(road, agents, new_ptr, saturated)``.
     """
@@ -196,10 +210,10 @@ def insert_agents_windowed(
             win_entry = entry_road[win_ids.long()]
         else:
             win_entry = selected_road[win_origin.long()]
-        valid = (win_entry >= 0) & (win_entry < road.num_roads)
+        valid = (win_entry >= 0) & (win_entry < network.num_roads)
         road_key = torch.where(ready & valid, win_entry,
-                               road.num_roads).to(torch.int32)
-        road, agents2, admitted = _admit_candidates(
+                               network.num_roads).to(torch.int32)
+        road, agents2, admitted = admit(
             road, agents._replace(inserted=inserted), network, time, physics,
             win_ids, road_key, win_dest, update_inserted=not sorted_fast,
             stamp_count=stamp_count)
@@ -322,24 +336,52 @@ def insert_agents_backlogged(
     Returns ``(road, agents, backlog, new_ptr, overflow)``.
     """
     r = road.num_roads
-    nmax = road.nmax
-    s, q, _ = backlog.qpack.shape
-    p = POP_WIDTH
-    dev = road.count.device
-
-    g = selected_road[r:r + 2 * s:2]                  # each SRC's re-bid
-    gvalid = (g >= 0) & (g < r)
-    g_safe = torch.where(gvalid, g, 0).long()
-    count0 = road.count                               # stamp snapshot
-
+    g_safe, gvalid = backlog_bids(selected_road, r, backlog.qpack.shape[0])
     qpack, qcount, new_ptr, overflow = backlog_frontier_append(
         backlog.qpack, backlog.qcount, backlog.qhead, agents.departure,
         agents.origin, agents.dest, ptr, time, num_roads=r, window=window,
         escalate=escalate,
     )
+    road, inserted, qhead, qcount, total_take = drain_backlog(
+        road, g_safe, None, road.head, road.count, g_safe, gvalid, qpack,
+        backlog.qhead, qcount, network, time, physics,
+        agents.inserted if update_inserted else None)
+    count = scatter_add(road.count, g_safe, total_take, total_take > 0)
+    road = road._replace(count=count)
+    if update_inserted:
+        agents = agents._replace(inserted=inserted)
+    backlog = backlog._replace(qpack=qpack, qhead=qhead, qcount=qcount)
+    return road, agents, backlog, new_ptr, overflow
 
-    head_g = road.head[g_safe]
-    c0_s = count0[g_safe]
+
+def backlog_bids(selected_road, num_roads: int, num_srcs: int):
+    """Each SRC node's re-bid road (``selected_road`` at SRC nodes R, R + 2,
+    ...), 0 where invalid, as int64, and the valid mask."""
+    g = selected_road[num_roads:num_roads + 2 * num_srcs:2]
+    gvalid = (g >= 0) & (g < num_roads)
+    return torch.where(gvalid, g, 0).long(), gvalid
+
+
+def drain_backlog(road: RoadState, rows, rows_ok, head, count, g_safe,
+                  gvalid, qpack, qhead, qcount, network: Network,
+                  time: float, physics: PhysicsConfig, inserted=None):
+    """The drain of :func:`insert_agents_backlogged`: pop ``min(qcount,
+    remaining, POP_WIDTH)`` queue entries per SRC into its road's ring,
+    repeated while some queue still faces spare capacity (one host read per
+    check).  ``head`` and ``count`` are the heads and tick-start counts by
+    road id, ``g_safe`` and ``gvalid`` each SRC's road (:func:`backlog_bids`);
+    ``rows`` is the row of ``road``'s rings that holds each SRC's road, and
+    where ``rows_ok`` (None: everywhere) is false the road's ring is
+    another road block's and nothing is written here.  The ``inserted``
+    flags of drained agents are set where given.  Returns ``(road,
+    inserted, qhead, qcount, total_take)``; ``road.count`` is left as it
+    was, ``total_take`` is what each SRC drained."""
+    nmax = road.nmax
+    s, q, _ = qpack.shape
+    p = POP_WIDTH
+    dev = qpack.device
+    head_g = head[g_safe]
+    c0_s = count[g_safe]
     cap_g = network.capacity[g_safe]
     tt_g = torch.maximum(
         network.free_flow[g_safe],
@@ -349,10 +391,11 @@ def insert_agents_backlogged(
     dep_p = (time + tt_g)[:, None].expand(s, p).reshape(-1)
     pcol = torch.arange(p, dtype=torch.int32, device=dev)[None, :]
     rem_cap = (cap_g - physics.congestion_buffer).to(torch.int32)
-    rows = g_safe[:, None].expand(s, p).reshape(-1)
+    rows = rows[:, None].expand(s, p).reshape(-1)
+    held = (None if rows_ok is None
+            else rows_ok[:, None].expand(s, p).reshape(-1))
 
-    cnt_s, qhead = c0_s, backlog.qhead
-    inserted = agents.inserted
+    cnt_s = c0_s
     while host_read(torch.any(gvalid & (qcount > 0) & (rem_cap > cnt_s)))[0]:
         take = torch.clamp(torch.minimum(qcount, rem_cap - cnt_s), 0, p)
         take = torch.where(gvalid, take, 0)
@@ -364,20 +407,15 @@ def insert_agents_backlogged(
                                nmax).reshape(-1)
         # Drained rows are distinct across SRCs (a road is bid only by its
         # tail SRC), and slots within one SRC are distinct.
-        road = _write_rings(road, rows, slot, active, ids_p,
-                            pk[..., 1].reshape(-1), dep_p, time)
-        if update_inserted:
+        road = write_rings(road, rows, slot,
+                           active if held is None else active & held, ids_p,
+                           pk[..., 1].reshape(-1), dep_p, time)
+        if inserted is not None:
             inserted = scatter_set(inserted, ids_p, True, active)
         cnt_s = cnt_s + take
         qhead = torch.remainder(qhead + take, q).to(torch.int32)
         qcount = qcount - take
-
-    total_take = cnt_s - c0_s
-    count = scatter_add(count0, g_safe, total_take, total_take > 0)
-    road = road._replace(count=count)
-    agents = agents._replace(inserted=inserted)
-    backlog = backlog._replace(qpack=qpack, qhead=qhead, qcount=qcount)
-    return road, agents, backlog, new_ptr, overflow
+    return road, inserted, qhead, qcount, cnt_s - c0_s
 
 
 def reconstruct_inserted(agents: AgentState, backlog: BacklogState,

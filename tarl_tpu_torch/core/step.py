@@ -50,7 +50,10 @@ class Policy(NamedTuple):
     agent_ids) -> roads`` give per-agent entry roads (entrants take
     ``selected_road[origin]`` without them); ``needs_next_hop`` asks for the
     dual table (not ported); ``table_init(network)`` builds the routing
-    scratch ``state.next_hop``.  ``refresh(state, network) -> buf``,
+    scratch ``state.next_hop``; ``learned`` marks a trained neural policy
+    (the reference carries its ``LearnedSpec`` there), which the
+    road-sharded episode refuses until its branch is ported.
+    ``refresh(state, network) -> buf``,
     ``lookup(state, network, buf) -> state`` and ``periodic_rate`` split a
     periodic-refresh choice for :func:`run_episode_periodic`; ``choice``
     equals ``lookup`` after a refresh on every ``periodic_rate``-th call."""
@@ -60,6 +63,7 @@ class Policy(NamedTuple):
     entry_lookup: Optional[Callable] = None
     needs_next_hop: bool = False
     table_init: Optional[Callable] = None
+    learned: Optional[object] = None
     refresh: Optional[Callable] = None
     lookup: Optional[Callable] = None
     periodic_rate: Optional[int] = None
@@ -301,10 +305,10 @@ def run_episode(
     if lazy:
         state = state._replace(agents=reconstruct_inserted(
             state.agents, state.backlog, state.insert_ptr))
-    return state, _stack_logs(logs, state.road.count.device)
+    return state, stack_logs(logs, state.road.count.device)
 
 
-def _stack_logs(logs: list, dev) -> TickLog:
+def stack_logs(logs: list, dev) -> TickLog:
     return TickLog(*(
         torch.stack([getattr(lg, f) for lg in logs]).to(dev) if logs
         else torch.zeros((0,), device=dev)
@@ -353,7 +357,7 @@ def run_episode_periodic(
             state, log = tick(state, network, policy, sim, physics,
                               core=core, choice_fn=lookup_choice)
             logs.append(log)
-    return state, _stack_logs(logs, state.road.count.device)
+    return state, stack_logs(logs, state.road.count.device)
 
 
 def average_travel_time(agents: AgentState) -> torch.Tensor:

@@ -18,10 +18,10 @@ from ..state import AgentState, RoadState
 from .sync import host_read
 
 
-def _scan(road: RoadState, network: Network, time: float, head, count,
-          k: int):
-    """Leading eligible run over the first ``k`` logical slots.  Returns
-    ``(ids [R, k], run [R, k] bool, wcount [R] int32)``."""
+def scan_run(road: RoadState, road_dest, time: float, head, count, k: int):
+    """Leading eligible run over the first ``k`` logical slots of each ring
+    row, whose road's DEST node is ``road_dest``.  Returns ``(ids [R, k],
+    run [R, k] bool, wcount [R] int32)``."""
     nmax = road.nmax
     logical = torch.arange(k, dtype=torch.int64, device=head.device)
     phys = torch.remainder(head.long()[:, None] + logical[None, :], nmax)
@@ -29,7 +29,7 @@ def _scan(road: RoadState, network: Network, time: float, head, count,
     dep = road.fifo_departure.gather(1, phys)
     dest = road.fifo_dest.gather(1, phys)
     eligible = (
-        (dest == network.road_dest[:, None])
+        (dest == road_dest[:, None])
         & (dep <= time)
         & (logical[None, :] < count[:, None])
     )
@@ -60,7 +60,8 @@ def withdraw_agents(
     k = nmax if depth is None else min(depth, nmax)
 
     def one_pass(head, count, arrival):
-        ids, run, w = _scan(road, network, time, head, count, k)
+        ids, run, w = scan_run(road, network.road_dest, time, head, count,
+                             k)
         # Stamp arrival: one value per tick, so repeated ids cannot occur
         # among the run (each agent sits in one slot) and the set is safe.
         arrival = scatter_set(arrival, ids.reshape(-1), time,

@@ -26,6 +26,20 @@
 // headline Grid16x16, 16,128 roads at Grid64x64.  This simple form does
 // nothing about that bound yet: one thread per road, no shared memory, no
 // overlap of the two launches.
+//
+// A third kernel, fw_shard_winner_kernel (entry tarl_fused_shard_winner),
+// replaces tarl_tpu/core/fused_winner.py::_shard_winner_kernel, the Pallas
+// TPU kernel of fused_shard_winner: the winner alone (no confirm) on the
+// road blocks of a road-sharded tick.  The TPU kernel took the in-slot
+// reads pre-rotated through the roll plan, one launch per shard; here one
+// thread per local road covers every block of the device in one launch
+// and gathers the upstream packed word (flags, integral free space,
+// selection) from the replicated [Rp] halo vector, and the head id and
+// dest of the winner only.  Local road v is global road col0 + v.  Bound
+// like the winner kernel above: each road reads its count, capacity and
+// each slot's valid flag; a valid slot its source and the source's packed
+// word (one dependent gather from a vector that sits in L2); an eligible
+// slot its logit and noise; a winning road its winner's head id and dest.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -110,6 +124,56 @@ __global__ void fw_confirm_kernel(
   popped[u] = p ? 1 : 0;
 }
 
+__global__ void fw_shard_winner_kernel(
+    const int* __restrict__ pack, const int* __restrict__ head_id,
+    const int* __restrict__ head_dest, const float* __restrict__ gumbel,
+    const float* __restrict__ logit, const int* __restrict__ src,
+    const unsigned char* __restrict__ ok, const float* __restrict__ count_f,
+    const float* __restrict__ cap, int col0, int r_sentinel, int shift_free,
+    int shift_sel, int free_mask, float buffer, int n, int kin,
+    unsigned char* __restrict__ accept, int* __restrict__ win,
+    int* __restrict__ agent_out, int* __restrict__ dest_out) {
+  int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= n) return;
+  const float count_v = count_f[v];
+  const float cap_v = cap[v];
+  const bool space_ok = count_v < cap_v - buffer;
+  const float v_free = cap_v - count_v;
+  const bool v_slot_ok = count_v < cap_v;
+  const int col = col0 + v;
+
+  float best = -CUDART_INF_F;
+  bool acc = false;
+  int src_w = 0;
+  for (int k = 0; k < kin; ++k) {
+    const long long idx = static_cast<long long>(k) * n + v;
+    if (!ok[idx]) continue;               // padding slot: score -inf
+    const int u = src[idx];
+    const int p = pack[u];
+    const bool dep_ok = (p & 1) != 0;
+    const bool nonempty = (p & 2) != 0;
+    const bool stuck = (p & 4) != 0;
+    const float u_free = static_cast<float>((p >> shift_free) & free_mask);
+    const bool wants_v = (p >> shift_sel) == col;
+    bool mask = dep_ok && space_ok && wants_v && nonempty;
+    mask = mask || (stuck && u_free <= buffer && u_free <= v_free &&
+                    wants_v && nonempty && v_slot_ok);
+    if (!mask) continue;
+    const float s = logit[idx] + gumbel[idx];
+    if (s > best) {
+      best = s;
+      acc = true;
+      src_w = u;
+    }
+  }
+  const int agent = acc ? head_id[src_w] : 0;
+  acc = agent != 0;                       // sentinel guard
+  accept[v] = acc ? 1 : 0;
+  win[v] = acc ? src_w : r_sentinel;
+  agent_out[v] = agent;
+  dest_out[v] = acc ? head_dest[src_w] : 0;
+}
+
 }  // namespace
 
 extern "C" int tarl_fused_winner(
@@ -133,5 +197,22 @@ extern "C" int tarl_fused_winner(
   if (err != cudaSuccess) return static_cast<int>(err);
   fw_confirm_kernel<<<blocks, threads, 0, s>>>(win_src, out_dst, out_ok, R,
                                                kout, popped);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tarl_fused_shard_winner(
+    const int* pack, const int* head_id, const int* head_dest,
+    const float* gumbel, const float* logit, const int* src,
+    const unsigned char* ok, const float* count_f, const float* cap,
+    int col0, int r_sentinel, int shift_free, int shift_sel, int free_mask,
+    float buffer, int n, int kin, unsigned char* accept, int* win,
+    int* agent, int* dest, void* stream) {
+  const int threads = 256;
+  const int blocks = (n + threads - 1) / threads;
+  fw_shard_winner_kernel<<<blocks, threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      pack, head_id, head_dest, gumbel, logit, src, ok, count_f, cap, col0,
+      r_sentinel, shift_free, shift_sel, free_mask, buffer, n, kin, accept,
+      win, agent, dest);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,9 +4,9 @@
   ``optax``, ``orbax`` and ``tarl_tpu`` blocked.
 * No public function of the port places tensors on the CPU by default:
   every ``device`` parameter defaults to ``None``, the card.
-* The fused-winner, primal-relax and fused-core wrappers send CPU tensors
-  to their plain versions (without counting a launch) and raise on inputs
-  the kernels would not take.
+* The fused-winner (K1), road-block winner (K7), primal-relax and
+  fused-core wrappers send CPU tensors to their plain versions (without
+  counting a launch) and raise on inputs the kernels would not take.
 * The kernels' CUDA sources exist and the build targets ``sm_90a``.
 * On a machine with an NVIDIA GPU, each kernel equals its plain version
   (marked ``cuda``; skipped here).
@@ -52,13 +52,15 @@ def test_imports_without_jax():
         assert "tarl_tpu_torch.simulator" in names
         assert "tarl_tpu_torch.ops.segment" in names
         assert "tarl_tpu_torch.rl.ppo" in names
+        assert "tarl_tpu_torch.parallel.shard_map_episode" in names
+        assert "tarl_tpu_torch.parallel.sharded_episode" in names
         assert sys.modules["jax"] is None
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 22
+    assert int(out.stdout.strip()) >= 25
 
 
 def test_no_public_function_defaults_to_the_cpu():
@@ -69,13 +71,15 @@ def test_no_public_function_defaults_to_the_cpu():
     from tarl_tpu_torch import convert, network, schema
     from tarl_tpu_torch.device import resolve_device
     from tarl_tpu_torch.io import matsim
+    from tarl_tpu_torch.parallel import shard_map_episode
 
     assert resolve_device(None) == torch.device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     listed = [matsim.load_network, matsim.load_population,
               network.build_network, convert.network_from_numpy,
               convert.agents_from_numpy, convert.sim_state_from_numpy,
-              convert.mpnn_params_from_numpy, schema.agents_from_matrix]
+              convert.mpnn_params_from_numpy, schema.agents_from_matrix,
+              shard_map_episode.make_road_mesh]
     for fn in listed:
         assert inspect.signature(fn).parameters["device"].default is None, \
             fn.__qualname__
@@ -95,6 +99,7 @@ def test_no_public_function_defaults_to_the_cpu():
     assert len(seen) >= len(listed) + 4
     assert "tarl_tpu_torch.core.fused_core" in walked
     # Called without a device, an entry point asks for the card.
+    assert shard_map_episode.make_road_mesh(4).device == torch.device("cuda")
     mat = np.zeros((2, 9), np.float32)
     if torch.cuda.is_available():
         assert schema.agents_from_matrix(mat).origin.device.type == "cuda"
@@ -382,3 +387,108 @@ def test_payload_kernel_matches_plain_on_card(payload_inputs):
     assert fused_core.LAUNCHES == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def shard_inputs(grid4):
+    """K7's inputs on the Grid4x4 ring state over 5 road blocks of 10
+    roads (two padded): the halo vectors, the packed words, every block's
+    in-slot columns and a seeded Gumbel matrix."""
+    from tarl_tpu_torch.core.direction import pack_upstream, \
+        upstream_pack_layout
+
+    net, road, sel = grid4[:3]
+    r, nmax, kin = net.num_roads, net.nmax, net.in_src_tab.shape[0]
+    rp = 50
+
+    def pad(x, fill):
+        return torch.cat([x, torch.full((rp - r,) + tuple(x.shape[1:]), fill,
+                                        dtype=x.dtype)])
+
+    def cols(x, fill):
+        return pad(x.t(), fill).t().contiguous()
+
+    s = sel[:r]
+    sel_enc = pad(torch.where((s >= 0) & (s < r), s, r), r)
+    pack = pack_upstream(pad(road.head_departure(), 0.0), pad(road.count, 0),
+                         pad(net.capacity, 0.0), sel_enc, 21600.0,
+                         DEFAULT_PHYSICS, r, nmax)
+    g = np.random.default_rng(3)
+    gumbel = torch.as_tensor(g.gumbel(size=(kin, rp)).astype(np.float32))
+    args = [pack, pad(road.head_ids(), 0), pad(road.head_dests(), 0), gumbel,
+            cols(net.in_logit_tab, 0.0), cols(net.in_src_tab, 0),
+            cols(net.in_edge_ok, False),
+            pad(road.count, 0).to(torch.float32), pad(net.capacity, 0.0)]
+    return args, rp, upstream_pack_layout(r, nmax)
+
+
+def test_shard_winner_wrapper_takes_plain_version_on_cpu(shard_inputs):
+    args, rp, layout = shard_inputs
+    before = fused_winner.SHARD_LAUNCHES
+    got = fused_winner.fused_shard_winner(*args, 0, rp, DEFAULT_PHYSICS,
+                                          layout)
+    want = fused_winner.fused_shard_winner_plain(*args, 0, rp,
+                                                 DEFAULT_PHYSICS, layout)
+    assert fused_winner.SHARD_LAUNCHES == before
+    assert [t.dtype for t in got] == [torch.bool] + [torch.int32] * 3
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(got[0].any()) and bool((got[1] == rp).any())
+
+
+@pytest.mark.parametrize("bad", ["pack_dtype", "pack_shape", "gumbel_dtype",
+                                 "src_shape", "ok_dtype", "count_layout",
+                                 "device", "columns"])
+def test_shard_winner_rejects_what_the_kernel_does_not_take(shard_inputs,
+                                                            bad):
+    args, rp, layout = shard_inputs
+    args, col0 = list(args), 0
+    if bad == "pack_dtype":
+        args[0] = args[0].long()
+    elif bad == "pack_shape":
+        args[0] = args[0][:-1]
+    elif bad == "gumbel_dtype":
+        args[3] = args[3].double()
+    elif bad == "src_shape":
+        args[5] = args[5][:, :-1]
+    elif bad == "ok_dtype":
+        args[6] = args[6].to(torch.uint8)
+    elif bad == "count_layout":
+        args[7] = torch.stack([args[7], args[7]], 1)[:, 0]
+    elif bad == "device":
+        args[8] = args[8].to("meta")
+    else:
+        col0 = 10
+    with pytest.raises((TypeError, ValueError)):
+        fused_winner.fused_shard_winner(*args, col0, rp, DEFAULT_PHYSICS,
+                                        layout)
+
+
+def test_shard_winner_kernel_source():
+    source = os.path.join(os.path.dirname(tarl_tpu_torch.__file__), "csrc",
+                          "fused_winner.cu")
+    text = open(source).read()
+    assert 'extern "C" int tarl_fused_shard_winner(' in text
+    assert "__global__ void fw_shard_winner_kernel(" in text
+    assert "tarl_tpu/core/fused_winner.py::_shard_winner_kernel" in text
+
+
+@pytest.mark.cuda
+def test_shard_winner_kernel_matches_plain_on_card(shard_inputs):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py checks the "
+                    "kernel on the card")
+    args, rp, layout = shard_inputs
+    args = [t.to("cuda") for t in args]
+    before = fused_winner.SHARD_LAUNCHES
+    for col0, cut in ((0, slice(None)), (20, slice(20, 30))):
+        local = args[:3] + [a[:, cut].contiguous() for a in args[3:7]] \
+            + [a[cut].contiguous() for a in args[7:]]
+        got = fused_winner.fused_shard_winner(*local, col0, rp,
+                                              DEFAULT_PHYSICS, layout)
+        want = fused_winner.fused_shard_winner_plain(*local, col0, rp,
+                                                     DEFAULT_PHYSICS, layout)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert fused_winner.SHARD_LAUNCHES == before + 2
