@@ -17,12 +17,16 @@ with its plain version run outside those windows.
 2. The headline episode: Grid16x16, 50,000 agents departing over 06:00-08:00,
    7,200 ticks of 1 s in bitwise-exact mode (per-SRC backlog insert Q=256,
    W=32, withdraw depth 2, both escalations, random route choice).  Asserts
-   a zero overflow monitor, conservation, arrivals, and one K1 call per
-   tick; prints agent-steps/s measured after a 64-tick warm-up.
+   a zero overflow monitor, conservation, arrivals, and one K1 launch per
+   tick (the kernel draws the tick's noise from its key: one launch and a
+   memset); prints agent-steps/s measured after a 64-tick warm-up.
 3. K1 against plain: the fused-winner kernel must equal its plain PyTorch
-   version bitwise on all five outputs, on road states captured every 600
-   ticks of phase 2 and on 20 seeded random states of a Grid64x64 network,
-   each with a fresh Gumbel matrix; both timed per call with CUDA events.
+   version bitwise on all five outputs, with the clock on the host and on
+   the device, on road states captured every 600 ticks of phase 2 and on
+   20 seeded random states of a Grid64x64 network, each with a fresh key;
+   both timed per call with CUDA events, plain, kernel, kernel, plain, and
+   the kernel's device time per call read from ``torch.profiler`` over as
+   many calls, beside its bound on the timed input.
 4. The episode in context: the first 600 ticks again with the plain K1,
    from the same key; the state must equal phase 2's at tick 600 bitwise.
 5. The shortest-path row (``bench.py``'s second row) on the port:
@@ -71,9 +75,11 @@ with its plain version run outside those windows.
    ties, 100,000 segments and ties of -0.0 with +0.0; each against the
    plain version on a CPU copy of the inputs (the plain sum on the card
    adds with atomics) and, for max and argmax, on the card (not for the
-   +-0 ties, which the card's plain max resolves in its atomics' order).  Times each at the Grid8x8 shape, plain,
-   kernel, kernel, plain, beside the library call (``index_add_`` for the
-   sum, ``scatter_reduce(..., "amax")`` for the max; none for the argmax).
+   +-0 ties, which the card's plain max resolves in its atomics' order).
+   Times each at the Grid8x8 shape, plain, kernel, kernel, plain, beside
+   the library call (``index_add_`` for the sum, ``scatter_reduce(...,
+   "amax")`` for the max; none for the argmax), and the device time per
+   call of each kernel and library call from ``torch.profiler``.
 12. The learned path in context: the first 200 steps of phase 8 again, once
    with the kernels and once with the plain segment versions forced
    (``segment_ops=PLAIN``); the final states must be equal bitwise and
@@ -91,7 +97,8 @@ with its plain version run outside those windows.
 15. K1 at the size of the TPU's column-tiled winner (K8a/K8b): a Grid256x256
    network (R = 261,120) built from ``grid_scenario``'s link arrays with no
    population; K1 against plain, bitwise on all five outputs, on 3 seeded
-   random road states; both timed, plain, kernel, kernel, plain.
+   random road states, each with a fresh key and both clock forms; both
+   timed, plain, kernel, kernel, plain.
 16. K12 against plain, bitwise on both payloads: on the inputs kept in
    phase 13 and on seeded random cases (the Grid64x64 and Grid256x256 edge
    lists, E = 63,752 and 1,041,416; random ids over 40,000 segments with a
@@ -112,7 +119,8 @@ with its plain version run outside those windows.
 19. K7 against plain, bitwise on all four outputs, for the whole device's
    launch and for its last block alone: on the inputs kept in phases 17
    and 18, on phase 3's 20 random Grid64x64 states and on phase 15's 3
-   Grid256x256 states, each over 4 blocks.  Timed at the headline shape
+   Grid256x256 states with their keys' Gumbel matrices, each over 4
+   blocks.  Timed at the headline shape
    and at Grid256x256, plain, kernel, kernel, plain, beside the bound.
 20. The sharded shortest-path row: the first 200 ticks of phase 5 on
    ``make_road_mesh(4)`` (4,032 roads a block); the state at tick 200 must
@@ -121,8 +129,9 @@ with its plain version run outside those windows.
 21. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
    ``segment_sum``, ``segment_max``, ``segment_argmax``, ``fused_core``,
    ``fused_shard_winner``, and the K3-K6 and K8a/K8b rows covered by
-   ``primal_relax`` and ``fused_winner``), the card's name and power
-   limit, then ``{"ok": true, "device": {...}}``.
+   ``primal_relax`` and ``fused_winner``; ``device_ms`` beside ``ms`` for
+   K1 and the segment kernels), the card's name and power limit, then
+   ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, where no CUDA device is available or
 the package is missing beside this script.  Scenario files are written
@@ -161,13 +170,13 @@ K8_STATES = 3                 # random Grid256x256 road states for K1
 K8_GRID = 256                 # the TPU's tiled-winner record size
 SHARD_BLOCKS = 4              # road blocks of the sharded phases
 PADDED_BLOCKS = 7             # 960 roads -> 7 blocks of 138, 6 rows inert
-# Operations K7 does for each valid in-slot: the word's decode, the
-# eligibility compares, the score add and the running max.
+# Operations K7 (and K1) does for each valid in-slot: the eligibility's
+# decode and compares, the score add and the running max.
 K7_OPS_PER_SLOT = 20
-# Operations of one K12 draw: the threefry block's 117 integer operations
-# (key schedule, 20 rounds of add, rotate and xor), the xor, shift and
-# scale of the uniform, and the Gumbel transform and compare, each log
-# counted as one.
+# Operations of one K12 (or K1) draw: the threefry block's 117 integer
+# operations (key schedule, 20 rounds of add, rotate and xor), the xor,
+# shift and scale of the uniform, and the Gumbel transform and compare,
+# each log counted as one.
 K12_OPS_PER_DRAW = 130
 WEIGHTS = os.path.join("tarl_tpu_torch", "weights", "grid8x8_mpnn_best.npz")
 # The H100 SXM data sheet's peaks (the card's own limit is printed beside).
@@ -247,7 +256,7 @@ def random_road_state(net, seed: int, time_now: float):
 
 
 def compare_kernel(cases, net, physics):
-    """Kernel vs plain on each (road, selected_road, time, gumbel) case:
+    """Kernel vs plain on each (road, selected_road, time, key) case:
     bitwise on all five outputs, with the clock passed as a host float and
     as a device scalar (the RL environment's form).  Returns the largest
     absolute difference (0 when all match)."""
@@ -259,14 +268,14 @@ def compare_kernel(cases, net, physics):
     names = ("accept", "win_src", "agent", "dest", "popped")
     worst = 0
     runs = []
-    for road, sel, t_now, gumbel in cases:
+    for road, sel, t_now, key in cases:
         t_dev = torch.tensor(t_now, dtype=torch.float32,
                              device=road.count.device)
-        runs += [(road, sel, t_now, gumbel, t_now),
-                 (road, sel, t_now, gumbel, t_dev)]
-    for i, (road, sel, t_now, gumbel, t_arg) in enumerate(runs):
-        got = direction_confirm(road, sel, net, t_arg, gumbel, physics)
-        want = direction_confirm_plain(road, sel, net, t_now, gumbel, physics)
+        runs += [(road, sel, t_now, key, t_now),
+                 (road, sel, t_now, key, t_dev)]
+    for i, (road, sel, t_now, key, t_arg) in enumerate(runs):
+        got = direction_confirm(road, sel, net, t_arg, key, physics)
+        want = direction_confirm_plain(road, sel, net, t_now, key, physics)
         torch.cuda.synchronize()
         for name, a, b in zip(names, got, want):
             if a.dtype != b.dtype or a.shape != b.shape:
@@ -581,6 +590,53 @@ def time_per_call(fn, args, calls: int = TIMED_CALLS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / calls
+
+
+def device_time_per_call(fn, args, calls: int = TIMED_CALLS,
+                         attempts: int = 5) -> tuple:
+    """The device's milliseconds per call, and its kernels and memsets per
+    call, over ``calls`` back-to-back calls after a warm-up, from the
+    device activities ``torch.profiler`` records: for each activity name,
+    its mean duration times its whole number of occurrences per call.
+    The profiler now and then drops activities from a window, or records
+    none: a window whose count is not a whole number per call is taken
+    again, up to ``attempts`` times, and the estimate above holds through
+    a few drops (the count per call printed beside it shows them).
+    ``(None, 0.0)`` where no window recorded anything: not measured."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(10):
+        fn(*args)
+    torch.cuda.synchronize()
+    best = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(events) > len(best):
+            best = events
+        if events and len(events) % calls == 0:
+            break
+    if not best:
+        return None, 0.0
+    by_name = collections.defaultdict(list)
+    for e in best:
+        by_name[e.name].append(e.time_range.end - e.time_range.start)
+    us = sum(sum(d) / len(d) * max(1, round(len(d) / calls))
+             for d in by_name.values())
+    return us / 1e3, len(best) / calls
+
+
+def fmt_us(ms) -> str:
+    """A device time in microseconds, or "not measured"."""
+    return "not measured" if ms is None else f"{ms * 1e3:.3f} us"
 
 
 # --- the headline episode (phases 2 and 13) --------------------------------
@@ -1123,7 +1179,9 @@ def segment_bound_ms(e: int, n: int) -> float:
 
 def time_segments(data, ids, n) -> dict:
     """ms per call of each segment kernel, its plain version and the
-    library call, plain, kernel, kernel, plain."""
+    library call, plain, kernel, kernel, plain (CUDA events); and the
+    device time per call of the kernel and the library call
+    (``torch.profiler``)."""
     import torch
 
     from tarl_tpu_torch.ops import segment as seg
@@ -1145,10 +1203,17 @@ def time_segments(data, ids, n) -> dict:
             ("max", seg.segment_max, seg.segment_max_plain, lib_max, data),
             ("argmax", seg.segment_argmax, seg.segment_argmax_plain, None,
              data)):
-        p1, k1, k2, p2 = time_pair(fn, plain, (x, ids, n, layout))
-        lib_ms = None if lib is None else time_per_call(lib, (x,))
+        args = (x, ids, n, layout)
+        p1, k1, k2, p2 = time_pair(fn, plain, args)
+        dev_ms, acts = device_time_per_call(fn, args)
+        lib_ms = lib_dev = None
+        if lib is not None:
+            lib_ms = time_per_call(lib, (x,))
+            lib_dev, _ = device_time_per_call(lib, (x,))
         out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                     "library_ms": lib_ms, "all": (p1, k1, k2, p2)}
+                     "device_ms": dev_ms, "device_acts": acts,
+                     "library_ms": lib_ms, "library_device_ms": lib_dev,
+                     "all": (p1, k1, k2, p2)}
     return out
 
 
@@ -1332,6 +1397,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     physics = DEFAULT_PHYSICS
+    t_start = time.perf_counter()
 
     # --- 1. card ------------------------------------------------------------
     card = card_line()
@@ -1372,40 +1438,43 @@ def main() -> int:
         f"fused_winner calls {launches}")
 
     # --- 3. kernel against plain ----------------------------------------
-    kin, r = net.in_src_tab.shape
-    cases = [
-        (s.road, s.selected_road, s.time,
-         rng.gumbel(rng.prng_key(1000 + i), (kin, r), dev))
-        for i, s in enumerate(captured)
-    ]
+    r = net.num_roads
+    cases = [(s.road, s.selected_road, s.time, rng.prng_key(1000 + i))
+             for i, s in enumerate(captured)]
     err16 = compare_kernel(cases, net, physics)
     big, _ = load_scenario("Grid64x64_10", 64, 64, 10, dev)
-    kin64, r64 = big.in_src_tab.shape
+    r64 = big.num_roads
     big_cases = []
     for i in range(RANDOM_STATES):
         t_now = 6 * 3600.0 + 37 * i
         road64, sel64 = random_road_state(big, i, t_now)
-        big_cases.append((road64, sel64, t_now,
-                          rng.gumbel(rng.prng_key(2000 + i), (kin64, r64),
-                                     dev)))
+        big_cases.append((road64, sel64, t_now, rng.prng_key(2000 + i)))
     err64 = compare_kernel(big_cases, big, physics)
     log(f"kernel vs plain: bitwise equal on {len(cases)} headline states "
         f"(R={r}) and {len(big_cases)} random Grid64x64 states (R={r64}), "
         f"each with the clock on the host and on the device")
 
-    timings = {}
-    for label, g, (road_c, sel_c, t_c, gum_c) in (
+    timings = {}   # label: (kernel ms, plain ms, device ms, bound ms)
+    for label, g, (road_c, sel_c, t_c, key_c) in (
             ("Grid16x16", net, cases[len(cases) // 2]),
             ("Grid64x64", big, big_cases[0])):
+        args = (road_c, sel_c, g, t_c, key_c, physics)
         plain1, kern1, kern2, plain2 = time_pair(
             fused_winner.direction_confirm,
-            fused_winner.direction_confirm_plain,
-            (road_c, sel_c, g, t_c, gum_c, physics))
-        timings[label] = (min(kern1, kern2), min(plain1, plain2))
+            fused_winner.direction_confirm_plain, args)
+        dev_ms, acts = device_time_per_call(fused_winner.direction_confirm,
+                                            args)
+        bound = k1_bound_ms(g, road_c, sel_c, t_c, key_c, physics)
+        timings[label] = (min(kern1, kern2), min(plain1, plain2), dev_ms,
+                          bound)
         log(f"fused_winner {label} (R={g.num_roads}): kernel "
             f"{kern1 * 1e3:.2f} / {kern2 * 1e3:.2f} us per call, plain "
             f"{plain1 * 1e3:.2f} / {plain2 * 1e3:.2f} us per call "
-            f"(plain, kernel, kernel, plain)")
+            f"(plain, kernel, kernel, plain; CUDA events over "
+            f"{TIMED_CALLS} calls); device {fmt_us(dev_ms)} per call "
+            f"in {acts:.1f} kernels and memsets (torch.profiler over "
+            f"{TIMED_CALLS} calls); bound {bound[0] * 1e3:.4f} us by "
+            f"{bound[1]} ({card})")
 
     # --- 4. the episode in context ----------------------------------------
     ref = captured[0]
@@ -1563,10 +1632,13 @@ def main() -> int:
         for name, r in tt.items():
             p1, k1, k2, p2 = r["all"]
             lib = ("none" if r["library_ms"] is None
-                   else f"{r['library_ms'] * 1e3:.2f} us")
+                   else f"{r['library_ms'] * 1e3:.2f} us (device "
+                        f"{fmt_us(r['library_device_ms'])})")
             log(f"segment {name} {label}: kernel {k1 * 1e3:.2f} / "
                 f"{k2 * 1e3:.2f} us per call, plain {p1 * 1e3:.2f} / "
-                f"{p2 * 1e3:.2f} us (plain, kernel, kernel, plain), library "
+                f"{p2 * 1e3:.2f} us (plain, kernel, kernel, plain; CUDA "
+                f"events), device {fmt_us(r['device_ms'])} per call in "
+                f"{r['device_acts']:.1f} kernels (torch.profiler); library "
                 f"{lib} ({card})")
 
     # --- 12. the learned path in context -----------------------------------
@@ -1614,16 +1686,15 @@ def main() -> int:
     for i in range(K8_STATES):
         t_now = 6 * 3600.0 + 53 * i
         road256, sel256 = random_road_state(net256, 256 + i, t_now)
-        cases256.append((road256, sel256, t_now,
-                         rng.gumbel(rng.prng_key(4000 + i), (kin256, r256),
-                                    dev)))
+        cases256.append((road256, sel256, t_now, rng.prng_key(4000 + i)))
     reset_counts()
     err256 = compare_kernel(cases256, net256, physics)
     k8_launches = counts()["K1"]
-    road_c, sel_c, t_c, gum_c = cases256[0]
+    road_c, sel_c, t_c, key_c = cases256[0]
     k8_t = time_pair(fused_winner.direction_confirm,
                      fused_winner.direction_confirm_plain,
-                     (road_c, sel_c, net256, t_c, gum_c, physics))
+                     (road_c, sel_c, net256, t_c, key_c, physics))
+    k8_bound = k1_bound_ms(net256, road_c, sel_c, t_c, key_c, physics)
     log(f"fused_winner at Grid256x256 (R={r256}, {kin256} in-slots; network "
         f"built from arrays in {build256:.1f} s): bitwise equal to plain on "
         f"{K8_STATES} random states, clock on the host and on the device "
@@ -1726,9 +1797,10 @@ def main() -> int:
     for label, g, states in (("Grid64x64", big, big_cases),
                              ("Grid256x256", net256, cases256)):
         k7_cases += [(f"{label} random {i}",
-                      shard_winner_args(g, road_c, sel_c, t_c, gum_c,
+                      shard_winner_args(g, road_c, sel_c, t_c,
+                                        rng.direction_gumbel(key_c, g),
                                         SHARD_BLOCKS, physics), SHARD_BLOCKS)
-                     for i, (road_c, sel_c, t_c, gum_c) in enumerate(states)]
+                     for i, (road_c, sel_c, t_c, key_c) in enumerate(states)]
     err7 = compare_shard_winner(k7_cases)
     k7_t = {}    # label: (kernel ms, plain ms, bound ms, bound by)
     for label, args in (("Grid16x16", cap7.inputs[len(cap7.inputs) // 2][1]),
@@ -1788,8 +1860,8 @@ def main() -> int:
         f"({card})")
 
     # --- 21. results ------------------------------------------------------
-    kern_ms, plain_ms = timings["Grid16x16"]
-    k1_bound = k1_bound_ms(net)
+    log(f"all phases in {time.perf_counter() - t_start:.1f} s")
+    kern_ms, plain_ms, kern_dev_ms, k1_bound = timings["Grid16x16"]
     seg_entries = []
     for name, key, line in (("sum", "K9", 66), ("max", "K10", 121),
                             ("argmax", "K11", 169)):
@@ -1805,10 +1877,12 @@ def main() -> int:
                               else "rollout collection (phase 9)"),
             "max_abs_err": seg_err[name],
             "ms": seg_t[name]["ms"],
+            "device_ms": seg_t[name]["device_ms"],
             "plain_ms": seg_t[name]["plain_ms"],
             "bound_ms": segment_bound_ms(e8, n8),
             "bound_by": "bytes",
             "library_ms": seg_t[name]["library_ms"],
+            "library_device_ms": seg_t[name]["library_device_ms"],
             "shape": f"E={e8}, N={n8}",
             "ms_grid16": seg_t16[name]["ms"],
         })
@@ -1820,12 +1894,15 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": float(max(err16, err64)),
         "ms": kern_ms,
+        "device_ms": kern_dev_ms,
         "plain_ms": plain_ms,
-        "bound_ms": k1_bound,
-        "bound_by": "bytes",
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
         "library_ms": None,
         "ms_grid64": timings["Grid64x64"][0],
+        "device_ms_grid64": timings["Grid64x64"][2],
         "plain_ms_grid64": timings["Grid64x64"][1],
+        "bound_ms_grid64": timings["Grid64x64"][3][0],
         "launches_sp_row": sp["winner_launches"],
     }, {
         "name": "primal_relax",
@@ -1890,8 +1967,8 @@ def main() -> int:
         "max_abs_err": float(err256),
         "ms": min(k8_t[1:3]),
         "plain_ms": min(k8_t[0], k8_t[3]),
-        "bound_ms": k1_bound_ms(net256),
-        "bound_by": "bytes",
+        "bound_ms": k8_bound[0],
+        "bound_by": k8_bound[1],
         "library_ms": None,
         "shape": f"R={r256} (winner and confirm timed as one call)",
     }, {
@@ -1923,20 +2000,36 @@ def main() -> int:
     return 0
 
 
-def k1_bound_ms(net) -> float:
-    """K1's least time at the headline shape: what the kernel reads once
-    (the head cell of each road in the three ring tables, not the whole
-    rings; head, count, selection and capacity per road; the in-slot and
-    out-slot tables, the Gumbel matrix; the clock) and the five outputs
-    written, against the card's memory rate; its few compares per slot
-    take far less at the float32 rate."""
+def k1_bound_ms(net, road, sel, t_now, key, physics) -> tuple[float, str]:
+    """K1's least time on this input and what bounds it: each road's count
+    and capacity (8 bytes) and each in-slot's valid flag (1 byte); each
+    valid slot's source (4 bytes), and each distinct source's head,
+    selection and ring departure once (12 bytes); each eligible slot's
+    logit (4 bytes) and, once per road with one, its canonical position
+    (4 bytes); each winner's id and dest (8 bytes); the clock; and the
+    five outputs written (14 bytes a road), against the card's memory
+    rate.  ``K7_OPS_PER_SLOT`` operations for each valid slot's
+    eligibility and score and ``K12_OPS_PER_DRAW`` for each eligible
+    slot's noise, against its float32 rate."""
+    from tarl_tpu_torch.core.direction import eligible_slots
+    from tarl_tpu_torch.core.fused_winner import direction_confirm_plain
+
     r = net.num_roads
-    kin, kout = net.in_src_tab.shape[0], net.out_dst_tab.shape[0]
-    read = 3 * 4 * r + 4 * 4 * r \
-        + kin * r * (4 + 4 + 4 + 1) + kout * r * (4 + 1) + 4
-    written = r * (1 + 4 + 4 + 4 + 1)
-    return max((read + written) / HBM_BYTES_PER_S,
-               20 * kin * r / F32_OPS_PER_S) * 1e3
+    ok = net.in_edge_ok
+    valid = int(ok.sum())
+    sources = int(net.in_src_tab[ok].unique().numel())
+    eligible = eligible_slots(road, sel, net, t_now, physics)
+    drawn = int(eligible.sum())
+    roads_drawing = int(eligible.any(dim=0).sum())
+    wins = int(direction_confirm_plain(road, sel, net, t_now, key,
+                                       physics)[0].sum())
+    moved = (8 * r + ok.numel() + 4 * valid + 12 * sources + 4 * drawn
+             + 4 * roads_drawing + 8 * wins + 4 + 14 * r)
+    by_bytes = moved / HBM_BYTES_PER_S
+    by_ops = (K7_OPS_PER_SLOT * valid + K12_OPS_PER_DRAW * drawn) \
+        / F32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
 
 
 def relax_bound_ms(net, sweeps: int, dests: int,

@@ -89,10 +89,11 @@ def main(argv=None) -> int:
 
     k12 = "  of which K12 (gumbel_argmax_payload)"
     choice_label = "choice (random, its Gumbel draw)"
+    # The default core draws its noise inside K1 (no [KIN, R] matrix);
+    # the sharded tick still draws the matrix for K7.
     serial_patches = (step_mod, [
         ("insert_agents_backlogged", "insert (backlog)"),
         ("withdraw_agents", "withdraw"),
-        ("direction_gumbel", "direction Gumbel draw [KIN, R]"),
         ("apply_transfers", "epilogue (apply_transfers)"),
         ("fused_core_step", "fused core step (eligibility, logits, "
                             "K12, push, pop)"),
@@ -125,7 +126,8 @@ def main(argv=None) -> int:
             if blocks is None:
                 kw = {}
                 if timed_run:
-                    kw = dict(core=timed("core K1 (direction_confirm)",
+                    kw = dict(core=timed("core K1 (direction_confirm, its "
+                                         "noise drawn inside)",
                                          fused_winner.direction_confirm),
                               payload=timed(
                                   k12, fused_core.gumbel_argmax_payload))

@@ -109,7 +109,6 @@ def main(argv=None) -> int:
     patches = [
         (ppo, "_context", "context (agent rows, virtual mask)"),
         (ppo, "_policy_logits", "policy MLP + distance prior"),
-        (env_mod, "direction_gumbel", "direction Gumbel draw [KIN, R]"),
         (env_mod, "apply_transfers", "epilogue (apply_transfers)"),
         (env_mod, "withdraw_agents", "withdraw"),
         (env_mod, "insert_agents", "insert (whole population)"),
@@ -125,7 +124,8 @@ def main(argv=None) -> int:
         "choice (action -> selections)", choice_cls(action))
     timed_ops = seg.KERNELS._replace(
         argmax=timed("K11 (mode, via the wrapper)", seg.segment_argmax))
-    timed_core = timed("core K1 (direction_confirm)", direction_confirm)
+    timed_core = timed("core K1 (direction_confirm, its noise drawn "
+                       "inside)", direction_confirm)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()

@@ -6,7 +6,8 @@ seconds).  Libraries go to ``build/tarl_tpu_torch/`` at the root of the
 checkout, keyed by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the command, so an edited source rebuilds.  A failed
 compile raises with nvcc's stderr.
-:func:`check_tensor` is the wrappers' check of what a kernel takes.
+:func:`check_tensor` is the wrappers' check of what a kernel takes, and
+:func:`current_stream` the stream they launch on.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "tarl_tpu_torch"
@@ -40,6 +43,15 @@ def check_tensor(name: str, t, dtype, shape, device) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def current_stream(device) -> int:
+    """PyTorch's current CUDA stream on ``device`` (an indexed CUDA
+    device, as a tensor's is), as the raw ``cudaStream_t`` a kernel
+    launches on.  The same stream as ``torch.cuda.current_stream(device).
+    cuda_stream``, read without building a ``Stream`` object: this is on
+    every launch's host path."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def nvcc_path() -> str:

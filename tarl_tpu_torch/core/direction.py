@@ -69,21 +69,19 @@ def pack_upstream(head_departure, count, cap, sel_enc, time: float,
             | (sel_enc.to(i32) << shift_sel))
 
 
-def winners(
+def eligible_slots(
     road: RoadState,
     selected_road: torch.Tensor,
     network: Network,
     time: float,
-    gumbel: torch.Tensor,
     physics: PhysicsConfig = DEFAULT_PHYSICS,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per downstream road: ``(accept bool, win_src int32 (R = none),
-    agent int32, dest int32)``."""
+) -> torch.Tensor:
+    """bool ``[KIN, R]``: in-slot ``k`` of downstream road ``v`` may send
+    its upstream's head into ``v`` this tick (the direction step's
+    eligibility, gridlock escape included)."""
     r = road.num_roads
     dev = road.count.device
-    head_id = road.head_ids()
     head_dep = road.head_departure()
-    head_dest = road.head_dests()
     count = road.count
     count_f = count.to(torch.float32)
     cap = network.capacity
@@ -104,20 +102,36 @@ def winners(
     u_free_u = torch.clamp(cap - count_f, 0.0, free_mask).to(
         torch.int32).to(torch.float32)
 
+    u = network.in_src_tab.long()
+    nonempty = nonempty_u[u]
+    u_free = u_free_u[u]
+    wants_v = sel_enc[u] == iota
+    mask = dep_ok_u[u] & space_ok & wants_v & nonempty
+    mask = mask | (stuck_u[u] & (u_free <= buf) & (u_free <= v_free)
+                   & wants_v & nonempty & v_has_slot)
+    return mask & network.in_edge_ok
+
+
+def winners(
+    road: RoadState,
+    selected_road: torch.Tensor,
+    network: Network,
+    time: float,
+    gumbel: torch.Tensor,
+    physics: PhysicsConfig = DEFAULT_PHYSICS,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per downstream road: ``(accept bool, win_src int32 (R = none),
+    agent int32, dest int32)``."""
+    r = road.num_roads
+    dev = road.count.device
+    mask = eligible_slots(road, selected_road, network, time, physics)
     neg_inf = torch.tensor(float("-inf"), device=dev)
     best = torch.full((r,), float("-inf"), dtype=torch.float32, device=dev)
     win_slot = torch.zeros((r,), dtype=torch.int64, device=dev)
     accept = torch.zeros((r,), dtype=torch.bool, device=dev)
     for k in range(network.in_src_tab.shape[0]):
-        u = network.in_src_tab[k].long()
-        nonempty = nonempty_u[u]
-        u_free = u_free_u[u]
-        wants_v = sel_enc[u] == iota
-        mask = dep_ok_u[u] & space_ok & wants_v & nonempty
-        mask = mask | (stuck_u[u] & (u_free <= buf) & (u_free <= v_free)
-                       & wants_v & nonempty & v_has_slot)
-        mask = mask & network.in_edge_ok[k]
-        s_k = torch.where(mask, network.in_logit_tab[k] + gumbel[k], neg_inf)
+        s_k = torch.where(mask[k], network.in_logit_tab[k] + gumbel[k],
+                          neg_inf)
         take = s_k > best
         best = torch.where(take, s_k, best)
         win_slot = torch.where(take, k, win_slot)
@@ -126,9 +140,9 @@ def winners(
     src = network.in_src_tab.gather(0, win_slot[None, :])[0]
     src = torch.where(accept, src, r)
     src_c = torch.clamp(src, max=r - 1).long()
-    agent = torch.where(accept, head_id[src_c], 0)
+    agent = torch.where(accept, road.head_ids()[src_c], 0)
     accept = agent != 0          # sentinel guard
-    dest = torch.where(accept, head_dest[src_c], 0)
+    dest = torch.where(accept, road.head_dests()[src_c], 0)
     win_src = torch.where(accept, src, r).to(torch.int32)
     return accept, win_src, agent, dest
 
@@ -188,7 +202,7 @@ def direction_step(
 ) -> tuple[RoadState, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns ``(road, road_delta_tt, accept, win_src)``.  ``gumbel`` is
     the ``[KIN, R]`` matrix of :func:`~tarl_tpu_torch.core.rng.
-    direction_gumbel`` (the reference draws it inside from a key)."""
+    direction_gumbel` (the reference draws it inside from a key)."""
     accept, win_src, agent, dest = winners(
         road, selected_road, network, time, gumbel, physics)
     delta = (road_delta(road, network) if compute_delta

@@ -35,7 +35,7 @@ from typing import Callable
 
 import torch
 
-from .._build import check_tensor
+from .._build import check_tensor, current_stream
 from ..config import DEFAULT_PHYSICS, PhysicsConfig
 from ..network import Network
 from ..ops.segment import (NEG_LARGE, SegmentLayout, segment_argmax_plain,
@@ -141,16 +141,14 @@ def gumbel_argmax_payload(
         raise ValueError(f"gumbel_argmax_payload: layout has "
                          f"{layout.num_segments} segments, expected "
                          f"{num_segments}")
-    check_tensor("offsets", layout.offsets, torch.int32,
-                 (num_segments + 1,), dev)
-    check_tensor("order", layout.order, torch.int32, (logits.shape[0],), dev)
+    # The layout's offsets and order were checked where it was built, on
+    # the device of segment_ids, which _check_inputs held to the logits'.
     out_a = torch.empty(num_segments, dtype=torch.int32, device=dev)
     out_b = torch.empty(num_segments, dtype=torch.int32, device=dev)
     err = _kernel_fn()(
         logits.data_ptr(), payload_a.data_ptr(), payload_b.data_ptr(),
-        layout.order.data_ptr(), layout.offsets.data_ptr(), num_segments,
-        key[0], key[1], out_a.data_ptr(), out_b.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *layout.pointers, num_segments, key[0], key[1], out_a.data_ptr(),
+        out_b.data_ptr(), current_stream(dev))
     if err != 0:
         raise RuntimeError(f"fused_core kernel launch failed: CUDA error "
                            f"{err}")

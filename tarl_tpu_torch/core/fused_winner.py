@@ -6,34 +6,42 @@ Pallas kernel ``_kernel``; ``fused_shard_winner`` and its kernel
 :func:`direction_confirm` returns, per road, ``(accept, win_src, agent,
 dest, popped)``: whether the road received a transfer, the winning upstream
 (R for none), the transferred agent and its DEST node, and whether the road
-popped its head because it won downstream.  On a CUDA tensor it launches
-the hand-written kernel of ``csrc/fused_winner.cu`` (route: nvcc into a
-shared library with a C interface, loaded with ctypes) or raises; on a CPU
-tensor it takes :func:`direction_confirm_plain`, the same function in
-plain PyTorch.  It never falls back from the kernel to the plain version.
+popped its head because it won downstream.  It takes the tick's direction
+key, as the reference's ``direction_confirm_fused`` does, and the noise of
+in-slot ``k`` of road ``v`` is ``rng.direction_gumbel(key, network)[k,
+v]``.  On a CUDA tensor it launches the hand-written kernel of
+``csrc/fused_winner.cu`` (route: nvcc into a shared library with a C
+interface, loaded with ctypes), which draws that noise itself, in one
+launch after a memset, or raises; on a CPU tensor it takes
+:func:`direction_confirm_plain`, the same function in plain PyTorch.  It
+never falls back from the kernel to the plain version.
 
 The TPU kernel's roll plan and exception overlay have no counterpart: on
-the GPU the in-slot and out-slot reads are direct gathers.  The Gumbel
-matrix is drawn outside, as the TPU kernel takes it, and the tail push and
-head pop stay in PyTorch (:func:`apply_transfers`).
+the GPU the in-slot reads are direct gathers, and the confirm is the
+winners' scatter onto their upstreams (each upstream proposes to one road,
+so it wins at most once).  The tail push and head pop stay in PyTorch
+(:func:`apply_transfers`).
 
 :func:`fused_shard_winner` is the winner alone on the road blocks of a
 road-sharded tick (:mod:`tarl_tpu_torch.parallel.shard_map_episode`): it
 reads each in-slot's upstream packed word, head id and head dest from the
 replicated halo vectors, which the TPU kernel took pre-read through the
-roll plan.  Same rule: the kernel on a CUDA tensor, its plain version
+roll plan, and takes the tick's ``[KIN, n]`` Gumbel columns.  Same rule:
+the kernel on a CUDA tensor, its plain version
 :func:`fused_shard_winner_plain` on a CPU tensor.
 """
 from __future__ import annotations
 
 import ctypes
+import operator
 
 import torch
 
-from .._build import check_tensor
+from .._build import check_tensor, current_stream
 from ..config import DEFAULT_PHYSICS, PhysicsConfig
 from ..network import Network
 from ..state import RoadState
+from . import rng
 from .direction import free_space_mask, push_winners, road_delta, winners
 from .response import pop_heads, popped_mask
 
@@ -58,11 +66,13 @@ def direction_confirm_plain(
     selected_road: torch.Tensor,
     network: Network,
     time: float,
-    gumbel: torch.Tensor,
+    key: rng.Key,
     physics: PhysicsConfig = DEFAULT_PHYSICS,
 ):
     """The plain PyTorch version: ``direction_step``'s winner logic plus
-    ``confirm_step``'s pop mask."""
+    ``confirm_step``'s pop mask, on ``rng.direction_gumbel(key,
+    network)``'s matrix, drawn at the positions the kernel draws."""
+    gumbel = rng.gumbel_at_positions(key, rng.direction_positions(network))
     accept, win_src, agent, dest = winners(
         road, selected_road, network, time, gumbel, physics)
     return accept, win_src, agent, dest, popped_mask(accept, win_src)
@@ -74,72 +84,46 @@ def _kernel_fn():
         from .._build import load_library
 
         fn = load_library("fused_winner").tarl_fused_winner
-        p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-        fn.argtypes = [p] * 13 + [f, p] + [f] * 3 + [i] * 4 + [p] * 6
+        p, f, i, u = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_uint32)
+        fn.argtypes = [p] * 11 + [u, u, f, p, f, f, f, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
-def _checked_inputs(road, selected_road, network, gumbel):
-    """The kernel's inputs in argument order, after checking that each lies
-    on the road state's device with the dtype, shape and layout the kernel
-    takes."""
-    dev = road.count.device
-    r, nmax = road.num_roads, road.nmax
-    kin, kout = network.in_src_tab.shape[0], network.out_dst_tab.shape[0]
-    i32, f32, b = torch.int32, torch.float32, torch.bool
-    inputs = [
-        ("fifo_ids", road.fifo_ids, i32, (r, nmax)),
-        ("fifo_departure", road.fifo_departure, f32, (r, nmax)),
-        ("fifo_dest", road.fifo_dest, i32, (r, nmax)),
-        ("head", road.head, i32, (r,)),
-        ("count", road.count, i32, (r,)),
-        ("selected_road", selected_road, i32, (network.num_nodes,)),
-        ("capacity", network.capacity, f32, (r,)),
-        ("in_src_tab", network.in_src_tab, i32, (kin, r)),
-        ("in_logit_tab", network.in_logit_tab, f32, (kin, r)),
-        ("in_edge_ok", network.in_edge_ok, b, (kin, r)),
-        ("out_dst_tab", network.out_dst_tab, i32, (kout, r)),
-        ("out_edge_ok", network.out_edge_ok, b, (kout, r)),
-        ("gumbel", gumbel, f32, (kin, r)),
-    ]
-    for name, t, dtype, shape in inputs:
+def _key_words(key) -> tuple[int, int]:
+    """The key's two words as ints in ``[0, 2**32)``; raises on anything
+    else."""
+    if len(key) != 2:
+        raise ValueError(f"key has {len(key)} words, expected 2")
+    k1, k2 = operator.index(key[0]), operator.index(key[1])
+    if not (0 <= k1 <= 0xFFFFFFFF and 0 <= k2 <= 0xFFFFFFFF):
+        raise ValueError(f"key words {k1}, {k2} lie outside [0, 2**32)")
+    return k1, k2
+
+
+def _checked_call(road, selected_road, network, time, key):
+    """Check what changes from tick to tick (the road fields, the
+    selection, the clock and the key) against the network, whose own
+    tables :attr:`Network.winner_tables` checked once.  Returns the
+    network's table addresses and the key's words."""
+    tables = network.winner_tables
+    dev = network.device
+    r, nmax = network.num_roads, road.nmax
+    i32 = torch.int32
+    for name, t, dtype, shape in (
+            ("fifo_ids", road.fifo_ids, i32, (r, nmax)),
+            ("fifo_departure", road.fifo_departure, torch.float32,
+             (r, nmax)),
+            ("fifo_dest", road.fifo_dest, i32, (r, nmax)),
+            ("head", road.head, i32, (r,)),
+            ("count", road.count, i32, (r,)),
+            ("selected_road", selected_road, i32, (network.num_nodes,))):
         check_tensor(name, t, dtype, shape, dev)
-    return [t for _, t, _, _ in inputs]
-
-
-def _launch(road, inputs, network, time, physics):
-    global LAUNCHES
-    dev = road.count.device
-    r, nmax = road.num_roads, road.nmax
-    kin, kout = network.in_src_tab.shape[0], network.out_dst_tab.shape[0]
-    i32, b = torch.int32, torch.bool
-    accept = torch.empty(r, dtype=b, device=dev)
-    win_src = torch.empty(r, dtype=i32, device=dev)
-    agent = torch.empty(r, dtype=i32, device=dev)
-    dest = torch.empty(r, dtype=i32, device=dev)
-    popped = torch.empty(r, dtype=b, device=dev)
-    fn = _kernel_fn()
     if isinstance(time, torch.Tensor):
         check_tensor("time", time, torch.float32, (), dev)
-        time_host, time_dev = 0.0, time.data_ptr()
-    else:
-        time_host, time_dev = float(time), None
-    err = fn(
-        *(t.data_ptr() for t in inputs),
-        time_host, time_dev, float(physics.gridlock_patience),
-        float(physics.congestion_buffer), float(free_space_mask(r, nmax)),
-        r, nmax, kin, kout,
-        accept.data_ptr(), win_src.data_ptr(), agent.data_ptr(),
-        dest.data_ptr(), popped.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fused_winner kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES += 1
-    return accept, win_src, agent, dest, popped
+    return tables, _key_words(key)
 
 
 def direction_confirm(
@@ -147,22 +131,45 @@ def direction_confirm(
     selected_road: torch.Tensor,
     network: Network,
     time: float,
-    gumbel: torch.Tensor,
+    key: rng.Key,
     physics: PhysicsConfig = DEFAULT_PHYSICS,
 ):
     """``(accept, win_src, agent, dest, popped)`` for one tick: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors.  Inputs the
     kernel would not take raise on either device.  ``time`` is a host
     float or a float32 0-d tensor on the road state's device (the RL
-    environment's clock, read by the kernel on the device)."""
-    inputs = _checked_inputs(road, selected_road, network, gumbel)
-    if road.count.device.type == "cuda":
-        return _launch(road, inputs, network, time, physics)
-    if road.count.device.type != "cpu":
-        raise ValueError(f"direction_confirm: unsupported device "
-                         f"{road.count.device}")
-    return direction_confirm_plain(road, selected_road, network, time, gumbel,
-                                   physics)
+    environment's clock, read by the kernel on the device); ``key`` is
+    the tick's direction key, two words in ``[0, 2**32)``."""
+    global LAUNCHES
+    tables, (k1, k2) = _checked_call(road, selected_road, network, time, key)
+    dev = network.device
+    if dev.type == "cpu":
+        return direction_confirm_plain(road, selected_road, network, time,
+                                       key, physics)
+    if dev.type != "cuda":
+        raise ValueError(f"direction_confirm: unsupported device {dev}")
+    r, nmax = network.num_roads, road.nmax
+    ints = torch.empty((3, r), dtype=torch.int32, device=dev)
+    flags = torch.empty((2, r), dtype=torch.bool, device=dev)
+    if isinstance(time, torch.Tensor):
+        time_host, time_dev = 0.0, time.data_ptr()
+    else:
+        time_host, time_dev = float(time), None
+    err = _kernel_fn()(
+        road.fifo_ids.data_ptr(), road.fifo_departure.data_ptr(),
+        road.fifo_dest.data_ptr(), road.head.data_ptr(),
+        road.count.data_ptr(), selected_road.data_ptr(), *tables, k1, k2,
+        time_host, time_dev, physics.gridlock_patience,
+        physics.congestion_buffer, free_space_mask(r, nmax), r, nmax,
+        network.in_src_tab.shape[0], ints.data_ptr(), flags.data_ptr(),
+        current_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"fused_winner kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
+    win_src, agent, dest = ints.unbind(0)
+    accept, popped = flags.unbind(0)
+    return accept, win_src, agent, dest, popped
 
 
 def apply_transfers(
@@ -307,7 +314,7 @@ def fused_shard_winner(pack, head_id, head_dest, gumbel, logit, src, ok,
         col0, r_sentinel, shift_free, shift_sel, free_mask,
         float(physics.congestion_buffer), n, kin,
         accept.data_ptr(), win.data_ptr(), agent.data_ptr(), dest.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        current_stream(dev),
     )
     if err != 0:
         raise RuntimeError(f"fused_shard_winner kernel launch failed: CUDA "

@@ -33,7 +33,8 @@ from ..device import resolve_device
 
 __all__ = [
     "prng_key", "threefry2x32", "split", "random_bits", "gumbel",
-    "gumbel_at_positions", "direction_gumbel", "choice_gumbel",
+    "gumbel_at_positions", "direction_positions", "direction_gumbel",
+    "choice_gumbel",
     "payload_gumbel",
 ]
 
@@ -113,16 +114,22 @@ def gumbel_at_positions(key: Key, q: torch.Tensor) -> torch.Tensor:
     return _gumbel_from_bits(_bits_at(key, q.to(torch.int64)))
 
 
+def direction_positions(network) -> torch.Tensor:
+    """int64 ``[KIN, R]``: the canonical stream position ``k * R +
+    road_order[v]`` of in-slot ``k`` of road ``v`` (the direction winner's
+    kernel draws its noise there)."""
+    kin, r = network.in_src_tab.shape
+    return (torch.arange(kin, dtype=torch.int64, device=network.device)
+            [:, None] * r + network.road_order.to(torch.int64)[None, :])
+
+
 def direction_gumbel(key: Key, network) -> torch.Tensor:
     """The direction step's ``[KIN, R]`` slot-major Gumbel matrix; a
     renumbered network addresses the same stream by canonical position
-    ``k * R + road_order[v]``."""
-    kin, r = network.in_src_tab.shape
+    (:func:`direction_positions`)."""
     if not network.renumbered:
-        return gumbel(key, (kin, r), network.device)
-    q = (torch.arange(kin, dtype=torch.int64, device=network.device)[:, None]
-         * r + network.road_order.to(torch.int64)[None, :])
-    return gumbel_at_positions(key, q)
+        return gumbel(key, tuple(network.in_src_tab.shape), network.device)
+    return gumbel_at_positions(key, direction_positions(network))
 
 
 def payload_gumbel(bits: torch.Tensor) -> torch.Tensor:

@@ -38,7 +38,7 @@ from .insert import (
     insert_agents_windowed,
     reconstruct_inserted,
 )
-from .rng import Key, direction_gumbel, prng_key, split
+from .rng import Key, prng_key, split
 from .withdraw import withdraw_agents
 
 
@@ -161,14 +161,14 @@ def tick(
 
     ``lazy_inserted`` (backlog mode) skips the per-tick inserted-flag
     writes; :func:`run_episode` rebuilds the flag once at the end.
-    ``core`` is the winner+confirm function;
-    pass :func:`~tarl_tpu_torch.core.fused_winner.direction_confirm_plain`
-    to run the plain version on a CUDA device for comparison.  ``payload``
-    is the fused core's sampler (``fused_core`` only); pass
-    :func:`~tarl_tpu_torch.core.fused_core.gumbel_argmax_payload_plain` the
-    same way.  ``choice_fn`` replaces ``policy.choice`` (same signature).
-    Entry roads read ``state.next_hop`` as it was before this tick's
-    choice."""
+    ``core`` is the winner+confirm function, given the tick's direction
+    key (it draws its own noise); pass :func:`~tarl_tpu_torch.core.
+    fused_winner.direction_confirm_plain` to run the plain version on a
+    CUDA device for comparison.  ``payload`` is the fused core's sampler
+    (``fused_core`` only); pass :func:`~tarl_tpu_torch.core.fused_core.
+    gumbel_argmax_payload_plain` the same way.  ``choice_fn`` replaces
+    ``policy.choice`` (same signature).  Entry roads read
+    ``state.next_hop`` as it was before this tick's choice."""
     t = state.time
     dev = state.road.count.device
 
@@ -228,8 +228,7 @@ def tick(
             compute_delta=want_delta, payload=payload)
     else:
         accept, _win, agent, dest, popped = core(
-            road, state.selected_road, network, t,
-            direction_gumbel(k_dir, network), physics)
+            road, state.selected_road, network, t, k_dir, physics)
         road, road_delta_tt = apply_transfers(
             road, network, t, accept, agent, dest, popped, physics,
             compute_delta=want_delta,

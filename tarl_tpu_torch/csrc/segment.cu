@@ -28,9 +28,15 @@
 //
 // Bound: bytes.  The function reads data[E] and ids[E] (8 bytes an
 // element) and writes N floats or ints: ~12 KB at Grid8x8 (E = 1,256,
-// N = 352), ~4 ns at 3.35 TB/s.  At these shapes the launch (~µs) is the
-// whole cost, so the design spends nothing on bandwidth: one launch, one
-// thread per segment, dependent loads of order[] then data[].
+// N = 352), ~4 ns at 3.35 TB/s.  At these shapes the launch is the whole
+// cost, so the design spends nothing on bandwidth: one launch, one thread
+// per segment, dependent loads of order[] then data[].  Shared memory, TMA
+// or the tensor cores would have nothing to do at 12 KB.  Measured with
+// scripts/time_k1_k9.py on an NVIDIA H100 80GB HBM3 (700 W): 2.1-2.2 us of
+// device time per sum at Grid8x8, against 2.6 us for index_add_ and its
+// zero fill, so the body costs nothing worth a change; what a call costs
+// beyond that is the wrapper's host path (ops/segment.py), which checks
+// the layout once where it is built and the data once per call.
 
 #include <cuda_runtime.h>
 

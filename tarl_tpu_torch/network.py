@@ -25,6 +25,7 @@ import functools
 import numpy as np
 import torch
 
+from ._build import check_tensor
 from .config import DEFAULT_PHYSICS, PhysicsConfig
 from .device import resolve_device
 from .ops.segment import SegmentLayout, segment_layout
@@ -101,6 +102,27 @@ class Network:
         """The CSR of ``edge_dst`` over the roads (the fused core's
         segments: each road's incoming turn edges), built on first use."""
         return segment_layout(self.edge_dst, self.num_roads)
+
+    @functools.cached_property
+    def winner_tables(self) -> tuple[int, ...]:
+        """Addresses of the tables the direction winner's kernel (K1)
+        reads: ``capacity``, ``in_src_tab``, ``in_logit_tab``,
+        ``in_edge_ok`` and ``road_order``.  Checked once, on first use, for
+        the dtype, shape and layout the kernel takes (a frozen network's
+        tables never change), so that a tick checks only its own
+        inputs."""
+        r = self.num_roads
+        kin = self.in_src_tab.shape[0]
+        tables = [
+            ("capacity", self.capacity, torch.float32, (r,)),
+            ("in_src_tab", self.in_src_tab, torch.int32, (kin, r)),
+            ("in_logit_tab", self.in_logit_tab, torch.float32, (kin, r)),
+            ("in_edge_ok", self.in_edge_ok, torch.bool, (kin, r)),
+            ("road_order", self.road_order, torch.int32, (r,)),
+        ]
+        for name, t, dtype, shape in tables:
+            check_tensor(name, t, dtype, shape, self.device)
+        return tuple(t.data_ptr() for _, t, _, _ in tables)
 
     def entry_cost(self) -> torch.Tensor:
         """Free-flow cost of entering each node: ``fftt`` for roads, 0 for

@@ -20,20 +20,24 @@ returns ``len(scores)`` for a segment with no finite score above
 ``NEG_LARGE``; a segment holding a NaN has max NaN.
 
 The kernels read a :class:`SegmentLayout`, a CSR of the id vector built
-once per vector (for the learned policy, once per ``network.full_src``);
-callers that repeat an id vector pass its layout, and a wrapper given a
-layout raises unless it was built from the very id tensor it is given.  The composite ops
-(softmax, log-softmax, sample) take ``ops``: :data:`KERNELS` by default,
-:data:`PLAIN` to force the plain versions on the card.
+once per vector (for the learned policy, once per ``network.full_src``)
+and checked once, where it is built, for what the kernels take.  Callers
+that repeat an id vector pass its layout, and a wrapper given a layout
+raises unless it was built from the very id tensor it is given, for as
+many segments; a call then checks only its data before the launch.  The
+composite ops (softmax, log-softmax, sample) take ``ops``:
+:data:`KERNELS` by default, :data:`PLAIN` to force the plain versions on
+the card.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
 
-from .._build import check_tensor
+from .._build import check_tensor, current_stream
 from ..core import rng
 
 # The TPU kernels' empty-segment value, as a float32.
@@ -53,16 +57,33 @@ def reset_launches() -> None:
     SUM_LAUNCHES = MAX_LAUNCHES = ARGMAX_LAUNCHES = 0
 
 
-class SegmentLayout(NamedTuple):
+@dataclasses.dataclass(frozen=True, eq=False)
+class SegmentLayout:
     """CSR of an id vector: segment ``s`` holds the elements
     ``order[offsets[s]:offsets[s + 1]]``, in ascending element order.
     Elements with an out-of-range id sort past ``offsets[N]``.  ``ids``
-    is the id tensor it was built from."""
+    is the 1-D id tensor it was built from.  Built only as the kernels
+    take it: ``offsets`` int32 ``[N + 1]`` and ``order`` int32 ``[E]``,
+    contiguous, on the ids' device (raises otherwise); ``pointers`` keeps
+    their addresses for the launches."""
 
     offsets: torch.Tensor  # int32[N + 1]
     order: torch.Tensor    # int32[E]
     num_segments: int
     ids: torch.Tensor
+    pointers: tuple[int, int] = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        if self.ids.dim() != 1:
+            raise ValueError(f"segment ids have rank {self.ids.dim()}, "
+                             "expected 1")
+        dev = self.ids.device
+        check_tensor("offsets", self.offsets, torch.int32,
+                     (self.num_segments + 1,), dev)
+        check_tensor("order", self.order, torch.int32, (self.ids.shape[0],),
+                     dev)
+        object.__setattr__(self, "pointers", (self.order.data_ptr(),
+                                              self.offsets.data_ptr()))
 
 
 def segment_layout(segment_ids: torch.Tensor,
@@ -158,39 +179,36 @@ def _kernel_ok(data) -> bool:
 
 
 def _route(name: str, data, segment_ids, num_segments, layout):
-    """``None`` for the plain path (CPU), else the checked kernel inputs
-    ``(data, layout)``; raises on a device that is neither, and on a
-    layout built from another id tensor (on every device, so that the CPU
-    and the card reject the same calls)."""
-    if layout is not None and layout.ids is not segment_ids:
-        raise ValueError(f"{name}: the layout was built from another id "
-                         "tensor")
-    dev = data.device
-    if dev.type == "cpu":
-        return None
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
+    """``None`` for the plain path (CPU), else the layout to launch with;
+    raises on a device that is neither, and, on every device (so that the
+    CPU and the card reject the same calls), on a layout built from
+    another id tensor or for another segment count.  The layout was
+    checked where it was built; the data is checked here in one test, its
+    message built only on failure."""
+    if layout is not None:
+        if layout.ids is not segment_ids:
+            raise ValueError(f"{name}: the layout was built from another id "
+                             "tensor")
+        if layout.num_segments != num_segments:
+            raise ValueError(f"{name}: layout has {layout.num_segments} "
+                             f"segments, expected {num_segments}")
+    if not data.is_cuda:
+        if data.is_cpu:
+            return None
+        raise ValueError(f"{name}: unsupported device {data.device}")
     if layout is None:
         layout = segment_layout(segment_ids, num_segments)
-    e = data.shape[0]
-    check_tensor("data", data, torch.float32, (e,), dev)
-    check_tensor("segment_ids", segment_ids, segment_ids.dtype, (e,), dev)
-    check_tensor("offsets", layout.offsets, torch.int32, (num_segments + 1,),
-                 dev)
-    check_tensor("order", layout.order, torch.int32, (e,), dev)
-    if layout.num_segments != num_segments:
-        raise ValueError(f"{name}: layout has {layout.num_segments} "
-                         f"segments, expected {num_segments}")
-    return data, layout
+    ids = layout.ids
+    if not (data.shape == ids.shape and data.device == ids.device
+            and data.is_contiguous()):
+        check_tensor("data", data, torch.float32, tuple(ids.shape),
+                     ids.device)
+    return layout
 
 
 def _check_err(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def segment_sum(data, segment_ids, num_segments: int,
@@ -199,14 +217,13 @@ def segment_sum(data, segment_ids, num_segments: int,
     global SUM_LAUNCHES
     if not _kernel_ok(data):
         return segment_sum_plain(data, segment_ids, num_segments)
-    routed = _route("segment_sum", data, segment_ids, num_segments, layout)
-    if routed is None:
+    layout = _route("segment_sum", data, segment_ids, num_segments, layout)
+    if layout is None:
         return segment_sum_plain(data, segment_ids, num_segments)
-    data, layout = routed
-    out = torch.empty(num_segments, dtype=torch.float32, device=data.device)
+    out = data.new_empty(num_segments)
     _check_err("segment_sum", _kernel_fns()[0](
-        data.data_ptr(), layout.order.data_ptr(), layout.offsets.data_ptr(),
-        num_segments, out.data_ptr(), _stream(data.device)))
+        data.data_ptr(), *layout.pointers, num_segments, out.data_ptr(),
+        current_stream(data.device)))
     SUM_LAUNCHES += 1
     return out
 
@@ -219,14 +236,13 @@ def segment_max(data, segment_ids, num_segments: int,
     global MAX_LAUNCHES
     if not _kernel_ok(data):
         return _reduce(data, segment_ids, num_segments, "amax")
-    routed = _route("segment_max", data, segment_ids, num_segments, layout)
-    if routed is None:
+    layout = _route("segment_max", data, segment_ids, num_segments, layout)
+    if layout is None:
         return segment_max_plain(data, segment_ids, num_segments)
-    data, layout = routed
-    out = torch.empty(num_segments, dtype=torch.float32, device=data.device)
+    out = data.new_empty(num_segments)
     _check_err("segment_max", _kernel_fns()[1](
-        data.data_ptr(), layout.order.data_ptr(), layout.offsets.data_ptr(),
-        num_segments, out.data_ptr(), _stream(data.device)))
+        data.data_ptr(), *layout.pointers, num_segments, out.data_ptr(),
+        current_stream(data.device)))
     MAX_LAUNCHES += 1
     return out
 
@@ -241,16 +257,14 @@ def segment_argmax(scores, segment_ids, num_segments: int,
                          f"{scores.dim()}")
     if not _kernel_ok(scores):
         return segment_argmax_plain(scores, segment_ids, num_segments)
-    routed = _route("segment_argmax", scores, segment_ids, num_segments,
+    layout = _route("segment_argmax", scores, segment_ids, num_segments,
                     layout)
-    if routed is None:
+    if layout is None:
         return segment_argmax_plain(scores, segment_ids, num_segments)
-    scores, layout = routed
-    out = torch.empty(num_segments, dtype=torch.int32, device=scores.device)
+    out = scores.new_empty(num_segments, dtype=torch.int32)
     _check_err("segment_argmax", _kernel_fns()[2](
-        scores.data_ptr(), layout.order.data_ptr(), layout.offsets.data_ptr(),
-        num_segments, scores.shape[0], out.data_ptr(),
-        _stream(scores.device)))
+        scores.data_ptr(), *layout.pointers, num_segments, scores.shape[0],
+        out.data_ptr(), current_stream(scores.device)))
     ARGMAX_LAUNCHES += 1
     return out
 

@@ -18,7 +18,7 @@ direction_confirm`) followed by ``apply_transfers``.  The environment's
 clock is a float32 0-d tensor on the device: it depends on the occupancy,
 and keeping it there lets a rollout run with no host read per step (K1
 reads it on the device).  The threefry key is split on the host, as in
-the tick.
+the tick, and the core draws its noise from the direction key.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ from ..config import (
 )
 from ..core.fused_winner import apply_transfers, direction_confirm
 from ..core.insert import insert_agents, insert_agents_windowed
-from ..core.rng import direction_gumbel, split
+from ..core.rng import split
 from ..core.withdraw import withdraw_agents
 from ..network import Network
 from ..routing.policies import ExternalChoice
@@ -152,8 +152,7 @@ def env_step(
     # --- core ---
     key, k_dir = split(sim.key)
     accept, _win, agent, dest, popped = core(
-        sim.road, sim.selected_road, network, t,
-        direction_gumbel(k_dir, network), physics)
+        sim.road, sim.selected_road, network, t, k_dir, physics)
     road, road_delta_tt = apply_transfers(
         sim.road, network, t, accept, agent, dest, popped, physics,
         compute_delta=sim_cfg.record_road_optimality_hourly)

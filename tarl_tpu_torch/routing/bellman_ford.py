@@ -39,7 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .._build import check_tensor
+from .._build import check_tensor, current_stream
 from ..config import DEFAULT_PHYSICS, PhysicsConfig
 from ..core.sync import host_read
 from ..network import Network
@@ -260,10 +260,6 @@ def _check_inputs(road_cost, inter_out_road, inter_out_ok, road_to, dist):
         raise ValueError(f"unsupported device {dev}")
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _launch_next_road(dist, road_cost, inter_out_road, inter_out_ok,
                       road_to):
     i_n, k_n = inter_out_road.shape
@@ -272,7 +268,7 @@ def _launch_next_road(dist, road_cost, inter_out_road, inter_out_ok,
     err = next_road(dist.data_ptr(), road_cost.data_ptr(),
                     inter_out_road.data_ptr(), inter_out_ok.data_ptr(),
                     road_to.data_ptr(), i_n, dist.shape[1], k_n,
-                    road.data_ptr(), _stream(dist.device))
+                    road.data_ptr(), current_stream(dist.device))
     if err != 0:
         raise RuntimeError(f"primal_relax next-road launch failed: CUDA "
                            f"error {err}")
@@ -298,7 +294,7 @@ def _launch_relax(road_cost, inter_out_road, inter_out_ok, road_to, dist0,
         err = sweeps(dist.data_ptr(), a.data_ptr(), b.data_ptr(), *tables,
                      i_n, d_n, k_n, n,
                      None if flag is None else flag.data_ptr(),
-                     _stream(dist0.device))
+                     current_stream(dist0.device))
         if err != 0:
             raise RuntimeError(f"primal_relax sweep launch failed: CUDA "
                                f"error {err}")

@@ -6,7 +6,8 @@ run deep — then carried across with ``tarl_tpu_torch.convert``.  Each phase
 gets the same inputs on both sides, with the reference's own Gumbel
 matrices and keys, and must give the same ring fields, heads, counts,
 winners, stamps and masks, exactly.  The kernel wrapper
-``direction_confirm`` takes its plain version here (CPU tensors).
+``direction_confirm`` takes the tick's key, as the reference's fused
+winner does, and its plain version here (CPU tensors).
 """
 import jax
 import numpy as np
@@ -278,6 +279,11 @@ def test_reconstruct_inserted(burst):
     assert_tree_equal(_np(state.agents.inserted), _np(got.inserted))
 
 
+def _key(k):
+    """A reference key (uint32[2]) as the port's ``Key``."""
+    return tuple(int(w) for w in np.asarray(k))
+
+
 def _steps(state, n):
     """``n`` consecutive (time, direction key) pairs from ``state``."""
     key, t = state.key, state.time
@@ -311,18 +317,18 @@ def test_direction_and_confirm_steps(grid8):
 
 
 def test_direction_confirm_wrapper_matches_reference(grid8):
-    """The kernel wrapper (plain version on CPU) and the transfer epilogue
-    against the reference's ``direction_step`` + ``confirm_step``."""
+    """The kernel wrapper (plain version on CPU), given the tick's key as
+    the reference's fused winner is, and the transfer epilogue against the
+    reference's ``direction_step`` + ``confirm_step``."""
     net, pnet, state = grid8
     pstate = _port(state, pnet)
     road, proad = state.road, pstate.road
     for t, k in _steps(state, 12):
-        gumbel = torch.as_tensor(np.array(direction_gumbel(k, net)))
         r1, delta, acc, win = direction_step(
             road, state.selected_road, net, t, k, DEFAULT_PHYSICS)
         road, popped = confirm_step(r1, acc, win, net)
         accept, win_src, agent, dest, ppopped = p_fused.direction_confirm(
-            proad, pstate.selected_road, pnet, float(t), gumbel)
+            proad, pstate.selected_road, pnet, float(t), _key(k))
         assert_tree_equal(_np(acc), _np(accept), "accept")
         assert_tree_equal(_np(win), _np(win_src), "win_src")
         assert_tree_equal(_np(popped), _np(ppopped), "popped")
@@ -348,8 +354,8 @@ def test_direction_confirm_matches_reference_tiled(grid8, monkeypatch):
     ``direction_confirm`` + ``apply_transfers`` (K1's function), bitwise on
     accept, win_src, popped, the delay row and every road field.  The
     reference runs in interpret mode on a forced roll plan with exceptions,
-    in tiles of 128 roads, so Grid8x8's R = 224 ends in a partial tile; the
-    port gets the reference's Gumbel matrices."""
+    in tiles of 128 roads, so Grid8x8's R = 224 ends in a partial tile; both
+    take the same key."""
     from tarl_tpu.core.fused_winner import direction_confirm_fused_tiled
 
     from test_roll_gather import _force_plan
@@ -367,10 +373,9 @@ def test_direction_confirm_matches_reference_tiled(grid8, monkeypatch):
     road, proad = state.road, pstate.road
     accepted = 0
     for t, k in _steps(state, 8):
-        gumbel = torch.as_tensor(np.array(direction_gumbel(k, net)))
         road, delta, acc, win, popped = tiled(road, t, k)
         accept, win_src, agent, dest, ppopped = p_fused.direction_confirm(
-            proad, pstate.selected_road, pnet, float(t), gumbel)
+            proad, pstate.selected_road, pnet, float(t), _key(k))
         proad, pdelta = p_fused.apply_transfers(
             proad, pnet, float(t), accept, agent, dest, ppopped)
         for name, a, b in (("accept", acc, accept), ("win_src", win, win_src),

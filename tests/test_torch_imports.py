@@ -6,7 +6,9 @@
   every ``device`` parameter defaults to ``None``, the card.
 * The fused-winner (K1), road-block winner (K7), primal-relax and
   fused-core wrappers send CPU tensors to their plain versions (without
-  counting a launch) and raise on inputs the kernels would not take.
+  counting a launch) and raise on inputs the kernels would not take; a
+  segment layout the kernels would not take is refused where it is built
+  or first used.
 * The kernels' CUDA sources exist and the build targets ``sm_90a``.
 * On a machine with an NVIDIA GPU, each kernel equals its plain version
   (marked ``cuda``; skipped here).
@@ -27,6 +29,7 @@ from tarl_tpu_torch.core import fused_core, fused_winner, rng
 from tarl_tpu_torch.core.step import init_sim_state
 from tarl_tpu_torch.io.matsim import load_network, load_population
 from tarl_tpu_torch.io.scenarios import ensure_scenario
+from tarl_tpu_torch.ops import segment as seg
 from tarl_tpu_torch.routing import bellman_ford as bf
 from tarl_tpu_torch.state import RoadState
 
@@ -130,17 +133,15 @@ def grid4(tmp_path_factory):
         head=torch.as_tensor(g.integers(0, nmax, r).astype(np.int32)),
         count=count,
     )
-    gumbel = rng.gumbel(rng.prng_key(4), tuple(net.in_src_tab.shape),
-                        "cpu")
-    return net, road, state.selected_road, gumbel
+    return net, road, state.selected_road, rng.prng_key(4)
 
 
 def test_wrapper_takes_plain_version_on_cpu(grid4):
-    net, road, sel, gumbel = grid4
+    net, road, sel, key = grid4
     before = fused_winner.LAUNCHES
-    got = fused_winner.direction_confirm(road, sel, net, 21600.0, gumbel)
+    got = fused_winner.direction_confirm(road, sel, net, 21600.0, key)
     want = fused_winner.direction_confirm_plain(road, sel, net, 21600.0,
-                                                gumbel)
+                                                key)
     assert fused_winner.LAUNCHES == before
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
@@ -149,15 +150,15 @@ def test_wrapper_takes_plain_version_on_cpu(grid4):
     assert bool(got[0].any())
 
 
-@pytest.mark.parametrize("bad", ["gumbel_dtype", "gumbel_shape",
+@pytest.mark.parametrize("bad", ["key_word_range", "key_arity",
                                  "count_dtype", "fifo_layout",
                                  "selection_shape"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(grid4, bad):
-    net, road, sel, gumbel = grid4
-    if bad == "gumbel_dtype":
-        gumbel = gumbel.double()
-    elif bad == "gumbel_shape":
-        gumbel = gumbel[:, :-1]
+    net, road, sel, key = grid4
+    if bad == "key_word_range":
+        key = (key[0], 1 << 32)
+    elif bad == "key_arity":
+        key = (*key, 0)
     elif bad == "count_dtype":
         road = road._replace(count=road.count.long())
     elif bad == "fifo_layout":
@@ -166,8 +167,50 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(grid4, bad):
     else:
         sel = sel[:-1]
     with pytest.raises((TypeError, ValueError)):
-        fused_winner.direction_confirm(road, sel, net, 21600.0, gumbel,
+        fused_winner.direction_confirm(road, sel, net, 21600.0, key,
                                        DEFAULT_PHYSICS)
+
+
+LAYOUT_FAULTS = ["offsets_dtype", "offsets_length", "order_dtype",
+                 "order_length", "ids_rank", "segment_count"]
+
+
+def _refuse_bad_layout(bad: str, dev) -> None:
+    """A segment layout the kernels would not take raises where it is
+    built, and a layout for another segment count where a wrapper first
+    uses it."""
+    g = np.random.default_rng(5)
+    e, n = 700, 37
+    data = torch.as_tensor(g.normal(size=e).astype(np.float32), device=dev)
+    ids = torch.as_tensor(g.integers(0, n, e).astype(np.int32), device=dev)
+    good = seg.segment_layout(ids, n)
+    offsets, order = good.offsets, good.order
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "offsets_dtype":
+            seg.SegmentLayout(offsets.long(), order, n, ids)
+        elif bad == "offsets_length":
+            seg.SegmentLayout(offsets[:-1], order, n, ids)
+        elif bad == "order_dtype":
+            seg.SegmentLayout(offsets, order.long(), n, ids)
+        elif bad == "order_length":
+            seg.SegmentLayout(offsets, order[1:], n, ids)
+        elif bad == "ids_rank":
+            seg.SegmentLayout(offsets, order, n, ids[None, :])
+        else:
+            seg.segment_sum(data, ids, n + 1, good)
+
+
+@pytest.mark.parametrize("bad", LAYOUT_FAULTS)
+def test_bad_layout_is_refused_where_built_or_first_used(bad):
+    _refuse_bad_layout(bad, torch.device("cpu"))
+
+
+@pytest.mark.cuda
+def test_bad_layout_is_refused_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CPU cases run the same checks")
+    for bad in LAYOUT_FAULTS:
+        _refuse_bad_layout(bad, torch.device("cuda", 0))
 
 
 def test_kernel_source_and_build_target():
@@ -203,16 +246,15 @@ def test_kernel_matches_plain_on_card(grid4):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py checks the "
                     "kernel on the card")
-    net, road, sel, gumbel = grid4
+    net, road, sel, key = grid4
     dev = torch.device("cuda", 0)
     net = net.to(dev)
     road = RoadState(*(t.to(dev) for t in road))
-    sel, gumbel = sel.to(dev), gumbel.to(dev)
+    sel = sel.to(dev)
     before = fused_winner.LAUNCHES
-    want = fused_winner.direction_confirm_plain(road, sel, net, 21600.0,
-                                                gumbel)
+    want = fused_winner.direction_confirm_plain(road, sel, net, 21600.0, key)
     for clock in (21600.0, torch.tensor(21600.0, device=dev)):
-        got = fused_winner.direction_confirm(road, sel, net, clock, gumbel)
+        got = fused_winner.direction_confirm(road, sel, net, clock, key)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b)
