@@ -85,25 +85,34 @@ with its plain version run outside those windows.
    (``segment_ops=PLAIN``); the final states must be equal bitwise and
    K9-K11 must not run in the plain one.
 13. The fused-core headline: phase 2's episode with
-   ``SimConfig(fused_core=True)``, the per-downstream Gumbel-max over the
-   turn edges (K12, noise drawn in the kernel) in place of K1.  Asserts a
-   zero overflow monitor, conservation, arrivals, one K12 launch per tick
-   and no K1; prints agent-steps/s after the warm-up and the average travel
-   time beside phase 2's (the same law, another random stream).  Keeps
-   K12's inputs every 600 ticks.
+   ``SimConfig(fused_core=True)``: the eligibility, the logits and the
+   per-downstream Gumbel-max over the turn edges in one launch (K12's
+   fused entry, ``fused_core_sample``, noise drawn in the kernel) in place
+   of K1.  Asserts a zero overflow monitor, conservation, arrivals, one
+   K12 launch per tick and no K1; prints agent-steps/s after the warm-up
+   and the average travel time beside phase 2's (the same law, another
+   random stream).  Keeps K12's inputs (road state, selections, clock,
+   key) every 600 ticks.
 14. The fused core in context: the first 600 ticks of phase 13 again with
-   the plain K12 from the same key; the state at tick 600 must equal phase
-   13's bitwise, and K12 must not launch.
+   the plain edge phase from the same key; the state at tick 600 must
+   equal phase 13's bitwise, and K12 must not launch.
 15. K1 at the size of the TPU's column-tiled winner (K8a/K8b): a Grid256x256
    network (R = 261,120) built from ``grid_scenario``'s link arrays with no
    population; K1 against plain, bitwise on all five outputs, on 3 seeded
    random road states, each with a fresh key and both clock forms; both
    timed, plain, kernel, kernel, plain.
-16. K12 against plain, bitwise on both payloads: on the inputs kept in
-   phase 13 and on seeded random cases (the Grid64x64 and Grid256x256 edge
-   lists, E = 63,752 and 1,041,416; random ids over 40,000 segments with a
-   third of them empty; -inf logits and exact ties in each).  Timed at the
-   headline shape and at Grid256x256, plain, kernel, kernel, plain.
+16. K12 against plain, bitwise on both payloads.  The fused entry: on
+   the states kept in phase 13, on phase 3's 20 random Grid64x64 states
+   and on 4 random states of a 40-spoke hub (40 incoming turn edges a
+   road: the lanes past 32), each with a fresh key.  The bare entry
+   (``gumbel_argmax_payload``, logits in: the TPU kernel's function): on
+   the logits of phase 13's states and on seeded random cases (the
+   Grid64x64 and Grid256x256 edge lists, E = 63,752 and 1,041,416; random
+   ids over 40,000 segments with a third of them empty; -inf logits and
+   exact ties in each).  Both timed, plain, kernel, kernel, plain, with
+   the device time per call from ``torch.profiler``: the fused entry at
+   the headline shape and at Grid64x64, the bare one at the headline
+   shape and at Grid256x256.
 17. The sharded headline: phase 2's episode through
    ``run_episode_shard_map`` on ``make_road_mesh(4)`` (four road blocks of
    240 roads on the card, no padding).  Asserts bitwise equality with
@@ -119,9 +128,11 @@ with its plain version run outside those windows.
 19. K7 against plain, bitwise on all four outputs, for the whole device's
    launch and for its last block alone: on the inputs kept in phases 17
    and 18, on phase 3's 20 random Grid64x64 states and on phase 15's 3
-   Grid256x256 states with their keys' Gumbel matrices, each over 4
-   blocks.  Timed at the headline shape
-   and at Grid256x256, plain, kernel, kernel, plain, beside the bound.
+   Grid256x256 states, each over 4 blocks, and on 4 random states of the
+   40-spoke hub over 3 padded blocks, each with a fresh key (K7 draws its
+   noise inside).  Timed at the headline shape and at Grid256x256,
+   plain, kernel, kernel, plain, with the device time per call from
+   ``torch.profiler``, beside the bound.
 20. The sharded shortest-path row: the first 200 ticks of phase 5 on
    ``make_road_mesh(4)`` (4,032 roads a block); the state at tick 200 must
    equal phase 5's bitwise, with K2 once per refresh (not per block), K7
@@ -130,7 +141,8 @@ with its plain version run outside those windows.
    ``segment_sum``, ``segment_max``, ``segment_argmax``, ``fused_core``,
    ``fused_shard_winner``, and the K3-K6 and K8a/K8b rows covered by
    ``primal_relax`` and ``fused_winner``; ``device_ms`` beside ``ms`` for
-   K1 and the segment kernels), the card's name and power limit, then
+   K1, K7, K12 and the segment kernels), the card's name and power limit,
+   then
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, where no CUDA device is available or
@@ -173,6 +185,11 @@ PADDED_BLOCKS = 7             # 960 roads -> 7 blocks of 138, 6 rows inert
 # Operations K7 (and K1) does for each valid in-slot: the eligibility's
 # decode and compares, the score add and the running max.
 K7_OPS_PER_SLOT = 20
+# Operations K12's fused entry does for each turn edge: the eligibility's
+# compares and subtractions, the weight's multiply and the compare.
+K12_OPS_PER_EDGE = 20
+HUB_SPOKES = 40               # a hub road's incoming turn edges: lanes past 32
+HUB_STATES = 4
 # Operations of one K12 (or K1) draw: the threefry block's 117 integer
 # operations (key schedule, 20 rounds of add, rotate and xor), the xor,
 # shift and scale of the uniform, and the Gumbel transform and compare,
@@ -660,7 +677,7 @@ def headline_run(net, agents, sim, policy, payload=None,
     ``warmup`` ticks, then runs ending at every multiple of
     ``capture_every``, timed from the end of the warm-up to a synchronise.
     Launch counts are set to 0 just before the run and read just after.
-    ``payload`` replaces the fused core's sampler; ``runner(state, n) ->
+    ``payload`` replaces the fused core's edge phase; ``runner(state, n) ->
     (state, logs)`` replaces ``run_episode`` (the sharded headline).
     Returns the state at each run's end, the logs of every tick and the
     numbers; :func:`check_headline` asserts."""
@@ -671,7 +688,7 @@ def headline_run(net, agents, sim, policy, payload=None,
         average_travel_time, init_sim_state, run_episode)
     from tarl_tpu_torch.state import TickLog
 
-    payload = payload or fused_core.gumbel_argmax_payload
+    payload = payload or fused_core.fused_core_sample
     if runner is None:
         def runner(state, n):
             return run_episode(state, net, policy, n, sim=sim,
@@ -737,22 +754,25 @@ def check_headline(res, label: str, want_launches: dict) -> None:
 
 
 class CapturePayload:
-    """The fused core's sampler through the kernel wrapper, keeping a copy
-    of the inputs of every ``every``-th call (the last tick of each run of
-    :func:`headline_run`)."""
+    """The fused core's edge phase through K12's fused entry, keeping a
+    copy of the inputs of every ``every``-th call (the last tick of each
+    run of :func:`headline_run`): ``(label, net, road, sel, time,
+    key)``."""
 
     def __init__(self, every: int):
         self.every, self.calls, self.inputs = every, 0, []
 
-    def __call__(self, logits, ids, pay_a, pay_b, key, n, layout=None):
+    def __call__(self, road, sel, net, time_now, key, physics):
         from tarl_tpu_torch.core import fused_core
+        from tarl_tpu_torch.state import RoadState
 
         self.calls += 1
         if self.calls % self.every == 0:
-            self.inputs.append((f"tick {self.calls}", logits.clone(), ids,
-                                pay_a.clone(), pay_b, key, n))
-        return fused_core.gumbel_argmax_payload(logits, ids, pay_a, pay_b,
-                                                key, n, layout)
+            self.inputs.append((f"tick {self.calls}", net,
+                                RoadState(*(t.clone() for t in road)),
+                                sel.clone(), time_now, key))
+        return fused_core.fused_core_sample(road, sel, net, time_now, key,
+                                            physics)
 
 
 class CaptureWinner:
@@ -773,15 +793,17 @@ class CaptureWinner:
         return fused_winner.fused_shard_winner(*args)
 
 
-def shard_winner_args(net, road, sel, t_now, gumbel, blocks, physics):
+def shard_winner_args(net, road, sel, t_now, key, blocks, physics):
     """K7's arguments for one device holding all ``blocks`` road blocks of
     ``net``, built from a ring state as the sharded tick builds them: the
-    padded halo vectors and packed words, the blocks' in-slot columns of
-    the tables and of ``gumbel`` (``[KIN, R]``), counts and capacities."""
+    padded halo vectors and packed words, the direction key, the blocks'
+    ``ShardTables`` (in-slot columns, capacities, ``road_order``) and
+    float32 counts."""
     import torch
 
     from tarl_tpu_torch.core.direction import (pack_upstream,
                                                upstream_pack_layout)
+    from tarl_tpu_torch.core.fused_winner import ShardTables
 
     r, nmax = net.num_roads, net.nmax
     rp = -(-r // blocks) * blocks
@@ -800,24 +822,30 @@ def shard_winner_args(net, road, sel, t_now, gumbel, blocks, physics):
     cap = pad(net.capacity, 0.0)
     pack = pack_upstream(pad(road.head_departure(), 0.0), count, cap,
                          sel_enc, t_now, physics, r, nmax)
-    return (pack, pad(road.head_ids(), 0), pad(road.head_dests(), 0),
-            cols(gumbel, 0.0), cols(net.in_logit_tab, 0.0),
-            cols(net.in_src_tab, 0), cols(net.in_edge_ok, False),
-            count.to(torch.float32), cap, 0, rp, physics,
+    tables = ShardTables(in_src=cols(net.in_src_tab, 0),
+                         in_logit=cols(net.in_logit_tab, 0.0),
+                         in_ok=cols(net.in_edge_ok, False), capacity=cap,
+                         road_order=net.road_order)
+    return (pack, pad(road.head_ids(), 0), pad(road.head_dests(), 0), key,
+            tables, count.to(torch.float32), 0, rp, physics,
             upstream_pack_layout(r, nmax))
 
 
 def last_block(args, blocks: int):
     """``args`` of a whole device's K7 launch cut to its last block."""
-    pack, hid, hdst, gum, logit, src, ok, count_f, cap, col0, rp, phys, \
-        layout = args
+    from tarl_tpu_torch.core.fused_winner import ShardTables
+
+    pack, hid, hdst, key, tables, count_f, col0, rp, phys, layout = args
     n = count_f.shape[0]
     rl = n // blocks
     cut = slice(n - rl, n)
-    return (pack, hid, hdst,
-            *(t[:, cut].contiguous() for t in (gum, logit, src, ok)),
-            count_f[cut].contiguous(), cap[cut].contiguous(), col0 + n - rl,
-            rp, phys, layout)
+    local = ShardTables(
+        *(t[:, cut].contiguous()
+          for t in (tables.in_src, tables.in_logit, tables.in_ok)),
+        capacity=tables.capacity[cut].contiguous(),
+        road_order=tables.road_order)
+    return (pack, hid, hdst, key, local, count_f[cut].contiguous(),
+            col0 + n - rl, rp, phys, layout)
 
 
 def compare_shard_winner(cases) -> int:
@@ -857,27 +885,47 @@ def k7_bound_ms(args) -> tuple[float, str]:
     count and capacity read and its four outputs written (8 + 13 bytes),
     every in-slot's valid flag (1 byte), each valid in-slot's source (4
     bytes), the packed word of each distinct source once (4 bytes), the
-    logit and noise of the eligible in-slots only (8 bytes: the kernel
-    reads them after the packed word's mask), and the winner's head id and
-    dest (8 bytes a winning road), against the card's memory rate;
-    ``K7_OPS_PER_SLOT`` operations for each valid in-slot against its
-    float32 rate."""
+    logit and the column's ``road_order`` entry of the eligible in-slots
+    only (8 bytes: the kernel reads them after the packed word's mask),
+    and the winner's head id and dest (8 bytes a winning road), against
+    the card's memory rate; ``K7_OPS_PER_SLOT`` operations for each valid
+    in-slot and a threefry draw (``K12_OPS_PER_DRAW``) for each eligible
+    one, against its float32 rate."""
     import torch
 
     from tarl_tpu_torch.core import fused_winner
 
-    pack, src, ok, count_f, cap, col0 = (args[0], args[5], args[6], args[7],
-                                         args[8], args[9])
+    pack, tables, count_f, col0 = args[0], args[4], args[5], args[6]
+    ok, src = tables.in_ok, tables.in_src
     n, valid = count_f.shape[0], int(ok.sum())
     sources = int(torch.unique(src[ok]).numel())
     eligible = int(fused_winner.shard_slot_mask(
-        pack, src, ok, count_f, cap, col0, *args[11:]).sum())
+        pack, tables, count_f, col0, *args[8:]).sum())
     wins = int(fused_winner.fused_shard_winner_plain(*args)[0].sum())
     by_bytes = (21 * n + ok.numel() + 4 * valid + 4 * sources + 8 * eligible
                 + 8 * wins) / HBM_BYTES_PER_S
-    by_ops = K7_OPS_PER_SLOT * valid / F32_OPS_PER_S
+    by_ops = (K7_OPS_PER_SLOT * valid
+              + K12_OPS_PER_DRAW * eligible) / F32_OPS_PER_S
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
+
+
+def hub_network(spokes: int, device):
+    """A hub intersection with ``spokes`` two-way spokes (links as
+    :func:`grid_network`'s): each road out of the hub has an incoming turn
+    edge, and an in-slot, for every road into it."""
+    import numpy as np
+
+    from tarl_tpu_torch.network import build_network
+
+    frm = [i for s in range(1, spokes + 1) for i in (s, 0)]
+    to = [i for s in range(1, spokes + 1) for i in (0, s)]
+    n = len(frm)
+    return build_network(
+        length=np.full(n, 200.0), max_flow=np.full(n, 600.0),
+        free_speed=np.full(n, 13.9), perm_lanes=np.ones(n),
+        from_inter=np.asarray(frm), to_inter=np.asarray(to),
+        num_intersections=spokes + 1, device=device)
 
 
 def grid_network(rows: int, cols: int, device):
@@ -972,6 +1020,82 @@ def compare_payload(cases) -> int:
             raise AssertionError(f"K12 {label}: every segment or none has a "
                                  "winner; the comparison would be vacuous")
     return worst
+
+
+def bare_payload_cases(states, physics) -> list:
+    """The bare K12's inputs ``(label, logits, ids, pay_a, pay_b, key,
+    n)`` on fused-entry states ``(label, net, road, sel, time, key)``: the
+    edge logits the fused entry computes, the upstreams' head agents and
+    the upstreams."""
+    from tarl_tpu_torch.core import fused_core
+
+    out = []
+    for label, net, road, sel, t_now, key in states:
+        logits = fused_core.edge_logits(road, sel, net, t_now, physics)
+        out.append((f"{label} logits", logits, net.edge_dst,
+                    road.head_ids()[net.edge_src.long()], net.edge_src, key,
+                    net.num_roads))
+    return out
+
+
+def compare_fused_sample(cases, physics) -> int:
+    """K12's fused entry against its plain version on the same device,
+    bitwise on both payloads, for each ``(label, net, road, sel, time,
+    key)`` case.  Returns the largest absolute difference (0 when all
+    match)."""
+    import torch
+
+    from tarl_tpu_torch.core import fused_core
+
+    worst = 0
+    for label, net, road, sel, t_now, key in cases:
+        got = fused_core.fused_core_sample(road, sel, net, t_now, key,
+                                           physics)
+        want = fused_core.fused_core_sample_plain(road, sel, net, t_now, key,
+                                                  physics)
+        if road.count.device.type == "cuda":
+            torch.cuda.synchronize()
+        for name, a, b in zip(("agent", "src"), got, want):
+            diff = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+            worst = max(worst, diff)
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"K12 fused {label}: kernel and plain "
+                                     f"differ in {name} (max |diff| "
+                                     f"{diff})")
+        if not bool((got[0] != 0).any()) or bool((got[0] != 0).all()):
+            raise AssertionError(f"K12 fused {label}: every road or none has "
+                                 "a winner; the comparison would be "
+                                 "vacuous")
+    return worst
+
+
+def k12_fused_bound_ms(net, road, sel, t_now, key,
+                       physics) -> tuple[float, str]:
+    """K12's fused entry's least time on these inputs and what bounds it:
+    per turn edge its source, weight and CSR order (12 bytes); the road
+    fields of each distinct source once (count, selection, capacity, head
+    slot, head departure: 20 bytes); per downstream road its count,
+    capacity and offset (12 bytes) and its two outputs (8 bytes); the head
+    agent of each winning road (4 bytes); against the card's memory rate.
+    ``K12_OPS_PER_EDGE`` operations for each edge and a draw
+    (``K12_OPS_PER_DRAW``) for each eligible one, against its float32
+    rate."""
+    import torch
+
+    from tarl_tpu_torch.core import fused_core
+
+    e, r = net.edge_src.shape[0], net.num_roads
+    sources = int(torch.unique(net.edge_src).numel())
+    logits = fused_core.edge_logits(road, sel, net, t_now, physics)
+    draws = int(torch.isfinite(logits).sum())
+    wins = int((fused_core.fused_core_sample_plain(
+        road, sel, net, t_now, key, physics)[0] != 0).sum())
+    by_bytes = (12 * e + 20 * sources + 20 * r + 4 + 4 * wins) \
+        / HBM_BYTES_PER_S
+    by_ops = (K12_OPS_PER_EDGE * e + K12_OPS_PER_DRAW * draws) \
+        / F32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
 
 
 def k12_bound_ms(logits, ids, n: int) -> tuple[float, str]:
@@ -1665,7 +1789,7 @@ def main() -> int:
     plain_fc = init_sim_state(net, agents, sim=sim_fc, policy=policy)
     plain_fc, _ = run_episode(plain_fc, net, policy, CAPTURE_EVERY,
                               sim=sim_fc,
-                              payload=fused_core.gumbel_argmax_payload_plain)
+                              payload=fused_core.fused_core_sample_plain)
     plain_counts = counts()
     if plain_counts["K12"] or plain_counts["K1"]:
         raise AssertionError(f"the plain fused-core episode launched a "
@@ -1674,8 +1798,9 @@ def main() -> int:
     if mismatched:
         raise AssertionError(f"kernel and plain fused-core episodes differ "
                              f"at tick {CAPTURE_EVERY}: {mismatched}")
-    log(f"fused core in context: kernel and plain-K12 states equal bitwise "
-        f"at tick {CAPTURE_EVERY} (plain run launches {plain_counts})")
+    log(f"fused core in context: kernel and plain edge-phase states equal "
+        f"bitwise at tick {CAPTURE_EVERY} (plain run launches "
+        f"{plain_counts})")
 
     # --- 15. K1 at the tiled winner's size (K8a/K8b) ----------------------
     t0 = time.perf_counter()
@@ -1705,27 +1830,68 @@ def main() -> int:
     # --- 16. K12 against plain --------------------------------------------
     from tarl_tpu_torch.ops.segment import segment_layout
 
+    hub = hub_network(HUB_SPOKES, dev)
+    hub_cases = []
+    for i in range(HUB_STATES):
+        t_now = 6 * 3600.0 + 7 * i
+        road_h, sel_h = random_road_state(hub, 500 + i, t_now)
+        hub_cases.append((road_h, sel_h, t_now, rng.prng_key(5000 + i)))
+    fused_cases = (
+        cap12.inputs
+        + [(f"Grid64x64 random {i}", big, road_c, sel_c, t_c,
+            rng.prng_key(6000 + i))
+           for i, (road_c, sel_c, t_c, _) in enumerate(big_cases)]
+        + [(f"hub {HUB_SPOKES} random {i}", hub, road_c, sel_c, t_c, key_c)
+           for i, (road_c, sel_c, t_c, key_c) in enumerate(hub_cases)])
+    err12f = compare_fused_sample(fused_cases, physics)
+    k12f_t = {}   # label: (kernel ms, plain ms, device ms, bound ms, by)
+    for label, (_, g, road_c, sel_c, t_c, key_c) in (
+            ("Grid16x16", cap12.inputs[len(cap12.inputs) // 2]),
+            ("Grid64x64", fused_cases[len(cap12.inputs)])):
+        args = (road_c, sel_c, g, t_c, key_c, physics)
+        p1, k1, k2, p2 = time_pair(fused_core.fused_core_sample,
+                                   fused_core.fused_core_sample_plain, args)
+        dev_ms, acts = device_time_per_call(fused_core.fused_core_sample,
+                                            args)
+        bound, by = k12_fused_bound_ms(g, road_c, sel_c, t_c, key_c, physics)
+        k12f_t[label] = (min(k1, k2), min(p1, p2), dev_ms, bound, by)
+        log(f"fused_core K12 fused entry {label} (E={g.edge_src.shape[0]}, "
+            f"R={g.num_roads}): kernel {k1 * 1e3:.2f} / {k2 * 1e3:.2f} us "
+            f"per call, plain {p1 * 1e3:.2f} / {p2 * 1e3:.2f} us (plain, "
+            f"kernel, kernel, plain; CUDA events over {TIMED_CALLS} calls); "
+            f"device {fmt_us(dev_ms)} per call in {acts:.1f} kernels "
+            f"(torch.profiler); bound {bound * 1e3:.4f} us by {by} ({card})")
+    log(f"fused_core K12 fused entry vs plain: bitwise equal on both "
+        f"payloads on {len(cap12.inputs)} states kept in phase 13, "
+        f"{len(big_cases)} random Grid64x64 states and {len(hub_cases)} "
+        f"random states of a {HUB_SPOKES}-spoke hub "
+        f"({hub.in_src_tab.shape[0]} in-slots), each with its own key")
+
     rand12 = random_payload_cases([("Grid64x64", big),
                                    ("Grid256x256", net256)], dev)
-    k12_cases = cap12.inputs + rand12
+    bare_kept = bare_payload_cases(cap12.inputs, physics)
+    k12_cases = bare_kept + rand12
     err12 = compare_payload(k12_cases)
-    k12_t = {}    # label: (kernel ms, plain ms, bound ms, bound by)
+    k12_t = {}    # label: (kernel ms, plain ms, device ms, bound ms, by)
     for label, (_, logits, ids, pay_a, pay_b, key, n) in (
-            ("Grid16x16", cap12.inputs[len(cap12.inputs) // 2]),
+            ("Grid16x16", bare_kept[len(bare_kept) // 2]),
             ("Grid256x256", rand12[1])):
-        p1, k1, k2, p2 = time_pair(
-            fused_core.gumbel_argmax_payload,
-            fused_core.gumbel_argmax_payload_plain,
-            (logits, ids, pay_a, pay_b, key, n, segment_layout(ids, n)))
+        args = (logits, ids, pay_a, pay_b, key, n, segment_layout(ids, n))
+        p1, k1, k2, p2 = time_pair(fused_core.gumbel_argmax_payload,
+                                   fused_core.gumbel_argmax_payload_plain,
+                                   args)
+        dev_ms, acts = device_time_per_call(fused_core.gumbel_argmax_payload,
+                                            args)
         bound, by = k12_bound_ms(logits, ids, n)
-        k12_t[label] = (min(k1, k2), min(p1, p2), bound, by)
-        log(f"fused_core K12 {label} (E={logits.shape[0]}, S={n}): kernel "
-            f"{k1 * 1e3:.2f} / {k2 * 1e3:.2f} us per call, plain "
+        k12_t[label] = (min(k1, k2), min(p1, p2), dev_ms, bound, by)
+        log(f"fused_core K12 bare {label} (E={logits.shape[0]}, S={n}): "
+            f"kernel {k1 * 1e3:.2f} / {k2 * 1e3:.2f} us per call, plain "
             f"{p1 * 1e3:.2f} / {p2 * 1e3:.2f} us (plain, kernel, kernel, "
-            f"plain), bound {bound * 1e3:.4f} us by {by} ({card})")
-    log(f"fused_core K12 vs plain: bitwise equal on both payloads on "
-        f"{len(cap12.inputs)} captured headline inputs and seeded random "
-        f"cases: " + "; ".join(case[0] for case in rand12))
+            f"plain); device {fmt_us(dev_ms)} per call in {acts:.1f} "
+            f"kernels; bound {bound * 1e3:.4f} us by {by} ({card})")
+    log(f"fused_core K12 bare vs plain: bitwise equal on both payloads on "
+        f"the logits of {len(bare_kept)} states kept in phase 13 and seeded "
+        f"random cases: " + "; ".join(case[0] for case in rand12))
 
     # --- 17. the sharded headline (keeps phase 19's inputs) ---------------
     from tarl_tpu_torch.parallel.shard_map_episode import (
@@ -1794,32 +1960,40 @@ def main() -> int:
     # --- 19. K7 against plain ---------------------------------------------
     k7_cases = ([(lb, a, SHARD_BLOCKS) for lb, a in cap7.inputs]
                 + [(lb, a, PADDED_BLOCKS) for lb, a in cap7p.inputs])
-    for label, g, states in (("Grid64x64", big, big_cases),
-                             ("Grid256x256", net256, cases256)):
+    for label, g, states, blocks, key0 in (
+            ("Grid64x64", big, big_cases, SHARD_BLOCKS, 7000),
+            ("Grid256x256", net256, cases256, SHARD_BLOCKS, 7100),
+            (f"hub {HUB_SPOKES}", hub, hub_cases, 3, 7200)):
         k7_cases += [(f"{label} random {i}",
                       shard_winner_args(g, road_c, sel_c, t_c,
-                                        rng.direction_gumbel(key_c, g),
-                                        SHARD_BLOCKS, physics), SHARD_BLOCKS)
-                     for i, (road_c, sel_c, t_c, key_c) in enumerate(states)]
+                                        rng.prng_key(key0 + i), blocks,
+                                        physics), blocks)
+                     for i, (road_c, sel_c, t_c, _) in enumerate(states)]
     err7 = compare_shard_winner(k7_cases)
-    k7_t = {}    # label: (kernel ms, plain ms, bound ms, bound by)
+    k7_t = {}    # label: (kernel ms, plain ms, device ms, bound ms, by)
     for label, args in (("Grid16x16", cap7.inputs[len(cap7.inputs) // 2][1]),
-                        ("Grid256x256", k7_cases[-1][1])):
+                        ("Grid256x256",
+                         k7_cases[-1 - HUB_STATES][1])):
         p1, k1, k2, p2 = time_pair(fused_winner.fused_shard_winner,
                                    fused_winner.fused_shard_winner_plain,
                                    args)
+        dev_ms, acts = device_time_per_call(fused_winner.fused_shard_winner,
+                                            args)
         bound, by = k7_bound_ms(args)
-        k7_t[label] = (min(k1, k2), min(p1, p2), bound, by)
-        log(f"fused_shard_winner K7 {label} (n={args[7].shape[0]} roads in "
-            f"{SHARD_BLOCKS} blocks, {args[5].shape[0]} in-slots): kernel "
-            f"{k1 * 1e3:.2f} / {k2 * 1e3:.2f} us per call, plain "
+        k7_t[label] = (min(k1, k2), min(p1, p2), dev_ms, bound, by)
+        log(f"fused_shard_winner K7 {label} (n={args[5].shape[0]} roads in "
+            f"{SHARD_BLOCKS} blocks, {args[4].in_src.shape[0]} in-slots): "
+            f"kernel {k1 * 1e3:.2f} / {k2 * 1e3:.2f} us per call, plain "
             f"{p1 * 1e3:.2f} / {p2 * 1e3:.2f} us (plain, kernel, kernel, "
-            f"plain), bound {bound * 1e3:.4f} us by {by} ({card})")
+            f"plain); device {fmt_us(dev_ms)} per call in {acts:.1f} "
+            f"kernels (torch.profiler); bound {bound * 1e3:.4f} us by {by} "
+            f"({card})")
     log(f"fused_shard_winner K7 vs plain: bitwise equal on all four outputs, "
         f"whole device and last block, on {len(cap7.inputs)} + "
         f"{len(cap7p.inputs)} inputs kept in phases 17 and 18, "
-        f"{len(big_cases)} random Grid64x64 and {len(cases256)} random "
-        f"Grid256x256 states")
+        f"{len(big_cases)} random Grid64x64, {len(cases256)} random "
+        f"Grid256x256 and {len(hub_cases)} random {HUB_SPOKES}-spoke hub "
+        f"states, each with its own key")
 
     # --- 20. the sharded shortest-path row -------------------------------
     sp_policy = make_policy("dijkstra", sp["routing"], network=net64)
@@ -1942,18 +2116,29 @@ def main() -> int:
         "route": "cuda",
         "source": "tarl_tpu_torch/csrc/fused_core.cu",
         "replaces": "tarl_tpu/core/fused_core.py:53",
+        "entry": "fused_core_sample (eligibility, logits and Gumbel-max "
+                 "in one launch)",
         "launches": fc["launches"]["K12"],
         "launches_from": "fused-core headline (phase 13)",
-        "max_abs_err": err12,
-        "ms": k12_t["Grid16x16"][0],
-        "plain_ms": k12_t["Grid16x16"][1],
-        "bound_ms": k12_t["Grid16x16"][2],
-        "bound_by": k12_t["Grid16x16"][3],
+        "max_abs_err": max(err12f, err12),
+        "ms": k12f_t["Grid16x16"][0],
+        "device_ms": k12f_t["Grid16x16"][2],
+        "plain_ms": k12f_t["Grid16x16"][1],
+        "bound_ms": k12f_t["Grid16x16"][3],
+        "bound_by": k12f_t["Grid16x16"][4],
         "library_ms": None,
-        "shape": f"E={net.edge_src.shape[0]}, S={net.num_roads}",
-        "ms_grid256": k12_t["Grid256x256"][0],
-        "plain_ms_grid256": k12_t["Grid256x256"][1],
-        "bound_ms_grid256": k12_t["Grid256x256"][2],
+        "shape": f"E={net.edge_src.shape[0]}, R={net.num_roads}",
+        "ms_grid64": k12f_t["Grid64x64"][0],
+        "device_ms_grid64": k12f_t["Grid64x64"][2],
+        "plain_ms_grid64": k12f_t["Grid64x64"][1],
+        "bound_ms_grid64": k12f_t["Grid64x64"][3],
+        "bare_ms": k12_t["Grid16x16"][0],
+        "bare_device_ms": k12_t["Grid16x16"][2],
+        "bare_plain_ms": k12_t["Grid16x16"][1],
+        "bare_bound_ms": k12_t["Grid16x16"][3],
+        "bare_ms_grid256": k12_t["Grid256x256"][0],
+        "bare_plain_ms_grid256": k12_t["Grid256x256"][1],
+        "bare_bound_ms_grid256": k12_t["Grid256x256"][3],
     }, {
         "name": "tile_winner+tile_confirm",
         "route": "cuda",
@@ -1982,14 +2167,16 @@ def main() -> int:
         "launches_sp_row": sp_sh_counts["K7"],
         "max_abs_err": err7,
         "ms": k7_t["Grid16x16"][0],
+        "device_ms": k7_t["Grid16x16"][2],
         "plain_ms": k7_t["Grid16x16"][1],
-        "bound_ms": k7_t["Grid16x16"][2],
-        "bound_by": k7_t["Grid16x16"][3],
+        "bound_ms": k7_t["Grid16x16"][3],
+        "bound_by": k7_t["Grid16x16"][4],
         "library_ms": None,
         "shape": f"n={net.num_roads} roads in {SHARD_BLOCKS} blocks",
         "ms_grid256": k7_t["Grid256x256"][0],
+        "device_ms_grid256": k7_t["Grid256x256"][2],
         "plain_ms_grid256": k7_t["Grid256x256"][1],
-        "bound_ms_grid256": k7_t["Grid256x256"][2],
+        "bound_ms_grid256": k7_t["Grid256x256"][3],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -87,16 +87,16 @@ def main(argv=None) -> int:
             return out
         return run
 
-    k12 = "  of which K12 (gumbel_argmax_payload)"
+    k12 = ("  of which K12 (fused_core_sample: eligibility, logits and "
+           "Gumbel-max)")
     choice_label = "choice (random, its Gumbel draw)"
-    # The default core draws its noise inside K1 (no [KIN, R] matrix);
-    # the sharded tick still draws the matrix for K7.
+    # K1 and K7 draw their noise inside (no [KIN, R] matrix); K12's fused
+    # entry computes the eligibility and the logits inside.
     serial_patches = (step_mod, [
         ("insert_agents_backlogged", "insert (backlog)"),
         ("withdraw_agents", "withdraw"),
         ("apply_transfers", "epilogue (apply_transfers)"),
-        ("fused_core_step", "fused core step (eligibility, logits, "
-                            "K12, push, pop)"),
+        ("fused_core_step", "fused core step (K12, push, pop)"),
     ])
     # The sharded tick's phases, by the module-level names it calls; the
     # halo's head reads and stacks, the insert's count scatter, the
@@ -105,7 +105,6 @@ def main(argv=None) -> int:
         ("backlog_frontier_append", "insert: frontier append"),
         ("drain_backlog", "insert: drain"),
         ("scan_run", "withdraw scans"),
-        ("direction_gumbel", "direction Gumbel draw [KIN, R]"),
         ("pack_upstream", "packed upstream words"),
         ("push_winners", "tail push"),
         ("pop_heads", "head pop"),
@@ -130,9 +129,10 @@ def main(argv=None) -> int:
                                          "noise drawn inside)",
                                          fused_winner.direction_confirm),
                               payload=timed(
-                                  k12, fused_core.gumbel_argmax_payload))
+                                  k12, fused_core.fused_core_sample))
                 return run_episode(state, net, pol, ticks, sim=sim, **kw)
-            winner = (timed("core K7 (fused_shard_winner)",
+            winner = (timed("core K7 (fused_shard_winner, its noise "
+                            "drawn inside)",
                             fused_winner.fused_shard_winner)
                       if timed_run else fused_winner.fused_shard_winner)
             return sme.run_episode_shard_map(state, net, pol, ticks, mesh,

@@ -1,6 +1,8 @@
-"""Per-call time of the direction winner (K1) and the segment reductions
-(K9-K11) on one GPU, host and device apart, and the headline tick and the
-learned evaluation step around them, for this checkout or another.
+"""Per-call time of the direction winner (K1), the road-block winner (K7),
+the fused core's sampler (K12) and the segment reductions (K9-K11) on one
+GPU, host and device apart, and the headline ticks (default core, fused
+core, road blocks) and the learned evaluation step around them, for this
+checkout or another.
 
     python3 scripts/time_k1_k9.py [--root DIR] [--calls 200] [--label NAME]
         [--warmup-ticks 1800] [--ticks 300] [--steps 500]
@@ -16,13 +18,26 @@ waits), and the device time of the kernels those calls launched, from
   with the tick's noise: where the tree's K1 takes a ``[KIN, R]`` Gumbel
   matrix, ``rng.direction_gumbel`` and then the call; where it takes the
   tick's key, the call.
+- K7 at the headline's Grid16x16 over ``chip_smoke.SHARD_BLOCKS`` blocks
+  on a seeded random road state, built as the sharded tick builds its
+  arguments: the call alone and, as a tick pays it, with its noise: where
+  the tree's K7 takes a ``[KIN, n]`` Gumbel matrix,
+  ``rng.direction_gumbel``, the blocks' columns of it and then the call;
+  where it takes the tick's key, the call.
+- K12 at the headline's Grid16x16 on the same state: as a tick pays it
+  (where the tree has ``fused_core_sample``, that one launch; else the
+  fused core step's eligibility and logits over the edge list, then
+  ``gumbel_argmax_payload``), and the bare ``gumbel_argmax_payload`` on
+  those logits.
 - K9-K11 at the learned path's Grid8x8 shape (``network.full_src``, E =
   1,256, N = 352) with a kept layout, beside ``index_add_`` into
   ``torch.zeros`` (the sum) and ``scatter_reduce`` amax into a filled row
   (the max).
-- The headline tick (``chip_smoke.py`` phase 2's episode, default core):
-  ms/tick over ``--ticks`` ticks after ``--warmup-ticks``, ending in a
-  synchronise.  The learned evaluation (phase 8's Grid8x8 policy with the
+- The headline tick (``chip_smoke.py`` phase 2's episode) with the
+  default core, with the fused core (phase 13) and on
+  ``chip_smoke.SHARD_BLOCKS`` road blocks (phase 17, from the default
+  core's warm state: the states are equal bitwise): ms/tick over
+  ``--ticks`` ticks after ``--warmup-ticks``, ending in a synchronise.  The learned evaluation (phase 8's Grid8x8 policy with the
   trained weights): ms/step over ``--steps`` greedy steps from the start,
   after an untimed run of 100.
 
@@ -76,6 +91,8 @@ def main(argv=None) -> int:
     from tarl_tpu_torch.io.matsim import load_network, load_population
     from tarl_tpu_torch.io.scenarios import ensure_scenario
     from tarl_tpu_torch.ops import segment as seg
+    from tarl_tpu_torch.parallel.shard_map_episode import (
+        make_road_mesh, run_episode_shard_map)
     from tarl_tpu_torch.routing.policies import random_choice
     from tarl_tpu_torch.state import sort_agents_by_departure
 
@@ -131,6 +148,8 @@ def main(argv=None) -> int:
         record(f"k1_{label}", call)
         record(f"k1_with_noise_{label}", tick)
 
+    time_k7_k12(record, chip_smoke, dev, out)
+
     base = ensure_scenario(os.path.join(root, "build", "scenarios"),
                            "Grid8x8")
     net8 = load_network(os.path.join(base, "network"), device=dev)
@@ -157,12 +176,26 @@ def main(argv=None) -> int:
     policy = Policy(choice=random_choice)
     state = init_sim_state(net16, agents16, sim=sim, policy=policy)
     state, _ = run_episode(state, net16, policy, args.warmup_ticks, sim=sim)
-    ms = wall(lambda: run_episode(state, net16, policy, args.ticks,
-                                  sim=sim)) / args.ticks * 1e3
-    out["headline_ms_per_tick"] = ms
-    print(f"headline tick (default core), ticks {args.warmup_ticks}-"
-          f"{args.warmup_ticks + args.ticks}: {ms:.3f} ms/tick ({card}; "
-          f"{args.label})", flush=True)
+    sim_fc = chip_smoke.headline_sim(fused_core=True)
+    state_fc = init_sim_state(net16, agents16, sim=sim_fc, policy=policy)
+    state_fc, _ = run_episode(state_fc, net16, policy, args.warmup_ticks,
+                              sim=sim_fc)
+    mesh = make_road_mesh(chip_smoke.SHARD_BLOCKS, dev)
+    runs = (
+        ("headline", "default core", lambda: run_episode(
+            state, net16, policy, args.ticks, sim=sim)),
+        ("fused_core_headline", "fused core", lambda: run_episode(
+            state_fc, net16, policy, args.ticks, sim=sim_fc)),
+        ("sharded_headline", f"{chip_smoke.SHARD_BLOCKS} road blocks",
+         lambda: run_episode_shard_map(state, net16, policy, args.ticks,
+                                       mesh, sim=sim)),
+    )
+    for name, what, run in runs:
+        ms = wall(run) / args.ticks * 1e3
+        out[f"{name}_ms_per_tick"] = ms
+        print(f"headline tick ({what}), ticks {args.warmup_ticks}-"
+              f"{args.warmup_ticks + args.ticks}: {ms:.3f} ms/tick ({card}; "
+              f"{args.label})", flush=True)
 
     agents8, _ = load_population(os.path.join(base, "population"),
                                  os.path.join(base, "network"), device=dev)
@@ -178,6 +211,109 @@ def main(argv=None) -> int:
           f"{ms:.3f} ms/step ({card}; {args.label})", flush=True)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def time_k7_k12(record, chip_smoke, dev, out) -> None:
+    """K7 and K12 at the headline's Grid16x16 on one seeded random road
+    state, in whichever form the tree under test has (see the module
+    docstring)."""
+    import torch
+
+    from tarl_tpu_torch.config import DEFAULT_PHYSICS as physics
+    from tarl_tpu_torch.core import fused_core, fused_winner, rng
+    from tarl_tpu_torch.core.direction import (pack_upstream,
+                                               upstream_pack_layout)
+
+    net = chip_smoke.grid_network(16, 16, dev)
+    t_now = 6 * 3600.0 + 17
+    road, sel = chip_smoke.random_road_state(net, 160, t_now)
+    key = rng.prng_key(160)
+    r, nmax = net.num_roads, net.nmax
+    blocks = chip_smoke.SHARD_BLOCKS
+    rp = -(-r // blocks) * blocks
+
+    def pad(x, fill):
+        tail = torch.full((rp - r,) + tuple(x.shape[1:]), fill,
+                          dtype=x.dtype, device=dev)
+        return torch.cat([x, tail])
+
+    def cols(x, fill):
+        return pad(x.t(), fill).t().contiguous()
+
+    s = sel[:r]
+    sel_enc = pad(torch.where((s >= 0) & (s < r), s, r), r)
+    count = pad(road.count, 0)
+    cap = pad(net.capacity, 0.0)
+    pack = pack_upstream(pad(road.head_departure(), 0.0), count, cap,
+                         sel_enc, t_now, physics, r, nmax)
+    halo = (pack, pad(road.head_ids(), 0), pad(road.head_dests(), 0))
+    tail = (0, rp, physics, upstream_pack_layout(r, nmax))
+    count_f = count.to(torch.float32)
+    src, logit, ok = (cols(net.in_src_tab, 0), cols(net.in_logit_tab, 0.0),
+                      cols(net.in_edge_ok, False))
+    if hasattr(fused_winner, "ShardTables"):
+        tables = fused_winner.ShardTables(in_src=src, in_logit=logit,
+                                          in_ok=ok, capacity=cap,
+                                          road_order=net.road_order)
+
+        def k7():
+            return fused_winner.fused_shard_winner(*halo, key, tables,
+                                                   count_f, *tail)
+        k7_tick = k7
+    else:
+        gumbel = cols(rng.direction_gumbel(key, net), 0.0)
+
+        def k7():
+            return fused_winner.fused_shard_winner(
+                *halo, gumbel, logit, src, ok, count_f, cap, *tail)
+
+        def k7_tick():
+            return fused_winner.fused_shard_winner(
+                *halo, cols(rng.direction_gumbel(key, net), 0.0), logit,
+                src, ok, count_f, cap, *tail)
+    record("k7_grid16", k7)
+    record("k7_with_noise_grid16", k7_tick)
+
+    def edge_phase():
+        """The parent tree's eligibility and logits over the edge list
+        (``fused_core_step`` before its fold into the kernel)."""
+        u, v = net.edge_src.long(), net.edge_dst.long()
+        hd_u = road.head_departure()[u]
+        count_r = road.count.to(torch.float32)
+        cap_r = net.capacity
+        buf = physics.congestion_buffer
+        cnt_u, cap_u = count_r[u], cap_r[u]
+        cnt_v, cap_v = count_r[v], cap_r[v]
+        wants_v = sel[:r][u] == v
+        nonempty = road.count[u] > 0
+        mask = (hd_u <= t_now) & (cnt_v < cap_v - buf) & wants_v & nonempty
+        stuck = (hd_u - t_now) < -physics.gridlock_patience
+        mask = mask | (stuck & (cap_u - buf <= cnt_u)
+                       & (cap_u - cnt_u <= cap_v - cnt_v) & wants_v
+                       & nonempty & (cnt_v < cap_v))
+        prob = net.edge_attr * mask.to(torch.float32)
+        return torch.where(prob > 0, torch.log(torch.clamp(prob, min=1e-30)),
+                           float("-inf"))
+
+    logits = edge_phase()
+    payload_a = road.head_ids()[net.edge_src.long()]
+    bare_args = (logits, net.edge_dst, payload_a, net.edge_src, key, r,
+                 net.edge_layout)
+    if hasattr(fused_core, "fused_core_sample"):
+        def k12_tick():
+            return fused_core.fused_core_sample(road, sel, net, t_now, key,
+                                                physics)
+    else:
+        def k12_tick():
+            return fused_core.gumbel_argmax_payload(
+                edge_phase(), net.edge_dst, road.head_ids()[
+                    net.edge_src.long()], net.edge_src, key, r,
+                net.edge_layout)
+    record("k12_tick_grid16", k12_tick)
+    record("k12_bare_grid16",
+           lambda: fused_core.gumbel_argmax_payload(*bare_args))
+    out["k7_k12_shape"] = (f"R={r}, {blocks} blocks for K7; E="
+                           f"{net.edge_src.shape[0]} for K12")
 
 
 if __name__ == "__main__":

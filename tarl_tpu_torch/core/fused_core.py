@@ -4,16 +4,26 @@ and ``fused_core_step``).
 
 The direction winner and the confirm pop collapse into one per-downstream
 Gumbel-max over the turn-edge list: the eligibility, the gridlock escape and
-the logits are exact float32 elementwise ops over the edges, then
-:func:`gumbel_argmax_payload` picks one eligible edge per downstream road
-and returns the head agent and the source road of its upstream.  The
-source pops its head, the agent is pushed at the downstream tail.
+the logits are exact float32 elementwise ops over the edges, then a
+Gumbel-max picks one eligible edge per downstream road and returns the head
+agent and the source road of its upstream.  The source pops its head, the
+agent is pushed at the downstream tail.
 
-On a CUDA tensor :func:`gumbel_argmax_payload` launches the hand-written
-kernel of ``csrc/fused_core.cu`` (nvcc into a shared library with a C
-interface, loaded with ctypes), which draws its noise inside; on a CPU
-tensor it takes :func:`gumbel_argmax_payload_plain`, the same function in
-plain PyTorch.  It never falls back from the kernel to the plain version.
+Two entries reach the hand-written kernel of ``csrc/fused_core.cu`` (nvcc
+into a shared library with a C interface, loaded with ctypes), which draws
+its noise inside:
+
+* :func:`fused_core_sample`, the edge phase of a tick in one launch: it
+  takes the road state, the selections, the clock and the key, and
+  computes the eligibility and the logits in the kernel.
+  :func:`fused_core_step` calls it once per tick;
+* :func:`gumbel_argmax_payload`, with logits and payloads in: the TPU
+  kernel's own function, the same kernel body with the eligibility pass
+  switched off.
+
+On a CPU tensor each takes its plain PyTorch version
+(:func:`fused_core_sample_plain`, :func:`gumbel_argmax_payload_plain`).
+Neither falls back from the kernel to the plain version.
 
 Differences from the reference, by design:
 
@@ -21,7 +31,7 @@ Differences from the reference, by design:
   the reference kernel's transform (:func:`~tarl_tpu_torch.core.rng.
   payload_gumbel`); the TPU's hardware bits cannot be reproduced, so the
   port samples the same law from another stream.  ``bits=`` of the plain
-  version overrides the bits: zeros reproduce the reference's interpret
+  versions overrides the bits: zeros reproduce the reference's interpret
   mode, which stubs its generator to zeros;
 * payloads are int32 (the reference carries them as float32, exact below
   2**24), and a segment without an eligible edge gives ``b =
@@ -45,16 +55,19 @@ from . import rng
 from .direction import push_winners, road_delta
 from .response import pop_heads, popped_mask
 
-# Kernel launches through :func:`gumbel_argmax_payload` (one per call on a
-# CUDA tensor); the plain version does not count.
+# Kernel launches through :func:`fused_core_sample` (LAUNCHES) and
+# :func:`gumbel_argmax_payload` (PAYLOAD_LAUNCHES), one per call on a CUDA
+# tensor; the plain versions do not count.
 LAUNCHES = 0
+PAYLOAD_LAUNCHES = 0
 
 _FN = None
+_SAMPLE_FN = None
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, PAYLOAD_LAUNCHES
+    LAUNCHES = PAYLOAD_LAUNCHES = 0
 
 
 def _check_inputs(logits, segment_ids, payload_a, payload_b, layout):
@@ -106,7 +119,7 @@ def _kernel_fn():
 
         fn = load_library("fused_core").tarl_gumbel_argmax_payload
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        fn.argtypes = [p] * 5 + [i, u, u, p, p, p]
+        fn.argtypes = [p] * 5 + [i, i, u, u, p, p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -127,8 +140,9 @@ def gumbel_argmax_payload(
     segment without a finite logit.  The kernel (K12) for CUDA tensors, the
     plain version for CPU tensors; ``layout`` is the CSR of
     ``segment_ids`` (built here when not given)."""
-    global LAUNCHES
+    global PAYLOAD_LAUNCHES
     _check_inputs(logits, segment_ids, payload_a, payload_b, layout)
+    k1, k2 = rng.key_words(key)
     dev = logits.device
     if dev.type == "cpu":
         return gumbel_argmax_payload_plain(logits, segment_ids, payload_a,
@@ -143,35 +157,29 @@ def gumbel_argmax_payload(
                          f"{num_segments}")
     # The layout's offsets and order were checked where it was built, on
     # the device of segment_ids, which _check_inputs held to the logits'.
-    out_a = torch.empty(num_segments, dtype=torch.int32, device=dev)
-    out_b = torch.empty(num_segments, dtype=torch.int32, device=dev)
+    # The lanes per segment follow the mean run; longer runs are walked.
+    out = torch.empty((2, num_segments), dtype=torch.int32, device=dev)
+    width = -(-logits.shape[0] // max(num_segments, 1))
     err = _kernel_fn()(
         logits.data_ptr(), payload_a.data_ptr(), payload_b.data_ptr(),
-        *layout.pointers, num_segments, key[0], key[1], out_a.data_ptr(),
-        out_b.data_ptr(), current_stream(dev))
+        *layout.pointers, num_segments, width, k1, k2, out.data_ptr(),
+        current_stream(dev))
     if err != 0:
         raise RuntimeError(f"fused_core kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES += 1
-    return out_a, out_b
+    PAYLOAD_LAUNCHES += 1
+    return out[0], out[1]
 
 
-def fused_core_step(
-    road: RoadState,
-    selected_road: torch.Tensor,
-    network: Network,
-    time: float,
-    key: rng.Key,
-    physics: PhysicsConfig = DEFAULT_PHYSICS,
-    compute_delta: bool = False,
-    payload: Callable = gumbel_argmax_payload,
-) -> tuple[RoadState, torch.Tensor, torch.Tensor]:
-    """The direction winner and the confirm pop of one tick as one sampler
-    over the turn edges.  Returns ``(road, popped, road_delta_tt)``;
-    ``road_delta_tt`` is the per-source congestion delay of the
-    pre-transfer heads when ``compute_delta``, else empty.  ``payload``
-    replaces :func:`gumbel_argmax_payload` (same signature), e.g. with its
-    plain version to run that on the card."""
+# --- the edge phase in one launch -------------------------------------------
+
+def edge_logits(road: RoadState, selected_road: torch.Tensor,
+                network: Network, time: float,
+                physics: PhysicsConfig = DEFAULT_PHYSICS) -> torch.Tensor:
+    """float32 ``[E]``: the reference's exact float32 eligibility over the
+    turn edges (``dep_ok``, ``space_ok``, ``wants_v``, ``nonempty``, the
+    gridlock escape with its guards) and the logits of the eligible
+    edges' weights, ``-inf`` elsewhere."""
     r = road.num_roads
     u = network.edge_src.long()
     v = network.edge_dst.long()
@@ -180,7 +188,6 @@ def fused_core_step(
     cap = network.capacity
     buf = physics.congestion_buffer
 
-    # The reference's exact float32 eligibility over the edge list.
     hd_u = head_departure[u]
     cnt_u, cap_u = count_f[u], cap[u]
     cnt_v, cap_v = count_f[v], cap[v]
@@ -193,11 +200,111 @@ def fused_core_step(
     v_has_slot = cnt_v < cap_v
     mask = mask | (stuck & u_full & v_freer & wants_v & nonempty & v_has_slot)
     prob = network.edge_attr * mask.to(torch.float32)
-    logits = torch.where(prob > 0, torch.log(torch.clamp(prob, min=1e-30)),
-                         float("-inf"))
+    return torch.where(prob > 0, torch.log(torch.clamp(prob, min=1e-30)),
+                       float("-inf"))
 
-    agent, src = payload(logits, network.edge_dst, road.head_ids()[u],
-                         network.edge_src, key, r, network.edge_layout)
+
+def fused_core_sample_plain(
+    road: RoadState,
+    selected_road: torch.Tensor,
+    network: Network,
+    time: float,
+    key: rng.Key,
+    physics: PhysicsConfig = DEFAULT_PHYSICS,
+    bits: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`fused_core_sample`:
+    :func:`edge_logits`, then :func:`gumbel_argmax_payload_plain` with the
+    upstreams' head agents and the upstreams as payloads.  ``bits``
+    replaces the noise bits as there."""
+    logits = edge_logits(road, selected_road, network, time, physics)
+    return gumbel_argmax_payload_plain(
+        logits, network.edge_dst, road.head_ids()[network.edge_src.long()],
+        network.edge_src, key, road.num_roads, bits=bits)
+
+
+def _sample_fn():
+    global _SAMPLE_FN
+    if _SAMPLE_FN is None:
+        from .._build import load_library
+
+        fn = load_library("fused_core").tarl_fused_core_sample
+        p, f, i, u = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_uint32)
+        fn.argtypes = [p] * 10 + [f, f, f, i, i, i, u, u, p, p]
+        fn.restype = ctypes.c_int
+        _SAMPLE_FN = fn
+    return _SAMPLE_FN
+
+
+def fused_core_sample(
+    road: RoadState,
+    selected_road: torch.Tensor,
+    network: Network,
+    time: float,
+    key: rng.Key,
+    physics: PhysicsConfig = DEFAULT_PHYSICS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The edge phase of one tick: for each road, the Gumbel-max over its
+    eligible incoming turn edges (noise from ``key``), as ``(agent
+    int32[R], src int32[R])``: the winning upstream's head agent and the
+    upstream, ``(0, R)`` where no edge is eligible.  One kernel launch for
+    CUDA tensors, which computes the eligibility and the logits itself;
+    the plain version for CPU tensors.  ``time`` is a host float; ``key``
+    two words in ``[0, 2**32)``.  Inputs the kernel would not take raise
+    on either device."""
+    global LAUNCHES
+    tables = network.core_tables
+    dev = network.device
+    r, nmax = network.num_roads, road.nmax
+    i32 = torch.int32
+    for name, t, dtype, shape in (
+            ("fifo_ids", road.fifo_ids, i32, (r, nmax)),
+            ("fifo_departure", road.fifo_departure, torch.float32,
+             (r, nmax)),
+            ("head", road.head, i32, (r,)),
+            ("count", road.count, i32, (r,)),
+            ("selected_road", selected_road, i32, (network.num_nodes,))):
+        check_tensor(name, t, dtype, shape, dev)
+    k1, k2 = rng.key_words(key)
+    if dev.type == "cpu":
+        return fused_core_sample_plain(road, selected_road, network, time,
+                                       key, physics)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_core_sample: unsupported device {dev}")
+    out = torch.empty((2, r), dtype=i32, device=dev)
+    err = _sample_fn()(
+        road.fifo_ids.data_ptr(), road.fifo_departure.data_ptr(),
+        road.head.data_ptr(), road.count.data_ptr(),
+        selected_road.data_ptr(), *tables, float(time),
+        physics.gridlock_patience, physics.congestion_buffer, r, nmax,
+        network.in_src_tab.shape[0], k1, k2, out.data_ptr(),
+        current_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"fused_core_sample kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES += 1
+    return out[0], out[1]
+
+
+def fused_core_step(
+    road: RoadState,
+    selected_road: torch.Tensor,
+    network: Network,
+    time: float,
+    key: rng.Key,
+    physics: PhysicsConfig = DEFAULT_PHYSICS,
+    compute_delta: bool = False,
+    payload: Callable = fused_core_sample,
+) -> tuple[RoadState, torch.Tensor, torch.Tensor]:
+    """The direction winner and the confirm pop of one tick as one sampler
+    over the turn edges.  Returns ``(road, popped, road_delta_tt)``;
+    ``road_delta_tt`` is the per-source congestion delay of the
+    pre-transfer heads when ``compute_delta``, else empty.  ``payload``
+    replaces :func:`fused_core_sample` (same signature), e.g. with its
+    plain version to run that on the card."""
+    r = road.num_roads
+    agent, src = payload(road, selected_road, network, time, key, physics)
     accept = agent != 0                     # sentinel guard
     win_src = torch.clamp(src, max=r)
     dest = torch.where(accept,

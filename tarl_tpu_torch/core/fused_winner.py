@@ -26,14 +26,18 @@ so it wins at most once).  The tail push and head pop stay in PyTorch
 road-sharded tick (:mod:`tarl_tpu_torch.parallel.shard_map_episode`): it
 reads each in-slot's upstream packed word, head id and head dest from the
 replicated halo vectors, which the TPU kernel took pre-read through the
-roll plan, and takes the tick's ``[KIN, n]`` Gumbel columns.  Same rule:
-the kernel on a CUDA tensor, its plain version
+roll plan, and takes the tick's direction key where the TPU kernel took
+the block's ``[KIN, rl]`` Gumbel columns: in-slot ``k`` of global column
+``c`` draws at ``k*R + road_order[c]``, the address :func:`direction_confirm`
+draws at, so the sharded tick draws the serial tick's noise.  Its
+per-episode tables are a :class:`ShardTables`, checked where it is built.
+Same rule: the kernel on a CUDA tensor, its plain version
 :func:`fused_shard_winner_plain` on a CPU tensor.
 """
 from __future__ import annotations
 
 import ctypes
-import operator
+import dataclasses
 
 import torch
 
@@ -92,17 +96,6 @@ def _kernel_fn():
     return _FN
 
 
-def _key_words(key) -> tuple[int, int]:
-    """The key's two words as ints in ``[0, 2**32)``; raises on anything
-    else."""
-    if len(key) != 2:
-        raise ValueError(f"key has {len(key)} words, expected 2")
-    k1, k2 = operator.index(key[0]), operator.index(key[1])
-    if not (0 <= k1 <= 0xFFFFFFFF and 0 <= k2 <= 0xFFFFFFFF):
-        raise ValueError(f"key words {k1}, {k2} lie outside [0, 2**32)")
-    return k1, k2
-
-
 def _checked_call(road, selected_road, network, time, key):
     """Check what changes from tick to tick (the road fields, the
     selection, the clock and the key) against the network, whose own
@@ -123,7 +116,7 @@ def _checked_call(road, selected_road, network, time, key):
         check_tensor(name, t, dtype, shape, dev)
     if isinstance(time, torch.Tensor):
         check_tensor("time", time, torch.float32, (), dev)
-    return tables, _key_words(key)
+    return tables, rng.key_words(key)
 
 
 def direction_confirm(
@@ -195,19 +188,63 @@ def apply_transfers(
 
 # --- the road-block winner (K7) ---------------------------------------------
 
-def shard_slot_mask(pack, src, ok, count_f, cap, col0: int,
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardTables:
+    """K7's tables for a device's ``n`` local roads, fixed for an episode:
+    the ``[KIN, n]`` in-slot columns (``in_src`` int32, ``in_logit``
+    float32, ``in_ok`` bool), the local roads' float32 ``capacity``, and
+    the network's ``road_order`` (int32 ``[R]``, over the real roads).
+    Built only as the kernel takes them: contiguous, on one device (raises
+    otherwise); ``pointers`` keeps their addresses for the launches."""
+
+    in_src: torch.Tensor
+    in_logit: torch.Tensor
+    in_ok: torch.Tensor
+    capacity: torch.Tensor
+    road_order: torch.Tensor
+    pointers: tuple[int, ...] = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        if self.in_src.dim() != 2:
+            raise ValueError(f"in_src has rank {self.in_src.dim()}, "
+                             "expected 2")
+        kin, n = self.in_src.shape
+        dev = self.in_src.device
+        tables = [
+            ("in_logit", self.in_logit, torch.float32, (kin, n)),
+            ("in_src", self.in_src, torch.int32, (kin, n)),
+            ("in_ok", self.in_ok, torch.bool, (kin, n)),
+            ("capacity", self.capacity, torch.float32, (n,)),
+        ]
+        for name, t, dtype, shape in tables:
+            check_tensor(name, t, dtype, shape, dev)
+        ro = self.road_order
+        check_tensor("road_order", ro, torch.int32,
+                     (ro.shape[0] if ro.dim() == 1 else -1,), dev)
+        object.__setattr__(self, "pointers", tuple(
+            t.data_ptr() for _, t, _, _ in tables) + (ro.data_ptr(),))
+
+    @property
+    def num_roads(self) -> int:
+        """R, the network's real roads."""
+        return self.road_order.shape[0]
+
+
+def shard_slot_mask(pack, tables: ShardTables, count_f, col0: int,
                     physics: PhysicsConfig, layout) -> torch.Tensor:
     """bool ``[KIN, n]``: in-slot ``k`` of local road ``v`` may send its
     upstream's head into ``v`` this tick (K7's decode of the packed word and
-    its eligibility, gridlock escape included)."""
+    its eligibility, gridlock escape included).  Padded columns (global
+    column ``R`` and on) have no slot."""
     shift_free, shift_sel, free_mask = layout
     buf = float(physics.congestion_buffer)
     n = count_f.shape[0]
+    cap = tables.capacity
     col = col0 + torch.arange(n, dtype=torch.int32, device=count_f.device)
     space_ok = count_f < cap - buf
     v_free = cap - count_f
     v_slot_ok = count_f < cap
-    p = pack[src.long()]
+    p = pack[tables.in_src.long()]
     dep_ok = (p & 1) > 0
     nonempty = (p & 2) > 0
     stuck = (p & 4) > 0
@@ -216,24 +253,40 @@ def shard_slot_mask(pack, src, ok, count_f, cap, col0: int,
     mask = dep_ok & space_ok & wants_v & nonempty
     mask = mask | (stuck & (u_free <= buf) & (u_free <= v_free) & wants_v
                    & nonempty & v_slot_ok)
-    return mask & ok
+    return mask & tables.in_ok & (col < tables.num_roads)
 
 
-def fused_shard_winner_plain(pack, head_id, head_dest, gumbel, logit, src,
-                             ok, count_f, cap, col0: int, r_sentinel: int,
-                             physics: PhysicsConfig, layout):
-    """The plain PyTorch version of :func:`fused_shard_winner`: the
-    reference shard tick's winner loop in its non-roll form
+def shard_slot_positions(tables: ShardTables, col0: int) -> torch.Tensor:
+    """int64 ``[KIN, n]``: the canonical stream position ``k * R +
+    road_order[c]`` of in-slot ``k`` of global column ``c = col0 + v``
+    (:func:`~tarl_tpu_torch.core.rng.direction_positions`' columns; a
+    padded column takes its last real road's, and has no slot)."""
+    kin, n = tables.in_src.shape
+    r = tables.num_roads
+    dev = tables.in_src.device
+    col = torch.clamp(col0 + torch.arange(n, device=dev), max=r - 1)
+    return (torch.arange(kin, dtype=torch.int64, device=dev)[:, None] * r
+            + tables.road_order.to(torch.int64)[col][None, :])
+
+
+def fused_shard_winner_plain(pack, head_id, head_dest, key: rng.Key,
+                             tables: ShardTables, count_f, col0: int,
+                             r_sentinel: int, physics: PhysicsConfig,
+                             layout):
+    """The plain PyTorch version of :func:`fused_shard_winner`: the local
+    columns of the direction noise drawn from ``key``, then the reference
+    shard tick's winner loop in its non-roll form
     (``parallel/shard_map_episode.py:1234-1284``) and the sentinel guard
     that follows it."""
     n = count_f.shape[0]
-    mask = shard_slot_mask(pack, src, ok, count_f, cap, col0, physics,
-                           layout)
-    neg_inf = torch.tensor(float("-inf"), device=count_f.device)
-    best = torch.full((n,), float("-inf"), dtype=torch.float32,
-                      device=count_f.device)
-    win_slot = torch.zeros((n,), dtype=torch.int64, device=count_f.device)
-    accept = torch.zeros((n,), dtype=torch.bool, device=count_f.device)
+    dev = count_f.device
+    src, logit = tables.in_src, tables.in_logit
+    mask = shard_slot_mask(pack, tables, count_f, col0, physics, layout)
+    gumbel = rng.gumbel_at_positions(key, shard_slot_positions(tables, col0))
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+    best = torch.full((n,), float("-inf"), dtype=torch.float32, device=dev)
+    win_slot = torch.zeros((n,), dtype=torch.int64, device=dev)
+    accept = torch.zeros((n,), dtype=torch.bool, device=dev)
     for k in range(src.shape[0]):
         s_k = torch.where(mask[k], logit[k] + gumbel[k], neg_inf)
         take = s_k > best
@@ -255,69 +308,67 @@ def _shard_kernel_fn():
         from .._build import load_library
 
         fn = load_library("fused_winner").tarl_fused_shard_winner
-        p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 5 + [f, i, i] + [p] * 5
+        p, f, i, u = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_uint32)
+        fn.argtypes = [p] * 9 + [u, u] + [i] * 6 + [f, i, i, p, p, p]
         fn.restype = ctypes.c_int
         _SHARD_FN = fn
     return _SHARD_FN
 
 
-def fused_shard_winner(pack, head_id, head_dest, gumbel, logit, src, ok,
-                       count_f, cap, col0: int, r_sentinel: int,
-                       physics: PhysicsConfig, layout):
+def fused_shard_winner(pack, head_id, head_dest, key: rng.Key,
+                       tables: ShardTables, count_f, col0: int,
+                       r_sentinel: int, physics: PhysicsConfig, layout):
     """The winner of each road of a device's road blocks: ``(accept bool,
     win int32 (r_sentinel = none), agent int32, dest int32)``, each ``[n]``.
 
     ``pack``, ``head_id`` and ``head_dest`` are the replicated halo vectors
     over all ``r_sentinel`` (padded) roads: the upstream packed words of
     :func:`~tarl_tpu_torch.core.direction.pack_upstream` and the head ids
-    and dests.  ``gumbel``, ``logit``, ``src`` (int32) and ``ok`` (bool)
-    are the ``[KIN, n]`` in-slot columns of the ``n`` local roads,
-    ``count_f`` and ``cap`` their float32 counts and capacities; local
-    road ``v`` is global road ``col0 + v``.  ``layout`` is
-    :func:`~tarl_tpu_torch.core.direction.upstream_pack_layout`'s.  The
-    CUDA kernel for CUDA tensors (one launch for every local block), the
-    plain version for CPU tensors; inputs the kernel would not take raise
-    on either device."""
-    dev = count_f.device
-    kin, n = src.shape
-    i32, f32 = torch.int32, torch.float32
-    inputs = [
-        ("pack", pack, i32, (r_sentinel,)),
-        ("head_id", head_id, i32, (r_sentinel,)),
-        ("head_dest", head_dest, i32, (r_sentinel,)),
-        ("gumbel", gumbel, f32, (kin, n)),
-        ("logit", logit, f32, (kin, n)),
-        ("src", src, i32, (kin, n)),
-        ("ok", ok, torch.bool, (kin, n)),
-        ("count_f", count_f, f32, (n,)),
-        ("cap", cap, f32, (n,)),
-    ]
-    for name, t, dtype, shape in inputs:
+    and dests.  ``key`` is the tick's direction key, two words in ``[0,
+    2**32)``; ``tables`` the device's :class:`ShardTables`; ``count_f``
+    the local roads' float32 counts.  Local road ``v`` is global road
+    ``col0 + v``.  ``layout`` is :func:`~tarl_tpu_torch.core.direction.
+    upstream_pack_layout`'s.  The CUDA kernel for CUDA tensors (one launch
+    for every local block, its noise drawn inside), the plain version for
+    CPU tensors; inputs the kernel would not take raise on either
+    device."""
+    dev = tables.in_src.device
+    kin, n = tables.in_src.shape
+    i32 = torch.int32
+    for name, t, dtype, shape in (
+            ("pack", pack, i32, (r_sentinel,)),
+            ("head_id", head_id, i32, (r_sentinel,)),
+            ("head_dest", head_dest, i32, (r_sentinel,)),
+            ("count_f", count_f, torch.float32, (n,))):
         check_tensor(name, t, dtype, shape, dev)
+    k1, k2 = rng.key_words(key)
     if not 0 <= col0 <= r_sentinel - n:
         raise ValueError(f"columns {col0}..{col0 + n} lie outside the "
                          f"{r_sentinel} roads")
+    if not 0 < tables.num_roads <= r_sentinel:
+        raise ValueError(f"road_order holds {tables.num_roads} roads, "
+                         f"expected 1..{r_sentinel}")
     if dev.type == "cpu":
-        return fused_shard_winner_plain(pack, head_id, head_dest, gumbel,
-                                        logit, src, ok, count_f, cap, col0,
-                                        r_sentinel, physics, layout)
+        return fused_shard_winner_plain(pack, head_id, head_dest, key,
+                                        tables, count_f, col0, r_sentinel,
+                                        physics, layout)
     if dev.type != "cuda":
         raise ValueError(f"fused_shard_winner: unsupported device {dev}")
     global SHARD_LAUNCHES
     shift_free, shift_sel, free_mask = layout
     accept = torch.empty(n, dtype=torch.bool, device=dev)
-    win, agent, dest = (torch.empty(n, dtype=i32, device=dev)
-                        for _ in range(3))
+    ints = torch.empty((3, n), dtype=i32, device=dev)
+    logit_p, src_p, ok_p, cap_p, order_p = tables.pointers
     err = _shard_kernel_fn()(
-        *(t.data_ptr() for _, t, _, _ in inputs),
-        col0, r_sentinel, shift_free, shift_sel, free_mask,
-        float(physics.congestion_buffer), n, kin,
-        accept.data_ptr(), win.data_ptr(), agent.data_ptr(), dest.data_ptr(),
-        current_stream(dev),
-    )
+        pack.data_ptr(), head_id.data_ptr(), head_dest.data_ptr(), logit_p,
+        src_p, ok_p, count_f.data_ptr(), cap_p, order_p, k1, k2, col0,
+        tables.num_roads, r_sentinel, shift_free, shift_sel, free_mask,
+        float(physics.congestion_buffer), n, kin, accept.data_ptr(),
+        ints.data_ptr(), current_stream(dev))
     if err != 0:
         raise RuntimeError(f"fused_shard_winner kernel launch failed: CUDA "
                            f"error {err}")
     SHARD_LAUNCHES += 1
+    win, agent, dest = ints.unbind(0)
     return accept, win, agent, dest

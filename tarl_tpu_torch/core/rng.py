@@ -26,6 +26,8 @@ Gumbel matrix run on the device.
 """
 from __future__ import annotations
 
+import operator
+
 import numpy as np
 import torch
 
@@ -35,7 +37,7 @@ __all__ = [
     "prng_key", "threefry2x32", "split", "random_bits", "gumbel",
     "gumbel_at_positions", "direction_positions", "direction_gumbel",
     "choice_gumbel",
-    "payload_gumbel",
+    "payload_gumbel", "key_words",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -49,6 +51,17 @@ Key = tuple[int, int]
 def prng_key(seed: int) -> Key:
     """``jax.random.PRNGKey(seed)`` for a seed in int32 range."""
     return (0, int(seed) & _MASK)
+
+
+def key_words(key) -> Key:
+    """The key's two words as ints in ``[0, 2**32)``, as a kernel takes
+    them; raises on anything else."""
+    if len(key) != 2:
+        raise ValueError(f"key has {len(key)} words, expected 2")
+    k1, k2 = operator.index(key[0]), operator.index(key[1])
+    if not (0 <= k1 <= _MASK and 0 <= k2 <= _MASK):
+        raise ValueError(f"key words {k1}, {k2} lie outside [0, 2**32)")
+    return k1, k2
 
 
 def _rotl(x, r: int):

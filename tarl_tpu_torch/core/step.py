@@ -8,7 +8,8 @@ fused_winner.direction_confirm` (the CUDA kernel K1 on a CUDA device)
 followed by the tail push and head pop in PyTorch; with
 ``SimConfig.fused_core`` and at most 4,096 roads it is
 :func:`~tarl_tpu_torch.core.fused_core.fused_core_step` instead (the
-per-downstream Gumbel-max over the turn edges, kernel K12).  The episode
+eligibility, the logits and the per-downstream Gumbel-max over the turn
+edges in one launch of kernel K12).  The episode
 functions are Python loops over ticks; the reference's ``lax.scan`` has no
 counterpart that eager PyTorch needs.
 """
@@ -30,7 +31,7 @@ from ..state import (
     init_metric_state,
     init_road_state,
 )
-from .fused_core import fused_core_step, gumbel_argmax_payload
+from .fused_core import fused_core_sample, fused_core_step
 from .fused_winner import apply_transfers, direction_confirm
 from .insert import (
     insert_agents,
@@ -155,7 +156,7 @@ def tick(
     lazy_inserted: bool = False,
     core: Callable = direction_confirm,
     choice_fn: Optional[Callable] = None,
-    payload: Callable = gumbel_argmax_payload,
+    payload: Callable = fused_core_sample,
 ) -> tuple[SimState, TickLog]:
     """One tick: insert -> withdraw -> choice -> core, clock and metrics.
 
@@ -164,9 +165,9 @@ def tick(
     ``core`` is the winner+confirm function, given the tick's direction
     key (it draws its own noise); pass :func:`~tarl_tpu_torch.core.
     fused_winner.direction_confirm_plain` to run the plain version on a
-    CUDA device for comparison.  ``payload`` is the fused core's sampler
-    (``fused_core`` only); pass :func:`~tarl_tpu_torch.core.fused_core.
-    gumbel_argmax_payload_plain` the same way.  ``choice_fn`` replaces
+    CUDA device for comparison.  ``payload`` is the fused core's edge
+    phase (``fused_core`` only); pass :func:`~tarl_tpu_torch.core.
+    fused_core.fused_core_sample_plain` the same way.  ``choice_fn`` replaces
     ``policy.choice`` (same signature).  Entry roads read
     ``state.next_hop`` as it was before this tick's choice."""
     t = state.time
@@ -289,7 +290,7 @@ def run_episode(
     sim: SimConfig = DEFAULT_SIM,
     physics: PhysicsConfig = DEFAULT_PHYSICS,
     core: Callable = direction_confirm,
-    payload: Callable = gumbel_argmax_payload,
+    payload: Callable = fused_core_sample,
 ) -> tuple[SimState, TickLog]:
     """Run ``num_steps`` ticks; returns the final state and the per-tick
     logs stacked along a leading axis.  In backlog mode the inserted flag

@@ -61,15 +61,22 @@
 // replaces tarl_tpu/core/fused_winner.py::_shard_winner_kernel, the Pallas
 // TPU kernel of fused_shard_winner: the winner alone (no confirm) on the
 // road blocks of a road-sharded tick.  The TPU kernel took the in-slot
-// reads pre-rotated through the roll plan, one launch per shard; here one
-// thread per local road covers every block of the device in one launch
-// and gathers the upstream packed word (flags, integral free space,
-// selection) from the replicated [Rp] halo vector, and the head id and
-// dest of the winner only.  Local road v is global road col0 + v.  Bound
-// like the winner kernel above: each road reads its count, capacity and
-// each slot's valid flag; a valid slot its source and the source's packed
-// word (one dependent gather from a vector that sits in L2); an eligible
-// slot its logit and noise; a winning road its winner's head id and dest.
+// reads pre-rotated through the roll plan, one launch per shard, and the
+// block's columns of the tick's [KIN, R] Gumbel matrix; here one launch
+// covers every block of the device, in fw_winner_kernel's layout: each
+// local road v (global column c = col0 + v) takes a group of lanes, a lane
+// per in-slot, and the group reduces (score, slot) with __shfl_xor_sync,
+// the lower slot winning a tie.  A lane gathers its upstream's packed word
+// (flags, integral free space, selection) from the replicated [Rp] halo
+// vector, and an eligible slot draws its own noise at the canonical
+// address k*R + road_order[c] through gumbel_from_bits, as fw_winner_kernel
+// does: no noise matrix is drawn, padded or read.  Padded columns (c >= R)
+// have no slot.  The winning lane reads its upstream's head id and dest.
+// Bound like the winner kernel above: each road reads its count, capacity
+// and each slot's valid flag; a valid slot its source and the source's
+// packed word (one dependent gather from a vector that sits in L2); an
+// eligible slot its logit and its column's road_order entry and does one
+// threefry block; a winning road reads its winner's head id and dest.
 
 #include <cfloat>
 #include <climits>
@@ -185,52 +192,76 @@ __global__ void fw_winner_kernel(
 
 __global__ void fw_shard_winner_kernel(
     const int* __restrict__ pack, const int* __restrict__ head_id,
-    const int* __restrict__ head_dest, const float* __restrict__ gumbel,
-    const float* __restrict__ logit, const int* __restrict__ src,
-    const unsigned char* __restrict__ ok, const float* __restrict__ count_f,
-    const float* __restrict__ cap, int col0, int r_sentinel, int shift_free,
-    int shift_sel, int free_mask, float buffer, int n, int kin,
+    const int* __restrict__ head_dest, const float* __restrict__ logit,
+    const int* __restrict__ src, const unsigned char* __restrict__ ok,
+    const float* __restrict__ count_f, const float* __restrict__ cap,
+    const int* __restrict__ road_order, uint32_t k1, uint32_t k2, int col0,
+    int R, int r_sentinel, int shift_free, int shift_sel, int free_mask,
+    float buffer, int n, int kin, int group,
     unsigned char* __restrict__ accept, int* __restrict__ win,
     int* __restrict__ agent_out, int* __restrict__ dest_out) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= n) return;
-  const float count_v = count_f[v];
-  const float cap_v = cap[v];
-  const bool space_ok = count_v < cap_v - buffer;
-  const float v_free = cap_v - count_v;
-  const bool v_slot_ok = count_v < cap_v;
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int v = gid / group;
+  const int lane = gid & (group - 1);
+  const bool live = v < n;
   const int col = col0 + v;
 
+  // This lane's best slot: score, slot (INT_MAX for none) and upstream.
+  // Lanes past the last road hold none but join the shuffles.
   float best = -CUDART_INF_F;
-  bool acc = false;
-  int src_w = 0;
-  for (int k = 0; k < kin; ++k) {
-    const long long idx = static_cast<long long>(k) * n + v;
-    if (!ok[idx]) continue;               // padding slot: score -inf
-    const int u = src[idx];
-    const int p = pack[u];
-    const bool dep_ok = (p & 1) != 0;
-    const bool nonempty = (p & 2) != 0;
-    const bool stuck = (p & 4) != 0;
-    const float u_free = static_cast<float>((p >> shift_free) & free_mask);
-    const bool wants_v = (p >> shift_sel) == col;
-    bool mask = dep_ok && space_ok && wants_v && nonempty;
-    mask = mask || (stuck && u_free <= buffer && u_free <= v_free &&
-                    wants_v && nonempty && v_slot_ok);
-    if (!mask) continue;
-    const float s = logit[idx] + gumbel[idx];
-    if (s > best) {
-      best = s;
-      acc = true;
-      src_w = u;
+  int best_k = INT_MAX, best_u = 0;
+  if (live && col < R) {                  // padded columns have no slot
+    const float count_v = count_f[v];
+    const float cap_v = cap[v];
+    const bool space_ok = count_v < cap_v - buffer;
+    const float v_free = cap_v - count_v;
+    const bool v_slot_ok = count_v < cap_v;
+    for (int k = lane; k < kin; k += group) {
+      const long long idx = static_cast<long long>(k) * n + v;
+      if (!ok[idx]) continue;             // padding slot: score -inf
+      const int u = src[idx];
+      const int p = pack[u];
+      const bool dep_ok = (p & 1) != 0;
+      const bool nonempty = (p & 2) != 0;
+      const bool stuck = (p & 4) != 0;
+      const float u_free = static_cast<float>((p >> shift_free) & free_mask);
+      const bool wants_v = (p >> shift_sel) == col;
+      bool mask = dep_ok && space_ok && wants_v && nonempty;
+      mask = mask || (stuck && u_free <= buffer && u_free <= v_free &&
+                      wants_v && nonempty && v_slot_ok);
+      if (!mask) continue;
+      const uint64_t q = static_cast<uint64_t>(k) * static_cast<uint64_t>(R)
+                         + static_cast<uint64_t>(road_order[col]);
+      const float s = logit[idx] +
+                      gumbel_from_bits(tarl::threefry_bits(k1, k2, q));
+      if (s > best) {
+        best = s;
+        best_k = k;
+        best_u = u;
+      }
     }
   }
-  const int agent = acc ? head_id[src_w] : 0;
-  acc = agent != 0;                       // sentinel guard
+  // The group's winner: the larger score, the lower slot on a tie.
+  float top = best;
+  int top_k = best_k;
+  for (int off = group >> 1; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, top, off);
+    const int o_k = __shfl_xor_sync(0xffffffffu, top_k, off);
+    if (o > top || (o == top && o_k < top_k)) {
+      top = o;
+      top_k = o_k;
+    }
+  }
+  if (!live) return;
+  // The lane that holds the winner writes; lane 0 where no slot won.
+  const bool none = top_k == INT_MAX;
+  if (none ? lane != 0 : (top_k & (group - 1)) != lane) return;
+  const int agent = none ? 0 : head_id[best_u];
+  const bool acc = agent != 0;            // sentinel guard
   accept[v] = acc ? 1 : 0;
-  win[v] = acc ? src_w : r_sentinel;
+  win[v] = acc ? best_u : r_sentinel;
   agent_out[v] = agent;
-  dest_out[v] = acc ? head_dest[src_w] : 0;
+  dest_out[v] = acc ? head_dest[best_u] : 0;
 }
 
 }  // namespace
@@ -263,17 +294,22 @@ extern "C" int tarl_fused_winner(
 
 extern "C" int tarl_fused_shard_winner(
     const int* pack, const int* head_id, const int* head_dest,
-    const float* gumbel, const float* logit, const int* src,
-    const unsigned char* ok, const float* count_f, const float* cap,
-    int col0, int r_sentinel, int shift_free, int shift_sel, int free_mask,
-    float buffer, int n, int kin, unsigned char* accept, int* win,
-    int* agent, int* dest, void* stream) {
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
+    const float* logit, const int* src, const unsigned char* ok,
+    const float* count_f, const float* cap, const int* road_order,
+    uint32_t k1, uint32_t k2, int col0, int R, int r_sentinel,
+    int shift_free, int shift_sel, int free_mask, float buffer, int n,
+    int kin, unsigned char* accept, int* ints, void* stream) {
+  // ints holds win, agent and dest, n each.
+  if (n == 0) return 0;
+  int group = 1;
+  while (group < kin && group < 32) group <<= 1;
+  const int threads = 128;
+  const long long lanes = static_cast<long long>(n) * group;
+  const int blocks = static_cast<int>((lanes + threads - 1) / threads);
   fw_shard_winner_kernel<<<blocks, threads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      pack, head_id, head_dest, gumbel, logit, src, ok, count_f, cap, col0,
-      r_sentinel, shift_free, shift_sel, free_mask, buffer, n, kin, accept,
-      win, agent, dest);
+      pack, head_id, head_dest, logit, src, ok, count_f, cap, road_order, k1,
+      k2, col0, R, r_sentinel, shift_free, shift_sel, free_mask, buffer, n,
+      kin, group, accept, ints, ints + n, ints + 2 * n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -124,6 +124,24 @@ class Network:
             check_tensor(name, t, dtype, shape, self.device)
         return tuple(t.data_ptr() for _, t, _, _ in tables)
 
+    @functools.cached_property
+    def core_tables(self) -> tuple[int, ...]:
+        """Addresses of the tables the fused core's sampler (K12, fused
+        entry) reads: ``capacity``, ``edge_src``, ``edge_attr``, and the
+        order and offsets of :attr:`edge_layout` (checked where it is
+        built).  Checked once, on first use, as :attr:`winner_tables`
+        is."""
+        e = self.edge_src.shape[0]
+        tables = [
+            ("capacity", self.capacity, torch.float32, (self.num_roads,)),
+            ("edge_src", self.edge_src, torch.int32, (e,)),
+            ("edge_attr", self.edge_attr, torch.float32, (e,)),
+        ]
+        for name, t, dtype, shape in tables:
+            check_tensor(name, t, dtype, shape, self.device)
+        return (tuple(t.data_ptr() for _, t, _, _ in tables)
+                + self.edge_layout.pointers)
+
     def entry_cost(self) -> torch.Tensor:
         """Free-flow cost of entering each node: ``fftt`` for roads, 0 for
         SRC/DEST nodes.  float32[N]."""

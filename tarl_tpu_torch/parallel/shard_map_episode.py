@@ -21,11 +21,12 @@ rows replaced by a collective of the :class:`RoadMesh`:
   the blocks' writes are disjoint) and of the tick's on-way and done counts.
 
 Replicated work runs once per device: the frontier appends, the admission
-math, the route choice with its refreshes (K2), the key schedule and the
-``[KIN, R]`` direction Gumbel.  Each block writes only its own rows.  The
-winner of every local road is one launch of K7
-(:func:`~tarl_tpu_torch.core.fused_winner.fused_shard_winner`) for all of
-the device's blocks.  The episode equals the serial one bitwise.
+math, the route choice with its refreshes (K2) and the key schedule.  Each
+block writes only its own rows.  The winner of every local road is one
+launch of K7 (:func:`~tarl_tpu_torch.core.fused_winner.fused_shard_winner`)
+for all of the device's blocks, which draws the tick's direction noise
+inside from its key, at the serial tick's addresses: no ``[KIN, R]``
+matrix is drawn.  The episode equals the serial one bitwise.
 
 :class:`RoadMesh` holds every block on one device, where its collectives
 are a reshape and a sum over the block axis.  Blocks spread over several
@@ -59,7 +60,7 @@ from ..core.direction import (
     road_delta,
     upstream_pack_layout,
 )
-from ..core.fused_winner import fused_shard_winner
+from ..core.fused_winner import ShardTables, fused_shard_winner
 from ..core.insert import (
     admission,
     backlog_bids,
@@ -71,7 +72,7 @@ from ..core.insert import (
     write_rings,
 )
 from ..core.response import pop_heads
-from ..core.rng import direction_gumbel, split
+from ..core.rng import split
 from ..core.step import Policy, stack_logs
 from ..core.sync import host_read
 from ..core.withdraw import scan_run
@@ -154,9 +155,7 @@ class _Tables(NamedTuple):
     free_flow: torch.Tensor
     congestion_constant: torch.Tensor
     road_dest: torch.Tensor
-    in_src: torch.Tensor          # [KIN, n], contiguous
-    in_logit: torch.Tensor
-    in_ok: torch.Tensor
+    slots: ShardTables            # K7's in-slot columns, checked once
 
 
 class _Blocks(NamedTuple):
@@ -202,7 +201,8 @@ def run_episode_shard_map(
     (all-pairs or destination-restricted); ``routing`` is the configuration
     it was built with.  ``winner`` is the road-block winner; pass
     :func:`~tarl_tpu_torch.core.fused_winner.fused_shard_winner_plain` to
-    run the plain version on the card."""
+    run the plain version on the card; it takes the tick's direction key
+    where the reference's took the blocks' Gumbel columns."""
     _check_policy(policy, routing)
     dev = state.road.count.device
     if dev.type != mesh.device.type or (
@@ -236,14 +236,17 @@ def run_episode_shard_map(
         """The held blocks' columns of a ``[*, R]`` array."""
         return pad(x.t(), fill)[lo:lo + n].t().contiguous()
 
+    capacity = rows(network.capacity, 0.0)
     tables = _Tables(
-        capacity=rows(network.capacity, 0.0),
+        capacity=capacity,
         free_flow=rows(network.free_flow, 1.0),
         congestion_constant=rows(network.congestion_constant, 1.0),
         road_dest=rows(network.road_dest, -1),
-        in_src=cols(network.in_src_tab, 0),
-        in_logit=cols(network.in_logit_tab, 0.0),
-        in_ok=cols(network.in_edge_ok, False),
+        slots=ShardTables(
+            in_src=cols(network.in_src_tab, 0),
+            in_logit=cols(network.in_logit_tab, 0.0),
+            in_ok=cols(network.in_edge_ok, False),
+            capacity=capacity, road_order=network.road_order),
     )
     cap_p = pad(network.capacity, 0.0)
     owner = torch.arange(n, device=dev) // rl     # held block of a local row
@@ -379,11 +382,9 @@ def run_episode_shard_map(
         sel_enc = pad(torch.where((sel >= 0) & (sel < r), sel, r), r)
         pack = pack_upstream(hl.departure, hl.count, cap_p, sel_enc, t,
                              physics, r, nmax)
-        gumbel = cols(direction_gumbel(k_dir, network), 0.0)
         accept, win, agent, dest = winner(
-            pack, hl.ids, hl.dests, gumbel, tables.in_logit, tables.in_src,
-            tables.in_ok, ring.count.to(torch.float32), tables.capacity, lo,
-            rp, physics, layout)
+            pack, hl.ids, hl.dests, k_dir, tables.slots,
+            ring.count.to(torch.float32), lo, rp, physics, layout)
         delta = (road_delta(hl.roads(r), network) if want_delta
                  else torch.zeros((0,), dtype=torch.float32, device=dev))
         ring = push_winners(ring, tables, t, accept, agent, dest, physics)

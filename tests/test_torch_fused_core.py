@@ -24,9 +24,17 @@ which interpret mode stubs to zeros; the port's plain version takes a
   ``run_episode`` bitwise (final state, key included, and every
   ``TickLog`` field).  The reference takes its fused branch only where
   ``jax.default_backend()`` reads ``"tpu"``; the test hands its tick a
-  ``jax`` whose ``default_backend`` says so, under interpret mode.
+  ``jax`` whose ``default_backend`` says so, under interpret mode;
+* (vi) the edge phase in one call, ``fused_core_sample_plain`` with zero
+  bits, equals what the reference's ``fused_core_step`` computes and hands
+  its sampler: the logits bitwise, and the sampler's two payloads, on
+  seeded random road states of Grid4x4, Grid8x8 and a 40-spoke hub (each
+  hub road has 40 incoming turn edges: the kernel's lanes past 32) with
+  stuck heads past ``gridlock_patience``, full roads and exact weight
+  ties.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +43,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+import tarl_tpu.core.fused_core as ref_fused_core
 import tarl_tpu.core.step as ref_step
 from tarl_tpu.config import SimConfig
 from tarl_tpu.core.direction import direction_step
@@ -42,12 +51,14 @@ from tarl_tpu.core.fused_core import fused_core_step as ref_fused_core_step
 from tarl_tpu.core.fused_core import gumbel_argmax_payload as ref_payload
 from tarl_tpu.network import build_network as ref_build_network
 from tarl_tpu.routing.policies import random_choice
+from tarl_tpu.state import RoadState as RefRoadState
 from tarl_tpu.state import init_road_state as ref_init_road_state
 
 from tarl_tpu_torch import convert
 from tarl_tpu_torch.config import SimConfig as PortSimConfig
 from tarl_tpu_torch.core import fused_core, rng
 from tarl_tpu_torch.core import step as p_step
+from tarl_tpu_torch.config import DEFAULT_PHYSICS
 from tarl_tpu_torch.network import build_network
 from tarl_tpu_torch.routing.policies import random_choice as p_random_choice
 from tarl_tpu_torch.state import RoadState
@@ -57,14 +68,23 @@ from test_torch_network import assert_tree_equal, load_both
 torch.set_num_threads(1)
 
 
-def zero_noise(logits, segment_ids, payload_a, payload_b, key, num_segments,
-               layout=None):
+def zero_bits_payload(logits, segment_ids, payload_a, payload_b, key,
+                      num_segments, layout=None):
     """The port's plain sampler with zero noise bits: the reference's
     interpret-mode stream."""
     bits = torch.zeros(logits.shape[0], dtype=torch.int64)
     return fused_core.gumbel_argmax_payload_plain(
         logits, segment_ids, payload_a, payload_b, key, num_segments,
         layout, bits=bits)
+
+
+def zero_noise(road, selected_road, network, time, key, physics=None):
+    """The port's plain edge phase with zero noise bits (the
+    ``payload=`` hook of ``fused_core_step`` and ``run_episode``)."""
+    bits = torch.zeros(network.edge_src.shape[0], dtype=torch.int64)
+    return fused_core.fused_core_sample_plain(
+        road, selected_road, network, time, key,
+        *(() if physics is None else (physics,)), bits=bits)
 
 
 # --- (i) the payload function ---------------------------------------------
@@ -86,9 +106,9 @@ def test_payload_function_matches_reference(e, s, seed):
         ra, rb = ref_payload(jnp.asarray(logits), jnp.asarray(ids),
                              jnp.asarray(pay_a, jnp.float32),
                              jnp.asarray(pay_b, jnp.float32), 12345, s)
-    pa, pb = zero_noise(torch.as_tensor(logits), torch.as_tensor(ids),
-                        torch.as_tensor(pay_a), torch.as_tensor(pay_b),
-                        rng.prng_key(seed), s)
+    pa, pb = zero_bits_payload(torch.as_tensor(logits), torch.as_tensor(ids),
+                               torch.as_tensor(pay_a), torch.as_tensor(pay_b),
+                               rng.prng_key(seed), s)
     assert pa.dtype == pb.dtype == torch.int32
     np.testing.assert_array_equal(np.asarray(ra).astype(np.int32), pa.numpy())
     np.testing.assert_array_equal(
@@ -304,3 +324,105 @@ def test_fused_core_episode_matches_reference(tmp_path, monkeypatch):
     assert tuple(pfinal.key) == tuple(int(k) for k in np.asarray(final.key))
     assert int(pfinal.agents.done.sum()) > 0
     assert int(pfinal.road.count.sum()) == int(pfinal.agents.on_way.sum())
+
+
+# --- (vi) the edge phase in one call ---------------------------------------
+
+def _hub_spec(spokes):
+    """A hub intersection 0 with ``spokes`` two-way spokes: each road out
+    of the hub has an incoming turn edge from every road into it."""
+    frm = [i for k in range(1, spokes + 1) for i in (k, 0)]
+    to = [i for k in range(1, spokes + 1) for i in (0, k)]
+    n = len(frm)
+    return dict(length=np.full(n, 200.0), max_flow=np.full(n, 600.0),
+                free_speed=np.full(n, 13.9), perm_lanes=np.ones(n),
+                from_inter=np.asarray(frm), to_inter=np.asarray(to),
+                num_intersections=spokes + 1)
+
+
+@pytest.fixture(scope="module")
+def sample_networks(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("torch_fc_sample"))
+    out = {}
+    for name in ("Grid4x4", "Grid8x8"):
+        net, _, pnet, _ = load_both(os.path.join(root, name), name)
+        out[name] = (net, pnet)
+    out["hub40"] = _networks(_hub_spec(40))
+    return out
+
+
+def _random_heads(pnet, g, t):
+    """Seeded ring state arrays and selections: a third of the roads full,
+    head departures from 60 s before ``t`` (stuck past the patience) to
+    40 s after it, distinct agents >= 1, a random valid selection per
+    node."""
+    r, nmax = pnet.num_roads, pnet.nmax
+    cap = pnet.capacity.numpy().astype(np.int64)
+    count = np.where(g.random(r) < 1 / 3, cap, g.integers(0, cap + 1))
+    head = g.integers(0, nmax, size=r)
+    live = (np.arange(nmax)[None, :] - head[:, None]) % nmax < count[:, None]
+    ids = np.where(live, (g.permutation(r * nmax) + 1).reshape(r, nmax), 0)
+    dep = np.where(live, t + g.integers(-60, 40, (r, nmax)), 0.0)
+    dst = np.where(live, g.integers(0, pnet.num_nodes, (r, nmax)), 0)
+    ok, tab = pnet.choice_ok.numpy(), pnet.choice_dst_tab.numpy()
+    nslots = ok.sum(axis=0)
+    pick = (g.random(pnet.num_nodes) * np.maximum(nslots, 1)).astype(int)
+    sel = np.where(nslots > 0, tab[pick, np.arange(pnet.num_nodes)], -1)
+    return dict(fifo_ids=ids.astype(np.int32),
+                fifo_arrival=(dep - 30.0).astype(np.float32),
+                fifo_departure=dep.astype(np.float32),
+                fifo_dest=dst.astype(np.int32),
+                head=head.astype(np.int32),
+                count=count.astype(np.int32)), sel.astype(np.int32)
+
+
+@pytest.mark.parametrize("name", ["Grid4x4", "Grid8x8", "hub40"])
+def test_fused_sample_matches_reference_eligibility(sample_networks, name,
+                                                    monkeypatch):
+    net, pnet = sample_networks[name]
+    g = np.random.default_rng(7)
+    # Weights from three values: exact ties among a road's in-edges.
+    attr = g.choice(np.float32([0.25, 0.5, 1.0]), pnet.edge_src.shape[0])
+    net = net.replace(edge_attr=jnp.asarray(attr))
+    pnet = dataclasses.replace(pnet, edge_attr=torch.as_tensor(attr))
+    seen = []
+
+    def capture(logits, v, pay_a, pay_b, seed, r):
+        out = ref_payload(logits, v, pay_a, pay_b, seed, r)
+        seen.append((np.asarray(logits), *(np.asarray(o) for o in out)))
+        return out
+
+    monkeypatch.setattr(ref_fused_core, "gumbel_argmax_payload", capture)
+    r = pnet.num_roads
+    u = pnet.edge_src.numpy()
+    escapes = winners = 0
+    for i in range(3):
+        t = 6 * 3600.0 + 11.0 * i
+        fields, sel = _random_heads(pnet, g, t)
+        road = RefRoadState(**{k: jnp.asarray(v) for k, v in fields.items()})
+        with pltpu.force_tpu_interpret_mode():
+            ref_fused_core_step(road, jnp.asarray(sel), net, jnp.float32(t),
+                                jax.random.PRNGKey(i))
+        r_logits, r_agent, r_src = seen.pop()
+        proad = RoadState(**{k: torch.as_tensor(v)
+                             for k, v in fields.items()})
+        psel = torch.as_tensor(sel)
+        logits = fused_core.edge_logits(proad, psel, pnet, t)
+        np.testing.assert_array_equal(r_logits, logits.numpy())
+        agent, src = zero_noise(proad, psel, pnet, t, rng.prng_key(i))
+        np.testing.assert_array_equal(r_agent.astype(np.int32),
+                                      agent.numpy())
+        np.testing.assert_array_equal(
+            np.minimum(r_src.astype(np.int64), r), src.numpy())
+        winners += int((agent > 0).sum())
+        # Edges that only the gridlock escape made eligible.
+        cnt = fields["count"].astype(np.float32)
+        cap = pnet.capacity.numpy()
+        hd = np.where(cnt > 0, fields["fifo_departure"][
+            np.arange(r), fields["head"]], 0.0)[u]
+        buf = DEFAULT_PHYSICS.congestion_buffer
+        v = pnet.edge_dst.numpy()
+        normal = (hd <= t) & (cnt[v] < cap[v] - buf)
+        escapes += int(((r_logits > -np.inf) & ~normal).sum())
+    assert winners > 0
+    assert escapes > 0, "no edge took the gridlock escape"

@@ -5,10 +5,10 @@
 * No public function of the port places tensors on the CPU by default:
   every ``device`` parameter defaults to ``None``, the card.
 * The fused-winner (K1), road-block winner (K7), primal-relax and
-  fused-core wrappers send CPU tensors to their plain versions (without
-  counting a launch) and raise on inputs the kernels would not take; a
-  segment layout the kernels would not take is refused where it is built
-  or first used.
+  fused-core wrappers (both K12 entries) send CPU tensors to their plain
+  versions (without counting a launch) and raise on inputs the kernels
+  would not take; a segment layout or a K7 table the kernels would not
+  take is refused where it is built or first used.
 * The kernels' CUDA sources exist and the build targets ``sm_90a``.
 * On a machine with an NVIDIA GPU, each kernel equals its plain version
   (marked ``cuda``; skipped here).
@@ -360,13 +360,13 @@ def payload_inputs(grid4):
 def test_payload_wrapper_takes_plain_version_on_cpu(payload_inputs):
     net, logits, agents, src = payload_inputs
     key = rng.prng_key(9)
-    before = fused_core.LAUNCHES
+    before = fused_core.PAYLOAD_LAUNCHES
     got = fused_core.gumbel_argmax_payload(
         logits, net.edge_dst, agents, src, key, net.num_roads,
         net.edge_layout)
     want = fused_core.gumbel_argmax_payload_plain(
         logits, net.edge_dst, agents, src, key, net.num_roads)
-    assert fused_core.LAUNCHES == before
+    assert fused_core.PAYLOAD_LAUNCHES == before
     for a, b in zip(got, want):
         assert a.dtype == torch.int32 and torch.equal(a, b)
     assert bool((got[0] > 0).any()) and bool((got[1] == net.num_roads).any())
@@ -402,6 +402,8 @@ def test_payload_kernel_source():
     csrc = os.path.join(os.path.dirname(tarl_tpu_torch.__file__), "csrc")
     text = open(os.path.join(csrc, "fused_core.cu")).read()
     assert 'extern "C" int tarl_gumbel_argmax_payload(' in text
+    assert 'extern "C" int tarl_fused_core_sample(' in text
+    assert "template <bool kFused>" in text
     assert "tarl_tpu/core/fused_core.py::_argmax_payload_kernel" in text
     assert '#include "threefry.cuh"' in text
     header = open(os.path.join(csrc, "threefry.cuh")).read()
@@ -419,14 +421,14 @@ def test_payload_kernel_matches_plain_on_card(payload_inputs):
     net = net.to(dev)
     logits, agents = logits.to(dev), agents.to(dev)
     key = rng.prng_key(9)
-    before = fused_core.LAUNCHES
+    before = fused_core.PAYLOAD_LAUNCHES
     got = fused_core.gumbel_argmax_payload(
         logits, net.edge_dst, agents, net.edge_src, key, net.num_roads,
         net.edge_layout)
     want = fused_core.gumbel_argmax_payload_plain(
         logits, net.edge_dst, agents, net.edge_src, key, net.num_roads)
     torch.cuda.synchronize()
-    assert fused_core.LAUNCHES == before + 1
+    assert fused_core.PAYLOAD_LAUNCHES == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -434,13 +436,14 @@ def test_payload_kernel_matches_plain_on_card(payload_inputs):
 @pytest.fixture(scope="module")
 def shard_inputs(grid4):
     """K7's inputs on the Grid4x4 ring state over 5 road blocks of 10
-    roads (two padded): the halo vectors, the packed words, every block's
-    in-slot columns and a seeded Gumbel matrix."""
+    roads (two padded): the halo vectors, the packed words and the local
+    counts, every block's in-slot columns and capacities (as
+    ``ShardTables`` fields), and a key."""
     from tarl_tpu_torch.core.direction import pack_upstream, \
         upstream_pack_layout
 
     net, road, sel = grid4[:3]
-    r, nmax, kin = net.num_roads, net.nmax, net.in_src_tab.shape[0]
+    r, nmax = net.num_roads, net.nmax
     rp = 50
 
     def pad(x, fill):
@@ -455,55 +458,77 @@ def shard_inputs(grid4):
     pack = pack_upstream(pad(road.head_departure(), 0.0), pad(road.count, 0),
                          pad(net.capacity, 0.0), sel_enc, 21600.0,
                          DEFAULT_PHYSICS, r, nmax)
-    g = np.random.default_rng(3)
-    gumbel = torch.as_tensor(g.gumbel(size=(kin, rp)).astype(np.float32))
-    args = [pack, pad(road.head_ids(), 0), pad(road.head_dests(), 0), gumbel,
-            cols(net.in_logit_tab, 0.0), cols(net.in_src_tab, 0),
-            cols(net.in_edge_ok, False),
-            pad(road.count, 0).to(torch.float32), pad(net.capacity, 0.0)]
-    return args, rp, upstream_pack_layout(r, nmax)
+    halo = [pack, pad(road.head_ids(), 0), pad(road.head_dests(), 0)]
+    tables = dict(in_src=cols(net.in_src_tab, 0),
+                  in_logit=cols(net.in_logit_tab, 0.0),
+                  in_ok=cols(net.in_edge_ok, False),
+                  capacity=pad(net.capacity, 0.0), road_order=net.road_order)
+    return (halo, rng.prng_key(3), tables,
+            pad(road.count, 0).to(torch.float32), rp,
+            upstream_pack_layout(r, nmax))
+
+
+def _shard_call(fn, inputs, col0=0, cut=slice(None)):
+    """``fn`` (K7 or its plain version) on ``inputs``' columns ``cut``."""
+    halo, key, tables, count_f, rp, layout = inputs
+    local = {k: (v if k == "road_order" else
+                 v[cut].contiguous() if v.dim() == 1 else
+                 v[:, cut].contiguous()) for k, v in tables.items()}
+    return fn(*halo, key, fused_winner.ShardTables(**local),
+              count_f[cut].contiguous(), col0, rp, DEFAULT_PHYSICS, layout)
 
 
 def test_shard_winner_wrapper_takes_plain_version_on_cpu(shard_inputs):
-    args, rp, layout = shard_inputs
+    rp = shard_inputs[4]
     before = fused_winner.SHARD_LAUNCHES
-    got = fused_winner.fused_shard_winner(*args, 0, rp, DEFAULT_PHYSICS,
-                                          layout)
-    want = fused_winner.fused_shard_winner_plain(*args, 0, rp,
-                                                 DEFAULT_PHYSICS, layout)
+    got = _shard_call(fused_winner.fused_shard_winner, shard_inputs)
+    want = _shard_call(fused_winner.fused_shard_winner_plain, shard_inputs)
     assert fused_winner.SHARD_LAUNCHES == before
     assert [t.dtype for t in got] == [torch.bool] + [torch.int32] * 3
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert bool(got[0].any()) and bool((got[1] == rp).any())
+    # The last block alone equals the whole device's columns of it.
+    last = _shard_call(fused_winner.fused_shard_winner, shard_inputs, 40,
+                       slice(40, 50))
+    for a, b in zip(last, got):
+        assert torch.equal(a, b[40:])
 
 
-@pytest.mark.parametrize("bad", ["pack_dtype", "pack_shape", "gumbel_dtype",
+@pytest.mark.parametrize("bad", ["pack_dtype", "pack_shape", "key_word_range",
                                  "src_shape", "ok_dtype", "count_layout",
-                                 "device", "columns"])
+                                 "device", "columns", "key_arity",
+                                 "road_order_shape", "road_order_dtype"])
 def test_shard_winner_rejects_what_the_kernel_does_not_take(shard_inputs,
                                                             bad):
-    args, rp, layout = shard_inputs
-    args, col0 = list(args), 0
+    halo, key, tables, count_f, rp, layout = shard_inputs
+    halo, tables, col0 = list(halo), dict(tables), 0
     if bad == "pack_dtype":
-        args[0] = args[0].long()
+        halo[0] = halo[0].long()
     elif bad == "pack_shape":
-        args[0] = args[0][:-1]
-    elif bad == "gumbel_dtype":
-        args[3] = args[3].double()
+        halo[0] = halo[0][:-1]
+    elif bad == "key_word_range":
+        key = (key[0], 1 << 32)
+    elif bad == "key_arity":
+        key = (key[0], key[1], 0)
     elif bad == "src_shape":
-        args[5] = args[5][:, :-1]
+        tables["in_src"] = tables["in_src"][:, :-1]
     elif bad == "ok_dtype":
-        args[6] = args[6].to(torch.uint8)
+        tables["in_ok"] = tables["in_ok"].to(torch.uint8)
     elif bad == "count_layout":
-        args[7] = torch.stack([args[7], args[7]], 1)[:, 0]
+        count_f = torch.stack([count_f, count_f], 1)[:, 0]
     elif bad == "device":
-        args[8] = args[8].to("meta")
+        tables["capacity"] = tables["capacity"].to("meta")
+    elif bad == "road_order_shape":
+        tables["road_order"] = tables["road_order"][None, :]
+    elif bad == "road_order_dtype":
+        tables["road_order"] = tables["road_order"].long()
     else:
         col0 = 10
     with pytest.raises((TypeError, ValueError)):
-        fused_winner.fused_shard_winner(*args, col0, rp, DEFAULT_PHYSICS,
-                                        layout)
+        fused_winner.fused_shard_winner(
+            *halo, key, fused_winner.ShardTables(**tables), count_f, col0,
+            rp, DEFAULT_PHYSICS, layout)
 
 
 def test_shard_winner_kernel_source():
@@ -513,6 +538,11 @@ def test_shard_winner_kernel_source():
     assert 'extern "C" int tarl_fused_shard_winner(' in text
     assert "__global__ void fw_shard_winner_kernel(" in text
     assert "tarl_tpu/core/fused_winner.py::_shard_winner_kernel" in text
+    # The noise is drawn inside, through K1's transform and address.
+    body = text[text.index("__global__ void fw_shard_winner_kernel("):]
+    assert "gumbel_from_bits(tarl::threefry_bits(k1, k2, q))" in body
+    assert "road_order[col]" in body
+    assert "__shfl_xor_sync" in body
 
 
 @pytest.mark.cuda
@@ -520,17 +550,52 @@ def test_shard_winner_kernel_matches_plain_on_card(shard_inputs):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py checks the "
                     "kernel on the card")
-    args, rp, layout = shard_inputs
-    args = [t.to("cuda") for t in args]
+    halo, key, tables, count_f, rp, layout = shard_inputs
+    on_card = ([t.to("cuda") for t in halo], key,
+               {k: v.to("cuda") for k, v in tables.items()},
+               count_f.to("cuda"), rp, layout)
     before = fused_winner.SHARD_LAUNCHES
     for col0, cut in ((0, slice(None)), (20, slice(20, 30))):
-        local = args[:3] + [a[:, cut].contiguous() for a in args[3:7]] \
-            + [a[cut].contiguous() for a in args[7:]]
-        got = fused_winner.fused_shard_winner(*local, col0, rp,
-                                              DEFAULT_PHYSICS, layout)
-        want = fused_winner.fused_shard_winner_plain(*local, col0, rp,
-                                                     DEFAULT_PHYSICS, layout)
+        got = _shard_call(fused_winner.fused_shard_winner, on_card, col0,
+                          cut)
+        want = _shard_call(fused_winner.fused_shard_winner_plain, on_card,
+                           col0, cut)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b)
     assert fused_winner.SHARD_LAUNCHES == before + 2
+
+
+def test_fused_sample_wrapper_takes_plain_version_on_cpu(grid4):
+    net, road, sel = grid4[:3]
+    key = rng.prng_key(11)
+    before = fused_core.LAUNCHES
+    got = fused_core.fused_core_sample(road, sel, net, 21600.0, key)
+    want = fused_core.fused_core_sample_plain(road, sel, net, 21600.0, key)
+    assert fused_core.LAUNCHES == before
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    assert bool((got[0] > 0).any())
+    assert bool((got[1] == net.num_roads).any())
+
+
+@pytest.mark.parametrize("bad", ["key_word_range", "key_arity",
+                                 "fifo_dtype", "head_shape", "sel_shape",
+                                 "count_device"])
+def test_fused_sample_rejects_what_the_kernel_does_not_take(grid4, bad):
+    net, road, sel = grid4[:3]
+    key = rng.prng_key(11)
+    if bad == "key_word_range":
+        key = (-1, key[1])
+    elif bad == "key_arity":
+        key = (key[0],)
+    elif bad == "fifo_dtype":
+        road = road._replace(fifo_departure=road.fifo_departure.double())
+    elif bad == "head_shape":
+        road = road._replace(head=road.head[:-1])
+    elif bad == "sel_shape":
+        sel = sel[:net.num_roads]
+    else:
+        road = road._replace(count=road.count.to("meta"))
+    with pytest.raises((TypeError, ValueError)):
+        fused_core.fused_core_sample(road, sel, net, 21600.0, key)

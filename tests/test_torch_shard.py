@@ -3,10 +3,15 @@ the port's serial episode, bitwise, on the CPU.
 
 * (a) ``pack_upstream`` equals the reference's on seeded states, padded
   sentinel rows included, and both raise past 31 bits.
-* (b) K7's plain version equals the reference's ``fused_shard_winner``
-  (its Pallas kernel in interpret mode, fed ``[KIN, rl]`` slot rows read
-  from the same vectors) on every block of a padded mesh; the wrapper's
-  one call over all blocks equals the blocks' calls.
+* (b) K7's plain version, given the tick's direction key, equals the
+  reference's ``fused_shard_winner`` (its Pallas kernel in interpret mode,
+  fed ``[KIN, rl]`` slot rows read from the same vectors and the blocks'
+  columns of the reference's own ``direction_gumbel`` under the same key)
+  on every block of a padded mesh; the wrapper's one call over all blocks
+  equals the blocks' calls.  On a 40-spoke hub (40 in-slots a road: the
+  kernel's lanes past 32) it equals the serial winner (K1's plain version)
+  under the same key.  The sharded tick runs with ``rng.direction_gumbel``
+  and ``rng.gumbel`` made to raise: no noise matrix is drawn.
 * (c) A Grid4x4 episode on 8 road blocks equals the reference's
   ``run_episode_shard_map`` with its roll plan forced, so that the
   reference itself runs K7: final state and every log field.
@@ -21,8 +26,10 @@ the port's serial episode, bitwise, on the CPU.
   ``NotImplementedError``.
 """
 import os
+import sys
 import threading
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +39,7 @@ from tarl_tpu.config import PhysicsConfig, SimConfig
 from tarl_tpu.core import direction as ref_direction
 from tarl_tpu.core import roll_gather
 from tarl_tpu.core.fused_winner import fused_shard_winner as ref_winner
+from tarl_tpu.core.rng import direction_gumbel as ref_direction_gumbel
 from tarl_tpu.core.step import Policy, init_sim_state
 from tarl_tpu.parallel.shard_map_episode import (
     make_road_mesh as ref_make_road_mesh,
@@ -44,7 +52,7 @@ from tarl_tpu_torch import convert
 from tarl_tpu_torch.config import DEFAULT_PHYSICS
 from tarl_tpu_torch.config import RoutingConfig as PortRoutingConfig
 from tarl_tpu_torch.config import SimConfig as PortSimConfig
-from tarl_tpu_torch.core import direction, fused_winner
+from tarl_tpu_torch.core import direction, fused_winner, rng
 from tarl_tpu_torch.core import step as p_step
 from tarl_tpu_torch.io.matsim import load_network, load_population
 from tarl_tpu_torch.io.scenarios import grid_scenario
@@ -61,6 +69,7 @@ from tarl_tpu_torch.state import RoadState, sort_agents_by_departure
 
 from test_shard_map_episode import _forced_roll_net
 from test_torch_network import assert_tree_equal, load_both
+from test_torch_winner import hub_network, random_state
 
 torch.set_num_threads(1)
 
@@ -163,7 +172,7 @@ def test_pack_layout_raises_past_31_bits():
 # --- (b) K7's plain version against the reference's interpret-mode K7 ------
 
 def test_shard_winner_plain_matches_reference(grid4, monkeypatch):
-    _, _, pnet, _ = grid4
+    net, _, pnet, _ = grid4
     monkeypatch.setenv("TARL_FUSED_WINNER_INTERPRET", "1")
     r, nmax = pnet.num_roads, pnet.nmax
     blocks = 5
@@ -182,21 +191,30 @@ def test_shard_winner_plain_matches_reference(grid4, monkeypatch):
             pnet, 10 + seed, rp)
         pack = direction.pack_upstream(dep, count, cap, sel_enc, t_now,
                                        DEFAULT_PHYSICS, r, nmax)
-        g = np.random.default_rng(100 + seed)
-        gum = torch.as_tensor(g.gumbel(size=(kin, rp)).astype(np.float32))
+        # The tick's direction key, and the reference's own matrix from it.
+        jkey = jax.random.split(jax.random.PRNGKey(100 + seed))[1]
+        key = tuple(int(w) for w in np.asarray(jkey))
+        assert key == rng.split(rng.prng_key(100 + seed))[1]
+        gum = torch.as_tensor(np.array(ref_direction_gumbel(jkey, net)))
+        gum = torch.cat([gum, torch.zeros((kin, rp - r))], 1)
         count_f = count.to(torch.float32)
         parts = []
         for b in range(blocks):
             c = slice(b * rl, (b + 1) * rl)
             src = src_p[:, c].contiguous()
-            args = (gum[:, c].contiguous(), logit_p[:, c].contiguous(), src,
-                    ok_p[:, c].contiguous(), count_f[c], cap[c])
+            cols = (logit_p[:, c].contiguous(), src, ok_p[:, c].contiguous(),
+                    count_f[c], cap[c])
+            tables = fused_winner.ShardTables(
+                in_src=src, in_logit=cols[0], in_ok=cols[2],
+                capacity=cap[c].contiguous(), road_order=pnet.road_order)
             got = fused_winner.fused_shard_winner_plain(
-                pack, hid, hdst, *args, b * rl, rp, DEFAULT_PHYSICS, layout)
+                pack, hid, hdst, key, tables, count_f[c].contiguous(),
+                b * rl, rp, DEFAULT_PHYSICS, layout)
             s64 = src.long()
             want = ref_winner(
                 *(jnp.asarray(v[s64].numpy()) for v in (pack, hid, hdst)),
-                *(jnp.asarray(v.numpy()) for v in args),
+                jnp.asarray(gum[:, c].contiguous().numpy()),
+                *(jnp.asarray(v.numpy()) for v in cols),
                 jnp.arange(b * rl, (b + 1) * rl, dtype=jnp.int32), rp,
                 PhysicsConfig(), layout)
             for name, w, p in zip(("accept", "win", "agent", "dest"), want,
@@ -206,11 +224,96 @@ def test_shard_winner_plain_matches_reference(grid4, monkeypatch):
             parts.append(got)
             accepted += int(got[0].sum())
         whole = fused_winner.fused_shard_winner(
-            pack, hid, hdst, gum, logit_p, src_p, ok_p, count_f, cap, 0, rp,
-            DEFAULT_PHYSICS, layout)
+            pack, hid, hdst, key, fused_winner.ShardTables(
+                in_src=src_p, in_logit=logit_p, in_ok=ok_p, capacity=cap,
+                road_order=pnet.road_order),
+            count_f, 0, rp, DEFAULT_PHYSICS, layout)
         for i, t in enumerate(whole):
             assert torch.equal(t, torch.cat([p[i] for p in parts]))
     assert accepted > 10
+
+
+@pytest.mark.parametrize("spokes,blocks", [(6, 5), (40, 3)])
+def test_shard_winner_plain_equals_serial_winner_on_a_hub(spokes, blocks):
+    """K7 by key on a hub over padded blocks equals the serial winner
+    (``direction_confirm_plain``, K1's function) under the same key: both
+    draw in-slot ``k`` of road ``c`` at ``k*R + road_order[c]``."""
+    net = hub_network(spokes)
+    r, nmax = net.num_roads, net.nmax
+    kin = net.in_src_tab.shape[0]
+    assert kin >= spokes - 1
+    rp = -(-r // blocks) * blocks
+    assert rp > r
+    layout = direction.upstream_pack_layout(r, nmax)
+
+    def pad(x, fill):
+        return _pad(x, rp, fill) if x.dim() == 1 else torch.cat(
+            [x, torch.full((x.shape[0], rp - r), fill, dtype=x.dtype)], 1)
+
+    tables = fused_winner.ShardTables(
+        in_src=pad(net.in_src_tab, 0), in_logit=pad(net.in_logit_tab, 0.0),
+        in_ok=pad(net.in_edge_ok, False), capacity=pad(net.capacity, 0.0),
+        road_order=net.road_order)
+    accepted = 0
+    for seed in range(4):
+        t_now = START + 3.0 * seed
+        road, sel = random_state(net, seed, t_now)
+        key = rng.prng_key(50 + seed)
+        s = sel[:r]
+        sel_enc = _pad(torch.where((s >= 0) & (s < r), s, r), rp, r)
+        count = _pad(road.count, rp, 0)
+        pack = direction.pack_upstream(
+            _pad(road.head_departure(), rp, 0.0), count, tables.capacity,
+            sel_enc, t_now, DEFAULT_PHYSICS, r, nmax)
+        got = fused_winner.fused_shard_winner(
+            pack, _pad(road.head_ids(), rp, 0), _pad(road.head_dests(), rp, 0),
+            key, tables, count.to(torch.float32), 0, rp, DEFAULT_PHYSICS,
+            layout)
+        acc, win_src, agent, dest, _ = fused_winner.direction_confirm_plain(
+            road, sel, net, t_now, key)
+        assert torch.equal(got[0][:r], acc)
+        assert torch.equal(got[1][:r], torch.where(acc, win_src, rp))
+        assert torch.equal(got[2][:r], agent)
+        assert torch.equal(got[3][:r], dest)
+        assert not bool(got[0][r:].any())
+        accepted += int(acc.sum())
+    assert accepted > 0
+
+
+@pytest.fixture
+def no_noise_matrix(monkeypatch):
+    """Every module-level ``direction_gumbel`` and ``gumbel`` of the port
+    raises: only draws at given positions (``gumbel_at_positions``) are
+    left."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a noise matrix was drawn")
+
+    for mod in list(sys.modules.values()):
+        name = getattr(mod, "__name__", "") or ""
+        if not name.startswith("tarl_tpu_torch"):
+            continue
+        for attr in ("direction_gumbel", "gumbel"):
+            if getattr(mod, attr, None) is getattr(rng, attr):
+                monkeypatch.setattr(mod, attr, refuse)
+    for fn in (rng.direction_gumbel, rng.gumbel):
+        with pytest.raises(AssertionError):
+            fn(rng.prng_key(0), None)
+
+
+def test_sharded_tick_never_draws_a_noise_matrix(grid4, no_noise_matrix):
+    """The sharded tick with a deterministic choice (primal shortest path)
+    draws no ``[KIN, R]`` matrix, and still equals the serial run."""
+    net, agents = grid4[2:]
+    sim = PortSimConfig(**CASES["primal"][4])
+    agents = sort_agents_by_departure(agents)
+    policy = _port_policy("dijkstra", net, agents)
+    state = p_step.init_sim_state(net, agents, sim=sim, policy=policy)
+    final, logs = p_step.run_episode(state, net, policy, 200, sim=sim)
+    sfinal, slogs = run_episode_shard_map(
+        state, net, policy, 200, make_road_mesh(4, "cpu"), sim=sim)
+    assert_tree_equal(_bits(final), _bits(sfinal), "final state")
+    assert_tree_equal(convert.to_numpy(logs), convert.to_numpy(slogs), "logs")
+    assert int(sfinal.road.count.sum()) > 0
 
 
 # --- (c) the episode against the reference's shard_map ----------------------

@@ -10,7 +10,10 @@ folded into the winners' scatter, on the CPU.
   leads to a road that u won), on random ring states and on every tick of
   short episodes of Grid4x4, Grid8x8, Braess and Bottleneck, and on hub
   networks whose in-slots fill 6 and 40 lanes (on a card, the kernel
-  against the plain version there; marked ``cuda``).
+  against the plain version there; marked ``cuda``).  On a card the same
+  hubs hold the road-block winner (K7) and the fused core's edge phase
+  (K12's fused entry) against their plain versions, both drawing their
+  noise from a key.
 * The default-core tick and ``env_step`` run with ``rng.direction_gumbel``
   replaced by a function that raises: nothing on those paths draws the
   ``[KIN, R]`` matrix outside the core.
@@ -23,7 +26,7 @@ import pytest
 import torch
 
 from tarl_tpu_torch.config import DEFAULT_PHYSICS, RLConfig, SimConfig
-from tarl_tpu_torch.core import direction, fused_winner, rng
+from tarl_tpu_torch.core import direction, fused_core, fused_winner, rng
 from tarl_tpu_torch.core.response import popped_mask
 from tarl_tpu_torch.core.step import Policy, init_sim_state, run_episode
 from tarl_tpu_torch.io.matsim import load_network, load_population
@@ -231,3 +234,86 @@ def test_kernel_matches_plain_on_card_wide_hub():
                 torch.cuda.synchronize()
                 for a, b in zip(got, want):
                     assert torch.equal(a, b)
+
+
+def _card_hub_states(spokes, dev):
+    """A hub on the card and four seeded ring states of it, each with its
+    clock and key."""
+    net = hub_network(spokes, dev)
+    out = []
+    for seed in range(4):
+        t_now = START + 3.0 * seed
+        road, sel = random_state(net.to("cpu"), seed, t_now)
+        out.append((RoadState(*(t.to(dev) for t in road)), sel.to(dev),
+                    t_now, rng.prng_key(70 + seed)))
+    return net, out
+
+
+@pytest.mark.cuda
+def test_shard_winner_kernel_matches_plain_on_card_wide_hub():
+    """K7 by key on hubs of KIN 6 and 40 over 3 padded blocks, the whole
+    device and its last block, against the plain version on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py checks K7 "
+                    "at the main paths' shapes")
+    dev = torch.device("cuda", 0)
+    for spokes in (6, 40):
+        net, states = _card_hub_states(spokes, dev)
+        r, nmax = net.num_roads, net.nmax
+        rp = -(-r // 3) * 3
+        rl = rp // 3
+        layout = direction.upstream_pack_layout(r, nmax)
+
+        def pad(x, fill):
+            if x.dim() == 1:
+                return torch.cat([x, torch.full((rp - r,), fill,
+                                                dtype=x.dtype, device=dev)])
+            return torch.cat([x, torch.full((x.shape[0], rp - r), fill,
+                                            dtype=x.dtype, device=dev)], 1)
+
+        cols = dict(in_src=pad(net.in_src_tab, 0),
+                    in_logit=pad(net.in_logit_tab, 0.0),
+                    in_ok=pad(net.in_edge_ok, False))
+        cap = pad(net.capacity, 0.0)
+        for road, sel, t_now, key in states:
+            s = sel[:r]
+            sel_enc = pad(torch.where((s >= 0) & (s < r), s, r), r)
+            count_f = pad(road.count, 0).to(torch.float32)
+            pack = direction.pack_upstream(
+                pad(road.head_departure(), 0.0), pad(road.count, 0), cap,
+                sel_enc, t_now, DEFAULT_PHYSICS, r, nmax)
+            halo = (pack, pad(road.head_ids(), 0), pad(road.head_dests(), 0))
+            for col0, cut in ((0, slice(None)), (rp - rl, slice(rp - rl, rp))):
+                tables = fused_winner.ShardTables(
+                    **{k: v[:, cut].contiguous() for k, v in cols.items()},
+                    capacity=cap[cut].contiguous(), road_order=net.road_order)
+                args = (*halo, key, tables, count_f[cut].contiguous(), col0,
+                        rp, DEFAULT_PHYSICS, layout)
+                before = fused_winner.SHARD_LAUNCHES
+                got = fused_winner.fused_shard_winner(*args)
+                want = fused_winner.fused_shard_winner_plain(*args)
+                torch.cuda.synchronize()
+                assert fused_winner.SHARD_LAUNCHES == before + 1
+                for a, b in zip(got, want):
+                    assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_core_sample_kernel_matches_plain_on_card_wide_hub():
+    """K12's fused entry on hubs whose roads have 6 and 40 incoming turn
+    edges (lanes past 32), against its plain version on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py checks K12 "
+                    "at the main path's shape")
+    dev = torch.device("cuda", 0)
+    for spokes in (6, 40):
+        net, states = _card_hub_states(spokes, dev)
+        for road, sel, t_now, key in states:
+            before = fused_core.LAUNCHES
+            got = fused_core.fused_core_sample(road, sel, net, t_now, key)
+            want = fused_core.fused_core_sample_plain(road, sel, net, t_now,
+                                                      key)
+            torch.cuda.synchronize()
+            assert fused_core.LAUNCHES == before + 1
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b)
