@@ -43,13 +43,23 @@ with its plain version run outside those windows.
    sweeps + next road) on the refresh inputs captured at every 20th
    refresh of phase 5, on 5 seeded random-cost Grid64x64 warm starts and
    on one tie-heavy cold start; relax-only at 8 sweeps (K4's function)
-   and at 1 (K6's); uncapped from the cold start on Grid16x16 (the device
-   path of ``primal_table_init``); Grid128x128 with 512 seeded
-   destination columns at 8 sweeps in both modes (the size at which the
-   TPU needed the row-blocked K3/K5).  Times each TPU kernel's mode, plain,
-   kernel, kernel, plain, beside its bound: K2 mode, relax only (K4) and
-   one sweep (K6) at Grid64x64, K2 mode (K3) and relax only (K5) at
-   Grid128x128 with 512 destination columns.
+   and at 1 (K6's); 13 and 4 destination columns of two of those warm
+   starts (a column tail, and the zoned parts' D below the tile width) in
+   K2 mode, relax only and uncapped; uncapped from the cold start on
+   Grid16x16 (the device path of ``primal_table_init``), asserting that
+   it makes no host read; Grid128x128 with 512 seeded destination columns
+   at 8 sweeps in both modes (the size at which the TPU needed the
+   row-blocked K3/K5); and Grid256x256 (65,536 intersections, built from
+   ``grid_scenario``'s link arrays, kept for phase 15) with 16 destination
+   columns at 8 sweeps, asserting that it takes the global form.  The
+   resident form runs where ``resident_plan`` takes the shape (the sp row
+   at 8 sweeps, the tails, Grid16x16 uncapped; asserted), the global form
+   elsewhere (one sweep, Grid128x128, Grid256x256).  Times each TPU
+   kernel's mode, plain, kernel, kernel, plain, with the device time per
+   call from ``torch.profiler``, beside its bound: K2 mode, relax only
+   (K4) and one sweep (K6) at Grid64x64, K2 mode (K3) and relax only (K5)
+   at Grid128x128 with 512 destination columns, and K2 mode at
+   Grid256x256.
 7. The row in context: the first 200 ticks of phase 5 again with the plain
    relax; the state at tick 200 must equal the kernel run's bitwise, and
    K2 must not run.  Prints ms/tick over ticks 20-200 of both runs.
@@ -60,26 +70,36 @@ with its plain version run outside those windows.
    settings (progress reward, gamma 0.98, distance prior at scale 30,
    pending entrants observed); the greedy ``PPO.eval_rollout`` for 12,000
    steps.  Asserts conservation, 5,000 done, an average travel time below
-   90 s, and one K1 and one K11 launch per step; prints ms/step, steps/s,
-   agent rows x steps / s and host reads per step.
+   90 s, and one K1 and one K11 launch per step (K11's action entry: the
+   mode's scaled argmax and multi-hot action in one kernel); prints
+   ms/step, steps/s, agent rows x steps / s and host reads per step.
 9. Rollout collection: 256 sampled steps of ``PPO.collect_rollout`` on the
    same scenario; asserts finite log-probs and values and the launches the
-   step's calls imply (per step: K1 once, K11 once, K10 once, K9 three
-   times).
+   step's calls imply (per step: K1 once, K11's action entry once, its
+   Gumbel noise drawn inside, K10 once, K9 three times).
 10. Scale: the Grid16x16 scenario of phase 2 with weights drawn by
    ``PPO.init`` from a seed; greedy evaluation for 1,000 steps, with the
    asserts of phase 8 on conservation and launches.
 11. Segment kernels (K9-K11) against plain, bitwise: on the inputs
-   captured in phases 8-10 (Grid8x8 and Grid16x16 shapes) and on seeded
-   random cases with empty segments, +-inf, NaN, out-of-range ids, exact
-   ties, 100,000 segments and ties of -0.0 with +0.0; each against the
-   plain version on a CPU copy of the inputs (the plain sum on the card
-   adds with atomics) and, for max and argmax, on the card (not for the
-   +-0 ties, which the card's plain max resolves in its atomics' order).
-   Times each at the Grid8x8 shape, plain, kernel, kernel, plain, beside
-   the library call (``index_add_`` for the sum, ``scatter_reduce(...,
-   "amax")`` for the max; none for the argmax), and the device time per
-   call of each kernel and library call from ``torch.profiler``.
+   captured in phases 8-10 (Grid8x8 and Grid16x16 shapes; the bare
+   argmax on the scores the action inputs give: scaled logits, and those
+   plus a fresh key's noise) and on seeded random cases with empty
+   segments, +-inf, NaN, out-of-range ids, exact ties, 100,000 segments
+   and ties of -0.0 with +0.0; each against the plain version on a CPU
+   copy of the inputs (the plain sum on the card adds with atomics) and,
+   for max and argmax, on the card (not for the +-0 ties, which the
+   card's plain max resolves in its atomics' order).  K11's action entry
+   against ``segment_action_plain`` on the card and on a CPU copy,
+   bitwise, on the action inputs captured in phases 8-10 in both modes (a
+   fresh key each) and on seeded random cases with temperatures other
+   than 1, +-inf, NaN, empty segments, out-of-range ids and ties.  Times
+   each at the Grid8x8 shape, plain, kernel, kernel, plain, beside the
+   library call (``index_add_`` for the sum, ``scatter_reduce(...,
+   "amax")`` for the max; none for the argmax), and the action entry in
+   both modes against the parent's composed path (``PLAIN.action`` on the
+   card: the division, the draw, the argmax, the zero fill and the
+   scatter), with the device time and kernels per call of each from
+   ``torch.profiler``.
 12. The learned path in context: the first 200 steps of phase 8 again, once
    with the kernels and once with the plain segment versions forced
    (``segment_ops=PLAIN``); the final states must be equal bitwise and
@@ -141,7 +161,8 @@ with its plain version run outside those windows.
    ``segment_sum``, ``segment_max``, ``segment_argmax``, ``fused_core``,
    ``fused_shard_winner``, and the K3-K6 and K8a/K8b rows covered by
    ``primal_relax`` and ``fused_winner``; ``device_ms`` beside ``ms`` for
-   K1, K7, K12 and the segment kernels), the card's name and power limit,
+   every kernel but K8a/K8b; K11's row times its action entry, the bare
+   argmax beside it), the card's name and power limit,
    then
    ``{"ok": true, "device": {...}}``.
 
@@ -567,9 +588,9 @@ def grid64_relax_cases(net, captured, seeds=SP_RANDOM_STATES):
 
 
 def big_dest_cases(net, dests=BIG_DESTS):
-    """Phase 6's Grid128x128 inputs: ``dests`` seeded destination columns,
-    random costs, from the anchored cold start and from a random warm
-    start."""
+    """Phase 6's Grid128x128 (and Grid256x256) inputs: ``dests`` seeded
+    destination columns, random costs, from the anchored cold start and
+    from a random warm start."""
     import numpy as np
     import torch
 
@@ -585,9 +606,9 @@ def big_dest_cases(net, dests=BIG_DESTS):
     warm = torch.as_tensor(
         g.uniform(0.0, 4000.0, (i_n, dests)).astype(np.float32), device=dev)
     tables = relax_tables(net)
-    return [("Grid128 cold", cost, tables,
+    return [(f"I={i_n} cold", cost, tables,
              torch.where(anchor, 0.0, BIG).contiguous()),
-            ("Grid128 warm", cost, tables,
+            (f"I={i_n} warm", cost, tables,
              torch.where(anchor, 0.0, warm).contiguous())]
 
 
@@ -1149,23 +1170,26 @@ def learned_ppo(net, collect_steps: int = COLLECT_STEPS):
 
 class Capture:
     """Segment ops that go through the kernel wrappers and keep a copy of
-    the inputs of every ``every``-th call of each op."""
+    the inputs of every ``every``-th call of the sum, the max and the
+    action (the learned paths call no bare argmax)."""
 
     def __init__(self, every: int):
         from tarl_tpu_torch.ops import segment as seg
 
-        self.every, self.calls = every, {"sum": 0, "max": 0, "argmax": 0}
-        self.inputs = {"sum": [], "max": [], "argmax": []}
-        self.ops = seg.SegmentOps(self._wrap("sum", seg.segment_sum),
-                                  self._wrap("max", seg.segment_max),
-                                  self._wrap("argmax", seg.segment_argmax))
+        names = ("sum", "max", "action")
+        self.every = every
+        self.calls = {name: 0 for name in names}
+        self.inputs = {name: [] for name in names}
+        self.ops = seg.KERNELS._replace(**{
+            name: self._wrap(name, getattr(seg, f"segment_{name}"))
+            for name in names})
 
     def _wrap(self, name, fn):
-        def op(data, ids, n, layout=None):
+        def op(data, ids, n, layout=None, *rest):
             if self.calls[name] % self.every == 0:
-                self.inputs[name].append((data.clone(), ids, n))
+                self.inputs[name].append((data.clone(), ids, n, *rest))
             self.calls[name] += 1
-            return fn(data, ids, n, layout)
+            return fn(data, ids, n, layout, *rest)
         return op
 
 
@@ -1337,6 +1361,136 @@ def time_segments(data, ids, n) -> dict:
         out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
                      "device_ms": dev_ms, "device_acts": acts,
                      "library_ms": lib_ms, "library_device_ms": lib_dev,
+                     "all": (p1, k1, k2, p2)}
+    return out
+
+
+def argmax_inputs(actions, key0: int) -> list:
+    """The bare argmax's inputs that the captured action inputs ``(logits,
+    ids, n, temperature, key)`` stand for: the scaled logits (the mode's
+    scores) and, with a fresh key each, those plus the key's noise where
+    finite (the sample's).  ``(data, ids, n)`` each."""
+    import torch
+
+    from tarl_tpu_torch.core import rng
+    from tarl_tpu_torch.ops import segment as seg
+
+    out = []
+    for i, (logits, ids, n, temperature, _) in enumerate(actions):
+        x = seg.scale_logits(logits, temperature)
+        g = rng.gumbel(rng.prng_key(key0 + i), tuple(x.shape), x.device)
+        out += [(x, ids, n),
+                (torch.where(torch.isfinite(x), x + g, float("-inf")), ids,
+                 n)]
+    return out
+
+
+def random_action_cases(dev) -> list:
+    """Seeded ``(label, logits, ids, n, temperature)`` cases of K11's
+    action entry on the card: temperatures other than 1, +-inf and NaN
+    logits, segments of only -inf, empty segments, out-of-range ids and
+    exact ties; one case of 100,000 segments."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(81)
+    cases = []
+    for i, (e, n, t) in enumerate([(1256, 352, 0.7), (3656, 960, 1.0),
+                                   (5000, 4000, 1.3), (700, 37, 0.25),
+                                   (300000, 100000, 0.9)]):
+        logits = (g.normal(size=e) * 3.0).astype(np.float32)
+        if i % 2 == 0:
+            logits = (np.round(logits * 2.0) / 2.0).astype(np.float32)
+        ids = g.integers(-2, n + 2, size=e).astype(np.int32)
+        k = g.integers(0, e, size=9)
+        logits[k[:3]], logits[k[3:6]], logits[k[6:]] = np.inf, -np.inf, np.nan
+        logits[ids == 1] = -np.inf
+        cases.append((f"random {e}x{n}, t={t}",
+                      torch.as_tensor(logits, device=dev),
+                      torch.as_tensor(ids, device=dev), n, t))
+    return cases
+
+
+def compare_actions(cases, key0: int) -> tuple[float, int]:
+    """K11's action entry against ``segment_action_plain`` on the card and
+    on a CPU copy, bitwise, on each ``(label, logits, ids, n,
+    temperature)`` case in both modes (the sample with a fresh key).
+    Returns the most elements of one call that differ (0 when all match)
+    and the calls compared."""
+    import torch
+
+    from tarl_tpu_torch.core import rng
+    from tarl_tpu_torch.ops import segment as seg
+
+    worst, calls = 0, 0
+    for i, (label, logits, ids, n, t) in enumerate(cases):
+        layout = seg.segment_layout(ids, n)
+        for key in (None, rng.prng_key(key0 + i)):
+            got = seg.segment_action(logits, ids, n, layout, t, key)
+            torch.cuda.synchronize()
+            if not bool(got.any()):
+                raise AssertionError(f"{label}: an empty action; the "
+                                     "comparison would be vacuous")
+            for where, want in (
+                    ("card", seg.segment_action_plain(logits, ids, n, None,
+                                                      t, key)),
+                    ("CPU", seg.segment_action_plain(logits.cpu(),
+                                                     ids.cpu(), n, None, t,
+                                                     key))):
+                diff = int((got.cpu() != want.cpu()).sum())
+                worst = max(worst, diff)
+                if diff:
+                    raise AssertionError(
+                        f"{label}, key {key}: segment_action and its plain "
+                        f"version on the {where} differ in {diff} elements")
+            calls += 1
+    return float(worst), calls
+
+
+def action_bound_ms(logits, ids, n: int, temperature: float,
+                    drawn: bool) -> tuple[float, str]:
+    """The action entry's least time on these inputs and what bounds it:
+    the logits and the CSR order read once (8 bytes an element), the
+    offsets once, the bool action written once (1 byte an element), against
+    the card's memory rate; a division and a compare for each element of a
+    segment, and ``K12_OPS_PER_DRAW`` for each finite scaled logit that
+    the sample draws for, against its float32 rate."""
+    import torch
+
+    from tarl_tpu_torch.ops import segment as seg
+
+    e = logits.shape[0]
+    in_range = int(((ids >= 0) & (ids < n)).sum())
+    draws = (int(torch.isfinite(seg.scale_logits(logits, temperature)).sum())
+             if drawn else 0)
+    by_bytes = (9 * e + 4 * (n + 1)) / HBM_BYTES_PER_S
+    by_ops = (2 * in_range + K12_OPS_PER_DRAW * draws) / F32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def time_actions(logits, ids, n, temperature, key) -> dict:
+    """ms per call of K11's action entry and of the parent's composed
+    path (``PLAIN.action`` on the card), plain, kernel, kernel, plain,
+    in both modes, with the device time and kernels per call of each
+    (``torch.profiler``) and the entry's bound."""
+    from tarl_tpu_torch.ops import segment as seg
+
+    layout = seg.segment_layout(ids, n)
+    out = {}
+    for mode, k in (("mode", None), ("sample", key)):
+        args = (logits, ids, n, layout, temperature, k)
+        p1, k1, k2, p2 = time_pair(seg.segment_action,
+                                   seg.segment_action_plain, args)
+        dev_ms, acts = device_time_per_call(seg.segment_action, args)
+        plain_dev, plain_acts = device_time_per_call(
+            seg.segment_action_plain, args)
+        out[mode] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "device_ms": dev_ms, "device_acts": acts,
+                     "plain_device_ms": plain_dev,
+                     "plain_device_acts": plain_acts,
+                     "bound": action_bound_ms(logits, ids, n, temperature,
+                                              k is not None),
                      "all": (p1, k1, k2, p2)}
     return out
 
@@ -1514,7 +1668,7 @@ def main() -> int:
     from tarl_tpu_torch import _build
     from tarl_tpu_torch.config import DEFAULT_PHYSICS
     from tarl_tpu_torch.convert import to_numpy
-    from tarl_tpu_torch.core import fused_core, fused_winner, rng
+    from tarl_tpu_torch.core import fused_core, fused_winner, rng, sync
     from tarl_tpu_torch.core.step import Policy, init_sim_state, run_episode
     from tarl_tpu_torch.routing.policies import random_choice
     from tarl_tpu_torch.state import sort_agents_by_departure
@@ -1650,6 +1804,27 @@ def main() -> int:
     errs["K2 mode"] = compare_relax(cases64, [(iters, False)])
     errs["relax only, 8 sweeps"] = compare_relax(cases64, [(iters, True)])
     errs["relax only, 1 sweep"] = compare_relax(cases64, [(1, True)])
+    # Which form each shape takes: the resident kernel at the sp row (8
+    # sweeps, uncapped) and on Grid16x16; the global form at one sweep, at
+    # Grid128x128 and at Grid256x256.
+    forms = {}
+    for label, g, d_n, n_it in (
+            ("Grid64, 8 sweeps", net64, net64.num_intersections, iters),
+            ("Grid64, 1 sweep", net64, net64.num_intersections, 1),
+            ("Grid16, uncapped", net, net.num_intersections, None)):
+        forms[label] = bf.resident_plan(g.num_intersections, d_n,
+                                        g.inter_out_road.shape[1], n_it)
+    width64 = forms["Grid64, 8 sweeps"]
+    if width64 is None or forms["Grid16, uncapped"] is None \
+            or forms["Grid64, 1 sweep"] is not None:
+        raise AssertionError(f"resident_plan chose {forms}")
+    # A column tail (13 columns: tiles of 8 and 5) and the zoned parts'
+    # D below the tile width (4 columns), from two random warm starts.
+    tail_cases = [(f"{label}, {d} columns", c, tabs, d0[:, :d].contiguous())
+                  for d in (13, 4)
+                  for label, c, tabs, d0 in cases64[-3:-1]]
+    errs["13 and 4 columns"] = compare_relax(
+        tail_cases, [(iters, False), (iters, True), (None, False)])
     cold16 = torch.full((net.num_intersections,) * 2, BIG, device=dev)
     cold16.diagonal().fill_(0.0)
     g16 = np.random.default_rng(16)
@@ -1659,18 +1834,42 @@ def main() -> int:
                 cold16),
                ("Grid16 random, cold", cost16, relax_tables(net), cold16)]
     errs["uncapped, cold"] = compare_relax(cases16, [(None, False)])
-    for _, c, tabs, d0 in cases16:
-        d, _ = bf.primal_relax_next_roads(c, *tabs, d0, None)
+    reads16 = sync.HOST_READS
+    uncapped16 = [bf.primal_relax_next_roads(c, *tabs, d0, None)[0]
+                  for _, c, tabs, d0 in cases16]
+    reads16 = sync.HOST_READS - reads16
+    if reads16:
+        raise AssertionError(f"the uncapped Grid16x16 relax made {reads16} "
+                             "host reads; the resident kernel makes none")
+    for d in uncapped16:
         if float(d.max()) >= BIG:
             raise AssertionError("uncapped relax left a pair unreached")
     net128, _ = load_scenario("Grid128x128_10", 128, 128, 10, dev)
     cases128 = big_dest_cases(net128)
+    if bf.resident_plan(net128.num_intersections, BIG_DESTS,
+                        net128.inter_out_road.shape[1], iters) is not None:
+        raise AssertionError("Grid128x128 took the resident form; it must "
+                             "take the global form")
     errs["Grid128, 512 dests"] = compare_relax(
         cases128, [(iters, False), (iters, True)])
+    t0 = time.perf_counter()
+    net256 = grid_network(K8_GRID, K8_GRID, dev)   # phase 15 reuses it
+    build256 = time.perf_counter() - t0
+    if bf.resident_plan(net256.num_intersections, 16,
+                        net256.inter_out_road.shape[1], iters) is not None:
+        raise AssertionError("Grid256x256 with 16 columns took the resident "
+                             "form; it must take the global form")
+    cases256r = big_dest_cases(net256, dests=16)
+    errs["Grid256, 16 dests, global form"] = compare_relax(
+        cases256r, [(iters, False)])
     log(f"primal_relax vs plain: bitwise equal in every mode ("
         + "; ".join(errs) + f") on {len(cases64)} Grid64x64 inputs "
-        f"({len(sp['captured'])} captured refreshes), 2 Grid16x16 and 2 "
-        f"Grid128x128 (I={net128.num_intersections}) inputs")
+        f"({len(sp['captured'])} captured refreshes; the resident form in "
+        f"tiles of {width64} columns, the global form at one sweep), "
+        f"{len(tail_cases)} of 13 and 4 columns, 2 Grid16x16 (uncapped, "
+        f"resident, no host read), 2 Grid128x128 "
+        f"(I={net128.num_intersections}) and 2 Grid256x256 "
+        f"(I={net256.num_intersections}) inputs, both in the global form")
 
     # Timed in the modes the TPU kernels K2-K6 computed: K2 mode, relax only
     # (K4) and one sweep (K6) on a captured Grid64x64 refresh; K2 mode (K3)
@@ -1684,17 +1883,24 @@ def main() -> int:
             ("Grid128 K2 mode (K3)", net128, cases128[1][1::2],
              (iters, False)),
             ("Grid128 relax only (K5)", net128, cases128[1][1::2],
-             (iters, True))):
+             (iters, True)),
+            ("Grid256 K2 mode", net256, cases256r[1][1::2],
+             (iters, False))):
+        args = (c_m, *relax_tables(g), d_m, n_it, only)
         plain1, kern1, kern2, plain2 = time_pair(
             bf.primal_relax_next_roads, bf.primal_relax_next_roads_plain,
-            (c_m, *relax_tables(g), d_m, n_it, only), RELAX_TIMED_CALLS)
+            args, RELAX_TIMED_CALLS)
+        dev_ms, acts = device_time_per_call(bf.primal_relax_next_roads,
+                                            args, RELAX_TIMED_CALLS)
         bound, by = relax_bound_ms(g, n_it, d_m.shape[1], only)
-        relax_t[mode] = (min(kern1, kern2), min(plain1, plain2), bound, by)
+        relax_t[mode] = (min(kern1, kern2), min(plain1, plain2), bound, by,
+                         dev_ms)
         log(f"primal_relax {mode} (I={g.num_intersections}, "
             f"D={d_m.shape[1]}, {label if g is net64 else 'warm'}): kernel "
             f"{kern1:.4f} / {kern2:.4f} ms per call, plain {plain1:.4f} / "
             f"{plain2:.4f} ms per call (plain, kernel, kernel, plain), "
-            f"bound {bound:.4f} ms by {by}")
+            f"device {fmt_us(dev_ms)} per call in {acts:.1f} kernels "
+            f"(torch.profiler), bound {bound:.4f} ms by {by} ({card})")
 
     # --- 7. the row in context ---------------------------------------------
     from tarl_tpu_torch.core.step import run_episode_periodic
@@ -1734,24 +1940,55 @@ def main() -> int:
     collect_launches = res["collect_launches"]
 
     # --- 11. segment kernels against plain ---------------------------------
-    captured_cases = []
-    for label, cap in (("Grid8x8 eval", cap8), ("Grid8x8 collect", cap_c),
-                       ("Grid16x16 eval", cap16)):
-        for name in ("sum", "max", "argmax"):
+    captured_cases, action_cases = [], []
+    for j, (label, cap) in enumerate((("Grid8x8 eval", cap8),
+                                      ("Grid8x8 collect", cap_c),
+                                      ("Grid16x16 eval", cap16))):
+        for name in ("sum", "max"):
             for i, (data, ids, n) in enumerate(cap.inputs[name]):
                 captured_cases.append((f"{label} {name} {i}", data, ids, n,
                                        True))
+        for i, (data, ids, n) in enumerate(argmax_inputs(
+                cap.inputs["action"], 5100 + 100 * j)):
+            captured_cases.append((f"{label} argmax {i}", data, ids, n,
+                                   True))
+        for i, (logits, ids, n, t, _) in enumerate(cap.inputs["action"]):
+            action_cases.append((f"{label} action {i}", logits, ids, n, t))
+    if not action_cases:
+        raise AssertionError("no action input was captured")
     seg_cases = captured_cases + random_segment_cases(dev)
     seg_err = compare_segments(seg_cases)
+    n_captured_actions = len(action_cases)
+    action_cases += random_action_cases(dev)
+    action_err, action_calls = compare_actions(action_cases, 5500)
     e8, n8 = net8.full_src.shape[0], net8.num_nodes
-    timed_in = cap8.inputs["argmax"][len(cap8.inputs["argmax"]) // 2]
+    timed_act = cap8.inputs["action"][len(cap8.inputs["action"]) // 2]
+    timed_in = argmax_inputs([timed_act], 0)[0]
     seg_t = time_segments(*timed_in)
-    seg_t16 = time_segments(*cap16.inputs["argmax"][-1])
+    seg_t16 = time_segments(*argmax_inputs(cap16.inputs["action"][-1:],
+                                           0)[0])
+    act_t = time_actions(*timed_act[:4], rng.prng_key(5999))
     log(f"segment kernels vs plain: bitwise equal on {len(captured_cases)} "
         f"captured inputs (Grid8x8 E={e8}, N={n8}; Grid16x16 "
         f"E={net.full_src.shape[0]}, N={net.num_nodes}) and "
         f"{len(seg_cases) - len(captured_cases)} seeded random cases "
         f"({card})")
+    log(f"segment_action (K11's action entry) vs plain: bitwise equal on "
+        f"the card and on a CPU copy in {action_calls} calls: "
+        f"{n_captured_actions} captured action inputs and "
+        f"{len(action_cases) - n_captured_actions} seeded random cases, "
+        f"each as mode and as sample with a fresh key ({card})")
+    for mode, r in act_t.items():
+        p1, k1, k2, p2 = r["all"]
+        log(f"segment_action {mode} Grid8x8 (temperature {timed_act[3]}): "
+            f"kernel {k1 * 1e3:.2f} / {k2 * 1e3:.2f} us per call, the "
+            f"parent's composed path (PLAIN.action on the card) "
+            f"{p1 * 1e3:.2f} / {p2 * 1e3:.2f} us (plain, kernel, kernel, "
+            f"plain; CUDA events); device {fmt_us(r['device_ms'])} per "
+            f"call in {r['device_acts']:.1f} kernels against "
+            f"{fmt_us(r['plain_device_ms'])} in "
+            f"{r['plain_device_acts']:.1f} (torch.profiler); bound "
+            f"{r['bound'][0] * 1e3:.4f} us by {r['bound'][1]} ({card})")
     for label, tt in (("Grid8x8", seg_t), ("Grid16x16", seg_t16)):
         for name, r in tt.items():
             p1, k1, k2, p2 = r["all"]
@@ -1803,9 +2040,6 @@ def main() -> int:
         f"{plain_counts})")
 
     # --- 15. K1 at the tiled winner's size (K8a/K8b) ----------------------
-    t0 = time.perf_counter()
-    net256 = grid_network(K8_GRID, K8_GRID, dev)
-    build256 = time.perf_counter() - t0
     kin256, r256 = net256.in_src_tab.shape
     cases256 = []
     for i in range(K8_STATES):
@@ -2060,6 +2294,33 @@ def main() -> int:
             "shape": f"E={e8}, N={n8}",
             "ms_grid16": seg_t16[name]["ms"],
         })
+    # K11's row: the action entry, which the learned paths launch; the
+    # bare argmax (the TPU kernel's own function) beside it.
+    k11 = seg_entries[2]
+    mode_t, sample_t = act_t["mode"], act_t["sample"]
+    k11.update({
+        "entry": "segment_action (mode: scale, argmax and the multi-hot "
+                 "action in one launch; sample: the Gumbel noise drawn "
+                 "inside too)",
+        "max_abs_err": max(seg_err["argmax"], action_err),
+        "ms": mode_t["ms"], "device_ms": mode_t["device_ms"],
+        "plain_ms": mode_t["plain_ms"],
+        "plain_device_ms": mode_t["plain_device_ms"],
+        "plain_device_kernels": mode_t["plain_device_acts"],
+        "bound_ms": mode_t["bound"][0], "bound_by": mode_t["bound"][1],
+        "library_ms": None, "library_device_ms": None,
+        "sample_ms": sample_t["ms"],
+        "sample_device_ms": sample_t["device_ms"],
+        "sample_plain_ms": sample_t["plain_ms"],
+        "sample_plain_device_ms": sample_t["plain_device_ms"],
+        "sample_plain_device_kernels": sample_t["plain_device_acts"],
+        "sample_bound_ms": sample_t["bound"][0],
+        "sample_launches": collect_launches["K11"],
+        "bare_ms": seg_t["argmax"]["ms"],
+        "bare_device_ms": seg_t["argmax"]["device_ms"],
+        "bare_plain_ms": seg_t["argmax"]["plain_ms"],
+        "bare_bound_ms": segment_bound_ms(e8, n8),
+    })
     print(json.dumps({"kernels": [{
         "name": "fused_winner",
         "route": "cuda",
@@ -2087,11 +2348,17 @@ def main() -> int:
         "next_road_launches": sp["next_road_launches"],
         "max_abs_err": max(errs.values()),
         "ms": relax_t["K2 mode"][0],
+        "device_ms": relax_t["K2 mode"][4],
         "plain_ms": relax_t["K2 mode"][1],
         "bound_ms": relax_t["K2 mode"][2],
         "bound_by": relax_t["K2 mode"][3],
         "library_ms": None,
         "modes": list(errs),
+        "tile_columns": width64,
+        "ms_grid256_global": relax_t["Grid256 K2 mode"][0],
+        "device_ms_grid256_global": relax_t["Grid256 K2 mode"][4],
+        "plain_ms_grid256_global": relax_t["Grid256 K2 mode"][1],
+        "bound_ms_grid256_global": relax_t["Grid256 K2 mode"][2],
     }] + [{
         "name": name,
         "route": "cuda",
@@ -2102,6 +2369,7 @@ def main() -> int:
         "launches_from": "sp row (phase 5), K2's kernels",
         "max_abs_err": max(errs.values()),
         "ms": relax_t[mode][0],
+        "device_ms": relax_t[mode][4],
         "plain_ms": relax_t[mode][1],
         "bound_ms": relax_t[mode][2],
         "bound_by": relax_t[mode][3],

@@ -123,7 +123,9 @@ def main(argv=None) -> int:
     env_mod.ExternalChoice = lambda action: timed(
         "choice (action -> selections)", choice_cls(action))
     timed_ops = seg.KERNELS._replace(
-        argmax=timed("K11 (mode, via the wrapper)", seg.segment_argmax))
+        action=timed("K11 (the action entry: the mode's argmax and "
+                     "multi-hot action, via the wrapper)",
+                     seg.segment_action))
     timed_core = timed("core K1 (direction_confirm, its noise drawn "
                        "inside)", direction_confirm)
 

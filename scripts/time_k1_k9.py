@@ -32,7 +32,18 @@ waits), and the device time of the kernels those calls launched, from
 - K9-K11 at the learned path's Grid8x8 shape (``network.full_src``, E =
   1,256, N = 352) with a kept layout, beside ``index_add_`` into
   ``torch.zeros`` (the sum) and ``scatter_reduce`` amax into a filled row
-  (the max).
+  (the max).  The learned step's action as it pays it,
+  ``GraphDistribution.mode()`` and ``.sample(key)`` on the same logits,
+  in whichever form the tree has (the parent's: the division, the draw,
+  K11 and the hot scatter; the action entry's: one launch of K11),
+  and, where the tree has it, ``segment_action`` itself in both modes.
+- The relax (K2) at the sp row's shape (Grid64x64, I = D = 4,096, 8
+  sweeps): K2 mode and relax only from a random-cost warm start (every
+  sweep lowers something) and K2 mode from the host Dijkstra's free-flow
+  table at free flow, as the tree's ``primal_relax_next_roads`` runs them;
+  where the tree has ``resident_plan``, also each form forced (the plan
+  patched): K2 mode and relax only at 8 sweeps and relax only at one
+  sweep, resident and global.
 - The headline tick (``chip_smoke.py`` phase 2's episode) with the
   default core, with the fused core (phase 13) and on
   ``chip_smoke.SHARD_BLOCKS`` road blocks (phase 17, from the default
@@ -168,6 +179,18 @@ def main(argv=None) -> int:
         (n,), seg.NEG_LARGE, device=dev).scatter_reduce_(0, key_l, data,
                                                          "amax"))
     record("k11", lambda: seg.segment_argmax(data, ids, n, layout))
+    from tarl_tpu_torch.rl.distribution import GraphDistribution
+
+    dist = GraphDistribution(data, ids, n, layout=layout)
+    key8 = rng.prng_key(8)
+    record("dist_mode", dist.mode)
+    record("dist_sample", lambda: dist.sample(key8))
+    if hasattr(seg, "segment_action"):
+        record("k11_action_mode",
+               lambda: seg.segment_action(data, ids, n, layout))
+        record("k11_action_sample",
+               lambda: seg.segment_action(data, ids, n, layout, 1.0, key8))
+    time_k2(record, chip_smoke, dev, out)
 
     net16, agents16 = chip_smoke.load_scenario("Grid16x16_50000", 16, 16,
                                                50000, dev)
@@ -211,6 +234,43 @@ def main(argv=None) -> int:
           f"{ms:.3f} ms/step ({card}; {args.label})", flush=True)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def time_k2(record, chip_smoke, dev, out) -> None:
+    """The relax at the sp row's shape (see the module docstring)."""
+    import torch
+
+    from tarl_tpu_torch.routing import bellman_ford as bf
+    from tarl_tpu_torch.routing import policies
+
+    net = chip_smoke.grid_network(64, 64, dev)
+    _, cost, tabs, warm = chip_smoke.grid64_relax_cases(net, [], seeds=1)[0]
+    ff = net.free_flow
+    fixed = torch.as_tensor(policies._host_dijkstra(net), device=dev)
+    record("k2_mode_random_warm",
+           lambda: bf.primal_relax_next_roads(cost, *tabs, warm, 8))
+    record("k2_relax_only_random_warm",
+           lambda: bf.primal_relax_next_roads(cost, *tabs, warm, 8, True))
+    record("k2_mode_free_flow_table",
+           lambda: bf.primal_relax_next_roads(ff, *tabs, fixed, 8))
+    if hasattr(bf, "resident_plan"):
+        plan = bf.resident_plan
+        forced = {"resident": lambda i_n, d_n, k_n, it: min(8, d_n),
+                  "global": lambda *shape: None}
+        try:
+            for form, rule in forced.items():
+                bf.resident_plan = rule
+                for label, it, only in (("mode", 8, False),
+                                        ("relax_only", 8, True),
+                                        ("relax_only_1_sweep", 1, True)):
+                    def call(it=it, only=only):
+                        return bf.primal_relax_next_roads(cost, *tabs, warm,
+                                                          it, only)
+                    record(f"k2_{form}_{label}_random_warm", call)
+        finally:
+            bf.resident_plan = plan
+    out["k2_shape"] = (f"I=D={net.num_intersections}, "
+                       f"K={tabs[0].shape[1]}, 8 sweeps")
 
 
 def time_k7_k12(record, chip_smoke, dev, out) -> None:

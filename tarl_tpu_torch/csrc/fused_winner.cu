@@ -29,10 +29,9 @@
 //
 // Noise: in-slot k of road v draws threefry_bits(key, k*R + road_order[v])
 // (threefry.cuh), the canonical address of core/rng.py::direction_gumbel,
-// and jax.random.gumbel's transform op for op (core/rng.py::
-// _gumbel_from_bits): mantissa fill (bits >> 9) | 0x3F800000 minus 1.0f,
-// u = max(tiny, f * (1 - tiny) + tiny) where 1 - tiny rounds to 1.0f, then
-// -log(-log(u)).  Only eligible slots draw: the others cannot win.
+// and jax.random.gumbel's transform op for op (threefry.cuh::
+// gumbel_from_bits, shared with K7 and K11).  Only eligible slots draw:
+// the others cannot win.
 //
 // Arithmetic is float32 adds, multiplies, compares and logf, compiled
 // without fast math and with --fmad=false, so results are bitwise those of
@@ -78,7 +77,6 @@
 // eligible slot its logit and its column's road_order entry and does one
 // threefry block; a winning road reads its winner's head id and dest.
 
-#include <cfloat>
 #include <climits>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -87,17 +85,6 @@
 #include "threefry.cuh"
 
 namespace {
-
-// jnp.finfo(float32).tiny, the smallest normal float.
-constexpr float kTiny = FLT_MIN;
-
-// jax.random.gumbel's float32 transform of 32 random bits.
-__device__ __forceinline__ float gumbel_from_bits(uint32_t bits) {
-  const float f = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-  const float one_minus_tiny = 1.0f - kTiny;  // rounds to 1.0f, as in JAX
-  const float u = fmaxf(kTiny, f * one_minus_tiny + kTiny);
-  return -logf(-logf(u));
-}
 
 __global__ void fw_winner_kernel(
     const int* __restrict__ fifo_ids, const float* __restrict__ fifo_dep,
@@ -156,7 +143,7 @@ __global__ void fw_winner_kernel(
       const uint64_t q = static_cast<uint64_t>(k) * static_cast<uint64_t>(R)
                          + static_cast<uint64_t>(road_order[v]);
       const float s = in_logit[idx] +
-                      gumbel_from_bits(tarl::threefry_bits(k1, k2, q));
+                      tarl::gumbel_from_bits(tarl::threefry_bits(k1, k2, q));
       if (s > best) {
         best = s;
         best_k = k;
@@ -233,7 +220,7 @@ __global__ void fw_shard_winner_kernel(
       const uint64_t q = static_cast<uint64_t>(k) * static_cast<uint64_t>(R)
                          + static_cast<uint64_t>(road_order[col]);
       const float s = logit[idx] +
-                      gumbel_from_bits(tarl::threefry_bits(k1, k2, q));
+                      tarl::gumbel_from_bits(tarl::threefry_bits(k1, k2, q));
       if (s > best) {
         best = s;
         best_k = k;

@@ -1,4 +1,5 @@
-// Segment sum, max and argmax over an edge list, one thread per segment.
+// Segment sum, max and argmax over an edge list, one thread per segment,
+// and the learned policy's action (K11's fused entry) in one launch.
 //
 // Replaces the Pallas TPU kernels of tarl_tpu/ops/pallas_segment.py:
 //   K9  _segment_sum_kernel    (segment_sum_pallas)
@@ -37,8 +38,46 @@
 // zero fill, so the body costs nothing worth a change; what a call costs
 // beyond that is the wrapper's host path (ops/segment.py), which checks
 // the layout once where it is built and the data once per call.
+//
+// K11's second entry, tarl_segment_action (seg_action_kernel), is the
+// learned policy's whole action in one launch: from the raw logits to the
+// multi-hot bool[E] that GraphDistribution.mode() and .sample(key) return
+// (tarl_tpu/rl/distribution.py:61-73), in place of a division, a Gumbel
+// draw of ~180 small kernels (sample), the argmax, torch.zeros and a
+// scatter.  Lane s walks segment s's run of the CSR twice:
+//   1. x = logits[e] / temperature (an IEEE division, as torch's by a
+//      tensor); only a finite x is a candidate.  With a key the score is
+//      x + g[e], g[e] = jax.random.gumbel(key, (E,))[e] drawn here:
+//      threefry_bits(key, e) and gumbel_from_bits (threefry.cuh), the
+//      noise K1 and K7 draw.  Without one (mode) the score is x.  The
+//      argmax is K11's: strict > in ascending element order from
+//      NEG_LARGE, a non-finite score never wins.
+//   2. hot[e] = (e == winner) over the run: a segment without a winner
+//      writes false everywhere.
+// Lanes past the last segment write false at the elements whose id is
+// out of range, which the layout sorts past offsets[N].  So every element
+// of the output is written by the kernel: no memset, no zero fill.  The
+// result is the reference's hot.at[min(chosen, E)].set(True, mode="drop").
+//
+// A lane per segment and not a warp: on the policy's path a segment is
+// one node's out-edges, at most ~6 at Grid8x8 and Grid16x16, so a warp
+// would idle 26 of its lanes and pay a shuffle reduction for nothing; the
+// threefry block per candidate (~130 integer operations) is the lane's
+// only real work.  Bound: bytes, as the argmax above, plus one output
+// byte an element; at Grid8x8 E = 1,256 with N = 352 ~12 KB, ~4 ns at
+// 3.35 TB/s, and the draw's 1,256 x ~130 operations take ~2.4 ns at the
+// float32 rate.  The launch is the cost: what the design removes is the
+// kernels of mode() and sample() around the argmax.  Measured with
+// scripts/time_k1_k9.py on an NVIDIA H100 80GB HBM3 (700 W) at Grid8x8:
+// 2.59-2.68 us of device time for the mode and 3.55 us for the sample,
+// noise included, each in one kernel, where the distribution's mode()
+// took 15.3 us in 10 kernels and its sample() 270 us in 208.  TMA, shared
+// memory and wgmma have nothing to do at these sizes.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "threefry.cuh"
 
 namespace {
 
@@ -90,6 +129,42 @@ __global__ void seg_argmax_kernel(const float* __restrict__ data,
   out[s] = arg;
 }
 
+__global__ void seg_action_kernel(const float* __restrict__ logits,
+                                  const int* __restrict__ order,
+                                  const int* __restrict__ offsets, int n,
+                                  int e_total, float temperature, int draw,
+                                  uint32_t k1, uint32_t k2,
+                                  unsigned char* __restrict__ hot) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) {
+    // Lane n + m writes the m-th dropped element (id out of range).
+    const int j = offsets[n] + (t - n);
+    if (j < e_total) hot[order[j]] = 0;
+    return;
+  }
+  const int lo = offsets[t];
+  const int hi = offsets[t + 1];
+  float best = kNegLarge;
+  int arg = -1;
+  for (int j = lo; j < hi; ++j) {
+    const int e = order[j];
+    const float x = logits[e] / temperature;
+    if (!isfinite(x)) continue;
+    const float v =
+        draw ? x + tarl::gumbel_from_bits(tarl::threefry_bits(
+                       k1, k2, static_cast<uint64_t>(e)))
+             : x;
+    if (isfinite(v) && v > best) {
+      best = v;
+      arg = e;
+    }
+  }
+  for (int j = lo; j < hi; ++j) {
+    const int e = order[j];
+    hot[e] = (e == arg) ? 1 : 0;
+  }
+}
+
 constexpr int kThreads = 128;
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -123,5 +198,19 @@ extern "C" int tarl_segment_argmax(const float* data, const int* order,
   seg_argmax_kernel<<<blocks_for(n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       data, order, offsets, n, e_total, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One lane per segment and one per element: lanes n.. cover the dropped
+// elements past offsets[n].  draw = 0 is the mode (k1, k2 unread).
+extern "C" int tarl_segment_action(const float* logits, const int* order,
+                                   const int* offsets, int n, int e_total,
+                                   float temperature, int draw, uint32_t k1,
+                                   uint32_t k2, unsigned char* hot,
+                                   void* stream) {
+  if (n + e_total == 0) return 0;
+  seg_action_kernel<<<blocks_for(n + e_total), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      logits, order, offsets, n, e_total, temperature, draw, k1, k2, hot);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,9 +4,12 @@
 // threefry_bits(key, q), the XOR of the two output words of the block on
 // the counter (hi32(q), lo32(q)).  A header, so that any kernel can draw
 // its noise from a tick key and an element index without a Gumbel matrix
-// in device memory.
+// in device memory.  gumbel_from_bits is jax.random.gumbel's float32
+// transform of those bits, shared by every kernel that draws its own
+// Gumbel noise (K1, K7 and K11).
 #pragma once
 
+#include <cfloat>
 #include <stdint.h>
 
 namespace tarl {
@@ -43,6 +46,20 @@ __host__ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k1,
   uint32_t x2 = static_cast<uint32_t>(q);
   threefry2x32(k1, k2, x1, x2);
   return x1 ^ x2;
+}
+
+// jax.random.gumbel's float32 transform of 32 random bits, op for op as
+// core/rng.py::_gumbel_from_bits computes it: mantissa fill
+// (bits >> 9) | 0x3F800000 minus 1.0f, u = max(tiny, f * (1 - tiny) + tiny)
+// where 1 - tiny rounds to 1.0f, then -log(-log(u)).  Exact with
+// --fmad=false and without fast math; logf may round an ulp apart from
+// XLA's log.
+__device__ __forceinline__ float gumbel_from_bits(uint32_t bits) {
+  constexpr float kTiny = FLT_MIN;  // jnp.finfo(float32).tiny
+  const float f = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+  const float one_minus_tiny = 1.0f - kTiny;  // rounds to 1.0f, as in JAX
+  const float u = fmaxf(kTiny, f * one_minus_tiny + kTiny);
+  return -logf(-logf(u));
 }
 
 }  // namespace tarl

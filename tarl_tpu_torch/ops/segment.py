@@ -7,10 +7,13 @@ TPU kernels K9-K11 of ``tarl_tpu/ops/pallas_segment.py``.  On a CUDA
 tensor they launch the hand-written kernels of ``csrc/segment.cu`` (nvcc
 into a shared library with a C interface, loaded with ctypes) at any
 segment count; on a CPU tensor they take the plain PyTorch versions
-(``*_plain``), which compute the same function.  They never fall back from
-a kernel to its plain version.  Other dtypes and ranks, and
+(``*_plain``), which compute the same function.  They never fall back
+from a kernel to its plain version.  Other dtypes and ranks, and
 ``segment_min``, are plain PyTorch on every device, as the reference leaves
-them to XLA.
+them to XLA.  :func:`segment_action` is K11's second entry: the learned
+policy's multi-hot action from its raw logits (the scale, the Gumbel noise
+drawn in the kernel from a key, the argmax, the hot vector) in one launch,
+for ``GraphDistribution.mode`` and ``sample``.
 
 Semantics follow the TPU kernels: an id outside ``[0, num_segments)`` is
 dropped; an empty segment's max is ``NEG_LARGE`` (JAX's XLA path gives
@@ -39,12 +42,14 @@ import torch
 
 from .._build import check_tensor, current_stream
 from ..core import rng
+from .scatter import scatter_set
 
 # The TPU kernels' empty-segment value, as a float32.
 NEG_LARGE = float(torch.tensor(-3.4e38, dtype=torch.float32))
 
-# Kernel launches through the wrappers (one per call on a CUDA tensor);
-# the plain versions do not count.
+# Kernel launches through the wrappers (one per call on a CUDA tensor; both
+# of K11's entries count in ARGMAX_LAUNCHES); the plain versions do not
+# count.
 SUM_LAUNCHES = 0
 MAX_LAUNCHES = 0
 ARGMAX_LAUNCHES = 0
@@ -154,6 +159,31 @@ def segment_argmax_plain(scores, segment_ids, num_segments: int,
     return arg[:num_segments].to(torch.int32)
 
 
+def scale_logits(logits, temperature: float):
+    """``logits / temperature`` as an IEEE float32 division on every
+    device, as the reference's ``_scaled`` and K11's action entry compute
+    it (a CUDA tensor divided by a Python float is multiplied by the
+    reciprocal instead)."""
+    return logits / torch.full((), temperature, dtype=logits.dtype,
+                               device=logits.device)
+
+
+def segment_action_plain(logits, segment_ids, num_segments: int,
+                         layout=None, temperature: float = 1.0,
+                         key: rng.Key | None = None):
+    """The plain version of :func:`segment_action`: the scale, then the
+    argmax (no key) or :func:`segment_sample` (a key), then the hot
+    vector with the no-winner index dropped."""
+    x = scale_logits(logits, temperature)
+    if key is None:
+        chosen = segment_argmax_plain(x, segment_ids, num_segments)
+    else:
+        chosen = segment_sample(key, x, segment_ids, num_segments, ops=PLAIN)
+    e = logits.shape[0]
+    hot = torch.zeros(e, dtype=torch.bool, device=logits.device)
+    return scatter_set(hot, chosen, True, chosen < e)
+
+
 # ---------------------------------------------------------------------------
 # Kernels
 # ---------------------------------------------------------------------------
@@ -169,8 +199,12 @@ def _kernel_fns():
             fn.restype = ctypes.c_int
         lib.tarl_segment_argmax.argtypes = [p, p, p, i, i, p, p]
         lib.tarl_segment_argmax.restype = ctypes.c_int
+        u = ctypes.c_uint32
+        lib.tarl_segment_action.argtypes = [p, p, p, i, i, ctypes.c_float,
+                                            i, u, u, p, p]
+        lib.tarl_segment_action.restype = ctypes.c_int
         _FNS = (lib.tarl_segment_sum, lib.tarl_segment_max,
-                lib.tarl_segment_argmax)
+                lib.tarl_segment_argmax, lib.tarl_segment_action)
     return _FNS
 
 
@@ -269,6 +303,36 @@ def segment_argmax(scores, segment_ids, num_segments: int,
     return out
 
 
+def segment_action(logits, segment_ids, num_segments: int,
+                   layout: SegmentLayout | None = None,
+                   temperature: float = 1.0, key: rng.Key | None = None):
+    """The multi-hot bool[E] of one element per segment: the argmax of
+    ``logits / temperature`` (no key; ``GraphDistribution.mode``) or of
+    that plus ``jax.random.gumbel(key, (E,))`` where it is finite
+    (``sample``), ties to the lowest index; a segment without a finite
+    score selects nothing.  K11's action entry on a CUDA tensor (one
+    launch, the noise drawn inside), :func:`segment_action_plain` on a CPU
+    tensor.  Float32 1-D logits only."""
+    global ARGMAX_LAUNCHES
+    if not _kernel_ok(logits):
+        raise TypeError(f"segment_action takes float32 1-D logits, got "
+                        f"{logits.dtype} of rank {logits.dim()}")
+    layout = _route("segment_action", logits, segment_ids, num_segments,
+                    layout)
+    if layout is None:
+        return segment_action_plain(logits, segment_ids, num_segments,
+                                    None, temperature, key)
+    k1, k2 = (0, 0) if key is None else rng.key_words(key)
+    e = logits.shape[0]
+    out = torch.empty(e, dtype=torch.bool, device=logits.device)
+    _check_err("segment_action", _kernel_fns()[3](
+        logits.data_ptr(), *layout.pointers, num_segments, e, temperature,
+        key is not None, k1, k2, out.data_ptr(),
+        current_stream(logits.device)))
+    ARGMAX_LAUNCHES += 1
+    return out
+
+
 def _identity(dtype, reduce: str):
     if dtype.is_floating_point:
         return float("inf") if reduce == "amin" else float("-inf")
@@ -295,19 +359,23 @@ def segment_min(data, segment_ids, num_segments: int):
 
 
 class SegmentOps(NamedTuple):
-    """The sum, max and argmax that the composite ops below call:
-    :data:`KERNELS` (the wrappers) or :data:`PLAIN` (the plain versions on
-    any device, the override for comparing a run with the kernels'
-    against one without them).  Each takes ``(data, segment_ids,
-    num_segments, layout)``; the plain versions ignore the layout."""
+    """The sum, max, argmax and action that the composite ops below and
+    ``GraphDistribution`` call: :data:`KERNELS` (the wrappers) or
+    :data:`PLAIN` (the plain versions on any device, the override for
+    comparing a run with the kernels' against one without them).  Each
+    takes ``(data, segment_ids, num_segments, layout)``, the action also
+    ``(temperature, key)``; the plain versions ignore the layout."""
 
     sum: Callable
     max: Callable
     argmax: Callable
+    action: Callable
 
 
-KERNELS = SegmentOps(segment_sum, segment_max, segment_argmax)
-PLAIN = SegmentOps(segment_sum_plain, segment_max_plain, segment_argmax_plain)
+KERNELS = SegmentOps(segment_sum, segment_max, segment_argmax,
+                     segment_action)
+PLAIN = SegmentOps(segment_sum_plain, segment_max_plain, segment_argmax_plain,
+                   segment_action_plain)
 
 
 def _shifted(logits, segment_ids, num_segments, layout, ops):

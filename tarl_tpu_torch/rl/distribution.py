@@ -2,9 +2,12 @@
 (ports ``tarl_tpu/rl/distribution.py``).
 
 A :class:`GraphDistribution` over multi-hot edge actions groups the edges
-by source node; every method runs on unbatched ``logits[E]``.  Sampling is
-the per-segment Gumbel-max of ``ops.segment``, so ``sample`` and ``mode``
-launch K11 and ``log_probs`` K10 and K9 on the card.  It carries the
+by source node; every method runs on unbatched ``logits[E]``.  ``mode``
+and ``sample(key)`` are ``ops.action``: on the card one launch of K11's
+action entry each, which scales the logits, draws the sample's Gumbel
+noise from the key, takes the per-segment argmax and writes the multi-hot
+action (no separate draw, zero fill or scatter).  ``log_probs`` launches
+K10 and K9 (with ``log_prob``, once K10 and three times K9).  It carries the
 :class:`~tarl_tpu_torch.ops.segment.SegmentLayout` of ``edge_src``, built
 once by its owner, and the segment ops it calls (``ops.segment.KERNELS``
 unless the caller forces ``PLAIN``).
@@ -16,13 +19,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.rng import Key
-from ..ops.scatter import scatter_set
 from ..ops.segment import (
     KERNELS,
     SegmentLayout,
     SegmentOps,
+    scale_logits,
     segment_log_softmax,
-    segment_sample,
     segment_softmax,
 )
 
@@ -42,7 +44,7 @@ class GraphDistribution(NamedTuple):
 
     @property
     def _scaled(self) -> torch.Tensor:
-        return self.logits / self.temperature
+        return scale_logits(self.logits, self.temperature)
 
     def probs(self) -> torch.Tensor:
         """Per-edge probability within its source node's group."""
@@ -53,21 +55,16 @@ class GraphDistribution(NamedTuple):
         return segment_log_softmax(self._scaled, self.edge_src,
                                    self.num_nodes, self.layout, self.ops)
 
-    def _hot(self, chosen: torch.Tensor) -> torch.Tensor:
-        e = self.logits.shape[0]
-        hot = torch.zeros(e, dtype=torch.bool, device=self.logits.device)
-        return scatter_set(hot, chosen, True, chosen < e)
-
     def sample(self, key: Key) -> torch.Tensor:
-        """Multi-hot bool[E]: one edge per node that has outgoing edges."""
-        return self._hot(segment_sample(key, self._scaled, self.edge_src,
-                                        self.num_nodes, self.layout,
-                                        self.ops))
+        """Multi-hot bool[E]: one edge per node that has outgoing edges,
+        by the Gumbel-max trick with ``jax.random.gumbel(key, (E,))``."""
+        return self.ops.action(self.logits, self.edge_src, self.num_nodes,
+                               self.layout, self.temperature, key)
 
     def mode(self) -> torch.Tensor:
         """Deterministic multi-hot: the per-group argmax."""
-        return self._hot(self.ops.argmax(self._scaled, self.edge_src,
-                                         self.num_nodes, self.layout))
+        return self.ops.action(self.logits, self.edge_src, self.num_nodes,
+                               self.layout, self.temperature, None)
 
     def log_prob(self, action: torch.Tensor) -> torch.Tensor:
         """Joint log-probability of a multi-hot action; ``-inf`` unless

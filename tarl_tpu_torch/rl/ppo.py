@@ -9,8 +9,10 @@ trees, so the reference's trained parameters carry across through
 ``convert.mpnn_params_from_numpy``.  The rollouts are Python loops over
 steps under ``torch.no_grad()``; the segment layout of ``full_src`` is
 built once here.  Every step of a greedy evaluation launches K1 once and
-K11 once; a collection step launches K11 (the sample), K10 and three K9
-(the log-probability).  Float32 matrix products must run in full
+K11's action entry once (the mode: the scaled argmax and the multi-hot
+action in one kernel); a collection step launches K1, K11's action entry
+(the sample, its Gumbel noise drawn inside), K10 and three K9 (the
+log-probability).  Float32 matrix products must run in full
 float32 (the reference's MLPs run in float32; TF32 would keep ~3 digits):
 the rollouts raise if ``torch.backends.cuda.matmul.allow_tf32`` is on.
 PyTorch leaves it off; the caller owns that process-wide flag.

@@ -11,13 +11,18 @@ library with a C interface, loaded with ctypes) or raises; on a CPU tensor
 it takes :func:`primal_relax_next_roads_plain`, the same function in plain
 PyTorch.  It never falls back from the kernel to the plain version.
 
-A capped relax runs exactly ``max_iters`` sweeps with no host read: the
-reference stops early once a sweep changes nothing, and min-plus
-relaxation is idempotent at its fixpoint, so the tables are equal bit for
-bit.  The uncapped relax (``max_iters=None``, at most ``I - 1`` sweeps)
-reads a convergence flag on the host every :data:`CHECK_EVERY` sweeps
-(every sweep in the plain version), counted by :mod:`~tarl_tpu_torch.core.
-sync`.
+Where :func:`resident_plan` gives a tile width (at most 4,096
+intersections of at most 4 out-slots, at least two sweeps or uncapped:
+the sp row, the zoned parts, the table init), the relax and its next-road
+pass are one launch of the resident kernel: each block keeps a tile of 8
+columns on chip, runs the sweeps on it and stops at the first sweep that
+lowers nothing in its tile.  Min-plus relaxation is idempotent at its
+fixpoint, so the tables are equal bit for bit to those of every capped
+sweep, and the uncapped relax (``max_iters=None``, at most ``I - 1``
+sweeps) makes no host read.  Elsewhere the global form runs: one launch
+per sweep through device memory, and the uncapped relax reads a
+convergence flag on the host every :data:`CHECK_EVERY` sweeps (the plain
+version every sweep), counted by :mod:`~tarl_tpu_torch.core.sync`.
 
 Left out: ``primal_delta_buckets``, ``epilogue_slot_tables``,
 ``_epilogue_rep_tables``, the row windows, the VMEM plans and every
@@ -54,9 +59,19 @@ BIG = float(np.float32(1e18))
 LAUNCHES = 0
 NEXT_ROAD_LAUNCHES = 0
 
-# Sweeps between host reads of the convergence flag (uncapped relax on the
-# card); sweeps past the fixpoint change nothing.
+# Sweeps between host reads of the convergence flag (uncapped relax of the
+# global form, and the dual all-pairs relaxation); sweeps past the
+# fixpoint change nothing.
 CHECK_EVERY = 8
+
+# The resident kernel's limits (csrc/primal_relax.cu): MAX_TILE_COLS
+# destination columns a block, at most RESIDENT_ROWS rows of at most
+# RESIDENT_SLOTS slots (its slot tables stay in registers), and at least
+# RESIDENT_MIN_SWEEPS sweeps (one sweep costs the global form one pass).
+MAX_TILE_COLS = 8
+RESIDENT_ROWS = 4096
+RESIDENT_SLOTS = 4
+RESIDENT_MIN_SWEEPS = 2
 
 _FNS = None
 
@@ -223,6 +238,20 @@ def primal_relax_next_roads_plain(
 
 # --- the kernel --------------------------------------------------------------
 
+def resident_plan(i_n: int, d_n: int, k_n: int,
+                  max_iters: int | None) -> int | None:
+    """The resident kernel's tile width for ``max_iters`` sweeps (None:
+    uncapped) of an ``[i_n, d_n]`` table with ``k_n`` out-slots a row:
+    :data:`MAX_TILE_COLS` (``d_n`` where that is fewer) where the kernel
+    takes the shape, ``None`` where the global form runs.  The last tile of
+    a ``d_n`` that is not a multiple of the width is narrower (the kernel
+    masks it)."""
+    if (i_n > RESIDENT_ROWS or k_n > RESIDENT_SLOTS
+            or (max_iters is not None and max_iters < RESIDENT_MIN_SWEEPS)):
+        return None
+    return max(1, min(MAX_TILE_COLS, d_n))
+
+
 def _kernel_fns():
     global _FNS
     if _FNS is None:
@@ -236,7 +265,10 @@ def _kernel_fns():
         next_road = lib.tarl_primal_next_road
         next_road.argtypes = [p] * 5 + [i] * 3 + [p, p]
         next_road.restype = ctypes.c_int
-        _FNS = (sweeps, next_road)
+        resident = lib.tarl_primal_resident
+        resident.argtypes = [p] * 7 + [i] * 5 + [p]
+        resident.restype = ctypes.c_int
+        _FNS = (sweeps, next_road, resident)
     return _FNS
 
 
@@ -264,7 +296,7 @@ def _launch_next_road(dist, road_cost, inter_out_road, inter_out_ok,
                       road_to):
     i_n, k_n = inter_out_road.shape
     road = torch.empty_like(dist)
-    _, next_road = _kernel_fns()
+    next_road = _kernel_fns()[1]
     err = next_road(dist.data_ptr(), road_cost.data_ptr(),
                     inter_out_road.data_ptr(), inter_out_ok.data_ptr(),
                     road_to.data_ptr(), i_n, dist.shape[1], k_n,
@@ -275,12 +307,33 @@ def _launch_next_road(dist, road_cost, inter_out_road, inter_out_ok,
     return road
 
 
+def _launch_resident(road_cost, inter_out_road, inter_out_ok, road_to,
+                     dist0, iters, relax_only, cols):
+    i_n, k_n = inter_out_road.shape
+    dist = torch.empty_like(dist0)
+    road = None if relax_only else torch.empty_like(dist0)
+    err = _kernel_fns()[2](
+        dist0.data_ptr(), dist.data_ptr(),
+        None if road is None else road.data_ptr(), road_cost.data_ptr(),
+        inter_out_road.data_ptr(), inter_out_ok.data_ptr(),
+        road_to.data_ptr(), i_n, dist0.shape[1], k_n, cols, iters,
+        current_stream(dist0.device))
+    if err != 0:
+        raise RuntimeError(f"primal_relax resident launch failed: CUDA "
+                           f"error {err}")
+    return dist, road
+
+
 def _launch_relax(road_cost, inter_out_road, inter_out_ok, road_to, dist0,
                   max_iters, relax_only):
     i_n, k_n = inter_out_road.shape
     d_n = dist0.shape[1]
     iters = i_n - 1 if max_iters is None else int(max_iters)
-    sweeps, _ = _kernel_fns()
+    cols = resident_plan(i_n, d_n, k_n, max_iters)
+    if cols is not None:
+        return _launch_resident(road_cost, inter_out_road, inter_out_ok,
+                                road_to, dist0, iters, relax_only, cols)
+    sweeps = _kernel_fns()[0]
     tables = (road_cost.data_ptr(), inter_out_road.data_ptr(),
               inter_out_ok.data_ptr(), road_to.data_ptr())
     flag = (torch.zeros(1, dtype=torch.int32, device=dist0.device)
@@ -327,9 +380,10 @@ def primal_relax_next_roads(
     from ``dist0``, then ``next_road[i, d]``, the out-road of the first slot
     attaining the minimum of ``w + dist[succ]`` (float32 id, -1.0 where that
     minimum is not below BIG).  ``dist0`` must carry its anchor zeros.  The
-    CUDA kernels for CUDA tensors (one launch counted per call), the plain
-    version for CPU tensors; inputs the kernels would not take raise on
-    either device."""
+    CUDA kernels for CUDA tensors (one call counted; one launch where
+    :func:`resident_plan` gives a tile width, else the global form's
+    launch per sweep and the next-road launch), the plain version for CPU
+    tensors; inputs the kernels would not take raise on either device."""
     global LAUNCHES
     _check_inputs(road_cost, inter_out_road, inter_out_ok, road_to, dist0)
     if dist0.device.type == "cuda":

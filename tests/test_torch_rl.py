@@ -2,7 +2,9 @@
 
 * ``GraphDistribution``: probs, log-probs and entropy at 1e-6 (``exp`` and
   ``log`` may round an ulp apart); mode and sample exactly for the same
-  threefry key; the log-prob of a valid and of invalid actions.
+  threefry key, each one ``ops.action`` call (K11's action entry; its
+  plain version on the CPU); the log-prob of a valid and of invalid
+  actions.
 * The MPNN nets with parameters carried from a Flax ``init`` through
   ``convert.mpnn_params_from_numpy``: logits and values at rtol 1e-5
   (float32 matrix products summed in another order), both policy modes,
@@ -132,6 +134,57 @@ def test_distribution(scenarios):
     for act in (bad, empty):
         assert float(port.log_prob(torch.as_tensor(act))) == -np.inf
         assert float(ref.log_prob(jnp.asarray(act))) == -np.inf
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.7])
+def test_distribution_mode_and_sample_are_one_action_call(scenarios,
+                                                          temperature,
+                                                          monkeypatch):
+    """``mode`` and ``sample(key)`` are one ``ops.action`` call each, with
+    the raw logits, the temperature and the key (None for the mode); on
+    the CPU the kernels' wrapper takes ``segment_action_plain`` and counts
+    no launch."""
+    from tarl_tpu_torch.ops import segment as seg
+
+    net, _, pnet, _ = scenarios["Grid4x4"]
+    n = net.num_nodes
+    logits = torch.as_tensor(np.random.default_rng(1).normal(
+        size=pnet.full_src.shape[0]).astype(np.float32))
+    layout = segment_layout(pnet.full_src, n)
+    calls = []
+
+    def action(*args):
+        calls.append(args)
+        return seg.PLAIN.action(*args)
+
+    dist = PortGraphDistribution(logits, pnet.full_src, n, temperature,
+                                 layout, seg.PLAIN._replace(action=action))
+    key = p_rng.prng_key(3)
+    mode, sample = dist.mode(), dist.sample(key)
+    assert [(a[0] is logits, a[1] is pnet.full_src, a[2], a[3] is layout,
+             a[4], a[5]) for a in calls] == [
+        (True, True, n, True, temperature, None),
+        (True, True, n, True, temperature, key)]
+
+    plain_calls = []
+    real = seg.segment_action_plain
+
+    def spy(*args):
+        plain_calls.append(args[5])
+        return real(*args)
+
+    monkeypatch.setattr(seg, "segment_action_plain", spy)
+    before = seg.ARGMAX_LAUNCHES
+    cpu = PortGraphDistribution(logits, pnet.full_src, n, temperature,
+                                layout)
+    assert torch.equal(cpu.mode(), mode)
+    assert torch.equal(cpu.sample(key), sample)
+    assert plain_calls == [None, key] and seg.ARGMAX_LAUNCHES == before
+    ref = GraphDistribution(jnp.asarray(logits.numpy()), net.full_src, n,
+                            temperature=temperature)
+    np.testing.assert_array_equal(mode.numpy(), np.asarray(ref.mode()))
+    np.testing.assert_array_equal(
+        sample.numpy(), np.asarray(ref.sample(jax.random.PRNGKey(3))))
 
 
 # ---------------------------------------------------------------------------

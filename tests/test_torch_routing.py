@@ -13,6 +13,13 @@
   port as out-road tables.
 * ``primal_table_init`` on Grid8x8 (device relax) and Grid32x32 (scipy's
   Dijkstra on the host, I^2 > 10^6).
+* The resident kernel's plan (tile width, column tail, the global form
+  past the shared-memory limit), and a model of its per-tile early exit:
+  the columns split into tiles, each tile's sweeps stopped at its first
+  sweep that lowers nothing, equal to the reference's Pallas K2 and K4
+  bitwise at 1, 3 and 8 sweeps and uncapped (the idempotence argument on
+  real inputs).  The resident kernel and the global form against the
+  plain version on a card: ``tests/test_torch_card_k2_k11.py``.
 
 Inputs come from the scenario files and numpy seeds; each side gets the
 same arrays.
@@ -295,3 +302,106 @@ def test_primal_table_init(scen_root, grids, grid):
     assert got.numel() == ppol.primal_buf_size(i_n, i_n, pnet.num_roads)
     assert float(dist.max()) < bf.BIG and torch.equal(cost, pnet.free_flow)
     assert int((road < 0).sum()) == 0     # every pair reachable
+
+
+@pytest.mark.parametrize("i_n,d_n,k_n,iters,want", [
+    (4096, 4096, 4, 8, 8),       # the sp row: 512 tiles of 8 columns
+    (4096, 13, 4, 8, 8),         # a tail of 5 columns
+    (4096, 4, 4, 8, 4),          # the zoned parts' _round4 columns: D < 8
+    (256, 256, 4, None, 8),      # the uncapped table init
+    (64, 1, 4, 2, 1),
+    (4096, 4096, 4, 1, None),    # one sweep: the global form's one pass
+    (4096, 4096, 4, 0, None),
+    (4096, 4096, 5, 8, None),    # more slots than registers keep
+    (4097, 100, 4, 8, None),     # more rows than registers keep
+    (16384, 512, 4, 8, None),    # Grid128x128, the TPU's K3/K5 case
+    (65536, 16, 4, None, None),  # Grid256x256
+])
+def test_resident_plan(i_n, d_n, k_n, iters, want):
+    cols = pbf.resident_plan(i_n, d_n, k_n, iters)
+    assert cols == want
+    if cols is None:
+        return
+    assert cols == min(pbf.MAX_TILE_COLS, d_n)
+    tiles = -(-d_n // cols)
+    tail = d_n - (tiles - 1) * cols
+    assert 1 <= tail <= cols and (tail == cols) == (d_n % cols == 0)
+
+
+def _tiled_relax(cost, pnet, d0, iters, cols, relax_only):
+    """A model of the resident kernel: the columns of ``d0`` in tiles of
+    ``cols`` (the last one narrower), each relaxed by the plain sweep until
+    ``iters`` sweeps (``I - 1`` when None) or its first sweep that lowers
+    nothing in the tile, then the plain next-road pass on the tile.
+    Returns ``(dist, road or None, sweeps run per tile)``."""
+    out_r, ok, road_to = _ptables(pnet)
+    w, succ = pbf._slot_tables(cost, out_r, ok, road_to)
+    cap = d0.shape[0] - 1 if iters is None else iters
+    dists, roads, sweeps = [], [], []
+    for c0 in range(0, d0.shape[1], cols):
+        d = d0[:, c0:c0 + cols]
+        n = 0
+        while n < cap:
+            new = pbf._sweep_plain(d, w, succ)
+            n += 1
+            if not bool((new < d).any()):
+                break
+            d = new
+        dists.append(d)
+        sweeps.append(n)
+        if not relax_only:
+            roads.append(pbf._next_roads_plain(d, w, succ, out_r))
+    road = None if relax_only else torch.cat(roads, dim=1)
+    return torch.cat(dists, dim=1), road, sweeps
+
+
+def _near_start(net, seed):
+    """``(cost, dist0)``: the exact all-pairs table of random costs, and
+    those costs with a few roads made cheaper, so that the relax from that
+    table settles within a few sweeps, at different sweeps in different
+    tiles."""
+    cost = _costs(net, "random", seed)
+    d0 = np.array(bf.primal_all_pairs_dist(jnp.asarray(cost),
+                                           *_tables(net)))
+    g = np.random.default_rng(seed + 100)
+    cheaper = cost.copy()
+    cheaper[g.choice(cost.shape[0], 6, replace=False)] *= np.float32(0.5)
+    return cheaper, d0
+
+
+@pytest.mark.parametrize("iters", [1, 3, 8, None])
+@pytest.mark.parametrize("kernel", ["K2", "K4"])
+@pytest.mark.parametrize("grid,cols", [("Grid8x8", 3), ("Grid12x12", 5)])
+def test_tiled_early_exit_against_pallas(grids, grid, cols, kernel, iters,
+                                         monkeypatch):
+    """The per-tile early exit gives the reference's capped (and uncapped)
+    tables bitwise, from a near start and from the cold start, with a
+    tile width that leaves a column tail."""
+    net, _, pnet, _ = grids[grid]
+    i_n = net.num_intersections
+    ref_iters = i_n - 1 if iters is None else iters
+    relax_only = kernel == "K4"
+    early = []
+    for cost, d0 in (_near_start(net, 3), (_costs(net, "random", 4),
+                                           _cold(i_n))):
+        ref_d, ref_r = _interpret_relax(net, cost, d0, ref_iters,
+                                        monkeypatch, kernel)
+        got_d, got_r, sweeps = _tiled_relax(
+            torch.as_tensor(cost), pnet, torch.as_tensor(d0), iters, cols,
+            relax_only)
+        _eq(ref_d, got_d, f"{kernel} dist, tiles of {cols}")
+        if not relax_only:
+            _eq(ref_r, got_r, f"{kernel} next road, tiles of {cols}")
+        plain_d, plain_r = pbf.primal_relax_next_roads(
+            torch.as_tensor(cost), *_ptables(pnet), torch.as_tensor(d0),
+            iters, relax_only)
+        assert torch.equal(plain_d, got_d)
+        assert (plain_r is None) == relax_only
+        early.append(min(sweeps) < max(sweeps) or max(sweeps) < ref_iters)
+    # Some tile stopped early, from the near start at 8 sweeps and from
+    # both starts uncapped: the model exercised the exit.
+    if iters is None:
+        assert all(early)
+    elif iters == 8:
+        assert early[0]
+

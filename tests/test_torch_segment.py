@@ -15,9 +15,16 @@ reference, on the CPU.
   JAX's XLA max gives -inf for an empty segment where the port (like the
   TPU kernel) gives NEG_LARGE; the softmaxes read only non-empty segments,
   so they agree.
+* K11's action entry: ``segment_action_plain`` (and the wrapper's CPU
+  path) against the reference's ``GraphDistribution.mode()`` and
+  ``.sample(key)`` (XLA on the CPU), bitwise on the multi-hot action:
+  random logits at temperature 1 and 0.7, -inf logits, empty segments,
+  out-of-range ids, exact ties.  The sample's noise is the same threefry
+  stream; only ``log`` may round an ulp apart, which moves no winner here.
 * The layout, the wrappers' CPU path (no launch counted) and what they
   reject, the kernel source; on a card, each kernel against its plain
-  version (marked ``cuda``; skipped here).
+  version (marked ``cuda``; skipped here; the action entry's card test is
+  in ``tests/test_torch_card_k2_k11.py``, which needs no jax).
 """
 import jax
 import jax.numpy as jnp
@@ -28,10 +35,13 @@ from jax.experimental.pallas import tpu as pltpu
 
 from tarl_tpu.ops import pallas_segment as ps
 from tarl_tpu.ops import segment as ref_seg
+from tarl_tpu.rl.distribution import GraphDistribution
 
 import tarl_tpu_torch
 from tarl_tpu_torch.core import rng
 from tarl_tpu_torch.ops import segment as seg
+
+from test_torch_card_k2_k11 import ACTION_CASES, action_case
 
 torch.set_num_threads(1)
 
@@ -131,6 +141,35 @@ def test_min_softmax_and_sample_against_reference(name):
                                               n)))
 
 
+@pytest.mark.parametrize("name,temperature", ACTION_CASES)
+def test_action_plain_against_reference_distribution(name, temperature):
+    logits, ids, n = action_case(name)
+    ref = GraphDistribution(jnp.asarray(logits), jnp.asarray(ids), n,
+                            temperature=temperature)
+    tl, ti = _t(logits), _t(ids)
+    lay = seg.segment_layout(ti, n)
+    before = seg.ARGMAX_LAUNCHES
+    for s in (None, 0, 1, 2):
+        if s is None:
+            want = np.asarray(ref.mode())
+            key = None
+        else:
+            want = np.asarray(ref.sample(jax.random.PRNGKey(s)))
+            key = rng.prng_key(s)
+        got = seg.segment_action_plain(tl, ti, n, None, temperature, key)
+        assert got.dtype == torch.bool and got.shape == (logits.shape[0],)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=str(s))
+        wrapped = seg.segment_action(tl, ti, n, lay, temperature, key)
+        assert torch.equal(wrapped, got)
+    # One edge per segment with a finite logit, none elsewhere.
+    valid = (ids >= 0) & (ids < n) & np.isfinite(logits)
+    hot = seg.segment_action_plain(tl, ti, n, None, temperature).numpy()
+    assert hot.sum() == len(np.unique(ids[valid]))
+    assert seg.ARGMAX_LAUNCHES == before
+    with pytest.raises(TypeError):
+        seg.segment_action(tl.double(), ti, n)
+
+
 def test_layout_is_a_stable_csr_without_dropped_ids():
     data, ids, n = _case("out_of_range")
     lay = seg.segment_layout(_t(ids), n)
@@ -174,7 +213,7 @@ def test_wrappers_take_plain_versions_on_cpu_and_reject_bad_inputs():
 def test_kernel_source():
     text = open(tarl_tpu_torch.__path__[0] + "/csrc/segment.cu").read()
     for entry in ("tarl_segment_sum", "tarl_segment_max",
-                  "tarl_segment_argmax"):
+                  "tarl_segment_argmax", "tarl_segment_action"):
         assert f'extern "C" int {entry}(' in text
     for kernel in ("_segment_sum_kernel", "_segment_max_kernel",
                    "_segment_argmax_kernel"):
@@ -197,3 +236,4 @@ def test_kernels_match_plain_on_card():
             got = fn(_t(x).to(dev), _t(ids).to(dev), n).cpu()
             want = plain(_t(x), _t(ids), n)
             assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
