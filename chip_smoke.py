@@ -76,14 +76,17 @@ with its plain version run outside those windows.
 9. Rollout collection: 256 sampled steps of ``PPO.collect_rollout`` on the
    same scenario; asserts finite log-probs and values and the launches the
    step's calls imply (per step: K1 once, K11's action entry once, its
-   Gumbel noise drawn inside, K10 once, K9 three times).
+   Gumbel noise drawn inside, K10's log-prob entry once, K9 never).
 10. Scale: the Grid16x16 scenario of phase 2 with weights drawn by
    ``PPO.init`` from a seed; greedy evaluation for 1,000 steps, with the
    asserts of phase 8 on conservation and launches.
 11. Segment kernels (K9-K11) against plain, bitwise: on the inputs
    captured in phases 8-10 (Grid8x8 and Grid16x16 shapes; the bare
    argmax on the scores the action inputs give: scaled logits, and those
-   plus a fresh key's noise) and on seeded random cases with empty
+   plus a fresh key's noise; the bare max and sums on the inputs the
+   parent's log-prob gave them, from the log-prob inputs captured in
+   phase 9: the scaled logits, the shifted exponentials, the action and
+   ones) and on seeded random cases with empty
    segments, +-inf, NaN, out-of-range ids, exact ties, 100,000 segments
    and ties of -0.0 with +0.0; each against the plain version on a CPU
    copy of the inputs (the plain sum on the card adds with atomics) and,
@@ -99,11 +102,33 @@ with its plain version run outside those windows.
    both modes against the parent's composed path (``PLAIN.action`` on the
    card: the division, the draw, the argmax, the zero fill and the
    scatter), with the device time and kernels per call of each from
-   ``torch.profiler``.
+   ``torch.profiler``.  K10's log-prob entry, with an action
+   (``segment_log_prob``) and as the log-softmax (``segment_log_probs``),
+   on the log-prob inputs captured in phase 9 and on seeded cases
+   (temperatures 0.25-1.3, +-inf, a segment of only -inf, NaN, empty
+   segments, ties; valid actions, two hot in a segment, none hot, one
+   segment missing, a zero-probability element active; 100,000
+   segments): bitwise against the parent's composition run with the bare
+   kernels (``segment_log_prob_plain(..., ops=KERNELS)``: K10, then K9 on
+   the exponentials, adding in element order as the entry does), and
+   against the plain versions (``PLAIN``) on the card and on a CPU copy
+   at rtol 1e-6, atol 1e-6 (the log-softmax) and rtol 1e-5, atol 1e-5
+   (the joint log-prob: ``index_add_`` on the card adds with atomics,
+   ``exp``/``log`` may round an ulp apart between libms, the CPU sums in
+   another order), printing the largest absolute difference.  Times the
+   entry and the parent's whole ``log_prob`` (the composition with K9 and
+   K10), plain, kernel, kernel, plain, and the plain versions, with the
+   device time and kernels per call of each, beside the entry's bound;
+   likewise the log-softmax form.
 12. The learned path in context: the first 200 steps of phase 8 again, once
    with the kernels and once with the plain segment versions forced
    (``segment_ops=PLAIN``); the final states must be equal bitwise and
-   K9-K11 must not run in the plain one.
+   K9-K11 must not run in the plain one.  Then 200 collection steps three
+   times: with the kernels (K10's entry once a step, K9 never), with the
+   parent's composition on the bare kernels, and with ``PLAIN`` (no
+   segment kernel): actions, rewards, values and the final environment
+   states equal bitwise in all three, log-probs bitwise between the first
+   two and within rtol 1e-5, atol 1e-5 of the plain run's.
 13. The fused-core headline: phase 2's episode with
    ``SimConfig(fused_core=True)``: the eligibility, the logits and the
    per-downstream Gumbel-max over the turn edges in one launch (K12's
@@ -162,7 +187,9 @@ with its plain version run outside those windows.
    ``fused_shard_winner``, and the K3-K6 and K8a/K8b rows covered by
    ``primal_relax`` and ``fused_winner``; ``device_ms`` beside ``ms`` for
    every kernel but K8a/K8b; K11's row times its action entry, the bare
-   argmax beside it), the card's name and power limit,
+   argmax beside it; K10's row its log-prob entry, the bare max beside
+   it; K9's launches are 0: no main path runs the bare sum), the card's
+   name and power limit,
    then
    ``{"ok": true, "device": {...}}``.
 
@@ -641,6 +668,17 @@ def device_time_per_call(fn, args, calls: int = TIMED_CALLS,
     again, up to ``attempts`` times, and the estimate above holds through
     a few drops (the count per call printed beside it shows them).
     ``(None, 0.0)`` where no window recorded anything: not measured."""
+    per_name, acts = device_time_by_name(fn, args, calls, attempts)
+    if per_name is None:
+        return None, 0.0
+    return sum(per_name.values()), acts
+
+
+def device_time_by_name(fn, args, calls: int = TIMED_CALLS,
+                        attempts: int = 5) -> tuple:
+    """:func:`device_time_per_call`'s estimate per activity name: ``({name:
+    ms per call}, activities per call)``, ``(None, 0.0)`` where nothing
+    was recorded."""
     import collections
 
     import torch
@@ -667,9 +705,8 @@ def device_time_per_call(fn, args, calls: int = TIMED_CALLS,
     by_name = collections.defaultdict(list)
     for e in best:
         by_name[e.name].append(e.time_range.end - e.time_range.start)
-    us = sum(sum(d) / len(d) * max(1, round(len(d) / calls))
-             for d in by_name.values())
-    return us / 1e3, len(best) / calls
+    return ({name: sum(d) / len(d) * max(1, round(len(d) / calls)) / 1e3
+             for name, d in by_name.items()}, len(best) / calls)
 
 
 def fmt_us(ms) -> str:
@@ -1170,26 +1207,35 @@ def learned_ppo(net, collect_steps: int = COLLECT_STEPS):
 
 class Capture:
     """Segment ops that go through the kernel wrappers and keep a copy of
-    the inputs of every ``every``-th call of the sum, the max and the
-    action (the learned paths call no bare argmax)."""
+    the inputs of every ``every``-th call of the action and the log-prob,
+    as ``(logits, ids, n, temperature, key)`` and ``(logits, action, ids,
+    n, temperature)`` (the learned paths call no bare sum, max or
+    argmax)."""
 
     def __init__(self, every: int):
         from tarl_tpu_torch.ops import segment as seg
 
-        names = ("sum", "max", "action")
+        names = ("action", "log_prob")
         self.every = every
         self.calls = {name: 0 for name in names}
         self.inputs = {name: [] for name in names}
-        self.ops = seg.KERNELS._replace(**{
-            name: self._wrap(name, getattr(seg, f"segment_{name}"))
-            for name in names})
+        self.ops = seg.KERNELS._replace(
+            action=self._wrap("action", seg.segment_action, 0),
+            log_prob=self._wrap("log_prob", seg.segment_log_prob, 1))
 
-    def _wrap(self, name, fn):
-        def op(data, ids, n, layout=None, *rest):
+    def _wrap(self, name, fn, at):
+        """``fn`` keeping its inputs but the layout, which follows the
+        ids at position ``at + 1``."""
+        import torch
+
+        def op(*args):
             if self.calls[name] % self.every == 0:
-                self.inputs[name].append((data.clone(), ids, n, *rest))
+                kept = args[:at + 3] + args[at + 4:]
+                self.inputs[name].append(tuple(
+                    a.clone() if isinstance(a, torch.Tensor) and i <= at
+                    else a for i, a in enumerate(kept)))
             self.calls[name] += 1
-            return fn(data, ids, n, layout, *rest)
+            return fn(*args)
         return op
 
 
@@ -1495,6 +1541,206 @@ def time_actions(logits, ids, n, temperature, key) -> dict:
     return out
 
 
+def bare_log_prob_inputs(log_probs) -> list:
+    """The bare max's and sums' inputs that the captured log-prob inputs
+    ``(logits, action, ids, n, temperature)`` stand for in the parent's
+    composition: the scaled logits (the max), the shifted exponentials
+    (the denominators' sum), the action as float32 and ones (the per-group
+    counts).  ``(data, ids, n)`` each."""
+    import torch
+
+    from tarl_tpu_torch.ops import segment as seg
+
+    out = []
+    for logits, action, ids, n, temperature in log_probs:
+        x = seg.scale_logits(logits, temperature)
+        m = seg.segment_max_plain(x, ids, n)
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        act = action.to(torch.float32)
+        out += [(x, ids, n), (torch.exp(x - m[ids.long()]), ids, n),
+                (act, ids, n), (torch.ones_like(act), ids, n)]
+    return out
+
+
+def _one_per_segment(g, logits, ids):
+    """A bool[E] with one element of every non-empty segment, a finite
+    logit where the segment has one (as the sampler picks), chosen by
+    ``g``; and the elements in segment order (the chosen first)."""
+    import numpy as np
+
+    score = g.random(ids.shape[0]) + np.isfinite(logits)
+    order = np.lexsort((-score, ids))
+    first = np.r_[True, ids[order][1:] != ids[order][:-1]]
+    hot = np.zeros(ids.shape[0], dtype=bool)
+    hot[order[first]] = True
+    return hot, order, first
+
+
+def random_log_prob_cases(dev) -> list:
+    """Seeded ``(label, logits, action, ids, n, temperature)`` cases of
+    K10's entry on the card, every id in range: temperatures 0.25-1.3,
+    exact ties, +-inf, a segment of only -inf, NaN, empty segments; each
+    with no action (the log-softmax), a valid action, two hot in a
+    segment, none hot, one segment missing and a zero-probability element
+    active; one case of 100,000 segments."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(91)
+    cases = []
+    for i, (e, n, t) in enumerate([(1256, 352, 0.7), (3656, 960, 1.0),
+                                   (5000, 4000, 1.3), (700, 37, 0.25),
+                                   (300000, 100000, 0.9)]):
+        logits = (g.normal(size=e) * 3.0).astype(np.float32)
+        if i % 2 == 0:
+            logits = (np.round(logits * 2.0) / 2.0).astype(np.float32)
+        ids = g.integers(0, n, size=e).astype(np.int32)
+        k = g.integers(0, e, size=6)
+        logits[g.random(e) < 0.02] = -np.inf
+        if i in (1, 3):
+            logits[k[:3]] = np.inf
+            logits[ids == 1] = -np.inf
+        if i in (2, 3):
+            logits[k[3:]] = np.nan
+        valid, order, first = _one_per_segment(g, logits, ids)
+        two = valid.copy()
+        two[order[np.nonzero(~first)[0][0]]] = True
+        missing = valid.copy()
+        missing[order[np.nonzero(~first)[0][0] - 1]] = False
+        zero_p = valid.copy()
+        neg = np.nonzero(np.isneginf(logits[order]) & ~first)[0][0]
+        zero_p[order[neg]] = True
+        zero_p[order[np.nonzero(first[:neg + 1])[0][-1]]] = False
+        tl, ti = (torch.as_tensor(logits, device=dev),
+                  torch.as_tensor(ids, device=dev))
+        for kind, hot in (("log-softmax", None), ("valid", valid),
+                          ("two hot", two),
+                          ("none hot", np.zeros(e, dtype=bool)),
+                          ("one missing", missing),
+                          ("zero-probability hot", zero_p)):
+            act = None if hot is None else torch.as_tensor(hot, device=dev)
+            cases.append((f"random {e}x{n}, t={t}, {kind}", tl, act, ti, n,
+                          t))
+    return cases
+
+
+def _max_abs_diff(got, want) -> float:
+    """The largest |got - want| over the elements where they differ
+    (equal infinities and NaN beside NaN count as 0)."""
+    import torch
+
+    g, w = got.cpu().double(), want.cpu().double()
+    same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+    d = torch.where(same, 0.0, (g - w).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
+def compare_log_probs(cases) -> dict:
+    """K10's log-prob entry on each ``(label, logits, action, ids, n,
+    temperature)`` case (``action`` None: the log-softmax form) against
+    the parent's composition on the bare kernels bitwise (NaN bits
+    included), and against the plain version on the card and on a CPU
+    copy at rtol 1e-6, atol 1e-6 (the log-softmax) or rtol 1e-5, atol
+    1e-5 (the joint).  Returns the largest absolute difference from the
+    plain versions per form and the calls compared."""
+    import torch
+
+    from tarl_tpu_torch.ops import segment as seg
+
+    worst = {"log_probs": 0.0, "log_prob": 0.0, "calls": 0}
+    for label, logits, action, ids, n, t in cases:
+        layout = seg.segment_layout(ids, n)
+        if action is None:
+            form, tol = "log_probs", 1e-6
+            got = seg.segment_log_probs(logits, ids, n, layout, t)
+            composed = seg.segment_log_probs_plain(logits, ids, n, layout, t,
+                                                   seg.KERNELS)
+            plain = [seg.segment_log_probs_plain(logits, ids, n, None, t),
+                     seg.segment_log_probs_plain(logits.cpu(), ids.cpu(), n,
+                                                 None, t)]
+        else:
+            form, tol = "log_prob", 1e-5
+            got = seg.segment_log_prob(logits, action, ids, n, layout, t)
+            composed = seg.segment_log_prob_plain(logits, action, ids, n,
+                                                  layout, t, seg.KERNELS)
+            plain = [seg.segment_log_prob_plain(logits, action, ids, n, None,
+                                                t),
+                     seg.segment_log_prob_plain(logits.cpu(), action.cpu(),
+                                                ids.cpu(), n, None, t)]
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu().view(torch.int32),
+                           composed.cpu().view(torch.int32)):
+            raise AssertionError(
+                f"{label}: K10's {form} entry and the composed kernel path "
+                f"differ (max |diff| {_max_abs_diff(got, composed)})")
+        for where, want in zip(("card", "CPU"), plain):
+            diff = _max_abs_diff(got, want)
+            worst[form] = max(worst[form], diff)
+            if not torch.allclose(got.cpu(), want.cpu(), rtol=tol, atol=tol,
+                                  equal_nan=True):
+                raise AssertionError(
+                    f"{label}: K10's {form} entry and the plain version on "
+                    f"the {where} differ beyond rtol {tol}, atol {tol} "
+                    f"(max |diff| {diff})")
+        worst["calls"] += 1
+    return worst
+
+
+def log_prob_bound_ms(e: int, n: int, action: bool) -> tuple[float, str]:
+    """K10's entry's least time and what bounds it: the logits and the CSR
+    order read once (8 bytes an element) and the offsets once; without an
+    action the log-probs written once (4 bytes an element), with one the
+    action read once (1 byte an element) and the joint log-prob, one
+    float32, written once; against the card's memory rate.  ~10
+    operations an element (the division, the compares, ``expf``, the sums
+    and subtractions, the select), a compare and ``logf`` a segment,
+    against its float32 rate."""
+    by_bytes = ((9 * e + 4 if action else 12 * e) + 4 * (n + 1)) \
+        / HBM_BYTES_PER_S
+    by_ops = (10 * e + 2 * n) / F32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def time_log_prob(logits, action, ids, n, temperature) -> dict:
+    """ms per call of K10's entry and of the parent's whole ``log_prob``
+    (the composition on the bare kernels), plain, kernel, kernel, plain,
+    and of the plain version (``PLAIN``) on the card, with the device
+    time and kernels per call of each (``torch.profiler``) and the entry's
+    bound; likewise the log-softmax form."""
+    from tarl_tpu_torch.ops import segment as seg
+
+    layout = seg.segment_layout(ids, n)
+    out = {}
+    for form, entry, plain, args in (
+            ("log_prob", seg.segment_log_prob, seg.segment_log_prob_plain,
+             (logits, action, ids, n, layout, temperature)),
+            ("log_probs", seg.segment_log_probs, seg.segment_log_probs_plain,
+             (logits, ids, n, layout, temperature))):
+        def parent(*a, plain=plain):
+            return plain(*a, seg.KERNELS)
+
+        p1, k1, k2, p2 = time_pair(entry, parent, args)
+        plain_ms = time_per_call(plain, args)
+        per_name, acts = device_time_by_name(entry, args)
+        dev_ms = None if per_name is None else sum(per_name.values())
+        kernel_ms = (None if per_name is None else sum(
+            ms for name, ms in per_name.items() if "seg_log_prob" in name))
+        parent_dev, parent_acts = device_time_per_call(parent, args)
+        plain_dev, plain_acts = device_time_per_call(plain, args)
+        out[form] = {"ms": min(k1, k2), "parent_ms": min(p1, p2),
+                     "plain_ms": plain_ms, "device_ms": dev_ms,
+                     "device_acts": acts, "kernel_device_ms": kernel_ms,
+                     "parent_device_ms": parent_dev,
+                     "parent_device_acts": parent_acts,
+                     "plain_device_ms": plain_dev,
+                     "plain_device_acts": plain_acts,
+                     "bound": log_prob_bound_ms(logits.shape[0], n,
+                                                form == "log_prob"),
+                     "all": (p1, k1, k2, p2)}
+    return out
+
+
 def learned_paths(dev, net, agents, card: str, eval_steps=EVAL_STEPS,
                   collect_steps=COLLECT_STEPS, scale_steps=SCALE_STEPS):
     """Phases 8-10 on ``dev``, with ``net, agents`` the Grid16x16 headline
@@ -1570,8 +1816,8 @@ def learned_paths(dev, net, agents, card: str, eval_steps=EVAL_STEPS,
     collect_wall = time.perf_counter() - t0
     collect_launches = counts()
     collect_reads = sync.HOST_READS
-    want = {"K1": collect_steps, "K9": 3 * collect_steps,
-            "K10": collect_steps, "K11": collect_steps, "K12": 0, "K7": 0}
+    want = {"K1": collect_steps, "K9": 0, "K10": collect_steps,
+            "K11": collect_steps, "K12": 0, "K7": 0}
     if on_card and collect_launches != want:
         raise AssertionError(f"collection launches {collect_launches}, "
                              f"expected {want}")
@@ -1652,6 +1898,86 @@ def learned_in_context(ppo8, trained, st8, steps=LEARNED_CONTEXT_STEPS):
     log(f"learned in context: kernel and plain-segment runs equal bitwise "
         f"at step {steps} (plain run launches {plain_counts})")
     return plain_counts
+
+
+def collection_in_context(net8, trained, st8, steps=LEARNED_CONTEXT_STEPS):
+    """Phase 12's collection: ``steps`` sampled steps of
+    ``PPO.collect_rollout`` with the kernels, with the parent's
+    composition on the bare kernels (``segment_log_prob_plain(...,
+    ops=KERNELS)``) and with ``PLAIN``.  Actions, rewards, values and the
+    final environment states must be equal bitwise in all three, the
+    log-probs bitwise between the first two and within rtol 1e-5, atol
+    1e-5 of the plain run's; on the card the kernel run launches K10's
+    entry once a step and K9 never, the plain run no segment kernel.
+    Returns the launch counts of each run and the log-probs' largest
+    absolute difference from the plain run's."""
+    import torch
+
+    from tarl_tpu_torch.core import rng
+    from tarl_tpu_torch.ops import segment as seg
+
+    on_card = st8.road.count.device.type == "cuda"
+    ppo = learned_ppo(net8, steps)
+    ts = ppo.init(st8, rng.prng_key(0), torch.Generator().manual_seed(0))
+
+    def composed_log_probs(logits, ids, n, layout=None, t=1.0):
+        return seg.segment_log_probs_plain(logits, ids, n, layout, t,
+                                           seg.KERNELS)
+
+    def composed_log_prob(logits, action, ids, n, layout=None, t=1.0):
+        return seg.segment_log_prob_plain(logits, action, ids, n, layout, t,
+                                          seg.KERNELS)
+
+    composed = seg.KERNELS._replace(log_probs=composed_log_probs,
+                                    log_prob=composed_log_prob)
+    runs = {}
+    for label, ops in (("kernels", seg.KERNELS), ("composed", composed),
+                       ("plain", seg.PLAIN)):
+        reset_counts()
+        env, _, _, traj, _ = ppo.collect_rollout(trained, ts.env, ts.obs,
+                                                 ts.key, segment_ops=ops)
+        runs[label] = (env, traj, counts())
+    want = {"kernels": {"K9": 0, "K10": steps, "K11": steps},
+            "composed": {"K9": 3 * steps, "K10": steps, "K11": steps},
+            "plain": {"K9": 0, "K10": 0, "K11": 0}}
+    for label, (_, _, got) in runs.items():
+        seen = {k: got[k] for k in ("K9", "K10", "K11")}
+        if on_card and seen != want[label]:
+            raise AssertionError(f"collection in context, {label} run: "
+                                 f"launches {got}, expected {want[label]}")
+    env_k, traj_k, _ = runs["kernels"]
+    for label in ("composed", "plain"):
+        env_o, traj_o, _ = runs[label]
+        mismatched = _diff_paths(_env_bits(env_k), _env_bits(env_o))
+        for field in ("action", "reward", "value", "done"):
+            a, b = getattr(traj_k, field), getattr(traj_o, field)
+            if not torch.equal(a.cpu().view(torch.uint8),
+                               b.cpu().view(torch.uint8)):
+                mismatched.append(f"traj.{field}")
+        if mismatched:
+            raise AssertionError(f"collection in context: the kernel and "
+                                 f"{label} runs differ after {steps} steps: "
+                                 f"{mismatched}")
+    lp_k, lp_c = traj_k.log_prob, runs["composed"][1].log_prob
+    if not torch.equal(lp_k.cpu().view(torch.int32),
+                       lp_c.cpu().view(torch.int32)):
+        raise AssertionError("collection in context: the kernel and "
+                             "composed runs' log-probs differ (max |diff| "
+                             f"{_max_abs_diff(lp_k, lp_c)})")
+    lp_p = runs["plain"][1].log_prob
+    err = _max_abs_diff(lp_k, lp_p)
+    if not torch.allclose(lp_k.cpu(), lp_p.cpu(), rtol=1e-5, atol=1e-5,
+                          equal_nan=True):
+        raise AssertionError(f"collection in context: the kernel and plain "
+                             f"runs' log-probs differ beyond rtol 1e-5, "
+                             f"atol 1e-5 (max |diff| {err})")
+    log(f"collection in context: {steps} steps with the kernels, with the "
+        f"parent's composition on the bare kernels and with PLAIN: actions, "
+        f"rewards, values and final states equal bitwise, log-probs bitwise "
+        f"equal to the composition's and within max |diff| {err:.3g} of "
+        f"PLAIN's (mean {float(lp_k.mean()):.4f}); launches "
+        f"{ {k: v[2] for k, v in runs.items()} }")
+    return {k: v[2] for k, v in runs.items()}, err
 
 
 def main() -> int:
@@ -1944,10 +2270,10 @@ def main() -> int:
     for j, (label, cap) in enumerate((("Grid8x8 eval", cap8),
                                       ("Grid8x8 collect", cap_c),
                                       ("Grid16x16 eval", cap16))):
-        for name in ("sum", "max"):
-            for i, (data, ids, n) in enumerate(cap.inputs[name]):
-                captured_cases.append((f"{label} {name} {i}", data, ids, n,
-                                       True))
+        for i, (data, ids, n) in enumerate(bare_log_prob_inputs(
+                cap.inputs["log_prob"])):
+            captured_cases.append((f"{label} log-prob input {i}", data, ids,
+                                   n, True))
         for i, (data, ids, n) in enumerate(argmax_inputs(
                 cap.inputs["action"], 5100 + 100 * j)):
             captured_cases.append((f"{label} argmax {i}", data, ids, n,
@@ -1968,6 +2294,18 @@ def main() -> int:
     seg_t16 = time_segments(*argmax_inputs(cap16.inputs["action"][-1:],
                                            0)[0])
     act_t = time_actions(*timed_act[:4], rng.prng_key(5999))
+    lp_cases = [(f"Grid8x8 collect {form} {i}", logits, act, ids, n, t)
+                for i, (logits, action, ids, n, t) in enumerate(
+                    cap_c.inputs["log_prob"])
+                for form, act in (("log-softmax", None),
+                                  ("log-prob", action))]
+    if not lp_cases:
+        raise AssertionError("no log-prob input was captured")
+    n_captured_lp = len(lp_cases)
+    lp_cases += random_log_prob_cases(dev)
+    lp_err = compare_log_probs(lp_cases)
+    timed_lp = cap_c.inputs["log_prob"][len(cap_c.inputs["log_prob"]) // 2]
+    lp_t = time_log_prob(*timed_lp)
     log(f"segment kernels vs plain: bitwise equal on {len(captured_cases)} "
         f"captured inputs (Grid8x8 E={e8}, N={n8}; Grid16x16 "
         f"E={net.full_src.shape[0]}, N={net.num_nodes}) and "
@@ -1978,6 +2316,30 @@ def main() -> int:
         f"{n_captured_actions} captured action inputs and "
         f"{len(action_cases) - n_captured_actions} seeded random cases, "
         f"each as mode and as sample with a fresh key ({card})")
+    log(f"K10's log-prob entry vs the parent's composition on the bare "
+        f"kernels: bitwise equal in {lp_err['calls']} calls "
+        f"({n_captured_lp} on the log-prob inputs captured in phase 9, "
+        f"{len(lp_cases) - n_captured_lp} seeded cases; both forms); vs "
+        f"the plain versions on the card and on a CPU copy: max |diff| "
+        f"{lp_err['log_probs']:.3g} (log-softmax, rtol 1e-6, atol 1e-6), "
+        f"{lp_err['log_prob']:.3g} (joint, rtol 1e-5, atol 1e-5) ({card})")
+    for form, r in lp_t.items():
+        p1, k1, k2, p2 = r["all"]
+        name = ("segment_log_prob (log_prob)" if form == "log_prob"
+                else "segment_log_probs (log_probs)")
+        log(f"{name} Grid8x8 (temperature {timed_lp[4]}): kernel "
+            f"{k1 * 1e3:.2f} / {k2 * 1e3:.2f} us per call, the parent's "
+            f"whole call (the composition on K9 and K10) {p1 * 1e3:.2f} / "
+            f"{p2 * 1e3:.2f} us (plain, kernel, kernel, plain; CUDA "
+            f"events), PLAIN {r['plain_ms'] * 1e3:.2f} us; device "
+            f"{fmt_us(r['device_ms'])} per call in {r['device_acts']:.1f} "
+            f"kernels or memsets (the entry's kernel "
+            f"{fmt_us(r['kernel_device_ms'])}), the parent's "
+            f"{fmt_us(r['parent_device_ms'])}"
+            f" in {r['parent_device_acts']:.1f}, PLAIN "
+            f"{fmt_us(r['plain_device_ms'])} in "
+            f"{r['plain_device_acts']:.1f} (torch.profiler); bound "
+            f"{r['bound'][0] * 1e3:.4f} us by {r['bound'][1]} ({card})")
     for mode, r in act_t.items():
         p1, k1, k2, p2 = r["all"]
         log(f"segment_action {mode} Grid8x8 (temperature {timed_act[3]}): "
@@ -2004,6 +2366,7 @@ def main() -> int:
 
     # --- 12. the learned path in context -----------------------------------
     learned_in_context(ppo8, trained, st8)
+    collect_ctx, collect_ctx_err = collection_in_context(net8, trained, st8)
 
     # --- 13. the fused-core headline -------------------------------------
     sim_fc = headline_sim(fused_core=True)
@@ -2294,6 +2657,41 @@ def main() -> int:
             "shape": f"E={e8}, N={n8}",
             "ms_grid16": seg_t16[name]["ms"],
         })
+    # K10's row: the log-prob entry, which the collection launches; the bare
+    # max (the TPU kernel's own function) beside it.
+    lp, lps = lp_t["log_prob"], lp_t["log_probs"]
+    seg_entries[1].update({
+        "entry": "segment_log_prob (the scale, the segment max, the "
+                 "log-softmax, the action's validity and masked log-probs "
+                 "in one launch after a memset; torch.sum and masked_fill_ "
+                 "make the joint); segment_log_probs, the log-softmax, in "
+                 "one launch",
+        "max_abs_err": max(seg_err["max"], lp_err["log_prob"],
+                           lp_err["log_probs"]),
+        "ms": lp["ms"], "device_ms": lp["device_ms"],
+        "device_kernels": lp["device_acts"],
+        "kernel_device_ms": lp["kernel_device_ms"],
+        "plain_ms": lp["plain_ms"], "plain_device_ms": lp["plain_device_ms"],
+        "plain_device_kernels": lp["plain_device_acts"],
+        "parent_ms": lp["parent_ms"],
+        "parent_device_ms": lp["parent_device_ms"],
+        "parent_device_kernels": lp["parent_device_acts"],
+        "bound_ms": lp["bound"][0], "bound_by": lp["bound"][1],
+        "library_ms": None, "library_device_ms": None,
+        "log_softmax_ms": lps["ms"],
+        "log_softmax_device_ms": lps["device_ms"],
+        "log_softmax_parent_ms": lps["parent_ms"],
+        "log_softmax_parent_device_ms": lps["parent_device_ms"],
+        "log_softmax_plain_ms": lps["plain_ms"],
+        "log_softmax_bound_ms": lps["bound"][0],
+        "launches_collection_in_context": collect_ctx["kernels"]["K10"],
+        "collection_log_prob_max_abs_err": collect_ctx_err,
+        "bare_ms": seg_t["max"]["ms"],
+        "bare_device_ms": seg_t["max"]["device_ms"],
+        "bare_plain_ms": seg_t["max"]["plain_ms"],
+        "bare_library_ms": seg_t["max"]["library_ms"],
+        "bare_bound_ms": segment_bound_ms(e8, n8),
+    })
     # K11's row: the action entry, which the learned paths launch; the
     # bare argmax (the TPU kernel's own function) beside it.
     k11 = seg_entries[2]

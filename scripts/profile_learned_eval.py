@@ -12,8 +12,19 @@ reports for a window of steps after a warm-up:
    largest device items;
 3. the plain step time over the same number of steps.
 
-    python3 scripts/profile_learned_eval.py [--warmup 2000] [--steps 300]
+With ``--collect`` it does the same for the rollout collection (phase 9 of
+``chip_smoke.py``): sampled steps of ``PPO.collect_rollout`` from
+``PPO.init``'s state, ``--warmup`` steps, then ``--steps`` with every
+phase synchronised (the sample, the log-prob, the value and the env
+step's phases among them), ``--steps`` plain, and ``--profile-steps``
+under ``torch.profiler``.
 
+    python3 scripts/profile_learned_eval.py [--warmup 2000] [--steps 300]
+        [--collect] [--root DIR]
+
+``--root`` imports ``tarl_tpu_torch`` (and the weights) from another
+checkout, such as an unpacked ``git archive`` of an earlier commit under
+``build/``, so that two trees are measured in turns within one call.
 Needs an NVIDIA GPU; prints the card's name and power limit first.
 """
 from __future__ import annotations
@@ -25,8 +36,7 @@ import subprocess
 import sys
 import time
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main(argv=None) -> int:
@@ -34,7 +44,11 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", type=int, default=2000)
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--profile-steps", type=int, default=100)
+    ap.add_argument("--collect", action="store_true")
+    ap.add_argument("--root", default=HERE)
     args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
 
     import torch
 
@@ -59,9 +73,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}", flush=True)
+    print(f"card: {card}; tree {root}", flush=True)
+    card = f"{card}; {os.path.basename(root)}"
     dev = torch.device("cuda", 0)
-    base = ensure_scenario(os.path.join(ROOT, "build", "scenarios"),
+    base = ensure_scenario(os.path.join(root, "build", "scenarios"),
                            "Grid8x8")
     net = load_network(os.path.join(base, "network"), device=dev)
     agents, _ = load_population(os.path.join(base, "population"),
@@ -74,8 +89,10 @@ def main(argv=None) -> int:
                                          prior_scale=30.0),
                       MPNNValueNetSimple(net.num_nodes), rl=rl)
     params = mpnn_params_from_numpy(load_params_npz(os.path.join(
-        ROOT, "tarl_tpu_torch", "weights", "grid8x8_mpnn_best.npz")),
+        root, "tarl_tpu_torch", "weights", "grid8x8_mpnn_best.npz")),
         device=dev)
+    if args.collect:
+        return profile_collection(args, card, ppo, st, params, env_mod)
 
     env, obs = env_mod.env_reset(st, net, rl, ppo.physics, ppo._dist_ff)
     key = rng.prng_key(0)
@@ -161,16 +178,30 @@ def main(argv=None) -> int:
           flush=True)
 
     # 2. profiler
+    n = args.profile_steps
+    state = [env, obs, key]
+
+    def steps():
+        for _ in range(n):
+            state[:] = step(*state)
+
+    profile_steps(steps, n, card)
+    return 0
+
+
+def profile_steps(run, n: int, card: str) -> None:
+    """``torch.profiler`` over ``run()``, ``n`` steps: the wall per step,
+    the device time and device kernels per step, the device's idle share
+    and the largest device items."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    n = args.profile_steps
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         with torch.no_grad():
-            for _ in range(n):
-                env, obs, key = step(env, obs, key)
+            run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.events()
@@ -185,6 +216,88 @@ def main(argv=None) -> int:
           f"{1 - device_us / 1e6 / wall:.1%}", flush=True)
     for name, us in by_name.most_common(8):
         print(f"  {us / n:.2f} us/step  {name[:90]}", flush=True)
+
+
+def profile_collection(args, card, ppo, st, params, env_mod) -> int:
+    """The ``--collect`` mode (see the module docstring): the same three
+    measurements over sampled collection steps."""
+    import dataclasses
+
+    import torch
+
+    from tarl_tpu_torch.core import rng
+    from tarl_tpu_torch.rl import distribution as dist_mod
+
+    def collect(ts_env, ts_obs, key, steps):
+        ppo.rl = dataclasses.replace(ppo.rl, rollout_steps=steps)
+        env, obs, key, _, _ = ppo.collect_rollout(params, ts_env, ts_obs,
+                                                  key)
+        return env, obs, key
+
+    ts = ppo.init(st, rng.prng_key(0), torch.Generator().manual_seed(0))
+    state = [ts.env, ts.obs, ts.key]
+    state[:] = collect(*state, args.warmup)
+    torch.cuda.synchronize()
+
+    spent = collections.Counter()
+
+    def timed(label, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[label] += time.perf_counter() - t0
+            return out
+        return run
+
+    graph = dist_mod.GraphDistribution
+    patches = [
+        (ppo, "_context", "context (agent rows, virtual mask)"),
+        (ppo, "_policy_logits", "policy MLP + distance prior"),
+        (ppo, "_value", "value net"),
+        (graph, "sample", "sample (K11's action entry)"),
+        (graph, "log_prob", "log_prob (K10's entry, or the parent's "
+                            "composition on K9 and K10)"),
+        (env_mod, "apply_transfers", "epilogue (apply_transfers)"),
+        (env_mod, "withdraw_agents", "withdraw"),
+        (env_mod, "insert_agents", "insert (whole population)"),
+        (env_mod, "_phi", "progress potential Phi"),
+        (env_mod, "_observe", "observation"),
+    ]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, label in patches:
+        setattr(obj, name, timed(label, getattr(obj, name)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state[:] = collect(*state, args.steps)
+    torch.cuda.synchronize()
+    synced = (time.perf_counter() - t0) / args.steps
+    for obj, name, fn in saved:
+        setattr(obj, name, fn)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state[:] = collect(*state, args.steps)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) / args.steps
+    print(f"collection step, Grid8x8, trained weights, steps "
+          f"{args.warmup}-{args.warmup + args.steps} ({card}): "
+          f"{plain * 1e3:.3f} ms/step plain, {synced * 1e3:.3f} ms/step with "
+          f"every phase synchronised", flush=True)
+    accounted = sum(spent.values())
+    for label, s in spent.most_common():
+        print(f"  {label}: {s / args.steps * 1e3:.3f} ms/step", flush=True)
+    print(f"  rest (key split, core, clock, done reads, stacking): "
+          f"{(synced - accounted / args.steps) * 1e3:.3f} ms/step",
+          flush=True)
+
+    n = args.profile_steps
+
+    def steps():
+        state[:] = collect(*state, n)
+
+    profile_steps(steps, n, card)
     return 0
 
 

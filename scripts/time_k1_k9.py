@@ -37,6 +37,13 @@ waits), and the device time of the kernels those calls launched, from
   in whichever form the tree has (the parent's: the division, the draw,
   K11 and the hot scatter; the action entry's: one launch of K11),
   and, where the tree has it, ``segment_action`` itself in both modes.
+  The collection step's log-prob as it pays it,
+  ``GraphDistribution.log_prob(action)`` of the sample's action and
+  ``.log_probs()``, in whichever form the tree has (the parent's: the
+  scale, K10, K9 three times and the steps between; K10's entry: one
+  launch and a memset, then ``torch.sum`` and ``masked_fill_``), and,
+  where the tree has it, the entry itself (``segment_log_prob``,
+  ``segment_log_probs``).
 - The relax (K2) at the sp row's shape (Grid64x64, I = D = 4,096, 8
   sweeps): K2 mode and relax only from a random-cost warm start (every
   sweep lowers something) and K2 mode from the host Dijkstra's free-flow
@@ -190,6 +197,14 @@ def main(argv=None) -> int:
                lambda: seg.segment_action(data, ids, n, layout))
         record("k11_action_sample",
                lambda: seg.segment_action(data, ids, n, layout, 1.0, key8))
+    action = dist.sample(key8)
+    record("dist_log_prob", lambda: dist.log_prob(action))
+    record("dist_log_probs", dist.log_probs)
+    if hasattr(seg, "segment_log_prob"):
+        record("k10_log_prob", lambda: seg.segment_log_prob(
+            data, action, ids, n, layout))
+        record("k10_log_probs",
+               lambda: seg.segment_log_probs(data, ids, n, layout))
     time_k2(record, chip_smoke, dev, out)
 
     net16, agents16 = chip_smoke.load_scenario("Grid16x16_50000", 16, 16,

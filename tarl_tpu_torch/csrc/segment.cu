@@ -1,5 +1,6 @@
-// Segment sum, max and argmax over an edge list, one thread per segment,
-// and the learned policy's action (K11's fused entry) in one launch.
+// Segment sum, max and argmax over an edge list, one thread per segment;
+// the learned policy's action (K11's fused entry) and the log-probability
+// of an action or the log-softmax (K10's entry), each in one launch.
 //
 // Replaces the Pallas TPU kernels of tarl_tpu/ops/pallas_segment.py:
 //   K9  _segment_sum_kernel    (segment_sum_pallas)
@@ -73,6 +74,44 @@
 // noise included, each in one kernel, where the distribution's mode()
 // took 15.3 us in 10 kernels and its sample() 270 us in 208.  TMA, shared
 // memory and wgmma have nothing to do at these sizes.
+//
+// K10's log-prob entry, tarl_segment_log_prob (seg_log_prob_kernel), is
+// what the rollout collection pays for the log-probability of its action
+// (GraphDistribution.log_prob, tarl_tpu/rl/distribution.py:75-93), and,
+// without an action, the distribution's log-softmax (log_probs), in one
+// launch in place of ~28 small kernels (the scale, K10, K9 three times
+// and the gathers, exp, clamp, log and masks between them).  Lane s walks
+// segment s's run three times, the composition's arithmetic in its order:
+//   1. x = logits[e] / temperature (an IEEE division, as
+//      ops/segment.py::scale_logits); m = K10's max of the run (from
+//      NEG_LARGE, strict >, NaN if the run holds one); the shift is m
+//      where finite, else 0.
+//   2. denom = sum of expf(x - shift) in ascending element order from
+//      0.0f, K9's order; log_d = logf(denom < 1e-30f ? 1e-30f : denom):
+//      torch.clamp(min=1e-30) keeps a NaN denominator NaN, where
+//      fmaxf(NaN, 1e-30f) would give 1e-30f.
+//   3. lp[e] = (x - shift) - log_d.  Without an action the kernel writes
+//      lp.  With one it writes contrib[e] = action[e] ? lp[e] : 0.0f and
+//      counts the run's hot elements c: the segment is valid when
+//      (size > 0 ? c == 1 : c == 0); an invalid one stores 1 into the
+//      flag, which the entry clears with a memset before the launch.
+// The wrapper (ops/segment.py::segment_log_prob) sums contrib with
+// torch.sum, as the plain composition sums its masked vector, and fills
+// -inf where the flag is set (masked_fill_, whose scalar needs no device
+// tensor: torch.where's would cost a fill kernel).  It refuses a layout
+// that dropped an id, so every element lies in one run and is written:
+// no zero fill.
+//
+// Bound: bytes.  The entry's function needs the logits, the order and
+// the action read once (9 bytes an element), the offsets once, and one
+// float32 written (contrib is the wrapper's intermediate, not counted):
+// ~12.7 KB at Grid8x8 (E = 1,256, N = 352), ~3.8 ns at 3.35 TB/s; the
+// log-softmax form writes 4 bytes an element, ~16.5 KB, ~4.9 ns.  The
+// ~10 operations an element (the division, the compares, expf, logf, the
+// subtractions) take ~0.2 ns at the float32 rate.  As for the other
+// segment kernels the launch is the cost, so the design removes launches:
+// one kernel and one memset where the composition ran ~34, and a
+// lane per segment (runs of at most ~6 elements) rather than a warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -165,6 +204,44 @@ __global__ void seg_action_kernel(const float* __restrict__ logits,
   }
 }
 
+__global__ void seg_log_prob_kernel(const float* __restrict__ logits,
+                                    const int* __restrict__ order,
+                                    const int* __restrict__ offsets, int n,
+                                    float temperature,
+                                    const unsigned char* __restrict__ action,
+                                    float* __restrict__ out,
+                                    unsigned char* __restrict__ invalid) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n) return;
+  const int lo = offsets[s];
+  const int hi = offsets[s + 1];
+  float m = kNegLarge;
+  bool nan = false;
+  for (int j = lo; j < hi; ++j) {
+    const float x = logits[order[j]] / temperature;
+    nan = nan || (x != x);
+    m = (x > m) ? x : m;
+  }
+  const float shift = (!nan && isfinite(m)) ? m : 0.0f;
+  float denom = 0.0f;
+  for (int j = lo; j < hi; ++j)
+    denom += expf(logits[order[j]] / temperature - shift);
+  const float log_d = logf(denom < 1e-30f ? 1e-30f : denom);
+  int hot = 0;
+  for (int j = lo; j < hi; ++j) {
+    const int e = order[j];
+    const float lp = (logits[e] / temperature - shift) - log_d;
+    if (action == nullptr) {
+      out[e] = lp;
+    } else {
+      const bool h = action[e] != 0;
+      hot += h;
+      out[e] = h ? lp : 0.0f;
+    }
+  }
+  if (action != nullptr && (hi > lo ? hot != 1 : hot != 0)) *invalid = 1;
+}
+
 constexpr int kThreads = 128;
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -212,5 +289,25 @@ extern "C" int tarl_segment_action(const float* logits, const int* order,
   seg_action_kernel<<<blocks_for(n + e_total), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       logits, order, offsets, n, e_total, temperature, draw, k1, k2, hot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One lane per segment; the layout holds no dropped id (the wrapper
+// refuses one), so the runs cover every element.  action == nullptr is
+// the log-softmax (invalid unread); else the flag is cleared here and set
+// by an invalid segment.
+extern "C" int tarl_segment_log_prob(const float* logits, const int* order,
+                                     const int* offsets, int n,
+                                     float temperature,
+                                     const unsigned char* action, float* out,
+                                     unsigned char* invalid, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (action != nullptr) {
+    const cudaError_t err = cudaMemsetAsync(invalid, 0, 1, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n == 0) return 0;
+  seg_log_prob_kernel<<<blocks_for(n), kThreads, 0, st>>>(
+      logits, order, offsets, n, temperature, action, out, invalid);
   return static_cast<int>(cudaGetLastError());
 }

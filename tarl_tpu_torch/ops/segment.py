@@ -13,7 +13,14 @@ from a kernel to its plain version.  Other dtypes and ranks, and
 them to XLA.  :func:`segment_action` is K11's second entry: the learned
 policy's multi-hot action from its raw logits (the scale, the Gumbel noise
 drawn in the kernel from a key, the argmax, the hot vector) in one launch,
-for ``GraphDistribution.mode`` and ``sample``.
+for ``GraphDistribution.mode`` and ``sample``.  :func:`segment_log_prob`
+and :func:`segment_log_probs` are K10's entry: the log-probability of a
+multi-hot action (``GraphDistribution.log_prob``: the scale, the segment
+max, the log-softmax, the action's validity and its masked log-probs) and
+the log-softmax alone (``log_probs``), each in one launch.  They have no
+backward: on every device they refuse float32 1-D logits that require grad
+while grad is enabled, and so does ``segment_log_softmax`` with
+:data:`KERNELS`; :data:`PLAIN` is the differentiable form.
 
 Semantics follow the TPU kernels: an id outside ``[0, num_segments)`` is
 dropped; an empty segment's max is ``NEG_LARGE`` (JAX's XLA path gives
@@ -36,20 +43,21 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 
 from .._build import check_tensor, current_stream
-from ..core import rng
+from ..core import rng, sync
 from .scatter import scatter_set
 
 # The TPU kernels' empty-segment value, as a float32.
 NEG_LARGE = float(torch.tensor(-3.4e38, dtype=torch.float32))
 
 # Kernel launches through the wrappers (one per call on a CUDA tensor; both
-# of K11's entries count in ARGMAX_LAUNCHES); the plain versions do not
-# count.
+# of K11's entries count in ARGMAX_LAUNCHES, K10's log-prob entries in
+# MAX_LAUNCHES); the plain versions do not count.
 SUM_LAUNCHES = 0
 MAX_LAUNCHES = 0
 ARGMAX_LAUNCHES = 0
@@ -89,6 +97,13 @@ class SegmentLayout:
                      dev)
         object.__setattr__(self, "pointers", (self.order.data_ptr(),
                                               self.offsets.data_ptr()))
+
+    @functools.cached_property
+    def dropped(self) -> bool:
+        """Whether an id lay out of range: one counted host read
+        (:func:`sync.host_read`), the first time it is asked."""
+        (end,) = sync.host_read(self.offsets[-1])
+        return end != self.ids.shape[0]
 
 
 def segment_layout(segment_ids: torch.Tensor,
@@ -184,6 +199,44 @@ def segment_action_plain(logits, segment_ids, num_segments: int,
     return scatter_set(hot, chosen, True, chosen < e)
 
 
+def segment_log_probs_plain(logits, segment_ids, num_segments: int,
+                            layout=None, temperature: float = 1.0,
+                            ops: SegmentOps | None = None):
+    """The plain version of :func:`segment_log_probs`: the scale, then the
+    log-softmax stabilised by the segment max (``ops.max``, where finite)
+    with ``ops.sum`` of the exponentials (:data:`PLAIN` unless given;
+    :data:`KERNELS` gives the composed kernel path, K10 and K9 with the
+    steps between them)."""
+    ops = PLAIN if ops is None else ops
+    x = scale_logits(logits, temperature)
+    shifted = _shifted(x, segment_ids, num_segments, layout, ops)
+    denom = ops.sum(torch.exp(shifted), segment_ids, num_segments, layout)
+    return shifted - torch.log(torch.clamp(denom, min=1e-30))[
+        segment_ids.long()]
+
+
+def segment_log_prob_plain(logits, action, segment_ids, num_segments: int,
+                           layout=None, temperature: float = 1.0,
+                           ops: SegmentOps | None = None):
+    """The plain version of :func:`segment_log_prob`, the reference's
+    ``GraphDistribution.log_prob`` composed of ``ops.max`` and ``ops.sum``
+    (:data:`PLAIN` unless given, as in :func:`segment_log_probs_plain`):
+    the joint log-probability of the multi-hot ``action``, ``-inf``
+    unless every segment with elements activates exactly one."""
+    ops = PLAIN if ops is None else ops
+    act = action.to(torch.float32)
+    lp = segment_log_probs_plain(logits, segment_ids, num_segments, layout,
+                                 temperature, ops)
+    per_group = ops.sum(act, segment_ids, num_segments, layout)
+    group_sizes = ops.sum(torch.ones_like(act), segment_ids, num_segments,
+                          layout)
+    valid = torch.all(torch.where(group_sizes > 0, per_group == 1.0,
+                                  per_group == 0.0))
+    # Mask by activation: a chosen zero-probability edge gives -inf.
+    total = torch.sum(torch.where(act > 0, lp, 0.0))
+    return torch.where(valid, total, float("-inf"))
+
+
 # ---------------------------------------------------------------------------
 # Kernels
 # ---------------------------------------------------------------------------
@@ -203,8 +256,12 @@ def _kernel_fns():
         lib.tarl_segment_action.argtypes = [p, p, p, i, i, ctypes.c_float,
                                             i, u, u, p, p]
         lib.tarl_segment_action.restype = ctypes.c_int
+        lib.tarl_segment_log_prob.argtypes = [p, p, p, i, ctypes.c_float,
+                                              p, p, p, p]
+        lib.tarl_segment_log_prob.restype = ctypes.c_int
         _FNS = (lib.tarl_segment_sum, lib.tarl_segment_max,
-                lib.tarl_segment_argmax, lib.tarl_segment_action)
+                lib.tarl_segment_argmax, lib.tarl_segment_action,
+                lib.tarl_segment_log_prob)
     return _FNS
 
 
@@ -333,6 +390,88 @@ def segment_action(logits, segment_ids, num_segments: int,
     return out
 
 
+def _log_prob_route(name: str, logits, segment_ids, num_segments: int,
+                    layout):
+    """:func:`_route` for K10's log-prob entries and float32 1-D logits,
+    which also refuse, on every device, logits that require grad while grad
+    is enabled (the entries have no backward; they never detach) and a
+    layout that dropped an id (built here when not given)."""
+    if logits.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(f"{name} has no backward: call it under "
+                           "torch.no_grad(), or use the plain version")
+    if layout is None:
+        layout = segment_layout(segment_ids, num_segments)
+    routed = _route(name, logits, segment_ids, num_segments, layout)
+    if layout.dropped:
+        raise ValueError(f"{name}: a segment id lies outside "
+                         f"[0, {num_segments})")
+    return routed
+
+
+def segment_log_probs(logits, segment_ids, num_segments: int,
+                      layout: SegmentLayout | None = None,
+                      temperature: float = 1.0):
+    """The log-softmax of ``logits / temperature`` within each segment
+    (``GraphDistribution.log_probs``): K10's entry without an action on a
+    CUDA tensor (one launch), :func:`segment_log_probs_plain` on a CPU
+    tensor, for float32 1-D logits with every id in range.  Other dtypes
+    and ranks take the composition on every device, whose max and sum are
+    then plain PyTorch, as at the reference's generic op."""
+    global MAX_LAUNCHES
+    if not _kernel_ok(logits):
+        return segment_log_probs_plain(logits, segment_ids, num_segments,
+                                       layout, temperature, KERNELS)
+    layout = _log_prob_route("segment_log_probs", logits, segment_ids,
+                             num_segments, layout)
+    if layout is None:
+        return segment_log_probs_plain(logits, segment_ids, num_segments,
+                                       None, temperature)
+    out = torch.empty_like(logits)
+    _check_err("segment_log_probs", _kernel_fns()[4](
+        logits.data_ptr(), *layout.pointers, num_segments, temperature,
+        None, out.data_ptr(), None, current_stream(logits.device)))
+    MAX_LAUNCHES += 1
+    return out
+
+
+def segment_log_prob(logits, action, segment_ids, num_segments: int,
+                     layout: SegmentLayout | None = None,
+                     temperature: float = 1.0):
+    """The joint log-probability of the multi-hot bool ``action`` under
+    the per-segment softmax of ``logits / temperature``, ``-inf`` unless
+    every segment with elements activates exactly one
+    (``GraphDistribution.log_prob``).  On a CUDA tensor K10's entry writes
+    each element's masked log-prob and an invalid-action flag in one
+    launch after a memset; ``torch.sum`` of those, as
+    :func:`segment_log_prob_plain` (which a CPU tensor takes) sums its
+    masked vector, with ``-inf`` filled where the flag is set, is the
+    result.  Float32 1-D logits (raises otherwise); every id in range."""
+    global MAX_LAUNCHES
+    if not _kernel_ok(logits):
+        raise TypeError(f"segment_log_prob takes float32 1-D logits, got "
+                        f"{logits.dtype} of rank {logits.dim()}")
+    layout = _log_prob_route("segment_log_prob", logits, segment_ids,
+                             num_segments, layout)
+    if not (action.dtype == torch.bool and action.shape == logits.shape
+            and action.device == logits.device and action.is_contiguous()):
+        check_tensor("action", action, torch.bool, tuple(logits.shape),
+                     logits.device)
+    if layout is None:
+        return segment_log_prob_plain(logits, action, segment_ids,
+                                      num_segments, None, temperature)
+    dev = logits.device
+    contrib = torch.empty_like(logits)
+    invalid = torch.empty((), dtype=torch.bool, device=dev)
+    _check_err("segment_log_prob", _kernel_fns()[4](
+        logits.data_ptr(), *layout.pointers, num_segments, temperature,
+        action.data_ptr(), contrib.data_ptr(), invalid.data_ptr(),
+        current_stream(dev)))
+    MAX_LAUNCHES += 1
+    # masked_fill_ takes its scalar by value; torch.where would first
+    # fill a device tensor with it (one more kernel).
+    return torch.sum(contrib).masked_fill_(invalid, float("-inf"))
+
+
 def _identity(dtype, reduce: str):
     if dtype.is_floating_point:
         return float("inf") if reduce == "amin" else float("-inf")
@@ -359,23 +498,29 @@ def segment_min(data, segment_ids, num_segments: int):
 
 
 class SegmentOps(NamedTuple):
-    """The sum, max, argmax and action that the composite ops below and
-    ``GraphDistribution`` call: :data:`KERNELS` (the wrappers) or
-    :data:`PLAIN` (the plain versions on any device, the override for
-    comparing a run with the kernels' against one without them).  Each
-    takes ``(data, segment_ids, num_segments, layout)``, the action also
-    ``(temperature, key)``; the plain versions ignore the layout."""
+    """The sum, max, argmax, action, log-softmax and log-prob that the
+    composite ops below and ``GraphDistribution`` call: :data:`KERNELS`
+    (the wrappers) or :data:`PLAIN` (the plain versions on any device, the
+    override for comparing a run with the kernels' against one without
+    them).  Each takes ``(data, segment_ids, num_segments, layout)``, the
+    action also ``(temperature, key)``, ``log_probs`` also
+    ``temperature``; ``log_prob`` takes ``(logits, action, segment_ids,
+    num_segments, layout, temperature)``.  The plain versions ignore the
+    layout."""
 
     sum: Callable
     max: Callable
     argmax: Callable
     action: Callable
+    log_probs: Callable
+    log_prob: Callable
 
 
 KERNELS = SegmentOps(segment_sum, segment_max, segment_argmax,
-                     segment_action)
+                     segment_action, segment_log_probs, segment_log_prob)
 PLAIN = SegmentOps(segment_sum_plain, segment_max_plain, segment_argmax_plain,
-                   segment_action_plain)
+                   segment_action_plain, segment_log_probs_plain,
+                   segment_log_prob_plain)
 
 
 def _shifted(logits, segment_ids, num_segments, layout, ops):
@@ -396,10 +541,11 @@ def segment_softmax(logits, segment_ids, num_segments: int,
 def segment_log_softmax(logits, segment_ids, num_segments: int,
                         layout: SegmentLayout | None = None,
                         ops: SegmentOps = KERNELS):
-    shifted = _shifted(logits, segment_ids, num_segments, layout, ops)
-    denom = ops.sum(torch.exp(shifted), segment_ids, num_segments, layout)
-    return shifted - torch.log(torch.clamp(denom, min=1e-30))[
-        segment_ids.long()]
+    """Log-softmax within each segment: ``ops.log_probs`` at temperature
+    1 (with :data:`KERNELS` one launch of K10's entry on the card for
+    float32 1-D logits, which it refuses where they require grad: pass
+    :data:`PLAIN` for a differentiable one)."""
+    return ops.log_probs(logits, segment_ids, num_segments, layout, 1.0)
 
 
 def segment_sample(key: rng.Key, logits, segment_ids, num_segments: int,

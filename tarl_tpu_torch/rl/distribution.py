@@ -6,8 +6,11 @@ by source node; every method runs on unbatched ``logits[E]``.  ``mode``
 and ``sample(key)`` are ``ops.action``: on the card one launch of K11's
 action entry each, which scales the logits, draws the sample's Gumbel
 noise from the key, takes the per-segment argmax and writes the multi-hot
-action (no separate draw, zero fill or scatter).  ``log_probs`` launches
-K10 and K9 (with ``log_prob``, once K10 and three times K9).  It carries the
+action (no separate draw, zero fill or scatter).  ``log_probs`` and
+``log_prob(action)`` are ``ops.log_probs`` and ``ops.log_prob``: on the
+card one launch of K10's entry each (the scale, the segment max, the
+log-softmax and, for an action, its validity and masked log-probs; the
+joint sum is ``torch.sum``).  ``probs`` launches K10 and K9.  It carries the
 :class:`~tarl_tpu_torch.ops.segment.SegmentLayout` of ``edge_src``, built
 once by its owner, and the segment ops it calls (``ops.segment.KERNELS``
 unless the caller forces ``PLAIN``).
@@ -24,7 +27,6 @@ from ..ops.segment import (
     SegmentLayout,
     SegmentOps,
     scale_logits,
-    segment_log_softmax,
     segment_softmax,
 )
 
@@ -52,8 +54,8 @@ class GraphDistribution(NamedTuple):
                                self.layout, self.ops)
 
     def log_probs(self) -> torch.Tensor:
-        return segment_log_softmax(self._scaled, self.edge_src,
-                                   self.num_nodes, self.layout, self.ops)
+        return self.ops.log_probs(self.logits, self.edge_src, self.num_nodes,
+                                  self.layout, self.temperature)
 
     def sample(self, key: Key) -> torch.Tensor:
         """Multi-hot bool[E]: one edge per node that has outgoing edges,
@@ -67,19 +69,12 @@ class GraphDistribution(NamedTuple):
                                self.layout, self.temperature, None)
 
     def log_prob(self, action: torch.Tensor) -> torch.Tensor:
-        """Joint log-probability of a multi-hot action; ``-inf`` unless
-        every group with outgoing edges activates exactly one edge."""
-        act = action.to(torch.float32)
-        lp = self.log_probs()
-        per_group = self.ops.sum(act, self.edge_src, self.num_nodes,
-                                 self.layout)
-        group_sizes = self.ops.sum(torch.ones_like(act), self.edge_src,
-                                   self.num_nodes, self.layout)
-        valid = torch.all(torch.where(group_sizes > 0, per_group == 1.0,
-                                      per_group == 0.0))
-        # Mask by activation: a chosen zero-probability edge gives -inf.
-        total = torch.sum(torch.where(act > 0, lp, 0.0))
-        return torch.where(valid, total, float("-inf"))
+        """Joint log-probability of a multi-hot bool action; ``-inf``
+        unless every group with outgoing edges activates exactly one
+        edge (a chosen zero-probability edge gives ``-inf`` too)."""
+        return self.ops.log_prob(self.logits, action, self.edge_src,
+                                 self.num_nodes, self.layout,
+                                 self.temperature)
 
     def entropy(self) -> torch.Tensor:
         """Sum of the per-group categorical entropies."""

@@ -213,7 +213,8 @@ def test_wrappers_take_plain_versions_on_cpu_and_reject_bad_inputs():
 def test_kernel_source():
     text = open(tarl_tpu_torch.__path__[0] + "/csrc/segment.cu").read()
     for entry in ("tarl_segment_sum", "tarl_segment_max",
-                  "tarl_segment_argmax", "tarl_segment_action"):
+                  "tarl_segment_argmax", "tarl_segment_action",
+                  "tarl_segment_log_prob"):
         assert f'extern "C" int {entry}(' in text
     for kernel in ("_segment_sum_kernel", "_segment_max_kernel",
                    "_segment_argmax_kernel"):
