@@ -182,20 +182,41 @@ with its plain version run outside those windows.
    ``make_road_mesh(4)`` (4,032 roads a block); the state at tick 200 must
    equal phase 5's bitwise, with K2 once per refresh (not per block), K7
    once per tick and no K1; prints ms/tick beside phase 5's.
-21. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
+21. Training: ``rl.trainer.ppo_train`` for 3 iterations on phase 8's
+   scenario at the recorded Grid8x8 run's configuration (``learned_ppo``:
+   256 collection steps, 5 epochs of 2 minibatches of 128, entropy 0.003,
+   learning rate 1e-3), from the committed weights (restored from a
+   ``ckpt_0`` written beside them), a checkpoint every iteration, under
+   ``torch.use_deterministic_algorithms(True)``.  Prints per iteration the
+   ten ``IterationMetrics``, the collection, GAE and update in ms (CUDA
+   events at their boundaries), the launches per collection step and in
+   GAE and the update, and the host reads.  Asserts finite metrics,
+   ``approx_kl`` >= 0, 10 updates an iteration, one K1, K11 and K10 launch
+   per collection step (768 each) and none of K9 and none in GAE or the
+   update.  Runs the first iteration again with ``PLAIN`` in the
+   collection: actions, rewards, dones and values bitwise equal, log-probs
+   within rtol 1e-5, atol 1e-5, the parameters after the 10 updates within
+   twice the learning rate times the updates (Adam's reach: an element
+   whose gradient is rounding noise steps by up to the rate either way),
+   printed with the shares within 1e-5, 1e-4 and 1e-3.  Resumes from
+   ``ckpt_2`` by ``ppo_train``: the parameters, Adam's state and the key
+   after iteration 3 bitwise equal to the uninterrupted run's.
+22. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
    ``segment_sum``, ``segment_max``, ``segment_argmax``, ``fused_core``,
    ``fused_shard_winner``, and the K3-K6 and K8a/K8b rows covered by
    ``primal_relax`` and ``fused_winner``; ``device_ms`` beside ``ms`` for
    every kernel but K8a/K8b; K11's row times its action entry, the bare
    argmax beside it; K10's row its log-prob entry, the bare max beside
-   it; K9's launches are 0: no main path runs the bare sum), the card's
+   it; K9's launches are 0: no main path runs the bare sum;
+   ``launches_training`` beside K1's and K9-K11's launches), the card's
    name and power limit,
    then
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, where no CUDA device is available or
 the package is missing beside this script.  Scenario files are written
-under ``build/scenarios`` in the checkout.
+under ``build/scenarios`` and phase 21's checkpoints under ``build/train``
+in the checkout.
 """
 from __future__ import annotations
 
@@ -226,6 +247,7 @@ SCALE_STEPS = 1000
 LEARNED_CONTEXT_STEPS = 200
 CAPTURE_STEPS = 2000          # steps between captured segment inputs
 PRIOR_SCALE = 30.0            # train_rl_demo.PRIOR_SCALE
+TRAIN_ITERATIONS = 3
 K8_STATES = 3                 # random Grid256x256 road states for K1
 K8_GRID = 256                 # the TPU's tiled-winner record size
 SHARD_BLOCKS = 4              # road blocks of the sharded phases
@@ -1980,12 +2002,284 @@ def collection_in_context(net8, trained, st8, steps=LEARNED_CONTEXT_STEPS):
     return {k: v[2] for k, v in runs.items()}, err
 
 
+# --- training (phase 21) -----------------------------------------------------
+
+def _stamp(on_card: bool):
+    """A point on the device's timeline (a recorded CUDA event) or, on the
+    CPU, the host clock."""
+    import torch
+
+    if not on_card:
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _ms_between(a, b) -> float:
+    return a.elapsed_time(b) if hasattr(a, "elapsed_time") else (b - a) * 1e3
+
+
+class TrainProbe:
+    """Wraps a ``PPO``'s ``train_iteration``, ``collect_rollout`` and
+    ``_update_epochs`` on the instance and keeps, per iteration, the state
+    in and out, the metrics, the trajectory, the number of updates, and at
+    each boundary a device stamp, the launch counts and the host reads
+    (read, never reset, so the counts of the whole run stay whole).  The
+    only work between the collection's end and the update's start is GAE
+    and the advantages' normalisation."""
+
+    def __init__(self, ppo, on_card: bool):
+        self.on_card = on_card
+        self.records = []
+        self._collect = ppo.collect_rollout
+        self._update = ppo._update_epochs
+        self._iterate = ppo.train_iteration
+        ppo.collect_rollout = self.collect_rollout
+        ppo._update_epochs = self.update_epochs
+        ppo.train_iteration = self.train_iteration
+
+    def _mark(self, name: str) -> None:
+        from tarl_tpu_torch.core import sync
+
+        self.rec[name] = (_stamp(self.on_card), counts(), sync.HOST_READS)
+
+    def collect_rollout(self, *args, **kw):
+        self._mark("collect0")
+        out = self._collect(*args, **kw)
+        self._mark("collect1")
+        self.rec["traj"] = out[3]
+        return out
+
+    def update_epochs(self, *args, **kw):
+        self._mark("update0")
+        out = self._update(*args, **kw)
+        self._mark("update1")
+        self.rec["updates"] = len(out[1])
+        return out
+
+    def train_iteration(self, ts, *args, **kw):
+        import torch
+
+        self.rec = {"ts_in": ts}
+        t0 = time.perf_counter()
+        ts_out, metrics = self._iterate(ts, *args, **kw)
+        if self.on_card:
+            torch.cuda.synchronize()
+        rec = self.rec
+        rec.update(ts_out=ts_out, metrics=metrics,
+                   wall_ms=(time.perf_counter() - t0) * 1e3)
+        for name, (a, b) in (("collection", ("collect0", "collect1")),
+                             ("gae", ("collect1", "update0")),
+                             ("update", ("update0", "update1"))):
+            rec[f"{name}_ms"] = _ms_between(rec[a][0], rec[b][0])
+            rec[f"{name}_launches"] = {k: rec[b][1][k] - rec[a][1][k]
+                                       for k in rec[a][1]}
+            rec[f"{name}_reads"] = rec[b][2] - rec[a][2]
+        self.records.append(rec)
+        return ts_out, metrics
+
+
+def _tree_diff(a: dict, b: dict) -> tuple[float, dict, int]:
+    """The largest absolute difference between two parameter trees, the
+    share of elements within 1e-5, 1e-4 and 1e-3, and the element count."""
+    import torch
+
+    d = torch.cat([(a[p][k] - b[p][k]).abs().reshape(-1).cpu()
+                   for p in a for k in a[p]])
+    shares = {tol: float((d <= tol).to(torch.float64).mean())
+              for tol in (1e-5, 1e-4, 1e-3)}
+    return float(d.max()), shares, d.numel()
+
+
+def _trees_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    return all(torch.equal(a[p][k], b[p][k]) for p in a for k in a[p])
+
+
+def training_phase(net8, trained, st8, card: str,
+                   iterations: int = TRAIN_ITERATIONS) -> dict:
+    """Phase 21: ``ppo_train`` for ``iterations`` iterations from the
+    committed weights (restored from a ``ckpt_0`` written beside them),
+    with a checkpoint every iteration, under
+    ``torch.use_deterministic_algorithms(True)``; then the first iteration
+    again with ``PLAIN`` in the collection, and the last again from
+    ``ckpt_2`` by ``ppo_train``'s resume.  Asserts finite metrics,
+    ``approx_kl`` >= 0, the updates per iteration, one K1, K11 and K10
+    launch per collection step and none in GAE or the update, bitwise equal
+    trajectories with and without the kernels (log-probs within rtol 1e-5,
+    atol 1e-5), the parameters of the two within twice the learning rate
+    times the updates (printed with the shares within 1e-5, 1e-4 and
+    1e-3), and the resumed run bitwise equal to the uninterrupted one.  Returns
+    the numbers for the results line."""
+    import shutil
+
+    import torch
+
+    from tarl_tpu_torch.core import rng, sync
+    from tarl_tpu_torch.ops import segment as seg
+    from tarl_tpu_torch.rl.checkpoint import save_checkpoint
+    from tarl_tpu_torch.rl.trainer import ppo_train
+
+    on_card = st8.road.count.device.type == "cuda"
+    root = os.path.join(ROOT, "build", "train")
+    shutil.rmtree(root, ignore_errors=True)
+    dir_a, dir_b = os.path.join(root, "run"), os.path.join(root, "resumed")
+    ppo = learned_ppo(net8)
+    rl = ppo.rl
+    steps = rl.rollout_steps
+    n_mb = max(steps // min(rl.minibatch_size, steps), 1)
+    updates = rl.num_epochs * n_mb
+    probe = TrainProbe(ppo, on_card)
+    save_checkpoint(os.path.join(dir_a, "ckpt_0"), trained,
+                    ppo.optimizer.init(trained), 0)
+    kw = dict(key=rng.prng_key(0), generator=torch.Generator().manual_seed(0),
+              rl=rl, checkpoint_interval=1, eval_interval=0, resume=True,
+              verbose=False)
+    was_det = torch.are_deterministic_algorithms_enabled()
+    was_fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        ts_a = ppo_train(ppo, st8, num_iterations=iterations,
+                         checkpoint_dir=dir_a, **kw)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_counts = counts()
+        run_reads = sync.HOST_READS
+        records = list(probe.records)
+        ppo.train_iteration(records[0]["ts_in"], seg.PLAIN)
+        plain = probe.records[-1]
+        os.makedirs(dir_b)
+        shutil.copy(os.path.join(dir_a, f"ckpt_{iterations - 1}"), dir_b)
+        ts_b = ppo_train(ppo, st8, num_iterations=iterations,
+                         checkpoint_dir=dir_b, **kw)
+    finally:
+        torch.use_deterministic_algorithms(was_det)
+        torch.utils.deterministic.fill_uninitialized_memory = was_fill
+
+    want_run = {"K1": iterations * steps, "K9": 0, "K10": iterations * steps,
+                "K11": iterations * steps, "K12": 0, "K7": 0}
+    if on_card and run_counts != want_run:
+        raise AssertionError(f"training: launches {run_counts}, expected "
+                             f"{want_run}")
+    want_collect = {k: v // iterations for k, v in want_run.items()}
+    idle = {k: 0 for k in want_run}
+    for i, rec in enumerate(records, 1):
+        m = rec["metrics"]
+        values = {f: float(getattr(m, f)) for f in m._fields}
+        bad = [f for f, v in values.items() if v != v or abs(v) == float(
+            "inf")]
+        if bad:
+            raise AssertionError(f"training iteration {i}: not finite: {bad}")
+        if values["approx_kl"] < -1e-6:
+            raise AssertionError(f"training iteration {i}: approx_kl "
+                                 f"{values['approx_kl']}")
+        if rec["updates"] != updates:
+            raise AssertionError(f"training iteration {i}: {rec['updates']} "
+                                 f"updates, expected {updates}")
+        if on_card and (rec["collection_launches"] != want_collect
+                        or rec["gae_launches"] != idle
+                        or rec["update_launches"] != idle):
+            raise AssertionError(
+                f"training iteration {i}: launches, collection "
+                f"{rec['collection_launches']}, GAE {rec['gae_launches']}, "
+                f"update {rec['update_launches']}")
+        per_step = {k: v / steps for k, v in rec["collection_launches"].items()
+                    if k in ("K1", "K9", "K10", "K11")}
+        log(f"training iteration {i}/{iterations}: collection "
+            f"{rec['collection_ms']:.3f} ms ({steps} steps, "
+            f"{rec['collection_ms'] / steps:.3f} ms/step), GAE "
+            f"{rec['gae_ms']:.3f} ms, update {rec['update_ms']:.3f} ms "
+            f"({rec['updates']} updates, "
+            f"{rec['update_ms'] / rec['updates']:.3f} ms each), iteration "
+            f"{rec['wall_ms']:.3f} ms (host clock; device stamps: "
+            f"{'CUDA events' if on_card else 'host clock'}); launches per "
+            f"collection step {per_step}, in GAE "
+            f"{sum(rec['gae_launches'].values())}, in the update "
+            f"{sum(rec['update_launches'].values())}; host reads: "
+            f"collection {rec['collection_reads']}, GAE {rec['gae_reads']}, "
+            f"update {rec['update_reads']}; metrics "
+            + ", ".join(f"{f} {v:.6g}" for f, v in values.items())
+            + f" ({card})")
+    if ts_a.opt_state.count != iterations * updates:
+        raise AssertionError(f"training: {ts_a.opt_state.count} updates in "
+                             f"all, expected {iterations * updates}")
+
+    # The kernels against their plain versions on the training path.
+    kern, first = records[0]["traj"], plain["traj"]
+    mismatched = [f for f in ("action", "reward", "done", "value")
+                  if not torch.equal(getattr(kern, f).cpu().view(torch.uint8),
+                                     getattr(first, f).cpu().view(
+                                         torch.uint8))]
+    if mismatched:
+        raise AssertionError(f"training: the KERNELS and PLAIN collections "
+                             f"differ in {mismatched}")
+    lp_err = _max_abs_diff(kern.log_prob, first.log_prob)
+    if not torch.allclose(kern.log_prob.cpu(), first.log_prob.cpu(),
+                          rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"training: log-probs differ beyond rtol 1e-5, "
+                             f"atol 1e-5 (max |diff| {lp_err})")
+    if on_card and any(plain["collection_launches"][k]
+                       for k in ("K9", "K10", "K11")):
+        raise AssertionError(f"training: the PLAIN collection launched "
+                             f"{plain['collection_launches']}")
+    # Adam divides each element's gradient by its own RMS: an element whose
+    # gradient is rounding noise (the per-node softmax is invariant to a
+    # shift shared by a node's out-edges) steps by up to the rate either
+    # way, and the updates after it start from parameters that differ.
+    # The tolerance is Adam's reach: twice the rate times the updates.
+    worst, shares, numel = _tree_diff(records[0]["ts_out"].params,
+                                      plain["ts_out"].params)
+    bound = 2 * rl.learning_rate * updates
+    if not worst <= bound:
+        raise AssertionError(
+            f"training: parameters after the KERNELS and PLAIN iterations "
+            f"differ by up to {worst}, beyond {bound}")
+    log(f"training, KERNELS against PLAIN in the collection of iteration 1: "
+        f"actions, rewards, dones and values bitwise equal, log-probs within "
+        f"max |diff| {lp_err:.3g}; parameters after the {updates} updates "
+        f"within {worst:.3g} of each other (tolerance {bound:g}, 2 x "
+        f"learning rate x updates), of {numel} elements "
+        + ", ".join(f"{v:.4%} within {t:g}" for t, v in shares.items())
+        + f"; PLAIN launches {plain['collection_launches']}")
+
+    # The checkpoint's round trip: iteration 3 from ckpt_2.
+    resumed = (_trees_equal(ts_b.params, ts_a.params)
+               and _trees_equal(ts_b.opt_state.mu, ts_a.opt_state.mu)
+               and _trees_equal(ts_b.opt_state.nu, ts_a.opt_state.nu)
+               and ts_b.opt_state.count == ts_a.opt_state.count
+               and ts_b.key == ts_a.key and ts_b.iteration == iterations)
+    if not resumed:
+        worst_b = _tree_diff(ts_b.params, ts_a.params)[0]
+        raise AssertionError(f"training: the run resumed from ckpt_"
+                             f"{iterations - 1} differs from the "
+                             f"uninterrupted one (parameters by up to "
+                             f"{worst_b})")
+    log(f"training: {iterations} iterations of ppo_train in {wall:.2f} s "
+        f"({iterations * steps} collection steps, {iterations * updates} "
+        f"Adam updates, deterministic algorithms on); host reads "
+        f"{run_reads}; launches {run_counts}; the run resumed from ckpt_"
+        f"{iterations - 1} ends bitwise equal to the uninterrupted one "
+        f"(parameters, Adam state, key) ({card})")
+    return {"launches": run_counts, "records": records, "wall": wall,
+            "param_worst": worst, "param_shares": shares,
+            "log_prob_err": lp_err}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
+    # cuBLAS reads this before its first call; the training phase runs
+    # under torch.use_deterministic_algorithms(True), which requires it.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     # The learned policy's matrix products in full float32 (PPO checks).
     torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, ROOT)
@@ -2630,8 +2924,12 @@ def main() -> int:
         f"{sp['context_wall'] / span * 1e3:.3f}); launches {sp_sh_counts} "
         f"({card})")
 
-    # --- 21. results ------------------------------------------------------
+    # --- 21. training ------------------------------------------------------
+    train = training_phase(net8, trained, st8, card)
+
+    # --- 22. results ------------------------------------------------------
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
+    train_launches = train["launches"]
     kern_ms, plain_ms, kern_dev_ms, k1_bound = timings["Grid16x16"]
     seg_entries = []
     for name, key, line in (("sum", "K9", 66), ("max", "K10", 121),
@@ -2656,6 +2954,7 @@ def main() -> int:
             "library_device_ms": seg_t[name]["library_device_ms"],
             "shape": f"E={e8}, N={n8}",
             "ms_grid16": seg_t16[name]["ms"],
+            "launches_training": train_launches[key],
         })
     # K10's row: the log-prob entry, which the collection launches; the bare
     # max (the TPU kernel's own function) beside it.
@@ -2737,6 +3036,7 @@ def main() -> int:
         "plain_ms_grid64": timings["Grid64x64"][1],
         "bound_ms_grid64": timings["Grid64x64"][3][0],
         "launches_sp_row": sp["winner_launches"],
+        "launches_training": train_launches["K1"],
     }, {
         "name": "primal_relax",
         "route": "cuda",

@@ -15,6 +15,9 @@ keep (the roll plans) are ignored on the way in.
 "value": ...}``) into the port's state dicts, and
 :func:`mpnn_params_to_numpy` goes back; :func:`load_params_npz` reads such a
 tree from an ``.npz`` of flat ``policy/params/edge_fc1/kernel`` keys.
+:func:`adam_state_from_numpy` carries optax's ``ScaleByAdamState``
+(``count``, and ``mu`` and ``nu`` keyed like those parameter trees) into the
+port's ``rl.ppo.AdamState``, and :func:`adam_state_to_numpy` goes back.
 """
 from __future__ import annotations
 
@@ -156,6 +159,26 @@ def mpnn_params_to_numpy(params: dict) -> dict:
                 layers.setdefault(name, {})["bias"] = a
         out[part] = {"params": layers}
     return out
+
+
+def adam_state_from_numpy(state: dict,
+                          device: torch.device | str | None = None):
+    """The port's ``AdamState`` from ``{"count", "mu", "nu"}`` as numpy:
+    the fields of the reference's optax ``ScaleByAdamState``, the moments
+    shaped like its parameter trees."""
+    from .rl.ppo import AdamState
+
+    return AdamState(int(np.asarray(state["count"])),
+                     mpnn_params_from_numpy(state["mu"], device),
+                     mpnn_params_from_numpy(state["nu"], device))
+
+
+def adam_state_to_numpy(state) -> dict:
+    """The inverse of :func:`adam_state_from_numpy` (``count`` as
+    int32)."""
+    return {"count": np.int32(state.count),
+            "mu": mpnn_params_to_numpy(state.mu),
+            "nu": mpnn_params_to_numpy(state.nu)}
 
 
 def load_params_npz(path: str) -> dict:

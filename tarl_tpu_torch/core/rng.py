@@ -26,6 +26,7 @@ Gumbel matrix run on the device.
 """
 from __future__ import annotations
 
+import math
 import operator
 
 import numpy as np
@@ -37,7 +38,7 @@ __all__ = [
     "prng_key", "threefry2x32", "split", "random_bits", "gumbel",
     "gumbel_at_positions", "direction_positions", "direction_gumbel",
     "choice_gumbel",
-    "payload_gumbel", "key_words",
+    "payload_gumbel", "key_words", "permutation",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -112,6 +113,21 @@ def _gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
     one_minus_tiny = 1.0 - tiny               # rounds to 1.0f, as in JAX
     u = torch.maximum(tiny, floats * one_minus_tiny + tiny)
     return -torch.log(-torch.log(u))
+
+
+def permutation(key: Key, n: int,
+                device: torch.device | str | None = None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` as int64: JAX's ``_shuffle`` of
+    ``arange(n)``, ``ceil(3 ln n / ln(2**32 - 1))`` rounds (one up to
+    n = 1,625, two from 1,626), each ``key, sub = split(key)`` and a stable
+    sort by ``random_bits(sub, (n,))`` (uint32 values, sorted as int64)."""
+    dev = resolve_device(device)
+    x = torch.arange(n, dtype=torch.int64, device=dev)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(_MASK))
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[torch.sort(random_bits(sub, (n,), dev), stable=True).indices]
+    return x
 
 
 def gumbel(key: Key, shape: tuple[int, ...],

@@ -17,10 +17,12 @@ for ``GraphDistribution.mode`` and ``sample``.  :func:`segment_log_prob`
 and :func:`segment_log_probs` are K10's entry: the log-probability of a
 multi-hot action (``GraphDistribution.log_prob``: the scale, the segment
 max, the log-softmax, the action's validity and its masked log-probs) and
-the log-softmax alone (``log_probs``), each in one launch.  They have no
-backward: on every device they refuse float32 1-D logits that require grad
-while grad is enabled, and so does ``segment_log_softmax`` with
-:data:`KERNELS`; :data:`PLAIN` is the differentiable form.
+the log-softmax alone (``log_probs``), each in one launch.  The kernels
+have no backward: on every device, every wrapper of K9-K11 refuses float32
+1-D data that requires grad while grad is enabled (it neither detaches nor
+takes its plain version), and so does every composite op on
+:data:`KERNELS`.  Differentiable code runs inside :func:`plain_segments`,
+where the wrappers take their plain versions, or calls :data:`PLAIN`.
 
 Semantics follow the TPU kernels: an id outside ``[0, num_segments)`` is
 dropped; an empty segment's max is ``NEG_LARGE`` (JAX's XLA path gives
@@ -41,6 +43,8 @@ the card.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import dataclasses
 import functools
@@ -64,10 +68,26 @@ ARGMAX_LAUNCHES = 0
 
 _FNS = None
 
+_PLAIN_SEGMENTS = contextvars.ContextVar("tarl_plain_segments",
+                                         default=False)
+
 
 def reset_launches() -> None:
     global SUM_LAUNCHES, MAX_LAUNCHES, ARGMAX_LAUNCHES
     SUM_LAUNCHES = MAX_LAUNCHES = ARGMAX_LAUNCHES = 0
+
+
+@contextlib.contextmanager
+def plain_segments():
+    """Route every segment wrapper called inside this context to its plain
+    version, on every device: the counterpart of the reference's
+    ``no_pallas()`` (``tarl_tpu/ops/segment.py``), which PPO's loss runs
+    under.  The plain versions are differentiable and launch no kernel."""
+    token = _PLAIN_SEGMENTS.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN_SEGMENTS.reset(token)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -144,13 +164,15 @@ def segment_sum_plain(data, segment_ids, num_segments: int,
 def segment_max_plain(data, segment_ids, num_segments: int,
                       layout=None):
     """Max per segment from ``NEG_LARGE``; NaN where the segment holds
-    one."""
+    one.  Float32 ``data[E, ...]``: trailing axes reduce independently."""
     key = _drop_key(segment_ids, num_segments)
+    index = key.reshape((-1,) + (1,) * (data.dim() - 1)).expand(data.shape)
     isnan = torch.isnan(data)
-    out = torch.full((num_segments + 1,), NEG_LARGE, dtype=torch.float32,
-                     device=data.device)
-    out.scatter_reduce_(0, key, torch.where(isnan, NEG_LARGE, data), "amax")
-    nans = torch.zeros(num_segments + 1, dtype=torch.int32,
+    out = torch.full((num_segments + 1,) + tuple(data.shape[1:]), NEG_LARGE,
+                     dtype=torch.float32, device=data.device)
+    out.scatter_reduce_(0, index, torch.where(isnan, NEG_LARGE, data),
+                        "amax")
+    nans = torch.zeros(out.shape, dtype=torch.int32,
                        device=data.device).index_add_(
         0, key, isnan.to(torch.int32))
     return torch.where(nans > 0, float("nan"), out)[:num_segments]
@@ -270,12 +292,14 @@ def _kernel_ok(data) -> bool:
 
 
 def _route(name: str, data, segment_ids, num_segments, layout):
-    """``None`` for the plain path (CPU), else the layout to launch with;
-    raises on a device that is neither, and, on every device (so that the
-    CPU and the card reject the same calls), on a layout built from
-    another id tensor or for another segment count.  The layout was
-    checked where it was built; the data is checked here in one test, its
-    message built only on failure."""
+    """``None`` for the plain path (a CPU tensor, or inside
+    :func:`plain_segments`), else the layout to launch with.  Raises on a
+    device that is neither and, on every device (so that the CPU and the
+    card reject the same calls), on a layout built from another id tensor
+    or for another segment count, and outside :func:`plain_segments` on
+    data that requires grad while grad is enabled: the kernels have no
+    backward.  The layout was checked where it was built; the data is
+    checked here in one test, its message built only on failure."""
     if layout is not None:
         if layout.ids is not segment_ids:
             raise ValueError(f"{name}: the layout was built from another id "
@@ -283,6 +307,12 @@ def _route(name: str, data, segment_ids, num_segments, layout):
         if layout.num_segments != num_segments:
             raise ValueError(f"{name}: layout has {layout.num_segments} "
                              f"segments, expected {num_segments}")
+    if _PLAIN_SEGMENTS.get():
+        return None
+    if data.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(f"{name} has no backward: call it under "
+                           "torch.no_grad() or inside plain_segments(), or "
+                           "use the plain version")
     if not data.is_cuda:
         if data.is_cpu:
             return None
@@ -393,12 +423,10 @@ def segment_action(logits, segment_ids, num_segments: int,
 def _log_prob_route(name: str, logits, segment_ids, num_segments: int,
                     layout):
     """:func:`_route` for K10's log-prob entries and float32 1-D logits,
-    which also refuse, on every device, logits that require grad while grad
-    is enabled (the entries have no backward; they never detach) and a
+    which outside :func:`plain_segments` also refuse, on every device, a
     layout that dropped an id (built here when not given)."""
-    if logits.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(f"{name} has no backward: call it under "
-                           "torch.no_grad(), or use the plain version")
+    if _PLAIN_SEGMENTS.get():
+        return _route(name, logits, segment_ids, num_segments, layout)
     if layout is None:
         layout = segment_layout(segment_ids, num_segments)
     routed = _route(name, logits, segment_ids, num_segments, layout)
@@ -544,7 +572,8 @@ def segment_log_softmax(logits, segment_ids, num_segments: int,
     """Log-softmax within each segment: ``ops.log_probs`` at temperature
     1 (with :data:`KERNELS` one launch of K10's entry on the card for
     float32 1-D logits, which it refuses where they require grad: pass
-    :data:`PLAIN` for a differentiable one)."""
+    :data:`PLAIN`, or call it inside :func:`plain_segments`, for a
+    differentiable one)."""
     return ops.log_probs(logits, segment_ids, num_segments, layout, 1.0)
 
 

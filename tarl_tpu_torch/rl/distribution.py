@@ -14,6 +14,10 @@ joint sum is ``torch.sum``).  ``probs`` launches K10 and K9.  It carries the
 :class:`~tarl_tpu_torch.ops.segment.SegmentLayout` of ``edge_src``, built
 once by its owner, and the segment ops it calls (``ops.segment.KERNELS``
 unless the caller forces ``PLAIN``).
+
+:func:`log_prob_and_entropy` is ``log_prob`` and ``entropy`` over a batch
+of logits in one differentiable pass of the plain segment ops, for PPO's
+loss (the reference vmaps the two methods there).
 """
 from __future__ import annotations
 
@@ -24,10 +28,13 @@ import torch
 from ..core.rng import Key
 from ..ops.segment import (
     KERNELS,
+    PLAIN,
     SegmentLayout,
     SegmentOps,
     scale_logits,
+    segment_log_probs_plain,
     segment_softmax,
+    segment_sum_plain,
 )
 
 
@@ -81,3 +88,27 @@ class GraphDistribution(NamedTuple):
         p = self.probs()
         lp = self.log_probs()
         return torch.sum(torch.where(p > 0, -p * lp, 0.0))
+
+
+def log_prob_and_entropy(logits: torch.Tensor, action: torch.Tensor,
+                         edge_src: torch.Tensor, num_nodes: int,
+                         temperature: float = 1.0
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``GraphDistribution(logits[b], ...).log_prob(action[b])`` and
+    ``.entropy()`` for every row b of float32 ``logits [B, E]`` and bool
+    ``action [B, E]``: the plain segment ops over the edge axis with the
+    batch as a trailing axis, in one pass, differentiable.  Returns two
+    float32 ``[B]``."""
+    x = scale_logits(logits, temperature).T
+    act = action.T.to(torch.float32)
+    lp = segment_log_probs_plain(x, edge_src, num_nodes)
+    per_group = segment_sum_plain(act, edge_src, num_nodes)
+    group_sizes = segment_sum_plain(torch.ones_like(act), edge_src,
+                                    num_nodes)
+    valid = torch.all(torch.where(group_sizes > 0, per_group == 1.0,
+                                  per_group == 0.0), dim=0)
+    total = torch.sum(torch.where(act > 0, lp, 0.0), dim=0)
+    log_prob = torch.where(valid, total, float("-inf"))
+    p = segment_softmax(x, edge_src, num_nodes, ops=PLAIN)
+    entropy = torch.sum(torch.where(p > 0, -p * lp, 0.0), dim=0)
+    return log_prob, entropy

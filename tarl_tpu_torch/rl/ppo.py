@@ -1,7 +1,7 @@
-"""PPO's forward half: policy and value evaluation, evaluation rollouts and
-rollout collection (ports ``tarl_tpu/rl/ppo.py``: the constructor's edge
-tables and distance tables, ``_context``, ``init``, ``act``,
-``eval_rollout`` and ``_rollout`` as :meth:`PPO.collect_rollout`).
+"""PPO on the port (ports ``tarl_tpu/rl/ppo.py``): the constructor's edge
+and distance tables and optimiser, ``_context``, ``init``, ``act``,
+``eval_rollout``, ``_rollout`` as :meth:`PPO.collect_rollout`, the loss,
+``_update_epochs`` and ``train_iteration``.
 
 Parameters are ``{"policy": state_dict, "value": state_dict}``, applied
 with ``torch.func.functional_call`` as the reference applies its Flax
@@ -11,18 +11,25 @@ steps under ``torch.no_grad()``; the segment layout of ``full_src`` is
 built once here.  Every step of a greedy evaluation launches K1 once and
 K11's action entry once (the mode: the scaled argmax and the multi-hot
 action in one kernel); a collection step launches K1, K11's action entry
-(the sample, its Gumbel noise drawn inside), K10 and three K9 (the
-log-probability).  Float32 matrix products must run in full
-float32 (the reference's MLPs run in float32; TF32 would keep ~3 digits):
-the rollouts raise if ``torch.backends.cuda.matmul.allow_tf32`` is on.
-PyTorch leaves it off; the caller owns that process-wide flag.
+(the sample, its Gumbel noise drawn inside) and K10's log-prob entry once
+each, and K9 never.
 
-Not here yet: the optimiser, GAE, the loss and ``train_iteration``.
+A training iteration (:meth:`PPO.train_iteration`) collects
+``rl.rollout_steps`` transitions, computes GAE, then runs
+``rl.num_epochs`` epochs of clipped minibatch updates with :class:`Adam`.
+The loss runs inside ``ops.segment.plain_segments()``, as the reference's
+runs under ``no_pallas()``: its segment ops are the plain, differentiable
+versions, the minibatch one batched pass, and the update launches no
+segment kernel.  Float32 matrix products must run in full float32 (the
+reference's MLPs run in float32; TF32 would keep ~3 digits): the rollouts
+and the iteration raise if ``torch.backends.cuda.matmul.allow_tf32`` is
+on.  PyTorch leaves it off; the caller owns that process-wide flag.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -34,13 +41,14 @@ from ..config import (
     RLConfig,
     SimConfig,
 )
-from ..core.rng import Key, split
+from ..core.rng import Key, permutation, split
 from ..core.sync import host_read
 from ..network import Network
-from ..ops.segment import KERNELS, SegmentOps, segment_layout
+from ..ops.segment import KERNELS, SegmentOps, plain_segments, segment_layout
 from ..schema import agent_features_matrix
-from .distribution import GraphDistribution
+from .distribution import GraphDistribution, log_prob_and_entropy
 from .env import EnvState, Observation, env_reset, env_step
+from .gae import gae, normalize
 
 
 class Transition(NamedTuple):
@@ -57,16 +65,111 @@ class Transition(NamedTuple):
     on_network: torch.Tensor  # [] — occupancy after the step
 
 
+class AdamState(NamedTuple):
+    """Adam's state, as optax's ``ScaleByAdamState``: ``count`` the updates
+    applied (a host int: the rate and the bias correction need no device
+    read), ``mu`` and ``nu`` keyed like the parameters."""
+
+    count: int
+    mu: dict
+    nu: dict
+
+
 class TrainState(NamedTuple):
-    """What :meth:`PPO.init` returns: parameters, the environment, the
-    threefry key and the iteration count (the optimiser state joins it
-    with the training half)."""
+    """Parameters, optimiser state, the environment, the threefry key and
+    the iteration count."""
 
     params: Any
+    opt_state: AdamState
     env: EnvState
     obs: Observation
     key: Key
     iteration: int
+
+
+class IterationMetrics(NamedTuple):
+    """Scalars of one training iteration (0-d tensors on the rollout's
+    device); the loss terms, ``approx_kl``, ``clip_fraction`` and
+    ``grad_norm`` (the unclipped gradients' global norm) are means over
+    the epochs' minibatches."""
+
+    loss_objective: torch.Tensor
+    loss_critic: torch.Tensor
+    loss_entropy: torch.Tensor
+    loss_total: torch.Tensor
+    approx_kl: torch.Tensor
+    clip_fraction: torch.Tensor
+    grad_norm: torch.Tensor
+    avg_reward: torch.Tensor
+    avg_return: torch.Tensor
+    avg_on_network: torch.Tensor
+
+
+def tree_map(fn, *trees: dict) -> dict:
+    """``fn`` over the leaves of ``{part: {name: tensor}}`` trees."""
+    return {part: {k: fn(*(t[part][k] for t in trees)) for k in sub}
+            for part, sub in trees[0].items()}
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """``optax.global_norm``: the square root of the sum of every leaf's
+    sum of squares."""
+    return torch.sqrt(sum(torch.sum(t * t) for sub in tree.values()
+                          for t in sub.values()))
+
+
+class Adam:
+    """``optax.adam`` (beta 0.9/0.999, eps 1e-8) over parameter trees, op
+    for op in float32, after ``optax.clip_by_global_norm(rl.max_grad_norm)``
+    where that is set, at the rate :meth:`rate` gives: ``rl.learning_rate``,
+    or with ``rl.lr_anneal_updates`` that constant for ``lr_anneal_start``
+    updates and then ``optax.cosine_decay_schedule(learning_rate,
+    lr_anneal_updates, alpha=lr_anneal_floor)`` (``optax.join_schedules``).
+    """
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(self, rl: RLConfig):
+        self.rl = rl
+
+    def init(self, params: dict) -> AdamState:
+        return AdamState(0, tree_map(torch.zeros_like, params),
+                         tree_map(torch.zeros_like, params))
+
+    def rate(self, count: int) -> float:
+        """The learning rate of the update after ``count`` updates, as a
+        float32 value."""
+        rl, f = self.rl, np.float32
+        start = max(rl.lr_anneal_start, 0)
+        if not rl.lr_anneal_updates or count < start:
+            return float(f(rl.learning_rate))
+        steps = f(rl.lr_anneal_updates)
+        t = min(f(count - start), steps)
+        cosine = f(0.5) * (f(1.0) + np.cos(f(np.pi) * t / steps))
+        decayed = f(1 - rl.lr_anneal_floor) * cosine + f(rl.lr_anneal_floor)
+        return float(f(rl.learning_rate) * decayed)
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: AdamState,
+               params: dict) -> tuple[dict, AdamState]:
+        """One step: ``(new params, new state)``."""
+        if self.rl.max_grad_norm is not None:
+            g_norm, max_norm = global_norm(grads), self.rl.max_grad_norm
+            grads = tree_map(lambda g: torch.where(
+                g_norm < max_norm, g, (g / g_norm) * max_norm), grads)
+        b1, b2 = self.b1, self.b2
+        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
+        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
+                       state.nu)
+        count = state.count + 1
+        f = np.float32
+        c1 = float(f(1.0) - f(b1) ** f(count))
+        c2 = float(f(1.0) - f(b2) ** f(count))
+        step = -self.rate(state.count)
+        params = tree_map(
+            lambda p, m, v: p + (m / c1) / (torch.sqrt(v / c2) + self.eps)
+            * step, params, mu, nu)
+        return params, AdamState(count, mu, nu)
 
 
 def init_params(module: torch.nn.Module,
@@ -98,8 +201,9 @@ def _require_full_f32() -> None:
 
 
 class PPO:
-    """Binds the network and the two nets: ``init``, ``act``,
-    ``eval_rollout`` and ``collect_rollout``."""
+    """Binds the network, the two nets and the optimiser: ``init``,
+    ``act``, ``eval_rollout``, ``collect_rollout`` and
+    ``train_iteration``."""
 
     # Agent-row columns kept at virtual (SRC/DEST) nodes: origin and
     # destination only.
@@ -124,6 +228,7 @@ class PPO:
         self.sim_cfg = sim_cfg
         self.physics = physics
         self.value_uses_graph = value_uses_graph
+        self.optimizer = Adam(rl)
         self._edge_features = network.full_attr.reshape(-1, 1)
         self._edge_src = network.full_src
         self._edge_dst = network.full_dst
@@ -181,8 +286,9 @@ class PPO:
     # ------------------------------------------------------------------
     def init(self, sim_state, key: Key,
              generator: torch.Generator) -> TrainState:
-        """Reset the environment and draw both nets' parameters from
-        ``generator`` (a CPU generator; see :func:`init_params`)."""
+        """Reset the environment, draw both nets' parameters from
+        ``generator`` (a CPU generator; see :func:`init_params`) and zero
+        the optimiser's state."""
         env, obs = env_reset(sim_state, self.network, self.rl, self.physics,
                              self._dist_ff)
         dev = self.network.device
@@ -192,8 +298,9 @@ class PPO:
             for name, net in (("policy", self.policy_net),
                               ("value", self.value_net))
         }
-        return TrainState(params=params, env=env, obs=obs,
-                          key=split(key, 3)[2], iteration=0)
+        return TrainState(params=params,
+                          opt_state=self.optimizer.init(params), env=env,
+                          obs=obs, key=split(key, 3)[2], iteration=0)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -278,3 +385,103 @@ class PPO:
         last_value = self._value(params["value"], self._context(env, obs),
                                  obs.time)
         return env, obs, key, traj, last_value
+
+    # ------------------------------------------------------------------
+    def _loss(self, params, batch: Transition, advantages, returns):
+        """PPO's clipped loss on a minibatch (a :class:`Transition` of B
+        stacked steps) inside :func:`plain_segments`, as the reference's
+        runs under ``no_pallas()``.  Returns ``(total, (loss_obj,
+        loss_critic, loss_entropy, approx_kl, clip_frac))``."""
+        with plain_segments():
+            return self._loss_impl(params, batch, advantages, returns)
+
+    def _loss_impl(self, params, batch: Transition, advantages, returns):
+        # The nets and the distribution take the minibatch in one batched
+        # pass where the reference vmaps them over it.
+        logits = self._policy_logits(params["policy"], batch.x)
+        new_log_prob, entropy = log_prob_and_entropy(
+            logits, batch.action, self._edge_src, self._num_nodes)
+        log_ratio = new_log_prob - batch.log_prob
+        ratio = torch.exp(log_ratio)
+        eps = self.rl.clip_epsilon
+        obj = torch.minimum(ratio * advantages,
+                            torch.clamp(ratio, 1.0 - eps, 1.0 + eps)
+                            * advantages)
+        loss_obj = -torch.mean(obj)
+        values = self._value(params["value"], batch.x, batch.time)
+        loss_critic = torch.mean((values - returns) ** 2)
+        loss_entropy = -torch.mean(entropy)
+        total = (loss_obj + self.rl.value_coef * loss_critic
+                 + self.rl.entropy_coef * loss_entropy)
+        approx_kl = torch.mean((ratio - 1.0) - log_ratio)
+        clip_frac = torch.mean((torch.abs(ratio - 1.0) > eps)
+                               .to(torch.float32))
+        return total, (loss_obj, loss_critic, loss_entropy, approx_kl,
+                       clip_frac)
+
+    def _loss_and_grads(self, params, batch: Transition, advantages,
+                        returns):
+        """``((total, aux), grads)``: the loss and its gradients with
+        respect to every parameter, keyed like ``params``."""
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            total, aux = self._loss(leaves, batch, advantages, returns)
+            flat = [t for sub in leaves.values() for t in sub.values()]
+            grads = iter(torch.autograd.grad(total, flat,
+                                             materialize_grads=True))
+        return ((total.detach(), tuple(a.detach() for a in aux)),
+                tree_map(lambda _: next(grads), leaves))
+
+    def _update_epochs(self, params, opt_state: AdamState,
+                       buffer: Transition, advantages, returns, key: Key):
+        """``rl.num_epochs`` epochs of clipped updates over permuted
+        minibatches of the flat transition buffer; the remainder of
+        ``n // minibatch_size`` is dropped, as the reference drops it.
+        Returns ``((params, opt_state, key), stats)``, ``stats`` a list of
+        ``(loss, aux, grad_norm)`` per update, ``grad_norm`` the global
+        norm of the unclipped gradients."""
+        n = advantages.shape[0]
+        mb = min(self.rl.minibatch_size, n)
+        n_mb = max(n // mb, 1)
+        stats = []
+        for _ in range(self.rl.num_epochs):
+            key, k_perm = split(key)
+            perm = permutation(k_perm, n, advantages.device)
+            for i in range(n_mb):
+                idx = perm[i * mb:(i + 1) * mb]
+                batch = Transition(*(a[idx] for a in buffer))
+                (loss, aux), grads = self._loss_and_grads(
+                    params, batch, advantages[idx], returns[idx])
+                params, opt_state = self.optimizer.update(grads, opt_state,
+                                                          params)
+                stats.append((loss, aux, global_norm(grads)))
+        return (params, opt_state, key), stats
+
+    def train_iteration(self, ts: TrainState,
+                        segment_ops: SegmentOps = KERNELS):
+        """One PPO iteration: collect ``rl.rollout_steps`` transitions
+        (``segment_ops`` in the collection, as in
+        :meth:`collect_rollout`), GAE and normalised advantages, then the
+        epochs of updates.  Returns ``(TrainState, IterationMetrics)``."""
+        _require_full_f32()
+        env, obs, key, traj, last_value = self.collect_rollout(
+            ts.params, ts.env, ts.obs, ts.key, segment_ops)
+        advantages, returns = gae(traj.reward, traj.value, last_value,
+                                  traj.done, self.rl.gamma,
+                                  self.rl.gae_lambda)
+        advantages = normalize(advantages)
+        (params, opt_state, key), stats = self._update_epochs(
+            ts.params, ts.opt_state, traj, advantages, returns, key)
+        loss = torch.stack([s[0] for s in stats])
+        aux = [torch.stack(col) for col in zip(*(s[1] for s in stats))]
+        gnorm = torch.stack([s[2] for s in stats])
+        metrics = IterationMetrics(
+            loss_objective=aux[0].mean(), loss_critic=aux[1].mean(),
+            loss_entropy=aux[2].mean(), loss_total=loss.mean(),
+            approx_kl=aux[3].mean(), clip_fraction=aux[4].mean(),
+            grad_norm=gnorm.mean(), avg_reward=traj.reward.mean(),
+            avg_return=returns.mean(),
+            avg_on_network=traj.on_network.mean())
+        return TrainState(params=params, opt_state=opt_state, env=env,
+                          obs=obs, key=key,
+                          iteration=ts.iteration + 1), metrics

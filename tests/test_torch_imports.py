@@ -1,7 +1,8 @@
 """The port's package boundary and its kernel wrapper, on the CPU.
 
-* ``tarl_tpu_torch`` and every submodule import with ``jax``, ``flax``,
-  ``optax``, ``orbax`` and ``tarl_tpu`` blocked.
+* ``tarl_tpu_torch`` and every submodule (the training modules
+  ``rl.gae``, ``rl.checkpoint`` and ``rl.trainer`` among them) import with
+  ``jax``, ``flax``, ``optax``, ``orbax`` and ``tarl_tpu`` blocked.
 * No public function of the port places tensors on the CPU by default:
   every ``device`` parameter defaults to ``None``, the card.
 * The fused-winner (K1), road-block winner (K7), primal-relax and
@@ -55,6 +56,9 @@ def test_imports_without_jax():
         assert "tarl_tpu_torch.simulator" in names
         assert "tarl_tpu_torch.ops.segment" in names
         assert "tarl_tpu_torch.rl.ppo" in names
+        assert "tarl_tpu_torch.rl.gae" in names
+        assert "tarl_tpu_torch.rl.checkpoint" in names
+        assert "tarl_tpu_torch.rl.trainer" in names
         assert "tarl_tpu_torch.parallel.shard_map_episode" in names
         assert "tarl_tpu_torch.parallel.sharded_episode" in names
         assert sys.modules["jax"] is None
@@ -75,6 +79,7 @@ def test_no_public_function_defaults_to_the_cpu():
     from tarl_tpu_torch.device import resolve_device
     from tarl_tpu_torch.io import matsim
     from tarl_tpu_torch.parallel import shard_map_episode
+    from tarl_tpu_torch.rl import checkpoint
 
     assert resolve_device(None) == torch.device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
@@ -82,7 +87,9 @@ def test_no_public_function_defaults_to_the_cpu():
               network.build_network, convert.network_from_numpy,
               convert.agents_from_numpy, convert.sim_state_from_numpy,
               convert.mpnn_params_from_numpy, schema.agents_from_matrix,
-              shard_map_episode.make_road_mesh]
+              shard_map_episode.make_road_mesh,
+              convert.adam_state_from_numpy, rng.permutation,
+              checkpoint.restore_checkpoint]
     for fn in listed:
         assert inspect.signature(fn).parameters["device"].default is None, \
             fn.__qualname__
