@@ -47,19 +47,28 @@ with its plain version run outside those windows.
    starts (a column tail, and the zoned parts' D below the tile width) in
    K2 mode, relax only and uncapped; uncapped from the cold start on
    Grid16x16 (the device path of ``primal_table_init``), asserting that
-   it makes no host read; Grid128x128 with 512 seeded destination columns
-   at 8 sweeps in both modes (the size at which the TPU needed the
-   row-blocked K3/K5); and Grid256x256 (65,536 intersections, built from
-   ``grid_scenario``'s link arrays, kept for phase 15) with 16 destination
-   columns at 8 sweeps, asserting that it takes the global form.  The
-   resident form runs where ``resident_plan`` takes the shape (the sp row
-   at 8 sweeps, the tails, Grid16x16 uncapped; asserted), the global form
-   elsewhere (one sweep, Grid128x128, Grid256x256).  Times each TPU
-   kernel's mode, plain, kernel, kernel, plain, with the device time per
-   call from ``torch.profiler``, beside its bound: K2 mode, relax only
-   (K4) and one sweep (K6) at Grid64x64, K2 mode (K3) and relax only (K5)
-   at Grid128x128 with 512 destination columns, and K2 mode at
-   Grid256x256.
+   it makes no host read.  Past 4,096 rows the cluster form (K3's and
+   K5's function), asserted by ``launch_cluster_plan``, in K2 mode, relax
+   only and uncapped: Grid128x128 with 512 seeded destination columns
+   (clusters of 4; the size at which the TPU needed the row-blocked
+   K3/K5), Grid256x256 (65,536 intersections, built from
+   ``grid_scenario``'s link arrays, kept for phase 15) with 16 columns at
+   8 sweeps (clusters of 16), and a 50 x 100 grid whose 5,000
+   intersections are relabelled by a seeded permutation (2 blocks; most
+   successors lie in the other block), with tails of 13 and 3 columns in
+   the width the card's capacity gives and at the full width of 7
+   (masked tails).  The global form forced past 4,096 rows (several
+   sweeps and its next-road launch): Grid128x128 with 512 columns in
+   those three modes, Grid256x256 in K2 mode.  The next-road kernel
+   (``primal_next_roads``) against the plain pass on phase 5's initial
+   table, which it made there.  Times each TPU kernel's mode, plain, kernel,
+   kernel, plain, with the device time per call from ``torch.profiler``,
+   beside its bound: K2 mode, relax only (K4) and one sweep (K6) at
+   Grid64x64, K2 mode at Grid256x256; and K2 mode (K3) and relax only (K5)
+   at Grid128x128 with 512 columns in the cluster form and the global form
+   (forced), plain, kernel, global, global, kernel, plain.  (Phase 22
+   holds the cluster form on its own refresh inputs and times it at the
+   million row's shape.)
 7. The row in context: the first 200 ticks of phase 5 again with the plain
    relax; the state at tick 200 must equal the kernel run's bitwise, and
    K2 must not run.  Prints ms/tick over ticks 20-200 of both runs.
@@ -158,10 +167,12 @@ with its plain version run outside those windows.
    the device time per call from ``torch.profiler``: the fused entry at
    the headline shape and at Grid64x64, the bare one at the headline
    shape and at Grid256x256.
-17. The sharded headline: phase 2's episode through
-   ``run_episode_shard_map`` on ``make_road_mesh(4)`` (four road blocks of
-   240 roads on the card, no padding).  Asserts bitwise equality with
-   phase 2's final state and the integer-valued fields of its tick logs,
+17. The sharded headline: the first 3,600 ticks of phase 2's episode
+   through ``run_episode_shard_map`` on ``make_road_mesh(4)`` (four road
+   blocks of 240 roads on the card, no padding; half the headline's depth,
+   to leave the script's time to phase 22).  Asserts bitwise equality with
+   phase 2's state at tick 3,600 and the integer-valued fields of its
+   tick logs to there,
    ``road_delta_tt`` bitwise or within the reference's ``rtol=1e-5,
    atol=1e-3`` (printing which held), a zero overflow monitor,
    conservation, one K7 launch per tick and no K1; prints agent-steps/s
@@ -201,10 +212,40 @@ with its plain version run outside those windows.
    printed with the shares within 1e-5, 1e-4 and 1e-3.  Resumes from
    ``ckpt_2`` by ``ppo_train``: the parameters, Adam's state and the key
    after iteration 3 bitwise equal to the uninterrupted run's.
-22. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
+22. The million-agent row (``scripts/bench_million.py`` at full width):
+   Grid128x128 (65,024 roads, 16,384 intersections) and 1,000,000
+   commuters departing 06:00-09:00 to 256 zones, generated and parsed by
+   the port (seconds printed), the successors' spread in the
+   intersection order printed.  Its sp row: zoned tables over
+   ``unique(_dest_inter(net, agents.dest))`` (D printed),
+   ``RoutingConfig(refresh_rate=10, max_bf_iters=8, backend="primal")``,
+   windowed insert W=4,096, withdraw depth 2, 1,020 ticks of
+   ``run_episode_periodic`` timed from tick 20.  Asserts conservation
+   (queued equals on the way; done plus on the way at most the
+   commuters), arrivals, a finite table with a road for every pair, one
+   relax call a refresh (102), every one and the uncapped table init in
+   the cluster form, the table init (the relax and its next roads) in
+   one launch with no host read, no global-form call, and K1 once a
+   tick; prints agent-steps/s, ms/tick, ms per refresh and the
+   relax call's ms in it (CUDA events), host reads per tick.  The row in
+   context: its first 200 ticks again with the plain relax, the state at
+   tick 200 bitwise the kernel run's, no relax kernel launched.  The
+   cluster form against plain, bitwise, on the refresh inputs captured at
+   every 20th refresh (8 sweeps with and without next roads, uncapped)
+   and from the row's cold start (uncapped, no host read); the table
+   init's table against the plain relax from the cold start, and the
+   next-road kernel against the plain pass on it; K3 and K5
+   mode timed there, plain, kernel, global, global, kernel, plain, with
+   device times, beside the bound.  Its exact_random row: backlog insert
+   Q=256, W=64, both escalations, random choice, 1,020 ticks timed the
+   same way; asserts a zero overflow monitor and conservation, prints
+   the backlog's MB.
+23. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
    ``segment_sum``, ``segment_max``, ``segment_argmax``, ``fused_core``,
    ``fused_shard_winner``, and the K3-K6 and K8a/K8b rows covered by
-   ``primal_relax`` and ``fused_winner``; ``device_ms`` beside ``ms`` for
+   ``primal_relax`` and ``fused_winner``; K3's and K5's rows the cluster
+   form at the million row's shape with their launches there, K6's the
+   global-form calls of phases 5 and 22 (0); ``device_ms`` beside ``ms`` for
    every kernel but K8a/K8b; K11's row times its action entry, the bare
    argmax beside it; K10's row its log-prob entry, the bare max beside
    it; K9's launches are 0: no main path runs the bare sum;
@@ -220,6 +261,7 @@ in the checkout.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -251,6 +293,7 @@ TRAIN_ITERATIONS = 3
 K8_STATES = 3                 # random Grid256x256 road states for K1
 K8_GRID = 256                 # the TPU's tiled-winner record size
 SHARD_BLOCKS = 4              # road blocks of the sharded phases
+SHARD_TICKS = 3600            # the sharded headline's depth (phase 17)
 PADDED_BLOCKS = 7             # 960 roads -> 7 blocks of 138, 6 rows inert
 # Operations K7 (and K1) does for each valid in-slot: the eligibility's
 # decode and compares, the score add and the running max.
@@ -267,6 +310,16 @@ HUB_STATES = 4
 K12_OPS_PER_DRAW = 130
 WEIGHTS = os.path.join("tarl_tpu_torch", "weights", "grid8x8_mpnn_best.npz")
 # The H100 SXM data sheet's peaks (the card's own limit is printed beside).
+# Phase 6's grid in a scattered order: 5,000 intersections, two blocks of
+# the cluster form.
+SCATTER_GRID = (50, 100)
+SCATTER_SEED = 5
+# scripts/bench_million.py's row (phase 22).
+MILLION_GRID = 128
+MILLION_AGENTS = 1_000_000
+MILLION_ZONES = 256
+MILLION_BACKLOG = 256         # exact_random's per-SRC queue depth
+MILLION_EXACT_WINDOW = 64
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
@@ -429,12 +482,17 @@ def sp_row_config():
 
 
 def sp_row(net, agents, ticks=SP_TICKS, warmup=SP_WARMUP_TICKS,
-           context=SP_CONTEXT_TICKS, capture_every=SP_CAPTURE_EVERY):
-    """Phase 5: the shortest-path row through ``make_policy`` and
-    ``run_episode_periodic``.  Launch counts are reset just before the
-    initial table is built.  Returns a dict of results, with the initial
-    state, the state at tick ``context`` and the relax inputs (cost, warm
-    start) of every ``capture_every``-th refresh."""
+           context=SP_CONTEXT_TICKS, capture_every=SP_CAPTURE_EVERY,
+           config=None, dest_inters=None):
+    """Phase 5 (and phase 22's sp row): the shortest-path row through
+    ``make_policy`` and ``run_episode_periodic``, at ``config``'s
+    ``(RoutingConfig, SimConfig)`` (default :func:`sp_row_config`), with
+    zoned tables over ``dest_inters`` where given.  Launch counts and host
+    reads are reset just before the initial state is built, and read after
+    it and at the end.  Returns a dict of results, with the initial state,
+    the state at tick ``context``, the relax inputs (cost, warm start) of
+    every ``capture_every``-th refresh and the relax's milliseconds per
+    refresh (CUDA events around the call)."""
     import torch
 
     from tarl_tpu_torch.core import fused_winner, sync
@@ -442,21 +500,43 @@ def sp_row(net, agents, ticks=SP_TICKS, warmup=SP_WARMUP_TICKS,
     from tarl_tpu_torch.routing import bellman_ford as bf
     from tarl_tpu_torch.simulator import make_policy
 
-    routing, sim = sp_row_config()
+    routing, sim = config or sp_row_config()
     on_card = net.device.type == "cuda"
-    captured = []
+    captured, relax_events = [], []
 
     def capturing_relax(cost, out_r, ok, road_to, dist0, max_iters,
                         relax_only=False):
         if len(refresh_events) % capture_every == 0:
             captured.append((cost, dist0))   # fresh tensors, never written
-        return bf.primal_relax_next_roads(cost, out_r, ok, road_to, dist0,
-                                          max_iters, relax_only)
+        if not on_card:
+            return bf.primal_relax_next_roads(cost, out_r, ok, road_to,
+                                              dist0, max_iters, relax_only)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = bf.primal_relax_next_roads(cost, out_r, ok, road_to, dist0,
+                                         max_iters, relax_only)
+        ev[1].record()
+        relax_events.append(ev)
+        return out
 
     policy = make_policy("dijkstra", routing, network=net,
-                         relax=capturing_relax)
+                         dest_inters=dest_inters, relax=capturing_relax)
     refresh_events = []
     refresh = policy.refresh
+    table_init = policy.table_init
+    init_counts = {}
+
+    def counted_table_init(network):
+        relax, cluster, next_road, reads = (
+            bf.LAUNCHES, bf.CLUSTER_LAUNCHES, bf.NEXT_ROAD_LAUNCHES,
+            sync.HOST_READS)
+        buf = table_init(network)
+        init_counts.update(relax=bf.LAUNCHES - relax,
+                           cluster=bf.CLUSTER_LAUNCHES - cluster,
+                           next_road=bf.NEXT_ROAD_LAUNCHES - next_road,
+                           host_reads=sync.HOST_READS - reads)
+        return buf
 
     def timed_refresh(state, network):
         if not on_card:
@@ -471,7 +551,8 @@ def sp_row(net, agents, ticks=SP_TICKS, warmup=SP_WARMUP_TICKS,
         refresh_events.append(ev)
         return buf
 
-    policy = policy._replace(refresh=timed_refresh)
+    policy = policy._replace(refresh=timed_refresh,
+                             table_init=counted_table_init)
 
     def sync_dev():
         if on_card:
@@ -505,6 +586,7 @@ def sp_row(net, agents, ticks=SP_TICKS, warmup=SP_WARMUP_TICKS,
     measured = ticks - warmup
     refresh_ms = ([a.elapsed_time(b) for a, b in refresh_events]
                   if on_card else [])
+    relax_ms = [a.elapsed_time(b) for a, b in relax_events]
     return {
         "state0": state0, "at_context": at_context, "final": state,
         "captured": captured, "init_s": init_s, "wall": wall,
@@ -516,6 +598,12 @@ def sp_row(net, agents, ticks=SP_TICKS, warmup=SP_WARMUP_TICKS,
         "refreshes": len(refresh_events),
         "refresh_ms": (sum(refresh_ms) / len(refresh_ms)
                        if refresh_ms else float("nan")),
+        "relax_ms": (sum(relax_ms) / len(relax_ms)
+                     if relax_ms else float("nan")),
+        "table_init": init_counts,
+        "forms": {"resident": bf.RESIDENT_LAUNCHES,
+                  "cluster": bf.CLUSTER_LAUNCHES,
+                  "global": bf.GLOBAL_LAUNCHES},
         "relax_launches": bf.LAUNCHES,
         "init_next_road_launches": init_next_road,
         "next_road_launches": bf.NEXT_ROAD_LAUNCHES,
@@ -556,11 +644,370 @@ def check_sp_row(res, net, ticks=SP_TICKS) -> None:
                                  f"{want}")
 
 
+# --- the million-agent row (phase 22) ----------------------------------------
+
+def million_scenario(device, grid=MILLION_GRID, num_agents=MILLION_AGENTS,
+                     zones=MILLION_ZONES):
+    """``scripts/bench_million.py``'s scenario through the port: a ``grid x
+    grid`` network and ``num_agents`` commuters departing 06:00-09:00 to
+    ``zones`` zones, generated under ``build/scenarios`` and parsed by
+    ``io.matsim``; the population sorted by departure, and the zone list
+    ``unique(_dest_inter(net, agents.dest))`` (the dummy agent's clamped
+    intersection 0 among them, as the reference's row has it).  Returns
+    ``(net, agents, dest_inters, seconds)``."""
+    import numpy as np
+
+    from tarl_tpu_torch.io.matsim import load_network, load_population
+    from tarl_tpu_torch.io.scenarios import grid_scenario
+    from tarl_tpu_torch.routing.policies import _dest_inter
+    from tarl_tpu_torch.state import sort_agents_by_departure
+
+    cache = os.path.join(ROOT, "build", "scenarios")
+    name = f"MillionGrid{grid}_{num_agents}_z{zones}"
+    base = os.path.join(cache, name)
+    seconds = {"generate": 0.0}
+    if not os.path.exists(os.path.join(base, "network.xml")):
+        t0 = time.perf_counter()
+        grid_scenario(cache, name, rows=grid, cols=grid,
+                      num_agents=num_agents, peak_start=6 * 3600,
+                      peak_spread=3 * 3600, num_dest_zones=zones)
+        seconds["generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = load_network(os.path.join(base, "network"), device=device)
+    seconds["network"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    agents, _ = load_population(os.path.join(base, "population"),
+                                os.path.join(base, "network"), device=device)
+    agents = sort_agents_by_departure(agents)
+    seconds["population"] = time.perf_counter() - t0
+    dest = np.unique(_dest_inter(net, agents.dest).cpu().numpy())
+    return net, agents, dest, seconds
+
+
+def million_configs():
+    """``scripts/bench_million.py``'s ``(RoutingConfig, sp SimConfig,
+    exact_random SimConfig)``."""
+    from tarl_tpu_torch.config import RoutingConfig, SimConfig
+
+    routing = RoutingConfig(refresh_rate=10, max_bf_iters=8,
+                            backend="primal")
+    base = dict(timestep=1, start_time=6 * 3600,
+                record_road_optimality=False, withdraw_depth=2,
+                sorted_population=True)
+    sp = SimConfig(**base, insert_window=4096)
+    exact = SimConfig(**base, insert_window=MILLION_EXACT_WINDOW,
+                      insert_backlog=MILLION_BACKLOG, insert_escalate=True,
+                      withdraw_escalate=True)
+    return routing, sp, exact
+
+
+def successor_order(net) -> dict:
+    """How far each out-slot's successor lies from its row in the
+    network's intersection order: the bandwidth (the largest |s - i|), the
+    cyclic bandwidth (modulo I) and the number of distinct offsets: what
+    a row window with a halo would have to cover."""
+    import torch
+
+    i_n = net.num_intersections
+    succ = net.road_to[net.inter_out_road.long()].long()
+    rows = torch.arange(i_n, device=succ.device)[:, None]
+    d = (succ - rows)[net.inter_out_ok]
+    m = torch.remainder(d, i_n)
+    return {"bandwidth": int(d.abs().max()),
+            "cyclic": int(torch.minimum(m, i_n - m).max()),
+            "offsets": int(torch.unique(m).numel())}
+
+
+def zoned_table(buf, i_n: int, d_n: int, num_roads: int):
+    """``(dist[I, D], road[I, D])`` of a zoned routing scratch (``dist ++
+    cost ++ next_road ++`` the int8 slot table)."""
+    n = i_n * d_n
+    return (buf[:n].view(i_n, d_n),
+            buf[n + num_roads:2 * n + num_roads].view(i_n, d_n))
+
+
+def check_million_sp(res, net, agents, d_n: int, ticks: int) -> None:
+    """Phase 22's asserts on its sp row: conservation, arrivals, a finite
+    table with a road for every pair, one cluster relax a refresh, the
+    uncapped table init in one cluster launch (its next roads included)
+    with no host read, no global-form call, and K1 once a tick."""
+    import torch
+
+    from tarl_tpu_torch.routing.bellman_ford import BIG
+
+    final = res["final"]
+    on_road = int(final.road.count.sum())
+    on_way = int(final.agents.on_way.sum())
+    done = int(final.agents.done.sum())
+    if on_road != on_way or done + on_way > agents.num_agents - 1:
+        raise AssertionError(f"million sp row conservation: {on_road} on "
+                             f"roads, {on_way} on the way, {done} done of "
+                             f"{agents.num_agents - 1}")
+    if done <= 0:
+        raise AssertionError("million sp row: no agent arrived")
+    dist, road = zoned_table(final.next_hop, net.num_intersections, d_n,
+                             net.num_roads)
+    if not (bool(torch.isfinite(dist).all()) and float(dist.max()) < BIG
+            and bool((road >= 0).all())):
+        raise AssertionError("million sp row: routing table not finite, or "
+                             "a pair without a next road")
+    refreshes = ticks // res["routing"].refresh_rate
+    got = {"refreshes": res["refreshes"],
+           "refresh relax calls": res["relax_launches"]
+           - res["table_init"]["relax"],
+           "forms": res["forms"], "table init": res["table_init"],
+           "winner_launches": res["winner_launches"]}
+    want = {"refreshes": refreshes, "refresh relax calls": refreshes,
+            "forms": {"resident": 0, "cluster": refreshes + 1, "global": 0},
+            "table init": {"relax": 1, "cluster": 1, "next_road": 0,
+                           "host_reads": 0},
+            "winner_launches": ticks}
+    if got != want:
+        raise AssertionError(f"million sp row: {got}, expected {want}")
+
+
+@contextlib.contextmanager
+def forced_relax(form: str):
+    """The relax in another form than its shape's: ``"global"`` (both
+    plans decline) or ``"full width"`` (the cluster plan not told the
+    card's capacity, so its tiles are 7 columns wide and a column count
+    that is not a multiple of 7 leaves a masked tail)."""
+    from tarl_tpu_torch.routing import bellman_ford as bf
+
+    saved = (bf.resident_plan, bf.cluster_plan, bf._cluster_fit)
+    if form == "global":
+        bf.resident_plan = bf.cluster_plan = lambda *shape: None
+    elif form == "full width":
+        bf._cluster_fit = lambda *shape: None
+    else:
+        raise ValueError(form)
+    try:
+        yield
+    finally:
+        bf.resident_plan, bf.cluster_plan, bf._cluster_fit = saved
+
+
+def time_relax_forms(args, calls: int = RELAX_TIMED_CALLS) -> dict:
+    """The relax on ``args`` in the form its shape takes and in the global
+    form (forced), beside the plain version: per call, CUDA events in the
+    order plain, kernel, global, global, kernel, plain, and each form's
+    device time and kernels per call from ``torch.profiler``."""
+    from tarl_tpu_torch.routing import bellman_ford as bf
+
+    kernel, plain = bf.primal_relax_next_roads, bf.primal_relax_next_roads_plain
+    out = {"plain": [time_per_call(plain, args, calls)],
+           "kernel": [time_per_call(kernel, args, calls)]}
+    with forced_relax("global"):
+        out["global"] = [time_per_call(kernel, args, calls)
+                         for _ in range(2)]
+    out["kernel"].append(time_per_call(kernel, args, calls))
+    out["plain"].append(time_per_call(plain, args, calls))
+    out["device"] = device_time_per_call(kernel, args, calls)
+    with forced_relax("global"):
+        out["global_device"] = device_time_per_call(kernel, args, calls)
+    return out
+
+
+def fmt_forms(t: dict) -> str:
+    """:func:`time_relax_forms`'s numbers as a line."""
+    k, g, p = t["kernel"], t["global"], t["plain"]
+    return (f"kernel {k[0]:.4f} / {k[1]:.4f} ms per call, global form "
+            f"{g[0]:.4f} / {g[1]:.4f}, plain {p[0]:.4f} / {p[1]:.4f} (plain, "
+            f"kernel, global, global, kernel, plain; CUDA events); device "
+            f"{fmt_us(t['device'][0])} in {t['device'][1]:.1f} kernels, "
+            f"global form {fmt_us(t['global_device'][0])} in "
+            f"{t['global_device'][1]:.1f} (torch.profiler)")
+
+
+def million_phase(dev, card: str, grid=MILLION_GRID,
+                  num_agents=MILLION_AGENTS, zones=MILLION_ZONES,
+                  ticks=SP_TICKS, warmup=SP_WARMUP_TICKS,
+                  context=SP_CONTEXT_TICKS,
+                  timed_calls=RELAX_TIMED_CALLS) -> dict:
+    """Phase 22, the million-agent row (``scripts/bench_million.py``) on
+    the port: its scenario, its sp row (zoned tables, ``cluster_plan``'s
+    form past 4,096 rows) and the row in context with the plain relax, the
+    cluster form against plain on the row's own refresh inputs and cold
+    start, the relax timed in both forms at the row's shape, and its
+    exact_random row.  Returns the numbers the kernels line reads."""
+    import torch
+
+    from tarl_tpu_torch.core.step import Policy, run_episode_periodic
+    from tarl_tpu_torch.routing import bellman_ford as bf
+    from tarl_tpu_torch.routing.bellman_ford import BIG
+    from tarl_tpu_torch.routing.policies import random_choice
+    from tarl_tpu_torch.simulator import make_policy
+
+    def sync_dev():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    net, agents, dest, secs = million_scenario(dev, grid, num_agents, zones)
+    i_n, k_n = net.inter_out_road.shape
+    d_n = len(dest)
+    order = successor_order(net)
+    log(f"million row Grid{grid}x{grid}: {net.num_roads} roads, {i_n} "
+        f"intersections, {agents.num_agents} agent rows, D={d_n} destination "
+        f"columns; generated in {secs['generate']:.1f} s, network parsed in "
+        f"{secs['network']:.1f} s, population parsed and sorted in "
+        f"{secs['population']:.1f} s; successors up to {order['bandwidth']} "
+        f"rows away (cyclic {order['cyclic']}, {order['offsets']} distinct "
+        f"offsets); cluster_plan at 8 sweeps "
+        f"{bf.cluster_plan(i_n, d_n, k_n, 8)}")
+    routing, sim_sp, sim_ex = million_configs()
+    sp = sp_row(net, agents, ticks, warmup, context,
+                config=(routing, sim_sp), dest_inters=dest)
+    check_million_sp(sp, net, agents, d_n, ticks)
+    final = sp["final"]
+    log(f"million sp row: {sp['rate']:.1f} agent-steps/s ({sp['measured']} "
+        f"ticks in {sp['wall']:.2f} s, "
+        f"{sp['wall'] / sp['measured'] * 1e3:.3f} ms/tick), "
+        f"{sp['refresh_ms']:.3f} ms per refresh and {sp['relax_ms']:.4f} ms "
+        f"of it in the relax call (CUDA events, {sp['refreshes']} "
+        f"refreshes), done {int(final.agents.done.sum())}, on the way "
+        f"{int(final.agents.on_way.sum())}, host reads per tick "
+        f"{sp['reads_per_tick']:.3f}, saturation monitor sum "
+        f"{sp['saturated']}; relax calls {sp['forms']} (the uncapped table "
+        f"init {sp['table_init']}, in {sp['init_s']:.2f} s with the "
+        f"initial state), fused_winner calls {sp['winner_launches']} "
+        f"({card})")
+
+    plain_policy = make_policy("dijkstra", routing, network=net,
+                               dest_inters=dest,
+                               relax=bf.primal_relax_next_roads_plain)
+    before = (bf.LAUNCHES, bf.NEXT_ROAD_LAUNCHES)
+    plain, _ = run_episode_periodic(sp["state0"], net, plain_policy, warmup,
+                                    sim=sim_sp)
+    sync_dev()
+    t0 = time.perf_counter()
+    plain, _ = run_episode_periodic(plain, net, plain_policy,
+                                    context - warmup, sim=sim_sp)
+    sync_dev()
+    plain_wall = time.perf_counter() - t0
+    if (bf.LAUNCHES, bf.NEXT_ROAD_LAUNCHES) != before:
+        raise AssertionError("the plain million row launched a relax kernel")
+    mismatched = _diff_paths(_state_bits(sp["at_context"]),
+                             _state_bits(plain))
+    if mismatched:
+        raise AssertionError(f"kernel and plain million rows differ at tick "
+                             f"{context}: {mismatched}")
+    span = context - warmup
+    log(f"million row in context: kernel and plain-relax states equal "
+        f"bitwise at tick {context}, packed table included; ticks "
+        f"{warmup}-{context}: kernel "
+        f"{sp['context_wall'] / span * 1e3:.3f} ms/tick, plain relax "
+        f"{plain_wall / span * 1e3:.3f} ms/tick ({card})")
+
+    tables = relax_tables(net)
+    cases = [(f"million refresh {j * SP_CAPTURE_EVERY}", c, tables, d)
+             for j, (c, d) in enumerate(sp["captured"])]
+    anchor = (torch.arange(i_n, device=dev)[:, None]
+              == torch.as_tensor(dest, device=dev).long()[None, :])
+    cold = torch.where(anchor, 0.0, BIG).contiguous()
+    errs = {"refresh inputs": compare_relax(
+        cases, [(routing.max_bf_iters, False), (routing.max_bf_iters, True),
+                (None, False)]),
+            "cold start, uncapped": compare_relax(
+        [("million cold start", net.free_flow, tables, cold)],
+        [(None, True), (None, False)])}
+    # The table init's table (the kernel's, the start of both runs above)
+    # against the plain relax from the cold start, and the global form's
+    # next-road kernel on that table.
+    want = bf.primal_relax_next_roads_plain(net.free_flow, *tables, cold,
+                                            None)
+    init = zoned_table(sp["state0"].next_hop, i_n, d_n, net.num_roads)
+    errs["table init"] = assert_bitwise(
+        "million table init", zip(("dist", "next road"), init, want))
+    errs["next-road kernel"] = compare_next_roads(
+        "million uncapped table", want[0], net.free_flow, tables)
+    log(f"primal_relax cluster form vs plain: bitwise equal on {len(cases)} "
+        f"captured million-row refresh inputs (8 sweeps with and without "
+        f"next roads, uncapped) and its cold start (uncapped, with and "
+        f"without next roads); the table init's table (one cluster launch, "
+        f"no host read) equals the plain relax's, and primal_next_roads "
+        f"(the global form's next-road kernel) the plain pass's on it "
+        f"({card})")
+
+    timed = {}
+    if dev.type == "cuda":
+        _, c, tabs, d0 = cases[len(cases) // 2]
+        for mode, only in (("K3", False), ("K5", True)):
+            t = time_relax_forms((c, *tabs, d0, routing.max_bf_iters, only),
+                                 timed_calls)
+            t["bound"] = relax_bound_ms(net, routing.max_bf_iters, d_n, only)
+            timed[mode] = t
+            log(f"primal_relax {mode} mode at the million row's shape "
+                f"(I={i_n}, D={d_n}, {routing.max_bf_iters} sweeps"
+                f"{'' if only else ' + next road'}, a captured refresh; "
+                f"(tile width, blocks) "
+                f"{bf.launch_cluster_plan(dev, i_n, d_n, k_n, 8)}): "
+                f"{fmt_forms(t)}; bound {t['bound'][0]:.4f} ms by "
+                f"{t['bound'][1]} ({card})")
+
+    ex = headline_run(net, agents, sim_ex, Policy(choice=random_choice),
+                      ticks=ticks, warmup=warmup, capture_every=ticks)
+    backlog = ex["final"].backlog
+    if ex["overflow"] != 0.0:
+        raise AssertionError(f"million exact_random: overflow monitor "
+                             f"{ex['overflow']}, not 0")
+    if (ex["on_road"] != ex["on_way"]
+            or ex["done"] + ex["on_way"] > agents.num_agents - 1):
+        raise AssertionError(f"million exact_random conservation: "
+                             f"{ex['on_road']} on roads, {ex['on_way']} on "
+                             f"the way, {ex['done']} done")
+    if dev.type == "cuda" and ex["launches"]["K1"] != ticks:
+        raise AssertionError(f"million exact_random: launches "
+                             f"{ex['launches']}")
+    backlog_mb = backlog.qpack.numel() * 4 / 2 ** 20
+    log(f"million exact_random: {ex['rate']:.1f} agent-steps/s "
+        f"({ex['measured']} ticks in {ex['wall']:.2f} s, "
+        f"{ex['wall'] / ex['measured'] * 1e3:.3f} ms/tick), done "
+        f"{ex['done']}, on the way {ex['on_way']}, overflow "
+        f"{ex['overflow']}, host reads per tick {ex['syncs_per_tick']:.3f}, "
+        f"backlog {backlog_mb:.1f} MB, launches {ex['launches']} ({card})")
+    return {"sp": sp, "errs": errs, "timed": timed, "i_n": i_n,
+            "d_n": d_n}
+
+
 def _relax_bits(out):
     """The relax outputs as int32 views (bitwise comparison)."""
     import torch
 
     return [None if t is None else t.view(torch.int32) for t in out]
+
+
+def assert_bitwise(label: str, pairs) -> float:
+    """Each ``(name, got, want)`` of ``pairs`` equal bit for bit (``None``
+    where the other is ``None``); the largest absolute difference."""
+    import torch
+
+    worst = 0.0
+    for name, a, b in pairs:
+        if (a is None) != (b is None):
+            raise AssertionError(f"{label}: {name} missing")
+        if a is None:
+            continue
+        diff = float((a.double() - b.double()).abs().max())
+        worst = max(worst, diff)
+        if a.shape != b.shape or not torch.equal(*_relax_bits((a, b))):
+            raise AssertionError(f"{label}: kernel and plain differ in "
+                                 f"{name} (max |diff| {diff})")
+    return worst
+
+
+def compare_next_roads(label: str, dist, cost, tables, want=None) -> float:
+    """``primal_next_roads`` (the global form's next-road kernel) against
+    the plain pass on a finished table, and ``want`` (a table's next roads
+    made on the main path) against the plain pass where given: bitwise."""
+    from tarl_tpu_torch.routing import bellman_ford as bf
+
+    plain = bf._next_roads_plain(dist, *bf._slot_tables(cost, *tables),
+                                 tables[0])
+    pairs = [("primal_next_roads", bf.primal_next_roads(dist, cost, *tables),
+              plain)]
+    if want is not None:
+        pairs.append(("the main path's next roads", want, plain))
+    return assert_bitwise(label, pairs)
 
 
 def compare_relax(cases, modes) -> float:
@@ -581,18 +1028,9 @@ def compare_relax(cases, modes) -> float:
                                                     iters, relax_only)
             if dist0.device.type == "cuda":
                 torch.cuda.synchronize()
-            for name, a, b in zip(("dist", "next road"), got, want):
-                if (a is None) != (b is None):
-                    raise AssertionError(f"{label}: {name} missing")
-                if a is None:
-                    continue
-                diff = float((a.double() - b.double()).abs().max())
-                worst = max(worst, diff)
-                if a.shape != b.shape or not torch.equal(*_relax_bits((a, b))):
-                    raise AssertionError(
-                        f"{label}, {iters} sweeps, relax_only={relax_only}: "
-                        f"kernel and plain differ in {name} (max |diff| "
-                        f"{diff})")
+            worst = max(worst, assert_bitwise(
+                f"{label}, {iters} sweeps, relax_only={relax_only}",
+                zip(("dist", "next road"), got, want)))
             changed[(iters, relax_only)] |= not torch.equal(got[0], dist0)
     if not all(changed.values()):
         raise AssertionError("a mode changed no input; the comparison "
@@ -1008,10 +1446,12 @@ def hub_network(spokes: int, device):
         num_intersections=spokes + 1, device=device)
 
 
-def grid_network(rows: int, cols: int, device):
+def grid_network(rows: int, cols: int, device, seed=None):
     """``grid_scenario``'s ``rows x cols`` network (links of 200 m, 600
     veh/h, 13.9 m/s, one lane, in its link order) built from the link
-    arrays through ``build_network``: no XML, no population."""
+    arrays through ``build_network``: no XML, no population.  With
+    ``seed``, the intersections are relabelled by a seeded permutation, so
+    that a row's successors lie anywhere in the order."""
     import numpy as np
 
     from tarl_tpu_torch.network import build_network
@@ -1026,12 +1466,16 @@ def grid_network(rows: int, cols: int, device):
             if r + 1 < rows:
                 frm += [k, k + cols]
                 to += [k + cols, k]
+    frm, to = np.asarray(frm), np.asarray(to)
+    if seed is not None:
+        label = np.random.default_rng(seed).permutation(rows * cols)
+        frm, to = label[frm], label[to]
     n = len(frm)
     return build_network(
         length=np.full(n, 200.0), max_flow=np.full(n, 600.0),
         free_speed=np.full(n, 13.9), perm_lanes=np.ones(n),
-        from_inter=np.asarray(frm), to_inter=np.asarray(to),
-        num_intersections=rows * cols, device=device)
+        from_inter=frm, to_inter=to, num_intersections=rows * cols,
+        device=device)
 
 
 def random_payload_cases(nets, dev) -> list:
@@ -2415,7 +2859,7 @@ def main() -> int:
         f"{sp['winner_launches']}")
 
     # --- 6. relax kernel against plain --------------------------------------
-    from tarl_tpu_torch.routing import bellman_ford as bf
+    from tarl_tpu_torch.routing import bellman_ford as bf, policies
     from tarl_tpu_torch.routing.bellman_ford import BIG
 
     iters = sp["routing"].max_bf_iters
@@ -2464,46 +2908,84 @@ def main() -> int:
     for d in uncapped16:
         if float(d.max()) >= BIG:
             raise AssertionError("uncapped relax left a pair unreached")
+    # Past 4,096 rows the cluster form: Grid128x128 (clusters of 4),
+    # Grid256x256 (16, the card's non-portable size) and a grid of 5,000
+    # intersections in a scattered order (2 blocks, most successors in the
+    # other one), with tails of 13 and 3 columns in the tile width the
+    # card's capacity gives and at the full width of 7 (masked tails).
     net128, _ = load_scenario("Grid128x128_10", 128, 128, 10, dev)
     cases128 = big_dest_cases(net128)
-    if bf.resident_plan(net128.num_intersections, BIG_DESTS,
-                        net128.inter_out_road.shape[1], iters) is not None:
-        raise AssertionError("Grid128x128 took the resident form; it must "
-                             "take the global form")
-    errs["Grid128, 512 dests"] = compare_relax(
-        cases128, [(iters, False), (iters, True)])
     t0 = time.perf_counter()
     net256 = grid_network(K8_GRID, K8_GRID, dev)   # phase 15 reuses it
     build256 = time.perf_counter() - t0
-    if bf.resident_plan(net256.num_intersections, 16,
-                        net256.inter_out_road.shape[1], iters) is not None:
-        raise AssertionError("Grid256x256 with 16 columns took the resident "
-                             "form; it must take the global form")
     cases256r = big_dest_cases(net256, dests=16)
-    errs["Grid256, 16 dests, global form"] = compare_relax(
+    net5k = grid_network(*SCATTER_GRID, dev, seed=SCATTER_SEED)
+    cases5k = big_dest_cases(net5k, dests=64)
+    plans = {}
+    for label, g, d_n, blocks in (("Grid128", net128, BIG_DESTS, 4),
+                                  ("Grid256", net256, 16, 16),
+                                  ("scattered", net5k, 64, 2)):
+        i_n, k_n = g.inter_out_road.shape
+        plans[label] = bf.launch_cluster_plan(dev, i_n, d_n, k_n, iters)
+        if (bf.resident_plan(i_n, d_n, k_n, iters) is not None
+                or plans[label] is None or plans[label][1] != blocks):
+            raise AssertionError(f"{label} took another form than clusters "
+                                 f"of {blocks}: {plans[label]}")
+    modes3 = [(iters, False), (iters, True), (None, False)]
+    errs["Grid128, 512 dests, cluster form"] = compare_relax(cases128,
+                                                             modes3)
+    errs["Grid256, 16 dests, clusters of 16"] = compare_relax(
         cases256r, [(iters, False)])
+    # The global form past 4,096 rows (several sweeps, the next-road pass),
+    # forced: no main path of this script takes it.
+    with forced_relax("global"):
+        errs["Grid128, 512 dests, global form"] = compare_relax(cases128,
+                                                                modes3)
+        errs["Grid256, 16 dests, global form"] = compare_relax(
+            cases256r, [(iters, False)])
+    # Phase 5's initial table: scipy's Dijkstra, then the next-road kernel.
+    dist5, _, road5 = policies._primal_unpack(
+        sp["state0"].next_hop, net64.num_intersections,
+        net64.num_intersections, net64.num_roads)
+    errs["next-road kernel, sp row's initial table"] = compare_next_roads(
+        "sp row's initial table", dist5, net64.free_flow,
+        relax_tables(net64), want=road5)
+    errs["scattered 5,000, cluster form"] = compare_relax(cases5k, modes3)
+    tails5k = [(f"{label}, {d} columns", c, tabs, d0[:, :d].contiguous())
+               for d in (13, 3) for label, c, tabs, d0 in cases5k]
+    errs["13 and 3 columns, cluster form"] = compare_relax(tails5k, modes3)
+    with forced_relax("full width"):
+        errs["13 and 3 columns, full-width tiles"] = compare_relax(tails5k,
+                                                                   modes3)
+    succ5k = net5k.road_to[net5k.inter_out_road.long()].long()
+    half = -(-net5k.num_intersections // 2)
+    rows5k = torch.arange(net5k.num_intersections, device=dev)[:, None]
+    remote = float((((succ5k >= half) != (rows5k >= half))
+                    & net5k.inter_out_ok).sum() / net5k.inter_out_ok.sum())
     log(f"primal_relax vs plain: bitwise equal in every mode ("
         + "; ".join(errs) + f") on {len(cases64)} Grid64x64 inputs "
         f"({len(sp['captured'])} captured refreshes; the resident form in "
         f"tiles of {width64} columns, the global form at one sweep), "
         f"{len(tail_cases)} of 13 and 4 columns, 2 Grid16x16 (uncapped, "
-        f"resident, no host read), 2 Grid128x128 "
-        f"(I={net128.num_intersections}) and 2 Grid256x256 "
-        f"(I={net256.num_intersections}) inputs, both in the global form")
+        f"resident, no host read); the cluster form (tile width, blocks) "
+        f"{plans} on 2 Grid128x128 (I={net128.num_intersections}), 2 "
+        f"Grid256x256 (I={net256.num_intersections}) and 2 scattered "
+        f"(I={net5k.num_intersections}, {remote:.1%} of its successors in "
+        f"the other block) inputs and {len(tails5k)} tails, each also at "
+        f"full width ({card})")
 
     # Timed in the modes the TPU kernels K2-K6 computed: K2 mode, relax only
-    # (K4) and one sweep (K6) on a captured Grid64x64 refresh; K2 mode (K3)
-    # and relax only (K5) at Grid128x128 with 512 destination columns.
+    # (K4) and one sweep (K6) on a captured Grid64x64 refresh, and K2 mode
+    # at Grid256x256 (16 columns, clusters of 16); K2 mode (K3) and relax
+    # only (K5) at Grid128x128 with 512 destination columns in the cluster
+    # form and in the global form (phase 22 times both at the million
+    # row's shape).
     relax_t = {}
     label, c, tabs, d0 = cases64[len(sp["captured"]) // 2]
     for mode, g, (c_m, d_m), (n_it, only) in (
             ("K2 mode", net64, (c, d0), (iters, False)),
             ("relax only (K4)", net64, (c, d0), (iters, True)),
             ("one sweep (K6)", net64, (c, d0), (1, True)),
-            ("Grid128 K2 mode (K3)", net128, cases128[1][1::2],
-             (iters, False)),
-            ("Grid128 relax only (K5)", net128, cases128[1][1::2],
-             (iters, True)),
             ("Grid256 K2 mode", net256, cases256r[1][1::2],
              (iters, False))):
         args = (c_m, *relax_tables(g), d_m, n_it, only)
@@ -2521,6 +3003,16 @@ def main() -> int:
             f"{plain2:.4f} ms per call (plain, kernel, kernel, plain), "
             f"device {fmt_us(dev_ms)} per call in {acts:.1f} kernels "
             f"(torch.profiler), bound {bound:.4f} ms by {by} ({card})")
+    relax128 = {}
+    for mode, only in (("K3", False), ("K5", True)):
+        t = time_relax_forms((cases128[1][1], *relax_tables(net128),
+                              cases128[1][3], iters, only))
+        t["bound"] = relax_bound_ms(net128, iters, BIG_DESTS, only)
+        relax128[mode] = t
+        log(f"primal_relax {mode} mode at Grid128x128 (I="
+            f"{net128.num_intersections}, D={BIG_DESTS}, warm, tile "
+            f"{plans['Grid128']}): {fmt_forms(t)}; bound "
+            f"{t['bound'][0]:.4f} ms by {t['bound'][1]} ({card})")
 
     # --- 7. the row in context ---------------------------------------------
     from tarl_tpu_torch.core.step import run_episode_periodic
@@ -2795,14 +3287,18 @@ def main() -> int:
         return run_episode_shard_map(state, net, policy, n, mesh, sim=sim,
                                      winner=cap7)
 
-    sh = headline_run(net, agents, sim, policy, runner=sharded)
+    sh = headline_run(net, agents, sim, policy, runner=sharded,
+                      ticks=SHARD_TICKS)
     check_headline(sh, "sharded headline",
-                   {"K7": HEADLINE_TICKS, "K1": 0, "K12": 0})
-    mismatched = _diff_paths(to_numpy(head["final"]), to_numpy(sh["final"]))
+                   {"K7": SHARD_TICKS, "K1": 0, "K12": 0})
+    mismatched = _diff_paths(
+        to_numpy(head["captured"][SHARD_TICKS // CAPTURE_EVERY - 1]),
+        to_numpy(sh["final"]))
     if mismatched:
         raise AssertionError(f"sharded and serial headlines differ at tick "
-                             f"{HEADLINE_TICKS}: {mismatched}")
-    logs_a, logs_b = to_numpy(head["logs"]), to_numpy(sh["logs"])
+                             f"{SHARD_TICKS}: {mismatched}")
+    logs_a = {f: a[:SHARD_TICKS] for f, a in to_numpy(head["logs"]).items()}
+    logs_b = to_numpy(sh["logs"])
     exact = ("departures", "arrivals", "on_way", "time", "window_saturated")
     mismatched = _diff_paths({f: logs_a[f] for f in exact},
                              {f: logs_b[f] for f in exact}, "logs")
@@ -2826,8 +3322,9 @@ def main() -> int:
         f"{head['wall'] / head['measured'] * 1e3:.3f}), done {sh['done']}, "
         f"on roads {sh['on_road']}, host reads per tick "
         f"{sh['syncs_per_tick']:.3f}, overflow {sh['overflow']}, launches "
-        f"{sh['launches']}; final state and the logs' integer fields "
-        f"bitwise equal to phase 2's, road_delta_tt {delta_held} ({card})")
+        f"{sh['launches']}; state at tick {SHARD_TICKS} and the logs' "
+        f"integer fields bitwise equal to phase 2's, road_delta_tt "
+        f"{delta_held} ({card})")
 
     # --- 18. the padded mesh ----------------------------------------------
     cap7p = CaptureWinner(CAPTURE_EVERY // 2, "padded mesh")
@@ -2927,7 +3424,13 @@ def main() -> int:
     # --- 21. training ------------------------------------------------------
     train = training_phase(net8, trained, st8, card)
 
-    # --- 22. results ------------------------------------------------------
+    # --- 22. the million-agent row ----------------------------------------
+    t0 = time.perf_counter()
+    mil = million_phase(dev, card)
+    mil_sp = mil["sp"]
+    log(f"million row phase in {time.perf_counter() - t0:.1f} s")
+
+    # --- 23. results ------------------------------------------------------
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     train_launches = train["launches"]
     kern_ms, plain_ms, kern_dev_ms, k1_bound = timings["Grid16x16"]
@@ -3053,31 +3556,79 @@ def main() -> int:
         "library_ms": None,
         "modes": list(errs),
         "tile_columns": width64,
-        "ms_grid256_global": relax_t["Grid256 K2 mode"][0],
-        "device_ms_grid256_global": relax_t["Grid256 K2 mode"][4],
-        "plain_ms_grid256_global": relax_t["Grid256 K2 mode"][1],
-        "bound_ms_grid256_global": relax_t["Grid256 K2 mode"][2],
+        "ms_grid256_cluster16": relax_t["Grid256 K2 mode"][0],
+        "device_ms_grid256_cluster16": relax_t["Grid256 K2 mode"][4],
+        "plain_ms_grid256_cluster16": relax_t["Grid256 K2 mode"][1],
+        "bound_ms_grid256_cluster16": relax_t["Grid256 K2 mode"][2],
     }] + [{
         "name": name,
         "route": "cuda",
         "source": "tarl_tpu_torch/csrc/primal_relax.cu",
         "replaces": f"tarl_tpu/routing/bellman_ford.py:{line}",
+        "entry": "pr_cluster_kernel (tarl_primal_cluster): a tile of all "
+                 "rows across a cluster's shared memory, read through DSMEM",
+        "launches": launches,
+        "launches_from": launches_from,
+        "max_abs_err": max(max(errs.values()), *mil["errs"].values()),
+        "ms": min(t["kernel"]),
+        "device_ms": t["device"][0],
+        "plain_ms": min(t["plain"]),
+        "bound_ms": t["bound"][0],
+        "bound_by": t["bound"][1],
+        "library_ms": None,
+        "shape": f"I={mil['i_n']}, D={mil['d_n']}, 8 sweeps{tail}",
+        "global_ms": min(t["global"]),
+        "global_device_ms": t["global_device"][0],
+        "ms_grid128_d512": min(t128["kernel"]),
+        "device_ms_grid128_d512": t128["device"][0],
+        "global_ms_grid128_d512": min(t128["global"]),
+        "global_device_ms_grid128_d512": t128["global_device"][0],
+        "plain_ms_grid128_d512": min(t128["plain"]),
+        "bound_ms_grid128_d512": t128["bound"][0],
+    } for name, line, tail, t, t128, launches, launches_from in (
+        ("multisweep_nr_rowblock", 518, " + next road", mil["timed"]["K3"],
+         relax128["K3"],
+         mil_sp["relax_launches"] - mil_sp["table_init"]["relax"],
+         "million row's refreshes (phase 22), the cluster form"),
+        ("multisweep_rowblock", 486, "", mil["timed"]["K5"], relax128["K5"],
+         mil_sp["table_init"]["cluster"],
+         "million row's uncapped table init (phase 22): K5's function, the "
+         "relax, uncapped in the cluster form with its next roads in the "
+         "same launch, no host read"))] + [{
+        "name": "multisweep",
+        "route": "cuda",
+        "source": "tarl_tpu_torch/csrc/primal_relax.cu",
+        "replaces": "tarl_tpu/routing/bellman_ford.py:436",
         "covered_by": "primal_relax",
         "launches": sp["relax_launches"],
         "launches_from": "sp row (phase 5), K2's kernels",
         "max_abs_err": max(errs.values()),
-        "ms": relax_t[mode][0],
-        "device_ms": relax_t[mode][4],
-        "plain_ms": relax_t[mode][1],
-        "bound_ms": relax_t[mode][2],
-        "bound_by": relax_t[mode][3],
+        "ms": relax_t["relax only (K4)"][0],
+        "device_ms": relax_t["relax only (K4)"][4],
+        "plain_ms": relax_t["relax only (K4)"][1],
+        "bound_ms": relax_t["relax only (K4)"][2],
+        "bound_by": relax_t["relax only (K4)"][3],
         "library_ms": None,
-        "mode": mode,
-    } for name, line, mode in (
-        ("multisweep_nr_rowblock", 518, "Grid128 K2 mode (K3)"),
-        ("multisweep", 436, "relax only (K4)"),
-        ("multisweep_rowblock", 486, "Grid128 relax only (K5)"),
-        ("sweep", 408, "one sweep (K6)"))] + seg_entries + [{
+        "mode": "relax only (K4)",
+    }, {
+        "name": "sweep",
+        "route": "cuda",
+        "source": "tarl_tpu_torch/csrc/primal_relax.cu",
+        "replaces": "tarl_tpu/routing/bellman_ford.py:408",
+        "covered_by": "primal_relax (the global form at one sweep)",
+        "launches": sp["forms"]["global"] + mil_sp["forms"]["global"],
+        "launches_from": "global-form relax calls of the sp row (phase 5) "
+                         "and the million row (phase 22): no main path "
+                         "runs a single sweep",
+        "max_abs_err": max(errs.values()),
+        "ms": relax_t["one sweep (K6)"][0],
+        "device_ms": relax_t["one sweep (K6)"][4],
+        "plain_ms": relax_t["one sweep (K6)"][1],
+        "bound_ms": relax_t["one sweep (K6)"][2],
+        "bound_by": relax_t["one sweep (K6)"][3],
+        "library_ms": None,
+        "mode": "one sweep (K6)",
+    }] + seg_entries + [{
         "name": "fused_core",
         "route": "cuda",
         "source": "tarl_tpu_torch/csrc/fused_core.cu",

@@ -51,6 +51,14 @@ waits), and the device time of the kernels those calls launched, from
   where the tree has ``resident_plan``, also each form forced (the plan
   patched): K2 mode and relax only at 8 sweeps and relax only at one
   sweep, resident and global.
+- The relax past 4,096 rows (the TPU's K3 and K5) on the Grid128x128
+  network (I = 16,384, ``chip_smoke.load_scenario``'s XML) with 256
+  seeded destination columns (the million-agent row's shape) and with 512
+  (``chip_smoke.BIG_DESTS``), from a random warm start, 8 sweeps with
+  and without the next roads: as the tree's ``primal_relax_next_roads``
+  runs them and, where the tree has ``cluster_plan``, the cluster form
+  at the full tile width of 7 and the global form
+  (``chip_smoke.forced_relax``).
 - The headline tick (``chip_smoke.py`` phase 2's episode) with the
   default core, with the fused core (phase 13) and on
   ``chip_smoke.SHARD_BLOCKS`` road blocks (phase 17, from the default
@@ -206,6 +214,7 @@ def main(argv=None) -> int:
         record("k10_log_probs",
                lambda: seg.segment_log_probs(data, ids, n, layout))
     time_k2(record, chip_smoke, dev, out)
+    time_k3_k5(record, chip_smoke, dev, out)
 
     net16, agents16 = chip_smoke.load_scenario("Grid16x16_50000", 16, 16,
                                                50000, dev)
@@ -286,6 +295,37 @@ def time_k2(record, chip_smoke, dev, out) -> None:
             bf.resident_plan = plan
     out["k2_shape"] = (f"I=D={net.num_intersections}, "
                        f"K={tabs[0].shape[1]}, 8 sweeps")
+
+
+def time_k3_k5(record, chip_smoke, dev, out) -> None:
+    """The relax past 4,096 rows (see the module docstring)."""
+    from tarl_tpu_torch.routing import bellman_ford as bf
+
+    net, _ = chip_smoke.load_scenario("Grid128x128_10", 128, 128, 10, dev)
+    has_cluster = hasattr(bf, "cluster_plan")
+    for dests in (256, chip_smoke.BIG_DESTS):
+        _, cost, tabs, warm = chip_smoke.big_dest_cases(net, dests)[1]
+        for label, only in (("k3_mode", False), ("k5_relax_only", True)):
+            def call(only=only):
+                return bf.primal_relax_next_roads(cost, *tabs, warm, 8, only)
+            record(f"{label}_d{dests}", call)
+            if has_cluster:
+                for form in ("full width", "global"):
+                    with chip_smoke.forced_relax(form):
+                        record(f"{label}_d{dests}_{form.replace(' ', '_')}",
+                               call)
+    if has_cluster:
+        i_n, k_n = tabs[0].shape
+        plan = bf.cluster_plan(i_n, 256, k_n, 8)
+        fit = bf._cluster_fit(dev, i_n, k_n, plan[1])
+        out["k3_k5_clusters_at_once"] = fit
+        print(f"cluster form at I={i_n}: clusters of {plan[1]} blocks, "
+              f"{fit} at once on the card; tile widths D=256 "
+              f"{bf.cluster_plan(i_n, 256, k_n, 8, fit)[0]}, D=512 "
+              f"{bf.cluster_plan(i_n, 512, k_n, 8, fit)[0]}", flush=True)
+    out["k3_k5_shape"] = (f"I={net.num_intersections}, D=256 and "
+                          f"{chip_smoke.BIG_DESTS}, K={tabs[0].shape[1]}, "
+                          f"8 sweeps, random warm start")
 
 
 def time_k7_k12(record, chip_smoke, dev, out) -> None:

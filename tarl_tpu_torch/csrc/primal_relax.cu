@@ -54,22 +54,50 @@
 // cores.
 //   Where it runs (bellman_ford.resident_plan, by shape): at most 4,096
 // rows of at most 4 slots, so that the tables stay in registers, and at
-// least two sweeps (or uncapped).  Past 4,096 rows a block would reread
-// its slot tables from L2 on every sweep for only one or two columns
-// (the tile no longer fits eight), which was slower on the card than the
-// global form's passes, whose table fits in the 50 MB L2 at Grid128x128;
-// and a single sweep costs the global form one pass, less than the
-// resident form's whole-tile load and store (scripts/time_k1_k9.py times
-// both forms at the sp row's shape).
+// least two sweeps (or uncapped).  Past 4,096 rows one block's shared
+// memory no longer holds the tile of 8 columns (narrower tiles there
+// reread the slot tables from L2 on every sweep, slower than the global
+// form), and a single sweep costs the global form one pass, less than the
+// resident form's whole-tile load and store.
+//
+// pr_cluster_kernel, the cluster form (tarl_primal_cluster; replaces the
+// row-blocked K3, _multisweep_nr_rb_kernel_body, and K5,
+// _multisweep_rb_kernel_body): the resident form's tile spread over a
+// thread-block cluster.  Cluster y of B blocks (B a power of two, 2-16;
+// past 8 the card's non-portable cluster size) owns the column tile [y*C,
+// y*C + C), C <= 7, of all I rows; block rank b keeps rows [b*R, b*R +
+// R), R = ceil(I / B) <= 4,096, in its shared memory, laid out as the
+// resident form's tile.  A thread owns whole rows of its block, and each slot's
+// weight and its successor's shared::cluster address (mapa) sit in
+// registers, so a successor's value is one ld.shared::cluster wherever its
+// row lies: the TPU's row windows needed an order of small bandwidth,
+// which the port's Grid128x128 lacks (successors up to 16,000 rows away,
+// cyclic bandwidth 4,992, 28 distinct offsets).  Jacobi: a group's new
+// values are held in registers across a cluster barrier (every block has
+// read the group) before they are written back, and a cluster barrier
+// ends the sweep; a second buffer would not fit beside a tile of 4,096
+// rows.  The early exit is the tile's: each block's __syncthreads_or goes
+// into rank 0's flag word for the sweep (two words, alternating, each
+// cleared a sweep ahead), read by every block after the last group's
+// barrier, so all blocks leave at the same sweep; the uncapped relax is
+// one launch with no host read.  The next roads are computed from the
+// final tile through DSMEM, staged in a second tile in shared memory (two
+// tiles of 7 columns fit at R = 4,096, hence C <= 7) and stored in whole
+// rows of the tile.  A last cluster barrier keeps every block's shared
+// memory alive while others may read it.  Where it runs
+// (bellman_ford.cluster_plan): 4,096 < I <= 65,536 rows of at most 4
+// slots, at least two sweeps or uncapped; bellman_ford.launch_cluster_plan
+// narrows C so that the tiles fill the last wave of the clusters the card
+// holds at once (cudaOccupancyMaxActiveClusters: 30 clusters of 4 on the
+// H100; it raises where the card holds none).
 //
 // pr_sweep_kernel and pr_next_road_kernel, the global form: one thread per
 // (i, d), d fastest, one launch per sweep through device memory, then a
 // launch of the next-road pass; when asked, the last sweep of a call sets
 // a device flag if any entry dropped (the wrapper's convergence test for
-// the uncapped relax).  It serves every other shape, e.g. Grid128x128 and
-// Grid256x256 (the TPU's row-blocked K3/K5 sizes) and a single sweep (K6);
-// pr_next_road_kernel alone also serves primal_next_roads after the host's
-// Dijkstra.
+// the uncapped relax).  It serves every other shape: a single sweep (K6),
+// more than 4 slots, more than 65,536 rows; pr_next_road_kernel alone also
+// serves primal_next_roads after the host's Dijkstra.
 //
 // Arithmetic is float32 adds and compares only, built without fast math
 // and without FMA contraction, so results equal the PyTorch plain version
@@ -78,23 +106,34 @@
 //
 // Bound: memory bandwidth.  At Grid64x64 (I = D = 4,096, K = 4) the warm
 // start is 4096^2 x 4 B = 64 MiB, read once; the distances and next roads
-// are written once: 192 MiB, 0.060 ms at the data sheet's 3.35 TB/s.  The
+// are written once: 192 MiB, 0.060 ms at the data sheet's 3.35 TB/s; at
+// the million-agent row (I = 16,384, D = 257) 48 MiB, 0.0153 ms.  The
 // global form moves the table through device memory on every sweep; the
-// resident form moves it once and runs its sweeps on shared memory.
-// Measured with scripts/time_k1_k9.py on an NVIDIA H100 80GB HBM3 (700 W)
-// from a random-cost warm start at that shape: the resident form 0.574 ms
-// of device time for 8 sweeps and the next roads in one kernel (0.503 ms
-// relax only), against the global form's 1.428 ms in 9 kernels (1.276 ms
-// in 8); at one sweep 0.263 ms against 0.159 ms, hence the global form
-// there.  The resident form is still 9.5x its bound: its sweeps run at
-// ~35 us each (one block of 1,024 threads an SM, held values and tables
-// filling the 64 registers a thread may have), and its tile's load and
-// store take ~0.25 ms, each block reading 32 bytes of every row.
+// resident and cluster forms move it once and run their sweeps on shared
+// memory.  Measured with scripts/time_k1_k9.py on an NVIDIA H100 80GB
+// HBM3 (700 W) from a random-cost warm start, device time: at Grid64x64
+// the resident form 0.574 ms for 8 sweeps and the next roads in one
+// kernel (0.503 ms relax only), against the global form's 1.428 ms in 9
+// kernels (1.276 ms in 8); at one sweep 0.263 ms against 0.159 ms, hence
+// the global form there.  At Grid128x128 with 256 columns the cluster
+// form (tiles of 5, two waves) 0.290 ms for 8 sweeps and the next roads
+// (0.231 ms relax only) against the global form's 0.349 ms (0.312 ms); at
+// 512 columns (tiles of 6) 0.470 ms (0.380 ms) against 0.724 ms (0.644
+// ms).  Tried and slower: tiles of 8 at 256 columns (0.365 ms; 32 tiles
+// leave 2 clusters alone in a second wave), the next roads stored by each
+// row's thread at tiles of 5 (0.326 ms), and ld.shared in place of DSMEM
+// for the rows of the block's own (0.323 ms; 97% of Grid128x128's reads
+// stay in their block).  The cluster form is still 19x its bound: a
+// sweep takes ~12 us a block at tiles of 5, and the kernel with 4 rows a
+// thread spills ~200 bytes a thread at 64 registers.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -109,6 +148,15 @@ constexpr int kResThreads = 1024;
 constexpr int kCachedRows = 4;
 constexpr int kRegSlots = 4;
 constexpr int kMaxCols = 8;
+// The cluster form: a cluster of at most kMaxCluster blocks (a power of
+// two; past 8 the card's non-portable cluster size), each holding at most
+// kResThreads * kCachedRows rows of a tile of at most kClusterCols
+// columns: the widest tile whose next roads' staging tile fits beside it
+// at 4,096 rows.  Mirrored by bellman_ford.py (cluster_plan).
+constexpr int kMaxCluster = 16;
+constexpr int kClusterCols = 7;
+// The shared memory a block may have (static and dynamic) on sm_90.
+constexpr size_t kMaxSmem = 232448;
 
 // Columns whose new values a thread of RPT rows holds across a barrier:
 // the held values and the cached tables share the 64 registers a thread
@@ -374,6 +422,250 @@ __global__ void __launch_bounds__(kResThreads, 1)
   }
 }
 
+// --- the cluster form --------------------------------------------------------
+
+// A shared-memory address of this block as a 32-bit shared::cta address.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The shared::cluster address of the same offset in block `rank`'s shared
+// memory (DSMEM).
+__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Loads and stores through shared::cluster addresses.  Volatile with a
+// memory clobber: the compiler must neither cache a value across a cluster
+// barrier nor move an access over one.
+__device__ __forceinline__ float ld_cluster(unsigned addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned ld_cluster_u32(unsigned addr) {
+  unsigned v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];"
+               : "=r"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_cluster_u32(unsigned addr, unsigned v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(addr), "r"(v)
+               : "memory");
+}
+
+// The cluster form: cluster y of B blocks owns the column tile [y*C,
+// y*C + C) for all I rows; block rank b keeps rows [b*R, b*R + R) of it
+// in its shared memory (R = ceil(I / B), column-major with stride S, as
+// the resident form keeps the whole tile).  A thread owns whole rows of
+// its block, and their slot tables sit in registers: each slot's weight
+// and its successor's shared::cluster address (the successor's row in
+// the shared memory of the block that owns it, column 0 of the tile), so
+// a read of any row costs one ld.shared::cluster wherever the row lies.
+// Jacobi as in the resident form: a group's new values are held in
+// registers across a cluster barrier (every block has read the group)
+// before they are written back, and a cluster barrier ends the sweep.  The
+// early exit is the tile's: each block ORs its __syncthreads_or into rank
+// 0's flag word for the sweep (two words, alternating, each cleared by
+// rank 0 a sweep ahead of its use), and every block reads it after the
+// last group's barrier, so all blocks leave the loop at the same sweep.
+template <int RPT>
+__global__ void __launch_bounds__(kResThreads, 1)
+    pr_cluster_kernel(const float* __restrict__ dist0,
+                      float* __restrict__ dist_out,
+                      float* __restrict__ road_out,
+                      const float* __restrict__ cost,
+                      const int* __restrict__ out_road,
+                      const unsigned char* __restrict__ out_ok,
+                      const int* __restrict__ road_to, int I, int D, int K,
+                      int C, int S, int R, int max_sweeps) {
+  constexpr int kGroup = kGroupCols<RPT>;
+  extern __shared__ float tile[];
+  __shared__ unsigned flags[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int row0 = static_cast<int>(rank) * R;
+  const int rows = max(0, min(R, I - row0));
+  const int d0 = blockIdx.y * C;
+  const int cw = min(C, D - d0);
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const unsigned col_bytes = static_cast<unsigned>(S) * sizeof(float);
+  const unsigned tile_u32 = smem_u32(tile);
+
+  float w[RPT][kRegSlots];
+  unsigned src[RPT][kRegSlots];
+#pragma unroll
+  for (int j = 0; j < RPT; ++j) {
+    const int i = tid + j * T;
+#pragma unroll
+    for (int k = 0; k < kRegSlots; ++k) {
+      w[j][k] = kBig;
+      src[j][k] = 0;
+      if (i < rows && k < K) {
+        int succ;
+        load_slot(cost, out_road, out_ok, road_to, (row0 + i) * K + k,
+                  w[j][k], succ);
+        const int owner = succ / R;
+        src[j][k] = map_rank(
+            tile_u32 + static_cast<unsigned>(succ - owner * R) * 4u,
+            static_cast<unsigned>(owner));
+      }
+    }
+  }
+  if (rank == 0 && tid == 0) {
+    flags[0] = 0;
+    flags[1] = 0;
+  }
+  load_tile(dist0 + static_cast<size_t>(row0) * D, tile, rows, D, d0, C, cw,
+            S);
+  // Every block has started and loaded its rows before any remote read.
+  cluster.sync();
+  const unsigned flag0 = map_rank(smem_u32(flags), 0);
+
+  for (int sweep = 0; sweep < max_sweeps; ++sweep) {
+    // The next sweep's word: its last readers finished before the barrier
+    // that ended the previous sweep, its writers start after this one's.
+    if (rank == 0 && tid == 0) flags[(sweep + 1) & 1] = 0;
+    const unsigned flag = flag0 + static_cast<unsigned>(sweep & 1) * 4u;
+    bool lowered = false;
+    unsigned any = 0;
+    for (int g0 = 0; g0 < cw; g0 += kGroup) {
+      const int gw = min(kGroup, cw - g0);
+      float* col = tile + g0 * S;
+      const unsigned goff = static_cast<unsigned>(g0) * col_bytes;
+      float held[RPT][kGroup];
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int i = tid + j * T;
+#pragma unroll
+        for (int c = 0; c < kGroup; ++c) {
+          held[j][c] = (i < rows && c < gw) ? col[c * S + i] : 0.0f;
+        }
+        if (i < rows) {
+          // Every load of the row first, then the minima: the loads are
+          // in flight together.
+          float v[kRegSlots][kGroup];
+#pragma unroll
+          for (int k = 0; k < kRegSlots; ++k) {
+#pragma unroll
+            for (int c = 0; c < kGroup; ++c) {
+              v[k][c] = (k < K && c < gw)
+                            ? ld_cluster(src[j][k] + goff + c * col_bytes)
+                            : kBig;
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < kRegSlots; ++k) {
+#pragma unroll
+            for (int c = 0; c < kGroup; ++c) {
+              if (k < K && c < gw) {
+                const float cand = w[j][k] + v[k][c];
+                if (cand < held[j][c]) {
+                  held[j][c] = cand;
+                  lowered = true;
+                }
+              }
+            }
+          }
+        }
+      }
+      if (g0 + kGroup >= cw) {
+        if (__syncthreads_or(lowered) && tid == 0) st_cluster_u32(flag, 1u);
+        cluster.sync();  // every block has read the group and set the flag
+        any = ld_cluster_u32(flag);
+      } else {
+        cluster.sync();  // every block has read this group's columns
+      }
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int i = tid + j * T;
+#pragma unroll
+        for (int c = 0; c < kGroup; ++c) {
+          if (i < rows && c < gw) col[c * S + i] = held[j][c];
+        }
+      }
+    }
+    cluster.sync();  // the write-back before the next sweep's reads
+    if (!any) break;  // a fixpoint of the whole tile
+  }
+
+  store_tile(tile, dist_out + static_cast<size_t>(row0) * D, rows, D, d0, C,
+             cw, S);
+  if (road_out != nullptr) {
+    // The next roads go to a second tile in shared memory and leave in
+    // whole rows of the tile, as the distances do.
+    float* staged = tile + C * S;
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const int i = tid + j * T;
+      if (i >= rows) continue;
+      float rid[kRegSlots];
+#pragma unroll
+      for (int k = 0; k < kRegSlots; ++k) {
+        rid[k] = k < K ? static_cast<float>(out_road[(row0 + i) * K + k])
+                       : -1.0f;
+      }
+      for (int g0 = 0; g0 < cw; g0 += 4) {
+        const int gw = min(4, cw - g0);
+        float best[4];
+        float road[4];
+        // Two columns of every slot in flight at a time: the slot tables
+        // of every row stay live here, so four would not fit the
+        // registers.
+#pragma unroll
+        for (int h = 0; h < 4; h += 2) {
+          const unsigned goff = static_cast<unsigned>(g0 + h) * col_bytes;
+          float v[kRegSlots][2];
+#pragma unroll
+          for (int k = 0; k < kRegSlots; ++k) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              v[k][c] = (k < K && h + c < gw)
+                            ? ld_cluster(src[j][k] + goff + c * col_bytes)
+                            : kBig;
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            best[h + c] = kBig;
+            road[h + c] = -1.0f;
+#pragma unroll
+            for (int k = 0; k < kRegSlots; ++k) {
+              const float cand = w[j][k] + v[k][c];
+              if (k < K && cand < best[h + c]) {
+                best[h + c] = cand;
+                road[h + c] = rid[k];
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (c < gw) staged[(g0 + c) * S + i] = best[c] < kBig ? road[c]
+                                                                : -1.0f;
+        }
+      }
+    }
+    __syncthreads();
+    store_tile(staged, road_out + static_cast<size_t>(row0) * D, rows, D, d0,
+               C, cw, S);
+  }
+  // No block leaves while another may still read its shared memory.
+  cluster.sync();
+}
+
 __global__ void pr_sweep_kernel(
     const float* __restrict__ src, float* __restrict__ dst,
     const float* __restrict__ cost, const int* __restrict__ out_road,
@@ -456,6 +748,93 @@ int launch_resident(const float* dist0, float* dist_out, float* road_out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The cluster form's launch (clusters of B blocks along x, one cluster a
+// column tile along y), or with `fit` non-null the number of such clusters
+// the card can hold at once (cudaOccupancyMaxActiveClusters) in place of
+// the launch.
+template <int RPT>
+int launch_cluster(const float* dist0, float* dist_out, float* road_out,
+                   const float* cost, const int* out_road,
+                   const unsigned char* out_ok, const int* road_to, int I,
+                   int D, int K, int C, int S, int R, int max_sweeps,
+                   int threads, size_t smem, int B, cudaStream_t s,
+                   int* fit) {
+  auto kernel = pr_cluster_kernel<RPT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(B),
+                        static_cast<unsigned>((D + C - 1) / C), 1);
+  config.blockDim = dim3(static_cast<unsigned>(threads), 1, 1);
+  config.dynamicSmemBytes = smem;
+  config.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(B);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  if (fit != nullptr) {
+    return static_cast<int>(
+        cudaOccupancyMaxActiveClusters(fit, kernel, &config));
+  }
+  err = cudaLaunchKernelEx(&config, kernel, dist0, dist_out, road_out, cost,
+                           out_road, out_ok, road_to, I, D, K, C, S, R,
+                           max_sweeps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster form's shape: rows a block, its threads, its tile stride
+// and shared memory (with `roads`, a second tile stages the next roads),
+// and the rows a thread owns; false where the form does not take the
+// shape.
+bool cluster_shape(int I, int K, int C, int B, bool roads, int& R,
+                   int& threads, int& S, size_t& smem, int& rpt) {
+  if (B < 2 || B > kMaxCluster || (B & (B - 1)) != 0 || K > kRegSlots ||
+      C < 1 || C > kClusterCols || I < 1) {
+    return false;
+  }
+  R = (I + B - 1) / B;
+  if (R > kResThreads * kCachedRows) return false;
+  threads = std::min(kResThreads, (R + 31) / 32 * 32);
+  S = (R + 31) / 32 * 32 + 4;
+  smem = static_cast<size_t>(roads ? 2 : 1) * C * S * sizeof(float);
+  rpt = (R + threads - 1) / threads;
+  return smem + 2 * sizeof(unsigned) <= kMaxSmem;
+}
+
+int dispatch_cluster(const float* dist0, float* dist_out, float* road_out,
+                     const float* cost, const int* out_road,
+                     const unsigned char* out_ok, const int* road_to, int I,
+                     int D, int K, int C, int B, int max_sweeps,
+                     bool roads, cudaStream_t s, int* fit) {
+  int R, threads, S, rpt;
+  size_t smem;
+  if (!cluster_shape(I, K, C, B, roads, R, threads, S, smem, rpt)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rpt <= 1)
+    return launch_cluster<1>(dist0, dist_out, road_out, cost, out_road,
+                             out_ok, road_to, I, D, K, C, S, R, max_sweeps,
+                             threads, smem, B, s, fit);
+  if (rpt <= 2)
+    return launch_cluster<2>(dist0, dist_out, road_out, cost, out_road,
+                             out_ok, road_to, I, D, K, C, S, R, max_sweeps,
+                             threads, smem, B, s, fit);
+  return launch_cluster<4>(dist0, dist_out, road_out, cost, out_road, out_ok,
+                           road_to, I, D, K, C, S, R, max_sweeps, threads,
+                           smem, B, s, fit);
+}
+
 }  // namespace
 
 // `sweeps` Jacobi sweeps from `src`: sweep s writes buf_a for even s and
@@ -530,4 +909,35 @@ extern "C" int tarl_primal_resident(
   return launch_resident<4>(dist0, dist_out, road_out, cost, out_road,
                             out_ok, road_to, I, D, K, C, S, max_sweeps,
                             threads, smem, s);
+}
+
+// The cluster form: up to `max_sweeps` Jacobi sweeps from dist0 with an
+// early exit per column tile, then (road_out non-null) the next-road pass,
+// in one launch of ceil(D / C) clusters of B blocks; dist_out and road_out
+// are written in full and must differ from dist0.  Takes B a power of two
+// in [2, kMaxCluster] with ceil(I / B) <= kResThreads * kCachedRows rows a
+// block, K <= kRegSlots and 1 <= C <= kClusterCols
+// (bellman_ford.cluster_plan; cudaErrorInvalidValue otherwise).  Returns
+// the first CUDA error, or 0.
+extern "C" int tarl_primal_cluster(
+    const float* dist0, float* dist_out, float* road_out, const float* cost,
+    const int* out_road, const unsigned char* out_ok, const int* road_to,
+    int I, int D, int K, int C, int B, int max_sweeps, void* stream) {
+  if (D == 0) return 0;
+  return dispatch_cluster(dist0, dist_out, road_out, cost, out_road, out_ok,
+                          road_to, I, D, K, C, B, max_sweeps,
+                          road_out != nullptr,
+                          static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// How many clusters of the cluster form's shape (I, K, C, B), with its
+// next roads' staging tile, the card can hold at once
+// (cudaOccupancyMaxActiveClusters), into *clusters; 0 means it cannot
+// schedule one.  Returns the first CUDA error, or 0.
+extern "C" int tarl_primal_cluster_fit(int I, int K, int C, int B,
+                                       int* clusters) {
+  *clusters = 0;
+  return dispatch_cluster(nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, nullptr, I, C, K, C, B, 1, true, nullptr,
+                          clusters);
 }

@@ -27,6 +27,7 @@ on.  PyTorch leaves it off; the caller owns that process-wide flag.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -163,8 +164,13 @@ class Adam:
                        state.nu)
         count = state.count + 1
         f = np.float32
-        c1 = float(f(1.0) - f(b1) ** f(count))
-        c2 = float(f(1.0) - f(b2) ** f(count))
+        # The bias corrections as 0-d float32 tensors: optax divides by
+        # them, and a CUDA tensor divided by a Python float is multiplied by
+        # the reciprocal instead.
+        dev = next(t for sub in mu.values() for t in sub.values()).device
+        c1, c2 = (torch.full((), float(f(1.0) - f(b) ** f(count)),
+                             dtype=torch.float32, device=dev)
+                  for b in (b1, b2))
         step = -self.rate(state.count)
         params = tree_map(
             lambda p, m, v: p + (m / c1) / (torch.sqrt(v / c2) + self.eps)
@@ -175,22 +181,40 @@ class Adam:
 def init_params(module: torch.nn.Module,
                 generator: torch.Generator) -> dict:
     """A state dict for ``module`` drawn from ``generator`` (a CPU
-    generator, so the draw does not depend on the device): every Linear's
-    weight and bias uniform in ``+-1/sqrt(fan_in)`` (PyTorch's default
-    scheme), embeddings standard normal."""
+    generator, so the draw does not depend on the device) in Flax's default
+    laws, which the reference's ``nn.Dense`` and ``nn.Embed`` layers take:
+    every Linear's weight ``lecun_normal`` (a normal truncated to +-2
+    standard deviations, scaled to variance 1/fan_in; the fan-in is the
+    weight's second axis, the first of the Flax kernel it transposes) and
+    its bias zero; embeddings standard normal.  Equal to the reference's
+    draw in law, not in stream."""
     params = {}
     for name, sub in module.named_modules():
         prefix = f"{name}." if name else ""
         if isinstance(sub, torch.nn.Linear):
-            bound = sub.in_features ** -0.5
-            for p in ("weight", "bias"):
-                t = torch.empty(getattr(sub, p).shape)
-                params[prefix + p] = t.uniform_(-bound, bound,
-                                                generator=generator)
+            params[prefix + "weight"] = _lecun_normal(sub.weight.shape,
+                                                      generator)
+            params[prefix + "bias"] = torch.zeros(sub.bias.shape)
         elif isinstance(sub, torch.nn.Embedding):
             params[prefix + "weight"] = torch.empty(
                 sub.weight.shape).normal_(generator=generator)
     return params
+
+
+# jax.nn.initializers.variance_scaling's "truncated_normal": the standard
+# deviation of a unit normal truncated to +-2.
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def _lecun_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """``lecun_normal`` for a ``[out, in]`` weight: a normal truncated to
+    +-2 of its standard deviation ``sqrt(1 / in) / _TRUNCATED_STD``, drawn
+    as ``jax.random.truncated_normal`` draws it, by the inverse CDF of a
+    uniform between the bounds' CDF values."""
+    std = math.sqrt(1.0 / shape[1]) / _TRUNCATED_STD
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    u = torch.empty(shape).uniform_(lo, hi, generator=generator)
+    return torch.erfinv(u).mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std)
 
 
 def _require_full_f32() -> None:

@@ -11,18 +11,38 @@ library with a C interface, loaded with ctypes) or raises; on a CPU tensor
 it takes :func:`primal_relax_next_roads_plain`, the same function in plain
 PyTorch.  It never falls back from the kernel to the plain version.
 
-Where :func:`resident_plan` gives a tile width (at most 4,096
-intersections of at most 4 out-slots, at least two sweeps or uncapped:
-the sp row, the zoned parts, the table init), the relax and its next-road
-pass are one launch of the resident kernel: each block keeps a tile of 8
-columns on chip, runs the sweeps on it and stops at the first sweep that
-lowers nothing in its tile.  Min-plus relaxation is idempotent at its
-fixpoint, so the tables are equal bit for bit to those of every capped
-sweep, and the uncapped relax (``max_iters=None``, at most ``I - 1``
-sweeps) makes no host read.  Elsewhere the global form runs: one launch
-per sweep through device memory, and the uncapped relax reads a
-convergence flag on the host every :data:`CHECK_EVERY` sweeps (the plain
-version every sweep), counted by :mod:`~tarl_tpu_torch.core.sync`.
+The relax takes one of three forms, chosen by shape, never as a fallback
+(a launch that fails raises):
+
+* the resident form, where :func:`resident_plan` gives a tile width (at
+  most 4,096 intersections of at most 4 out-slots, at least two sweeps or
+  uncapped: the sp row, the zoned parts, the table init): one launch;
+  each block keeps a tile of 8 columns of every row in its shared memory,
+  runs the sweeps on it and stops at the first sweep that lowers nothing
+  in its tile;
+* the cluster form, where :func:`cluster_plan` gives ``(tile width,
+  blocks)`` (past 4,096 and up to 65,536 intersections, the same slots
+  and sweeps: the million-agent row's refreshes and table init, the TPU's
+  row-blocked K3 and K5): one launch; a thread-block cluster of 2-16
+  blocks holds a tile of at most 7 columns of every row across its blocks'
+  shared memory, each block 4,096 rows or fewer, and a successor's value
+  is read from the block that owns its row (distributed shared memory),
+  whatever the intersection order.  The tile is narrowed so that its
+  clusters fill the card's last wave (:func:`launch_cluster_plan`; the
+  card's capacity is asked once per shape, and a cluster it cannot
+  schedule raises);
+* the global form elsewhere (a single sweep, more slots, more than
+  65,536 intersections): one launch per sweep through device memory, then
+  the next-road launch; the uncapped relax reads a convergence flag on
+  the host every :data:`CHECK_EVERY` sweeps (the plain version every
+  sweep), counted by :mod:`~tarl_tpu_torch.core.sync`.
+
+Min-plus relaxation is idempotent at its fixpoint, so the early exit of
+the first two forms gives tables equal bit for bit to those of every
+capped sweep, and their uncapped relax (``max_iters=None``, at most ``I -
+1`` sweeps) makes no host read.  Each form's calls are counted apart
+(:data:`RESIDENT_LAUNCHES`, :data:`CLUSTER_LAUNCHES`,
+:data:`GLOBAL_LAUNCHES`; :data:`LAUNCHES` counts every call).
 
 Left out: ``primal_delta_buckets``, ``epilogue_slot_tables``,
 ``_epilogue_rep_tables``, the row windows, the VMEM plans and every
@@ -53,10 +73,14 @@ from ..state import RoadState
 # The reference's jnp.float32(1e18): exactly representable in float32.
 BIG = float(np.float32(1e18))
 
-# Kernel launches: relax calls through primal_relax_next_roads, and the
-# next-road kernel through primal_next_roads.  The plain version does not
-# count.
+# Kernel launches: relax calls through primal_relax_next_roads (and of
+# those, the calls each form ran: one launch of the resident or the cluster
+# kernel, or the global form's launches), and the next-road kernel through
+# primal_next_roads.  The plain version does not count.
 LAUNCHES = 0
+RESIDENT_LAUNCHES = 0
+CLUSTER_LAUNCHES = 0
+GLOBAL_LAUNCHES = 0
 NEXT_ROAD_LAUNCHES = 0
 
 # Sweeps between host reads of the convergence flag (uncapped relax of the
@@ -72,13 +96,26 @@ MAX_TILE_COLS = 8
 RESIDENT_ROWS = 4096
 RESIDENT_SLOTS = 4
 RESIDENT_MIN_SWEEPS = 2
+# The cluster kernel's limits: a cluster of at most CLUSTER_MAX_BLOCKS
+# blocks (a power of two), each holding RESIDENT_ROWS rows of a tile of at
+# most CLUSTER_TILE_COLS columns (two such tiles, the distances and the
+# staged next roads, fill a block's shared memory at RESIDENT_ROWS rows).
+CLUSTER_MAX_BLOCKS = 16
+CLUSTER_TILE_COLS = 7
 
 _FNS = None
+# Clusters the card can hold at once, by (device, I, K, B): asked once per
+# shape (cudaOccupancyMaxActiveClusters).
+_CLUSTER_FIT: dict = {}
 
 
 def reset_launches() -> None:
-    global LAUNCHES, NEXT_ROAD_LAUNCHES
+    global LAUNCHES, RESIDENT_LAUNCHES, CLUSTER_LAUNCHES, GLOBAL_LAUNCHES
+    global NEXT_ROAD_LAUNCHES
     LAUNCHES = 0
+    RESIDENT_LAUNCHES = 0
+    CLUSTER_LAUNCHES = 0
+    GLOBAL_LAUNCHES = 0
     NEXT_ROAD_LAUNCHES = 0
 
 
@@ -252,6 +289,35 @@ def resident_plan(i_n: int, d_n: int, k_n: int,
     return max(1, min(MAX_TILE_COLS, d_n))
 
 
+def cluster_plan(i_n: int, d_n: int, k_n: int, max_iters: int | None,
+                 clusters: int | None = None) -> tuple[int, int] | None:
+    """The cluster kernel's ``(tile width, blocks a cluster)`` for
+    ``max_iters`` sweeps (None: uncapped) of an ``[i_n, d_n]`` table with
+    ``k_n`` out-slots a row, where :func:`resident_plan` declines only
+    because ``i_n`` passes :data:`RESIDENT_ROWS`: the smallest power of two
+    ``B`` with ``i_n / B <= RESIDENT_ROWS``, up to
+    :data:`CLUSTER_MAX_BLOCKS` (65,536 rows).  ``None`` where the shape is
+    the resident form's or the global form's (one sweep, more slots than
+    registers keep, more rows than 16 blocks hold).
+
+    The width is :data:`CLUSTER_TILE_COLS` (``d_n`` where that is
+    fewer); given ``clusters``, the clusters the card holds at once, it is
+    narrowed so that the tiles fill their last wave: a tile's time grows
+    with its width, and a wave takes as long as its slowest cluster."""
+    if (i_n <= RESIDENT_ROWS or i_n > RESIDENT_ROWS * CLUSTER_MAX_BLOCKS
+            or k_n > RESIDENT_SLOTS
+            or (max_iters is not None and max_iters < RESIDENT_MIN_SWEEPS)):
+        return None
+    blocks = 2
+    while i_n > RESIDENT_ROWS * blocks:
+        blocks *= 2
+    cols = max(1, min(CLUSTER_TILE_COLS, d_n))
+    if clusters:
+        waves = -(-(-(-d_n // cols)) // clusters)
+        cols = max(1, -(-d_n // (waves * clusters)))
+    return cols, blocks
+
+
 def _kernel_fns():
     global _FNS
     if _FNS is None:
@@ -268,7 +334,13 @@ def _kernel_fns():
         resident = lib.tarl_primal_resident
         resident.argtypes = [p] * 7 + [i] * 5 + [p]
         resident.restype = ctypes.c_int
-        _FNS = (sweeps, next_road, resident)
+        cluster = lib.tarl_primal_cluster
+        cluster.argtypes = [p] * 7 + [i] * 6 + [p]
+        cluster.restype = ctypes.c_int
+        cluster_fit = lib.tarl_primal_cluster_fit
+        cluster_fit.argtypes = [i] * 4 + [p]
+        cluster_fit.restype = ctypes.c_int
+        _FNS = (sweeps, next_road, resident, cluster, cluster_fit)
     return _FNS
 
 
@@ -307,32 +379,80 @@ def _launch_next_road(dist, road_cost, inter_out_road, inter_out_ok,
     return road
 
 
-def _launch_resident(road_cost, inter_out_road, inter_out_ok, road_to,
-                     dist0, iters, relax_only, cols):
+def _launch_tiled(form: str, road_cost, inter_out_road, inter_out_ok,
+                  road_to, dist0, relax_only, *shape):
+    """One launch of the ``"resident"`` or ``"cluster"`` kernel: ``shape``
+    is its ints after ``I, D, K``."""
     i_n, k_n = inter_out_road.shape
     dist = torch.empty_like(dist0)
     road = None if relax_only else torch.empty_like(dist0)
-    err = _kernel_fns()[2](
+    err = _kernel_fns()[{"resident": 2, "cluster": 3}[form]](
         dist0.data_ptr(), dist.data_ptr(),
         None if road is None else road.data_ptr(), road_cost.data_ptr(),
         inter_out_road.data_ptr(), inter_out_ok.data_ptr(),
-        road_to.data_ptr(), i_n, dist0.shape[1], k_n, cols, iters,
+        road_to.data_ptr(), i_n, dist0.shape[1], k_n, *shape,
         current_stream(dist0.device))
     if err != 0:
-        raise RuntimeError(f"primal_relax resident launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"primal_relax {form} launch failed: CUDA error "
+                           f"{err}")
     return dist, road
+
+
+def _cluster_fit(device, i_n: int, k_n: int, blocks: int) -> int:
+    """Clusters of ``blocks`` blocks of ``i_n`` rows the card holds at once
+    (at the widest tile: a narrower one needs less shared memory), asked
+    the first time the shape launches; raises where the card cannot
+    schedule one."""
+    key = (device.index, i_n, k_n, blocks)
+    if key not in _CLUSTER_FIT:
+        n = ctypes.c_int(0)
+        err = _kernel_fns()[4](i_n, k_n, CLUSTER_TILE_COLS, blocks,
+                               ctypes.addressof(n))
+        if err != 0:
+            raise RuntimeError(f"primal_relax cluster occupancy query "
+                               f"failed: CUDA error {err}")
+        if n.value < 1:
+            raise RuntimeError(
+                f"the card cannot schedule a cluster of {blocks} blocks of "
+                f"the relax kernel (I={i_n})")
+        _CLUSTER_FIT[key] = n.value
+    return _CLUSTER_FIT[key]
+
+
+def launch_cluster_plan(device, i_n: int, d_n: int, k_n: int,
+                        max_iters: int | None) -> tuple[int, int] | None:
+    """:func:`cluster_plan` told the card's capacity: the plan the wrapper
+    launches on ``device`` (raises where the card cannot schedule such a
+    cluster)."""
+    plan = cluster_plan(i_n, d_n, k_n, max_iters)
+    if plan is None:
+        return None
+    return cluster_plan(i_n, d_n, k_n, max_iters,
+                        _cluster_fit(device, i_n, k_n, plan[1]))
 
 
 def _launch_relax(road_cost, inter_out_road, inter_out_ok, road_to, dist0,
                   max_iters, relax_only):
+    """The relax in the form its shape takes: the resident kernel where
+    :func:`resident_plan` gives a width, else the cluster kernel where
+    :func:`cluster_plan` gives one, else the global form; each form's calls
+    counted apart."""
+    global RESIDENT_LAUNCHES, CLUSTER_LAUNCHES, GLOBAL_LAUNCHES
     i_n, k_n = inter_out_road.shape
     d_n = dist0.shape[1]
     iters = i_n - 1 if max_iters is None else int(max_iters)
+    args = (road_cost, inter_out_road, inter_out_ok, road_to, dist0,
+            relax_only)
     cols = resident_plan(i_n, d_n, k_n, max_iters)
     if cols is not None:
-        return _launch_resident(road_cost, inter_out_road, inter_out_ok,
-                                road_to, dist0, iters, relax_only, cols)
+        out = _launch_tiled("resident", *args, cols, iters)
+        RESIDENT_LAUNCHES += 1
+        return out
+    plan = launch_cluster_plan(dist0.device, i_n, d_n, k_n, max_iters)
+    if plan is not None:
+        out = _launch_tiled("cluster", *args, *plan, iters)
+        CLUSTER_LAUNCHES += 1
+        return out
     sweeps = _kernel_fns()[0]
     tables = (road_cost.data_ptr(), inter_out_road.data_ptr(),
               inter_out_ok.data_ptr(), road_to.data_ptr())
@@ -357,10 +477,10 @@ def _launch_relax(road_cost, inter_out_road, inter_out_ok, road_to, dist0,
             break
     if dist is dist0:
         dist = dist0.clone()
-    if relax_only:
-        return dist, None
-    return dist, _launch_next_road(dist, road_cost, inter_out_road,
-                                   inter_out_ok, road_to)
+    road = None if relax_only else _launch_next_road(
+        dist, road_cost, inter_out_road, inter_out_ok, road_to)
+    GLOBAL_LAUNCHES += 1
+    return dist, road
 
 
 def primal_relax_next_roads(
@@ -381,9 +501,10 @@ def primal_relax_next_roads(
     attaining the minimum of ``w + dist[succ]`` (float32 id, -1.0 where that
     minimum is not below BIG).  ``dist0`` must carry its anchor zeros.  The
     CUDA kernels for CUDA tensors (one call counted; one launch where
-    :func:`resident_plan` gives a tile width, else the global form's
-    launch per sweep and the next-road launch), the plain version for CPU
-    tensors; inputs the kernels would not take raise on either device."""
+    :func:`resident_plan` or :func:`cluster_plan` takes the shape, else
+    the global form's launch per sweep and the next-road launch), the
+    plain version for CPU tensors; inputs the kernels would not take raise
+    on either device."""
     global LAUNCHES
     _check_inputs(road_cost, inter_out_road, inter_out_ok, road_to, dist0)
     if dist0.device.type == "cuda":

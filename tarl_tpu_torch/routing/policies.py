@@ -43,7 +43,6 @@ from .bellman_ford import (
     BIG,
     marginal_road_costs,
     primal_all_pairs_dist,
-    primal_dest_dist,
     primal_next_roads,
     primal_relax_next_roads,
     road_costs,
@@ -355,14 +354,21 @@ def make_primal_dest_parts(dest_inters,
                 buf[n + r:2 * n + r].view(i_n, d_n),
                 _unpack_k(buf[2 * n + r:], r, dp))
 
+    def anchored(dist0, dest_list):
+        """``dist0`` with 0 at each column's own destination row."""
+        anchor = (torch.arange(dist0.shape[0], device=dist0.device)[:, None]
+                  == dest_list.long()[None, :])
+        return torch.where(anchor, 0.0, dist0)
+
     def table_init(network):
+        # The uncapped relax and its next roads in one call (one launch
+        # where a tiled form takes the shape).
         dest_list, _ = tables(network)
-        dist = primal_dest_dist(
+        cold = torch.full((network.num_intersections, d_n), BIG,
+                          device=network.device)
+        dist, road = primal_relax_next_roads(
             network.free_flow, network.inter_out_road, network.inter_out_ok,
-            network.road_to, dest_list, max_iters=None)
-        road = primal_next_roads(dist, network.free_flow,
-                                 network.inter_out_road,
-                                 network.inter_out_ok, network.road_to)
+            network.road_to, anchored(cold, dest_list), None)
         return pack_z(dist, network.free_flow, road, network)
 
     road_cost_fn = _road_cost_fn(routing)
@@ -372,13 +378,9 @@ def make_primal_dest_parts(dest_inters,
         cost = road_cost_fn(state.road, network, physics)
         prev_dist, prev_cost, _, _ = unpack_z(state.next_hop, network)
         dist0 = _warm_start(prev_dist, prev_cost, cost)
-        anchor = (torch.arange(network.num_intersections,
-                               device=dist0.device)[:, None]
-                  == dest_list.long()[None, :])
         dist, road = relax(cost, network.inter_out_road,
                            network.inter_out_ok, network.road_to,
-                           torch.where(anchor, 0.0, dist0),
-                           routing.max_bf_iters)
+                           anchored(dist0, dest_list), routing.max_bf_iters)
         return pack_z(dist, cost, road, network)
 
     def lookup_fn(state, network, buf):

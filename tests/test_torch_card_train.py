@@ -16,6 +16,10 @@ Marked ``cuda``; skips where no card is.
   rewards, dones and values bitwise equal, log-probs within rtol 1e-5,
   atol 1e-5; parameters within twice the learning rate times the updates
   (Adam's reach: ``chip_smoke.py`` phase 21 states why).
+* Three chained ``Adam`` updates of a seeded parameter tree on the card
+  and on the CPU, bitwise, with and without the global-norm clip (its
+  norm well clear of the limit, so the card's sum order cannot flip it):
+  the bias corrections are divided by as optax divides, on both devices.
 """
 import os
 
@@ -30,7 +34,7 @@ from tarl_tpu_torch.io.matsim import load_network, load_population
 from tarl_tpu_torch.io.scenarios import ensure_scenario
 from tarl_tpu_torch.models.mpnn import MPNNPolicyNet, MPNNValueNetSimple
 from tarl_tpu_torch.ops import segment as seg
-from tarl_tpu_torch.rl.ppo import PPO
+from tarl_tpu_torch.rl.ppo import PPO, Adam
 from tarl_tpu_torch.routing.policies import random_choice
 
 
@@ -127,3 +131,35 @@ def test_training_iteration_kernels_against_plain(card, tmp_path):
     d = torch.cat([(a[q][n] - b[q][n]).abs().reshape(-1) for q in a
                    for n in a[q]])
     assert float(d.max()) <= 2 * lr * updates
+
+
+@pytest.mark.cuda
+def test_adam_update_on_the_card_equals_the_cpu(card):
+    g = np.random.default_rng(23)
+    shapes = {"policy": {"fc.weight": (64, 19), "fc.bias": (64,)},
+              "value": {"out.weight": (1, 64), "out.bias": (1,)}}
+
+    def tree(scale):
+        return {part: {k: torch.as_tensor(
+            (g.normal(size=shape) * scale).astype(np.float32))
+            for k, shape in sub.items()} for part, sub in shapes.items()}
+
+    params, grads = tree(0.3), [tree(1e-2) for _ in range(3)]
+    for clip in (None, 1e3):
+        opt = Adam(RLConfig(learning_rate=1e-3, max_grad_norm=clip))
+        out = {}
+        for dev in ("cpu", card):
+            def to(t, dev=dev):
+                return {p: {k: v.to(dev) for k, v in sub.items()}
+                        for p, sub in t.items()}
+
+            p, state = to(params), opt.init(to(params))
+            for gr in grads:
+                p, state = opt.update(to(gr), state, p)
+            out[str(dev)] = (p, state.mu, state.nu)
+        for a, b in zip(out["cpu"], out[str(card)]):
+            for part, sub in a.items():
+                for k, v in sub.items():
+                    assert torch.equal(v.view(torch.int32),
+                                       b[part][k].cpu().view(torch.int32)), \
+                        (clip, part, k)

@@ -20,6 +20,12 @@
   bitwise at 1, 3 and 8 sweeps and uncapped (the idempotence argument on
   real inputs).  The resident kernel and the global form against the
   plain version on a card: ``tests/test_torch_card_k2_k11.py``.
+* The cluster kernel's plan past 4,096 rows (blocks a cluster, the
+  global form past 65,536 rows and at one sweep, the tile narrowed to the
+  card's capacity); the model of the per-tile early exit above is its
+  function too (a tile holds every row in either form).  The cluster
+  kernel against the plain version on a card:
+  ``tests/test_torch_card_k3_k5.py``.
 
 Inputs come from the scenario files and numpy seeds; each side gets the
 same arrays.
@@ -405,3 +411,40 @@ def test_tiled_early_exit_against_pallas(grids, grid, cols, kernel, iters,
     elif iters == 8:
         assert early[0]
 
+
+@pytest.mark.parametrize("i_n,d_n,k_n,iters,resident,cluster", [
+    (4096, 256, 4, 8, 8, None),         # the resident form's shape
+    (4097, 256, 4, 8, None, (7, 2)),    # one row past it: two blocks
+    (16384, 256, 4, 8, None, (7, 4)),   # the million-agent row's refresh
+    (16384, 257, 4, None, None, (7, 4)),  # its uncapped table init
+    (16384, 3, 4, 8, None, (3, 4)),     # D below the tile width
+    (65536, 16, 4, 8, None, (7, 16)),   # Grid256x256: 16 blocks
+    (65537, 16, 4, 8, None, None),      # past 16 blocks: the global form
+    (16384, 256, 4, 1, None, None),     # one sweep (K6): the global form
+    (16384, 256, 4, 0, None, None),
+    (16384, 256, 5, 8, None, None),     # more slots than registers keep
+])
+def test_cluster_plan(i_n, d_n, k_n, iters, resident, cluster):
+    assert pbf.resident_plan(i_n, d_n, k_n, iters) == resident
+    assert pbf.cluster_plan(i_n, d_n, k_n, iters) == cluster
+    if cluster is None:
+        return
+    cols, blocks = cluster
+    rows = -(-i_n // blocks)
+    assert rows <= pbf.RESIDENT_ROWS < 2 * rows      # the smallest power
+    assert blocks & (blocks - 1) == 0 and 2 <= blocks <= 16
+
+
+@pytest.mark.parametrize("d_n,clusters,cols", [
+    (256, 30, 5),     # 52 tiles fill two waves of 30 (37 of 7 would not)
+    (512, 30, 6),     # 86 tiles in three waves
+    (224, 32, 7),     # 32 tiles of 7 fill one wave of 32
+    (13, 30, 1),      # fewer columns than clusters: one column a tile
+    (16384, 30, 7),   # many waves: the full width
+])
+def test_cluster_plan_fills_the_last_wave(d_n, clusters, cols):
+    got, blocks = pbf.cluster_plan(16384, d_n, 4, 8, clusters)
+    assert (got, blocks) == (cols, 4)
+    waves = -(-(-(-d_n // pbf.CLUSTER_TILE_COLS)) // clusters)
+    assert -(-d_n // got) <= waves * clusters    # no wave added
+    assert got == 1 or -(-d_n // (got - 1)) > waves * clusters  # narrowest

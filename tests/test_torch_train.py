@@ -33,6 +33,14 @@
   loop written out over the port's own loss, gradients and Adam (each
   held against the reference above) with ``jax.random.permutation``'s
   minibatch order.
+* ``PPO.init``'s law (fault F1): 64 draws of the reference's ``init``
+  (JAX keys) and 64 of the port's (generator seeds) at Grid4x4, both
+  policy modes and both critics; per layer, pooled over the draws, each
+  kernel's mean and variance within 5 standard errors of the
+  ``lecun_normal`` law's (0 and 1/fan_in) and of the other package's,
+  every value inside the +-2 standard deviations of the truncation and
+  some within 5% of it (where 1,000 values or more are drawn), biases
+  exactly 0 and the embeddings N(0, 1) within 5 standard errors.
 * ``ppo_train`` on the port alone: three iterations with checkpoints,
   evaluations, ``track_best`` and an EMA; a run resumed from ``ckpt_2``
   ends bitwise where the uninterrupted run ends; ``best.json`` and
@@ -481,3 +489,54 @@ def test_latest_checkpoint_sorts_numerically(tmp_path):
     for name in ("ckpt_9", "ckpt_10", "ckpt_2", "best", "ckpt_11.tmp7"):
         (tmp_path / name).write_text("")
     assert latest_checkpoint(str(tmp_path)) == str(tmp_path / "ckpt_10")
+
+
+def _moments_ok(x: np.ndarray, mean: float, var: float, what: str):
+    """The pooled sample's mean and variance within 5 standard errors of
+    ``mean`` and ``var`` (the variance's error bound takes a kurtosis of
+    at most 3, the normal's; the truncated normal's is 2.54)."""
+    n = x.size
+    assert abs(x.mean() - mean) <= 5.0 * np.sqrt(var / n), what
+    assert abs(x.var() / var - 1.0) <= 5.0 * np.sqrt(2.0 / n), what
+
+
+@pytest.mark.parametrize("mode,graph", [("edge_mlp", False),
+                                        ("embedding", True)])
+def test_init_draws_the_references_law(scenarios, mode, graph):
+    scen = scenarios["Grid4x4"]
+    ref, port = _both_ppo(scen, mode=mode, graph=graph)
+    st, pst = _states(scen)
+    init = jax.jit(lambda k: ref.init(st, k).params)
+    draws = {"ref": [_port_tree(init(jax.random.PRNGKey(s)))
+                     for s in range(64)],
+             "port": [port.init(pst, p_rng.prng_key(0),
+                                torch.Generator().manual_seed(s)).params
+                      for s in range(64)]}
+    names = {part: sorted(sub) for part, sub in draws["ref"][0].items()}
+    for part, keys in names.items():
+        assert keys == sorted(draws["port"][0][part])
+        for k in keys:
+            pooled = {side: np.stack([d[part][k].numpy() for d in ds])
+                      for side, ds in draws.items()}
+            what = f"{mode} {part} {k}"
+            if k.endswith(".bias"):
+                for side, x in pooled.items():
+                    assert not x.any(), f"{what}: {side} bias not zero"
+            elif k.startswith("nodes_embedding"):
+                for x in pooled.values():
+                    _moments_ok(x, 0.0, 1.0, what)
+                    assert np.abs(x).max() > 2.5, what   # not truncated
+            else:
+                fan_in = pooled["port"].shape[-1]
+                var = 1.0 / fan_in
+                bound = 2.0 * np.sqrt(var) / 0.87962566103423978
+                for x in pooled.values():
+                    _moments_ok(x, 0.0, var, what)
+                    assert np.abs(x).max() <= bound * (1 + 1e-6), what
+                    if x.size >= 1000:
+                        assert np.abs(x).max() >= 0.95 * bound, what
+                a, b = pooled["ref"], pooled["port"]
+                se = np.sqrt(2.0 * var / a.size)
+                assert abs(a.mean() - b.mean()) <= 5.0 * se, what
+                assert abs(a.var() / b.var() - 1.0) <= 5.0 * np.sqrt(
+                    4.0 / a.size), what
