@@ -57,8 +57,8 @@ with its plain version run outside those windows.
    intersections are relabelled by a seeded permutation (2 blocks; most
    successors lie in the other block), with tails of 13 and 3 columns in
    the width the card's capacity gives and at the full width of 7
-   (masked tails).  The global form forced past 4,096 rows (several
-   sweeps and its next-road launch): Grid128x128 with 512 columns in
+   (masked tails).  The global form (one persistent launch, K6's
+   kernel) forced past 4,096 rows: Grid128x128 with 512 columns in
    those three modes, Grid256x256 in K2 mode.  The next-road kernel
    (``primal_next_roads``) against the plain pass on phase 5's initial
    table, which it made there.  Times each TPU kernel's mode, plain, kernel,
@@ -240,12 +240,46 @@ with its plain version run outside those windows.
    Q=256, W=64, both escalations, random choice, 1,020 ticks timed the
    same way; asserts a zero overflow monitor and conservation, prints
    the backlog's MB.
-23. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
+23. The radial metro (``scripts/bench_radial.py`` at full width, the
+   reference's non-grid row): 64 rings of 128 spokes around a centre of 8
+   spurs (32,528 roads, 8,193 intersections of K = 8 out-slots) and
+   200,000 commuters departing 06:00-08:00, every trip to the CBD (the
+   centre and the first ring), generated and parsed by the port (seconds,
+   rows by out-degree, the successors' spread and the global kernel's
+   compact slots a row printed).  Its bounded row: zoned tables over
+   ``unique(_dest_inter(net, agents.dest))`` (D printed), ``RoutingConfig(
+   refresh_rate=10, max_bf_iters=8, backend="primal")``, windowed insert
+   W=1,024, withdraw depth 2, no escalation, 1,020 ticks of
+   ``run_episode_periodic`` timed from tick 20.  Both plans decline 8
+   slots a row, so every relax runs the global form: asserts
+   conservation, arrivals, a finite table with a road for every pair, 102
+   relax calls, every one and the uncapped table init in the global form,
+   one launch each (the profiler's device activities per refresh call),
+   the table init with no host read, no resident or cluster launch, and
+   K1 once a tick; prints agent-steps/s, ms/tick, ms per refresh, the
+   relax call's ms in it (CUDA events) and host reads per tick.  The row
+   in context: its first 200 ticks again with the plain relax, the state
+   at tick 200 bitwise the kernel run's, no relax kernel launched.  The
+   global form against plain, bitwise on distances and next roads: on the
+   refresh inputs captured at every 20th refresh (8 sweeps with and
+   without next roads, 1 sweep, uncapped), from the cold start (uncapped,
+   with no host read), the table init's table and the next-road kernel on
+   it, and a table whose padding is scattered (rows' slots in a seeded
+   order, padding on three seeded roads, -BIG in the warm start so that
+   every padding term counts).  Times the refresh's relax plain, kernel,
+   kernel, plain, with its device time, beside its bound, and the
+   uncapped table init.  Its exact row: both escalations, 1,020 ticks
+   timed the same way; asserts conservation, the launches and exactness:
+   the state at tick 1,020 bitwise that of a whole-population insert
+   (with escalation the windowed insert's monitor counts its extra
+   passes, printed).
+24. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
    ``segment_sum``, ``segment_max``, ``segment_argmax``, ``fused_core``,
    ``fused_shard_winner``, and the K3-K6 and K8a/K8b rows covered by
    ``primal_relax`` and ``fused_winner``; K3's and K5's rows the cluster
    form at the million row's shape with their launches there, K6's the
-   global-form calls of phases 5 and 22 (0); ``device_ms`` beside ``ms`` for
+   global form at the radial row's shape with its launches there (103)
+   and at I = D = 4,096 for one sweep; ``device_ms`` beside ``ms`` for
    every kernel but K8a/K8b; K11's row times its action entry, the bare
    argmax beside it; K10's row its log-prob entry, the bare max beside
    it; K9's launches are 0: no main path runs the bare sum;
@@ -262,6 +296,7 @@ in the checkout.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -320,6 +355,11 @@ MILLION_AGENTS = 1_000_000
 MILLION_ZONES = 256
 MILLION_BACKLOG = 256         # exact_random's per-SRC queue depth
 MILLION_EXACT_WINDOW = 64
+# scripts/bench_radial.py's row (phase 23).
+RADIAL_RINGS = 64
+RADIAL_SPOKES = 128
+RADIAL_AGENTS = 200_000
+RADIAL_EXACT_TICKS = 1020
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
@@ -484,7 +524,7 @@ def sp_row_config():
 def sp_row(net, agents, ticks=SP_TICKS, warmup=SP_WARMUP_TICKS,
            context=SP_CONTEXT_TICKS, capture_every=SP_CAPTURE_EVERY,
            config=None, dest_inters=None):
-    """Phase 5 (and phase 22's sp row): the shortest-path row through
+    """Phase 5 (and phases 22 and 23's sp rows): the shortest-path row through
     ``make_policy`` and ``run_episode_periodic``, at ``config``'s
     ``(RoutingConfig, SimConfig)`` (default :func:`sp_row_config`), with
     zoned tables over ``dest_inters`` where given.  Launch counts and host
@@ -528,14 +568,10 @@ def sp_row(net, agents, ticks=SP_TICKS, warmup=SP_WARMUP_TICKS,
     init_counts = {}
 
     def counted_table_init(network):
-        relax, cluster, next_road, reads = (
-            bf.LAUNCHES, bf.CLUSTER_LAUNCHES, bf.NEXT_ROAD_LAUNCHES,
-            sync.HOST_READS)
+        before = relax_counts()
         buf = table_init(network)
-        init_counts.update(relax=bf.LAUNCHES - relax,
-                           cluster=bf.CLUSTER_LAUNCHES - cluster,
-                           next_road=bf.NEXT_ROAD_LAUNCHES - next_road,
-                           host_reads=sync.HOST_READS - reads)
+        init_counts.update({k: v - before[k]
+                            for k, v in relax_counts().items()})
         return buf
 
     def timed_refresh(state, network):
@@ -601,15 +637,25 @@ def sp_row(net, agents, ticks=SP_TICKS, warmup=SP_WARMUP_TICKS,
         "relax_ms": (sum(relax_ms) / len(relax_ms)
                      if relax_ms else float("nan")),
         "table_init": init_counts,
-        "forms": {"resident": bf.RESIDENT_LAUNCHES,
-                  "cluster": bf.CLUSTER_LAUNCHES,
-                  "global": bf.GLOBAL_LAUNCHES},
+        "forms": {k: v for k, v in relax_counts().items()
+                  if k in ("resident", "cluster", "global")},
         "relax_launches": bf.LAUNCHES,
         "init_next_road_launches": init_next_road,
         "next_road_launches": bf.NEXT_ROAD_LAUNCHES,
         "winner_launches": fused_winner.LAUNCHES,
         "routing": routing, "sim": sim,
     }
+
+
+def relax_counts() -> dict:
+    """The relax's counts: its calls, each form's launches, the next-road
+    kernel's and the host reads."""
+    from tarl_tpu_torch.core import sync
+    from tarl_tpu_torch.routing import bellman_ford as bf
+
+    return {"relax": bf.LAUNCHES, "resident": bf.RESIDENT_LAUNCHES,
+            "cluster": bf.CLUSTER_LAUNCHES, "global": bf.GLOBAL_LAUNCHES,
+            "next_road": bf.NEXT_ROAD_LAUNCHES, "host_reads": sync.HOST_READS}
 
 
 def check_sp_row(res, net, ticks=SP_TICKS) -> None:
@@ -759,8 +805,8 @@ def check_million_sp(res, net, agents, d_n: int, ticks: int) -> None:
            "winner_launches": res["winner_launches"]}
     want = {"refreshes": refreshes, "refresh relax calls": refreshes,
             "forms": {"resident": 0, "cluster": refreshes + 1, "global": 0},
-            "table init": {"relax": 1, "cluster": 1, "next_road": 0,
-                           "host_reads": 0},
+            "table init": {"relax": 1, "resident": 0, "cluster": 1,
+                           "global": 0, "next_road": 0, "host_reads": 0},
             "winner_launches": ticks}
     if got != want:
         raise AssertionError(f"million sp row: {got}, expected {want}")
@@ -967,6 +1013,355 @@ def million_phase(dev, card: str, grid=MILLION_GRID,
         f"backlog {backlog_mb:.1f} MB, launches {ex['launches']} ({card})")
     return {"sp": sp, "errs": errs, "timed": timed, "i_n": i_n,
             "d_n": d_n}
+
+
+# --- the radial metro (phase 23) ---------------------------------------------
+
+def radial_scenario_on(device, rings=RADIAL_RINGS, spokes=RADIAL_SPOKES,
+                       num_agents=RADIAL_AGENTS):
+    """``scripts/bench_radial.py``'s scenario through the port: ``rings``
+    rings of ``spokes`` intersections around a centre of 8 spurs and
+    ``num_agents`` commuters departing 06:00-08:00, every trip ending in
+    the CBD (``cbd_fraction=1.0``: the centre and the first ring),
+    generated under ``build/scenarios`` and parsed by ``io.matsim``; the
+    population sorted by departure, and the zone list
+    ``unique(_dest_inter(net, agents.dest))``.  Returns ``(net, agents,
+    dest_inters, seconds)``."""
+    import numpy as np
+
+    from tarl_tpu_torch.io.matsim import load_network, load_population
+    from tarl_tpu_torch.io.scenarios import radial_scenario
+    from tarl_tpu_torch.routing.policies import _dest_inter
+    from tarl_tpu_torch.state import sort_agents_by_departure
+
+    cache = os.path.join(ROOT, "build", "scenarios")
+    name = f"RadialBench{rings}x{spokes}_{num_agents}"
+    base = os.path.join(cache, name)
+    seconds = {"generate": 0.0}
+    if not os.path.exists(os.path.join(base, "network.xml")):
+        t0 = time.perf_counter()
+        radial_scenario(cache, name, rings=rings, spokes=spokes,
+                        num_agents=num_agents, cbd_fraction=1.0,
+                        peak_start=6 * 3600, peak_spread=2 * 3600)
+        seconds["generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = load_network(os.path.join(base, "network"), device=device)
+    seconds["network"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    agents, _ = load_population(os.path.join(base, "population"),
+                                os.path.join(base, "network"), device=device)
+    agents = sort_agents_by_departure(agents)
+    seconds["population"] = time.perf_counter() - t0
+    dest = np.unique(_dest_inter(net, agents.dest).cpu().numpy())
+    return net, agents, dest, seconds
+
+
+def radial_configs():
+    """``scripts/bench_radial.py``'s ``(RoutingConfig, bounded SimConfig,
+    exact SimConfig)``: windowed insert W=1,024, withdraw depth 2, without
+    and with both escalations."""
+    from tarl_tpu_torch.config import RoutingConfig, SimConfig
+
+    routing = RoutingConfig(refresh_rate=10, max_bf_iters=8,
+                            backend="primal")
+    base = dict(timestep=1, start_time=6 * 3600,
+                record_road_optimality=False, insert_window=1024,
+                withdraw_depth=2, sorted_population=True)
+    bounded = SimConfig(**base, insert_escalate=False,
+                        withdraw_escalate=False)
+    exact = SimConfig(**base, insert_escalate=True, withdraw_escalate=True)
+    return routing, bounded, exact
+
+
+def check_radial_sp(res, net, agents, d_n: int, ticks: int) -> None:
+    """Phase 23's asserts on its bounded row: conservation, arrivals, a
+    finite table with a road for every pair (the metro is strongly
+    connected), one relax call a refresh, every one and the uncapped table
+    init in the global form (one launch each), the table init with no host
+    read, no resident or cluster launch, and K1 once a tick."""
+    import torch
+
+    from tarl_tpu_torch.routing.bellman_ford import BIG
+
+    final = res["final"]
+    on_road = int(final.road.count.sum())
+    on_way = int(final.agents.on_way.sum())
+    done = int(final.agents.done.sum())
+    if on_road != on_way or done + on_way > agents.num_agents - 1:
+        raise AssertionError(f"radial row conservation: {on_road} on roads, "
+                             f"{on_way} on the way, {done} done of "
+                             f"{agents.num_agents - 1}")
+    if done <= 0:
+        raise AssertionError("radial row: no agent arrived")
+    dist, road = zoned_table(final.next_hop, net.num_intersections, d_n,
+                             net.num_roads)
+    if not (bool(torch.isfinite(dist).all()) and float(dist.max()) < BIG
+            and bool((road >= 0).all())):
+        raise AssertionError("radial row: routing table not finite, or a "
+                             "pair without a next road")
+    refreshes = ticks // res["routing"].refresh_rate
+    got = {"refreshes": res["refreshes"],
+           "refresh relax calls": res["relax_launches"]
+           - res["table_init"]["relax"],
+           "forms": res["forms"], "table init": res["table_init"],
+           "winner_launches": res["winner_launches"]}
+    want = {"refreshes": refreshes, "refresh relax calls": refreshes,
+            "forms": {"resident": 0, "cluster": 0, "global": refreshes + 1},
+            "table init": {"relax": 1, "resident": 0, "cluster": 0,
+                           "global": 1, "next_road": 0, "host_reads": 0},
+            "winner_launches": ticks}
+    if got != want:
+        raise AssertionError(f"radial row: {got}, expected {want}")
+
+
+def scattered_slots(net, seed: int):
+    """The network's slot tables with every row's slots in a seeded order
+    and each padding slot on one of three seeded roads: padding neither on
+    road 0 nor last, repeating within some rows and not within others.
+    ``(inter_out_road, inter_out_ok, road_to)``."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(seed)
+    i_n, k_n = net.inter_out_road.shape
+    dev = net.device
+    order = torch.as_tensor(np.argsort(g.random((i_n, k_n)), axis=1),
+                            device=dev)
+    pads = g.choice(net.num_roads, 3, replace=False)
+    pad = torch.as_tensor(pads[g.integers(0, 3, (i_n, k_n))],
+                          dtype=torch.int32, device=dev)
+    ok = net.inter_out_ok.gather(1, order).contiguous()
+    out_road = torch.where(ok, net.inter_out_road.gather(1, order),
+                           pad).contiguous()
+    return out_road, ok, net.road_to
+
+
+def radial_phase(dev, card: str, rings=RADIAL_RINGS, spokes=RADIAL_SPOKES,
+                 num_agents=RADIAL_AGENTS, ticks=SP_TICKS,
+                 warmup=SP_WARMUP_TICKS, context=SP_CONTEXT_TICKS,
+                 exact_ticks=RADIAL_EXACT_TICKS,
+                 timed_calls=RELAX_TIMED_CALLS) -> dict:
+    """Phase 23, the radial metro (``scripts/bench_radial.py``) on the
+    port: its scenario, its bounded row (zoned tables of 8 out-slots a
+    row, the relax's global form) and the row in context with the plain
+    relax, the global form against plain on the row's own refresh inputs,
+    its cold start and a table of scattered padding, the relax timed at
+    the row's shape, and its exact row.  Returns the numbers the kernels
+    line reads."""
+    import numpy as np
+    import torch
+
+    from tarl_tpu_torch.core import sync
+    from tarl_tpu_torch.core.step import init_sim_state, run_episode_periodic
+    from tarl_tpu_torch.routing import bellman_ford as bf
+    from tarl_tpu_torch.routing.bellman_ford import BIG
+    from tarl_tpu_torch.simulator import make_policy
+
+    on_card = dev.type == "cuda"
+
+    def sync_dev():
+        if on_card:
+            torch.cuda.synchronize()
+
+    net, agents, dest, secs = radial_scenario_on(dev, rings, spokes,
+                                                 num_agents)
+    i_n, k_n = net.inter_out_road.shape
+    d_n = len(dest)
+    order = successor_order(net)
+    degree = torch.bincount(net.inter_out_ok.sum(dim=1)).tolist()
+    kept = bf.compact_slots(net.inter_out_road, net.inter_out_ok).sum(dim=1)
+    log(f"radial row {rings}x{spokes}: {net.num_roads} roads, {i_n} "
+        f"intersections, K={k_n} out-slots (rows by out-degree "
+        f"{ {d: n for d, n in enumerate(degree) if n} }), "
+        f"{agents.num_agents} agent rows, D={d_n} destination columns; "
+        f"generated in {secs['generate']:.1f} s, network parsed in "
+        f"{secs['network']:.1f} s, population parsed and sorted in "
+        f"{secs['population']:.1f} s; successors up to {order['bandwidth']} "
+        f"rows away (cyclic {order['cyclic']}, {order['offsets']} distinct "
+        f"offsets); the global kernel's compact slot lists "
+        f"{float(kept.float().mean()):.3f} slots a row (of {k_n}); "
+        f"resident_plan {bf.resident_plan(i_n, d_n, k_n, 8)}, cluster_plan "
+        f"{bf.cluster_plan(i_n, d_n, k_n, 8)} at 8 sweeps")
+    routing, sim_b, sim_ex = radial_configs()
+    sp = sp_row(net, agents, ticks, warmup, context,
+                config=(routing, sim_b), dest_inters=dest)
+    check_radial_sp(sp, net, agents, d_n, ticks)
+    final = sp["final"]
+    log(f"radial bounded row: {sp['rate']:.1f} agent-steps/s "
+        f"({sp['measured']} ticks in {sp['wall']:.2f} s, "
+        f"{sp['wall'] / sp['measured'] * 1e3:.3f} ms/tick), "
+        f"{sp['refresh_ms']:.3f} ms per refresh and {sp['relax_ms']:.4f} ms "
+        f"of it in the relax call (CUDA events, {sp['refreshes']} "
+        f"refreshes), done {int(final.agents.done.sum())}, on the way "
+        f"{int(final.agents.on_way.sum())}, host reads per tick "
+        f"{sp['reads_per_tick']:.3f}, saturation monitor sum "
+        f"{sp['saturated']}; relax calls {sp['forms']} (the uncapped table "
+        f"init {sp['table_init']}, in {sp['init_s']:.2f} s with the "
+        f"initial state), fused_winner calls {sp['winner_launches']} "
+        f"({card})")
+
+    plain_policy = make_policy("dijkstra", routing, network=net,
+                               dest_inters=dest,
+                               relax=bf.primal_relax_next_roads_plain)
+    before = relax_counts()
+    plain, _ = run_episode_periodic(sp["state0"], net, plain_policy, warmup,
+                                    sim=sim_b)
+    sync_dev()
+    t0 = time.perf_counter()
+    plain, _ = run_episode_periodic(plain, net, plain_policy,
+                                    context - warmup, sim=sim_b)
+    sync_dev()
+    plain_wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in relax_counts().items()
+                if k != "host_reads"}
+    if any(launched.values()):
+        raise AssertionError(f"the plain radial row launched a relax "
+                             f"kernel: {launched}")
+    mismatched = _diff_paths(_state_bits(sp["at_context"]),
+                             _state_bits(plain))
+    if mismatched:
+        raise AssertionError(f"kernel and plain radial rows differ at tick "
+                             f"{context}: {mismatched}")
+    span = context - warmup
+    log(f"radial row in context: kernel and plain-relax states equal "
+        f"bitwise at tick {context}, packed table included; ticks "
+        f"{warmup}-{context}: kernel "
+        f"{sp['context_wall'] / span * 1e3:.3f} ms/tick, plain relax "
+        f"{plain_wall / span * 1e3:.3f} ms/tick ({card})")
+
+    tables = relax_tables(net)
+    iters = routing.max_bf_iters
+    cases = [(f"radial refresh {j * SP_CAPTURE_EVERY}", c, tables, d)
+             for j, (c, d) in enumerate(sp["captured"])]
+    anchor = (torch.arange(i_n, device=dev)[:, None]
+              == torch.as_tensor(dest, device=dev).long()[None, :])
+    cold = torch.where(anchor, 0.0, BIG).contiguous()
+    errs = {"refresh inputs": compare_relax(
+        cases, [(iters, False), (iters, True), (1, True), (None, False)])}
+    reads = sync.HOST_READS
+    errs["cold start, uncapped"] = compare_relax(
+        [("radial cold start", net.free_flow, tables, cold)],
+        [(None, True), (None, False)])
+    plain_reads = sync.HOST_READS - reads
+    # The plain relax reads its convergence test every sweep; the kernel
+    # must read nothing.
+    reads = sync.HOST_READS
+    bf.primal_relax_next_roads(net.free_flow, *tables, cold, None)
+    sync_dev()
+    if on_card and sync.HOST_READS != reads:
+        raise AssertionError(f"the uncapped global form read the host "
+                             f"{sync.HOST_READS - reads} times")
+    want = bf.primal_relax_next_roads_plain(net.free_flow, *tables, cold,
+                                            None)
+    init = zoned_table(sp["state0"].next_hop, i_n, d_n, net.num_roads)
+    errs["table init"] = assert_bitwise(
+        "radial table init", zip(("dist", "next road"), init, want))
+    errs["next-road kernel"] = compare_next_roads(
+        "radial uncapped table", want[0], net.free_flow, tables)
+    # A table with its padding scattered, and entries of -BIG in the warm
+    # start, so that every padding term counts (BIG + -BIG = 0).
+    scattered = scattered_slots(net, 23)
+    keep = bf.compact_slots(*scattered[:2])
+    if not (bool((~keep).any()) and bool((keep & ~scattered[1]).any())):
+        raise AssertionError("the scattered table drops no padding slot, or "
+                             "keeps none")
+    _, c_mid, _, d_mid = cases[len(cases) // 2]
+    g = np.random.default_rng(23)
+    d_neg = torch.where(torch.as_tensor(g.random(tuple(d_mid.shape)) < 0.01,
+                                        device=dev), -BIG, d_mid).contiguous()
+    errs["scattered padding"] = compare_relax(
+        [("radial scattered padding", c_mid, scattered, d_neg)],
+        [(iters, False), (iters, True), (1, True), (None, False)])
+    log(f"primal_relax global form vs plain: bitwise equal on {len(cases)} "
+        f"captured radial refresh inputs (8 sweeps with and without next "
+        f"roads, 1 sweep, uncapped), its cold start (uncapped, with and "
+        f"without next roads; the plain version's convergence tests made "
+        f"{plain_reads} host reads, the kernel none) and a table of "
+        f"scattered padding ({int((~keep).sum())} of {keep.numel()} slots "
+        f"dropped, {int((keep & ~scattered[1]).sum())} padding slots kept); "
+        f"the table init's table (one global launch, no host read) equals "
+        f"the plain relax's, and primal_next_roads the plain pass's on it "
+        f"({card})")
+
+    timed = {}
+    if on_card:
+        args = (c_mid, *tables, d_mid, iters, False)
+        plain1, kern1, kern2, plain2 = time_pair(
+            bf.primal_relax_next_roads, bf.primal_relax_next_roads_plain,
+            args, timed_calls)
+        dev_ms, acts = device_time_per_call(bf.primal_relax_next_roads, args,
+                                            timed_calls)
+        if round(acts) != 1:
+            raise AssertionError(f"a radial refresh's relax call ran {acts} "
+                                 f"device activities, not one launch")
+        cold_args = (net.free_flow, *tables, cold, None, False)
+        cold_ms = time_per_call(bf.primal_relax_next_roads, cold_args,
+                                timed_calls)
+        cold_dev, cold_acts = device_time_per_call(
+            bf.primal_relax_next_roads, cold_args, timed_calls)
+        bound = relax_bound_ms(net, iters, d_n, False)
+        timed = {"ms": min(kern1, kern2), "plain_ms": min(plain1, plain2),
+                 "device_ms": dev_ms, "bound": bound,
+                 "init_ms": cold_ms, "init_device_ms": cold_dev}
+        log(f"primal_relax global form at the radial shape (I={i_n}, "
+            f"D={d_n}, K={k_n}, {iters} sweeps + next road, a captured "
+            f"refresh): kernel {kern1:.4f} / {kern2:.4f} ms per call, plain "
+            f"{plain1:.4f} / {plain2:.4f} (plain, kernel, kernel, plain; "
+            f"CUDA events), device {fmt_us(dev_ms)} in {acts:.1f} kernels "
+            f"(torch.profiler); bound {bound[0]:.4f} ms by {bound[1]}; the "
+            f"uncapped table init from the cold start {cold_ms:.4f} ms, "
+            f"device {fmt_us(cold_dev)} in {cold_acts:.1f} kernels; "
+            f"{bf._global_fit(dev)} blocks of the global kernel at once "
+            f"({card})")
+
+    policy = make_policy("dijkstra", routing, network=net, dest_inters=dest)
+
+    def periodic(state, n):
+        return run_episode_periodic(state, net, policy, n, sim=sim_ex)
+
+    before = relax_counts()
+    ex = headline_run(net, agents, sim_ex, policy, ticks=exact_ticks,
+                      warmup=warmup, capture_every=exact_ticks,
+                      runner=periodic)
+    ex_relax = {k: v - before[k] for k, v in relax_counts().items()
+                if k != "host_reads"}
+    if (ex["on_road"] != ex["on_way"]
+            or ex["done"] + ex["on_way"] > agents.num_agents - 1):
+        raise AssertionError(f"radial exact row conservation: "
+                             f"{ex['on_road']} on roads, {ex['on_way']} on "
+                             f"the way, {ex['done']} done")
+    if on_card and (ex["launches"]["K1"] != exact_ticks
+                    or ex_relax["global"] != exact_ticks // 10 + 1):
+        raise AssertionError(f"radial exact row: launches {ex['launches']}, "
+                             f"relax {ex_relax}")
+    # With escalation the windowed insert's monitor counts its extra
+    # passes, the escalation that makes the row exact; exact means equal
+    # to the whole-population insert, bitwise, which is held here.
+    sim_whole = dataclasses.replace(sim_ex, insert_window=None)
+    t0 = time.perf_counter()
+    whole = init_sim_state(net, agents, sim=sim_whole, policy=policy)
+    whole, _ = run_episode_periodic(whole, net, policy, exact_ticks,
+                                    sim=sim_whole)
+    sync_dev()
+    whole_wall = time.perf_counter() - t0
+    mismatched = [p for p in _diff_paths(_state_bits(ex["final"]),
+                                         _state_bits(whole))
+                  if p != "state.insert_ptr"]
+    if mismatched:
+        raise AssertionError(f"radial exact row and the whole-population "
+                             f"insert differ at tick {exact_ticks}: "
+                             f"{mismatched}")
+    log(f"radial exact row (both escalations), {exact_ticks} ticks: "
+        f"{ex['rate']:.1f} agent-steps/s ({ex['measured']} ticks in "
+        f"{ex['wall']:.2f} s, {ex['wall'] / ex['measured'] * 1e3:.3f} "
+        f"ms/tick), done {ex['done']}, on the way {ex['on_way']}, "
+        f"escalation passes (the monitor) {ex['overflow']}, host reads per "
+        f"tick {ex['syncs_per_tick']:.3f}, launches {ex['launches']}, relax "
+        f"{ex_relax}; its state at tick {exact_ticks} equals the "
+        f"whole-population insert's bitwise (that run "
+        f"{whole_wall / exact_ticks * 1e3:.3f} ms/tick) ({card})")
+    return {"sp": sp, "errs": errs, "timed": timed, "i_n": i_n, "d_n": d_n,
+            "k_n": k_n}
 
 
 def _relax_bits(out):
@@ -3430,7 +3825,13 @@ def main() -> int:
     mil_sp = mil["sp"]
     log(f"million row phase in {time.perf_counter() - t0:.1f} s")
 
-    # --- 23. results ------------------------------------------------------
+    # --- 23. the radial metro -----------------------------------------------
+    t0 = time.perf_counter()
+    rad = radial_phase(dev, card)
+    rad_sp, rad_t = rad["sp"], rad["timed"]
+    log(f"radial row phase in {time.perf_counter() - t0:.1f} s")
+
+    # --- 24. results ------------------------------------------------------
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     train_launches = train["launches"]
     kern_ms, plain_ms, kern_dev_ms, k1_bound = timings["Grid16x16"]
@@ -3615,19 +4016,29 @@ def main() -> int:
         "route": "cuda",
         "source": "tarl_tpu_torch/csrc/primal_relax.cu",
         "replaces": "tarl_tpu/routing/bellman_ford.py:408",
-        "covered_by": "primal_relax (the global form at one sweep)",
-        "launches": sp["forms"]["global"] + mil_sp["forms"]["global"],
-        "launches_from": "global-form relax calls of the sp row (phase 5) "
-                         "and the million row (phase 22): no main path "
-                         "runs a single sweep",
-        "max_abs_err": max(errs.values()),
-        "ms": relax_t["one sweep (K6)"][0],
-        "device_ms": relax_t["one sweep (K6)"][4],
-        "plain_ms": relax_t["one sweep (K6)"][1],
-        "bound_ms": relax_t["one sweep (K6)"][2],
-        "bound_by": relax_t["one sweep (K6)"][3],
+        "entry": "pr_global_kernel (tarl_primal_global): the relax's global "
+                 "form, every sweep, the early exit and the next roads in "
+                 "one cooperative launch",
+        "launches": rad_sp["forms"]["global"],
+        "launches_from": "the radial row's 102 refreshes and its uncapped "
+                         "table init (phase 23), one launch each; the sp "
+                         f"row {sp['forms']['global']} and the million row "
+                         f"{mil_sp['forms']['global']}",
+        "max_abs_err": max(max(errs.values()), *rad["errs"].values()),
+        "ms": rad_t["ms"],
+        "device_ms": rad_t["device_ms"],
+        "plain_ms": rad_t["plain_ms"],
+        "bound_ms": rad_t["bound"][0],
+        "bound_by": rad_t["bound"][1],
         "library_ms": None,
-        "mode": "one sweep (K6)",
+        "shape": f"I={rad['i_n']}, D={rad['d_n']}, K={rad['k_n']}, 8 sweeps "
+                 "+ next road, a captured radial refresh",
+        "init_ms": rad_t["init_ms"],
+        "init_device_ms": rad_t["init_device_ms"],
+        "ms_grid64_one_sweep": relax_t["one sweep (K6)"][0],
+        "device_ms_grid64_one_sweep": relax_t["one sweep (K6)"][4],
+        "plain_ms_grid64_one_sweep": relax_t["one sweep (K6)"][1],
+        "bound_ms_grid64_one_sweep": relax_t["one sweep (K6)"][2],
     }] + seg_entries + [{
         "name": "fused_core",
         "route": "cuda",

@@ -59,6 +59,16 @@ waits), and the device time of the kernels those calls launched, from
   runs them and, where the tree has ``cluster_plan``, the cluster form
   at the full tile width of 7 and the global form
   (``chip_smoke.forced_relax``).
+- The relax's global form (the TPU's K6), as the tree's
+  ``primal_relax_next_roads`` runs it: at the radial metro's shape
+  (``chip_smoke.radial_scenario_on``: I = 8,193 intersections of K = 8
+  out-slots, the population's destination columns) 8 sweeps with and
+  without the next roads from a refresh's warm start (random costs over
+  the free-flow table, ``policies._warm_start``), the uncapped table init
+  from the cold start, and from the cold start (where every sweep lowers
+  something) 1, 2, 4, 8 and 16 sweeps and 8 with the next roads, at the
+  population's D and at D rounded down to a multiple of 4; and one sweep
+  at I = D = 4,096 (Grid64x64) from a random warm start.
 - The headline tick (``chip_smoke.py`` phase 2's episode) with the
   default core, with the fused core (phase 13) and on
   ``chip_smoke.SHARD_BLOCKS`` road blocks (phase 17, from the default
@@ -215,6 +225,7 @@ def main(argv=None) -> int:
                lambda: seg.segment_log_probs(data, ids, n, layout))
     time_k2(record, chip_smoke, dev, out)
     time_k3_k5(record, chip_smoke, dev, out)
+    time_k6(record, chip_smoke, dev, out)
 
     net16, agents16 = chip_smoke.load_scenario("Grid16x16_50000", 16, 16,
                                                50000, dev)
@@ -326,6 +337,53 @@ def time_k3_k5(record, chip_smoke, dev, out) -> None:
     out["k3_k5_shape"] = (f"I={net.num_intersections}, D=256 and "
                           f"{chip_smoke.BIG_DESTS}, K={tabs[0].shape[1]}, "
                           f"8 sweeps, random warm start")
+
+
+def time_k6(record, chip_smoke, dev, out) -> None:
+    """The relax's global form (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from tarl_tpu_torch.routing import bellman_ford as bf
+    from tarl_tpu_torch.routing import policies
+
+    net, _, dest, _ = chip_smoke.radial_scenario_on(dev)
+    tabs = chip_smoke.relax_tables(net)
+    i_n, d_n = net.num_intersections, len(dest)
+    anchor = (torch.arange(i_n, device=dev)[:, None]
+              == torch.as_tensor(dest, device=dev).long()[None, :])
+    cold = torch.where(anchor, 0.0, bf.BIG).contiguous()
+    ff = net.free_flow
+    ff_dist = bf.primal_relax_next_roads_plain(ff, *tabs, cold, None,
+                                               True)[0]
+    g = np.random.default_rng(6)
+    cost = ff * torch.as_tensor(
+        g.uniform(1.0, 4.0, net.num_roads).astype(np.float32), device=dev)
+    warm = torch.where(anchor, 0.0, policies._warm_start(ff_dist, ff, cost))
+    record("k6_radial_refresh",
+           lambda: bf.primal_relax_next_roads(cost, *tabs, warm, 8))
+    record("k6_radial_refresh_relax_only",
+           lambda: bf.primal_relax_next_roads(cost, *tabs, warm, 8, True))
+    record("k6_radial_table_init",
+           lambda: bf.primal_relax_next_roads(ff, *tabs, cold, None))
+    # From the cold start every one of the first ~170 sweeps lowers
+    # something: the time per sweep and of the next roads, at the
+    # population's D and at a multiple of 4 columns.
+    for cols in (d_n, d_n // 4 * 4):
+        c0 = cold[:, :cols].contiguous()
+        for n in (1, 2, 4, 8, 16):
+            record(f"k6_radial_cold_d{cols}_{n}_sweeps",
+                   lambda n=n, c0=c0: bf.primal_relax_next_roads(
+                       ff, *tabs, c0, n, True))
+        record(f"k6_radial_cold_d{cols}_8_sweeps_next_roads",
+               lambda c0=c0: bf.primal_relax_next_roads(ff, *tabs, c0, 8))
+    net64 = chip_smoke.grid_network(64, 64, dev)
+    _, c64, tabs64, w64 = chip_smoke.grid64_relax_cases(net64, [],
+                                                        seeds=1)[0]
+    record("k6_grid64_one_sweep",
+           lambda: bf.primal_relax_next_roads(c64, *tabs64, w64, 1, True))
+    out["k6_shape"] = (f"radial I={i_n}, D={d_n}, K={tabs[0].shape[1]}; "
+                       "Grid64x64 I=D=4096, K=4")
 
 
 def time_k7_k12(record, chip_smoke, dev, out) -> None:

@@ -91,14 +91,28 @@
 // holds at once (cudaOccupancyMaxActiveClusters: 30 clusters of 4 on the
 // H100; it raises where the card holds none).
 //
-// pr_sweep_kernel and pr_next_road_kernel, the global form: one thread per
-// (i, d), d fastest, one launch per sweep through device memory, then a
-// launch of the next-road pass; when asked, the last sweep of a call sets
-// a device flag if any entry dropped (the wrapper's convergence test for
-// the uncapped relax).  It serves every other shape: a single sweep (K6),
-// more than 4 slots, more than 65,536 rows; pr_next_road_kernel alone also
-// serves primal_next_roads after the host's Dijkstra.
-//
+// pr_global_kernel, the global form (tarl_primal_global; replaces K6,
+// _sweep_kernel_body, the single dynamic-shift sweep): every other shape,
+// a single sweep, more than 4 slots, more than 65,536 rows; the radial
+// metro's zoned tables (K = 8) on the main path.  One cooperative launch a
+// call, whatever the sweeps: as many blocks as the card holds at once
+// (bellman_ford._global_fit asks cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// once per card), each thread taking the same (row, group of 4 columns)
+// items in every pass, float4 where the rows allow it.  A prologue compacts
+// each row's slots into (successor, weight) words and road ids, dropping a
+// padding slot whose road repeats an earlier padding slot of the row
+// (build_network pads with road 0, so a padded row keeps one padding term:
+// 4-5 slots in place of 8 on the radial); the slot words are loaded once
+// per item, not once per slot and column.  The sweeps ping-pong between
+// dist_out and a scratch table in device memory (L2: the radial's table
+// is 4.2 MB of the card's 50 MB) with a grid barrier of its own (a
+// counter and a generation word, release and acquire at gpu scope, no
+// relocatable device code) between sweeps; the early exit is a device
+// flag read after each barrier, so every block leaves at the same sweep and
+// the uncapped relax makes no host read.  The next-road pass runs in the
+// same launch.  pr_next_road_kernel, a thread per (i, d), serves
+// primal_next_roads after the host's Dijkstra.
+
 // Arithmetic is float32 adds and compares only, built without fast math
 // and without FMA contraction, so results equal the PyTorch plain version
 // (tarl_tpu_torch/routing/bellman_ford.py::primal_relax_next_roads_plain)
@@ -107,19 +121,30 @@
 // Bound: memory bandwidth.  At Grid64x64 (I = D = 4,096, K = 4) the warm
 // start is 4096^2 x 4 B = 64 MiB, read once; the distances and next roads
 // are written once: 192 MiB, 0.060 ms at the data sheet's 3.35 TB/s; at
-// the million-agent row (I = 16,384, D = 257) 48 MiB, 0.0153 ms.  The
-// global form moves the table through device memory on every sweep; the
-// resident and cluster forms move it once and run their sweeps on shared
-// memory.  Measured with scripts/time_k1_k9.py on an NVIDIA H100 80GB
-// HBM3 (700 W) from a random-cost warm start, device time: at Grid64x64
-// the resident form 0.574 ms for 8 sweeps and the next roads in one
-// kernel (0.503 ms relax only), against the global form's 1.428 ms in 9
-// kernels (1.276 ms in 8); at one sweep 0.263 ms against 0.159 ms, hence
-// the global form there.  At Grid128x128 with 256 columns the cluster
-// form (tiles of 5, two waves) 0.290 ms for 8 sweeps and the next roads
-// (0.231 ms relax only) against the global form's 0.349 ms (0.312 ms); at
-// 512 columns (tiles of 6) 0.470 ms (0.380 ms) against 0.724 ms (0.644
-// ms).  Tried and slower: tiles of 8 at 256 columns (0.365 ms; 32 tiles
+// the million-agent row (I = 16,384, D = 257) 48 MiB, 0.0153 ms; at the
+// radial metro's (I = 8,193, D = 154, K = 8) 12.9 MB, 0.0047 ms.  The
+// global form moves the table through L2 or device memory on every
+// sweep; the resident and cluster forms move it once and run their sweeps
+// on shared memory.  Measured with scripts/time_k1_k9.py on an NVIDIA
+// H100 80GB HBM3 (700 W), device time.  The global form in one launch at
+// the radial shape: ~7.3-7.9 us a sweep (the parent's launch a sweep
+// ~14.9 us), a refresh's 8 sweeps and next roads from its warm start
+// 0.086-0.092 ms (0.133 ms in 9 launches), the uncapped table init 1.30-
+// 1.41 ms (2.87-2.89 ms in 266 launches and memsets); one sweep at
+// I = D = 4,096 0.066 ms (0.160 ms).  Tried and slower there: ld.global.cg
+// in place of L1-cached loads (14-17 us a sweep: the successor rows'
+// reuse is in L1), every other sweep through dist_out's unaligned rows in
+// scalar loads (D = 154: 37 us a sweep), slot chunks of 8 (spills at 64
+// registers, or 2 blocks an SM of 256 threads: 0.103 ms at one sweep).
+// Earlier, before the persistent launch: at Grid64x64 the resident form
+// 0.574 ms for 8 sweeps and the next roads in one kernel (0.503 ms relax
+// only), against the per-sweep global form's 1.428 ms in 9 kernels
+// (1.276 ms in 8); at one sweep 0.263 ms against 0.159 ms, hence the
+// global form there.  At Grid128x128 with 256 columns the cluster form
+// (tiles of 5, two waves) 0.290 ms for 8 sweeps and the next roads
+// (0.231 ms relax only) against the per-sweep global form's 0.349 ms
+// (0.312 ms); at 512 columns (tiles of 6) 0.470 ms (0.380 ms) against
+// 0.724 ms (0.644 ms).  Tried and slower: tiles of 8 at 256 columns (0.365 ms; 32 tiles
 // leave 2 clusters alone in a second wave), the next roads stored by each
 // row's thread at tiles of 5 (0.326 ms), and ld.shared in place of DSMEM
 // for the rows of the block's own (0.323 ms; 97% of Grid128x128's reads
@@ -157,6 +182,19 @@ constexpr int kMaxCluster = 16;
 constexpr int kClusterCols = 7;
 // The shared memory a block may have (static and dynamic) on sm_90.
 constexpr size_t kMaxSmem = 232448;
+// The global form: kGlobalThreads threads a block, at least
+// kGlobalBlocksPerSM blocks an SM (64 registers a thread), kSlotChunk
+// slots' loads in flight at a time, and the barrier's state in
+// kSyncWords 4-byte words: the arrival count and the generation on lines
+// of their own, then three early-exit flags.  Mirrored by bellman_ford.py
+// (GLOBAL_SYNC_WORDS).
+constexpr int kGlobalThreads = 512;
+constexpr int kGlobalBlocksPerSM = 2;
+constexpr int kSlotChunk = 4;
+constexpr int kSyncCount = 0;
+constexpr int kSyncGen = 32;
+constexpr int kSyncFlag = 64;
+constexpr int kSyncWords = 96;
 
 // Columns whose new values a thread of RPT rows holds across a barrier:
 // the held values and the cached tables share the 64 registers a thread
@@ -666,36 +704,331 @@ __global__ void __launch_bounds__(kResThreads, 1)
   cluster.sync();
 }
 
-__global__ void pr_sweep_kernel(
-    const float* __restrict__ src, float* __restrict__ dst,
-    const float* __restrict__ cost, const int* __restrict__ out_road,
-    const unsigned char* __restrict__ out_ok,
-    const int* __restrict__ road_to, int I, int D, int K,
-    int* __restrict__ changed) {
-  const long long n = static_cast<long long>(I) * D;
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  bool lowered = false;
-  if (t < n) {
-    const int i = static_cast<int>(t / D);
-    const int d = static_cast<int>(t - static_cast<long long>(i) * D);
-    const float old = src[t];
-    float best = old;
-    for (int k = 0; k < K; ++k) {
-      const int slot = i * K + k;
-      const int r = out_road[slot];
-      const float w = out_ok[slot] ? cost[r] : kBig;
-      const float cand =
-          w + src[static_cast<long long>(road_to[r]) * D + d];
-      best = fminf(best, cand);
+// --- the global form: one persistent launch --------------------------------
+
+// Acquire and release at gpu scope, for the grid barrier.
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p,
+                                                     unsigned v) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+__device__ __forceinline__ void red_release_add(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// A barrier of the whole grid, which must be resident at once (a
+// cooperative launch).  Every thread votes `lowered`; thread 0 of a block
+// in which one did sets `flag_set` before it arrives; after the barrier
+// every thread gets the value of `flag_get` (0 where it is null).  The
+// last block to arrive resets the count and opens the next generation,
+// the others spin on the generation: the arrival releases and the
+// generation's read acquires at gpu scope, and the block barriers on either
+// side carry that to every thread, so every write before the barrier is
+// seen by every read after it.  The state is left as it was found (count
+// 0), so the next launch on the stream reuses it.
+__device__ unsigned grid_barrier(unsigned* sync, int lowered,
+                                 unsigned* flag_set,
+                                 const unsigned* flag_get) {
+  __shared__ unsigned value;
+  const int any = __syncthreads_or(lowered);
+  if (threadIdx.x == 0) {
+    if (any && flag_set != nullptr) st_relaxed(flag_set, 1u);
+    unsigned* gen = sync + kSyncGen;
+    const unsigned g = ld_relaxed(gen);
+    if (atom_add_acq_rel(sync + kSyncCount, 1u) == gridDim.x - 1) {
+      st_relaxed(sync + kSyncCount, 0u);
+      red_release_add(gen, 1u);
+    } else {
+      while (ld_acquire(gen) == g) {
+      }
     }
-    dst[t] = best;
-    lowered = best < old;
+    value = flag_get == nullptr ? 0u : ld_relaxed(flag_get);
   }
-  // Every thread of the warp reaches the vote: none returned early.
-  if (changed != nullptr && __any_sync(0xffffffffu, lowered) &&
-      (threadIdx.x & 31) == 0) {
-    *changed = 1;
+  __syncthreads();
+  return value;
+}
+
+// Four columns [c0, c0 + 4) of row i of a table with row stride `stride`:
+// one float4 where `vec` (16-byte rows with room for the whole group),
+// else the columns below D one by one and BIG past them.  Plain loads,
+// cached in L1 (a row is read by its own items and its predecessors'):
+// the grid barrier's acquire, carried to every thread by the block
+// barrier, orders them after every write before the barrier (the PTX
+// memory model), so a table written in the launch is never read stale.
+// Never the read-only path (ld.global.nc), which the model exempts.
+__device__ __forceinline__ float4 load_cols(const float* base, int stride,
+                                            bool vec, int i, int c0,
+                                            int D) {
+  const float* p = base + static_cast<size_t>(i) * stride + c0;
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  float4 v = make_float4(p[0], kBig, kBig, kBig);
+  if (c0 + 1 < D) v.y = p[1];
+  if (c0 + 2 < D) v.z = p[2];
+  if (c0 + 3 < D) v.w = p[3];
+  return v;
+}
+
+__device__ __forceinline__ void store_cols(float* base, int stride,
+                                           bool vec, int i, int c0, int D,
+                                           float4 v) {
+  float* p = base + static_cast<size_t>(i) * stride + c0;
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = v;
+    return;
+  }
+  p[0] = v.x;
+  if (c0 + 1 < D) p[1] = v.y;
+  if (c0 + 2 < D) p[2] = v.z;
+  if (c0 + 3 < D) p[3] = v.w;
+}
+
+// The slot's candidate w + v into the running minima of four columns.
+__device__ __forceinline__ void relax_cols(float4& best, float w, float4 v) {
+  float c = w + v.x;
+  if (c < best.x) best.x = c;
+  c = w + v.y;
+  if (c < best.y) best.y = c;
+  c = w + v.z;
+  if (c < best.z) best.z = c;
+  c = w + v.w;
+  if (c < best.w) best.w = c;
+}
+
+// The candidate into the next-road pass of four columns (strict <).
+__device__ __forceinline__ void road_cols(float4& best, float4& road,
+                                          float w, float rid, float4 v) {
+  float c = w + v.x;
+  if (c < best.x) {
+    best.x = c;
+    road.x = rid;
+  }
+  c = w + v.y;
+  if (c < best.y) {
+    best.y = c;
+    road.y = rid;
+  }
+  c = w + v.z;
+  if (c < best.z) {
+    best.z = c;
+    road.z = rid;
+  }
+  c = w + v.w;
+  if (c < best.w) {
+    best.w = c;
+    road.w = rid;
+  }
+}
+
+// Whether any of the first n columns dropped.
+__device__ __forceinline__ bool dropped(float4 b, float4 o, int n) {
+  return b.x < o.x || (n > 1 && b.y < o.y) || (n > 2 && b.z < o.z) ||
+         (n > 3 && b.w < o.w);
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The global form in one launch.  Items are (row i, group of four columns
+// [c0, c0 + 4)), the group fastest; each thread takes the items
+// blockIdx.x * T + tid + k * gridDim.x * T, the same in every pass.
+//   Prologue: each row's slots in ascending order as (successor, weight)
+// words and road ids, a row's padding slot dropped where an earlier
+// padding slot of the row has the same road (the same candidate again,
+// which can neither lower a minimum nor win a strict <, so the result is
+// the padded loop's for any table); a grid barrier.
+//   Sweeps: sweep s reads the previous table (dist0 for s = 0) and writes
+// one of two tables whose rows take float4, dist_out and `scratch` where
+// D is a multiple of 4, else two scratch tables of row stride
+// round_up(D, 4); the last capped sweep writes dist_out where it can.
+// Each sweep ends in a grid barrier that carries its early-exit flag
+// (three words in turn: sweep s sets word s % 3 and clears word (s + 1) %
+// 3 for the next, whose last readers passed a barrier before); every
+// block leaves at the first sweep that lowers nothing, whose table equals
+// the one it read.  The barrier after the last capped sweep is skipped
+// where that sweep wrote dist_out and no next roads follow.
+//   Final pass: the final table copied to dist_out where it lies
+// elsewhere, and (road_out non-null) the next roads from it, as the plain
+// pass.
+__global__ void __launch_bounds__(kGlobalThreads, kGlobalBlocksPerSM)
+    pr_global_kernel(const float* __restrict__ dist0, float* dist_out,
+                     float* __restrict__ road_out, float* scratch,
+                     int* work, unsigned* sync,
+                     const float* __restrict__ cost,
+                     const int* __restrict__ out_road,
+                     const unsigned char* __restrict__ out_ok,
+                     const int* __restrict__ road_to, int I, int D, int K,
+                     int max_sweeps) {
+  const int G = (D + 3) / 4;
+  const long long items = static_cast<long long>(I) * G;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t slots_n = static_cast<size_t>(I) * K;
+  int2* slots = reinterpret_cast<int2*>(work);
+  int* slot_road = work + 2 * slots_n;
+  int* slot_count = slot_road + slots_n;
+  unsigned* flags = sync + kSyncFlag;
+
+  if (first == 0) st_relaxed(flags, 0u);
+  for (long long i = first; i < I; i += step) {
+    const size_t row = static_cast<size_t>(i) * K;
+    int n = 0;
+    for (int k = 0; k < K; ++k) {
+      const int r = out_road[row + k];
+      const bool ok = out_ok[row + k] != 0;
+      bool repeat = false;
+      for (int j = 0; j < k && !ok && !repeat; ++j) {
+        repeat = !out_ok[row + j] && out_road[row + j] == r;
+      }
+      if (repeat) continue;
+      slots[row + n] = make_int2(road_to[r], __float_as_int(ok ? cost[r]
+                                                              : kBig));
+      slot_road[row + n] = r;
+      ++n;
+    }
+    slot_count[i] = n;
+  }
+  grid_barrier(sync, 0, nullptr, nullptr);
+
+  // The sweeps ping-pong between two tables whose rows take float4:
+  // dist_out and scratch where dist_out's rows do, else two scratch
+  // tables.  Sweep s writes the first where max_sweeps - 1 - s is even,
+  // so the last capped sweep writes dist_out where it can.
+  const int Dp = 4 * G;
+  const bool vec0 = D % 4 == 0 && aligned16(dist0);
+  const bool vec_out = D % 4 == 0 && aligned16(dist_out);
+  float* buf0 = vec_out ? dist_out : scratch;
+  float* buf1 = vec_out ? scratch : scratch + static_cast<size_t>(I) * Dp;
+  const int stride0 = vec_out ? D : Dp;
+  const float* in = dist0;
+  int in_stride = D;
+  bool in_vec = vec0;
+  for (int sweep = 0; sweep < max_sweeps; ++sweep) {
+    const bool first_buf = ((max_sweeps - 1 - sweep) & 1) == 0;
+    float* out = first_buf ? buf0 : buf1;
+    const int out_stride = first_buf ? stride0 : Dp;
+    if (first == 0) st_relaxed(flags + (sweep + 1) % 3, 0u);
+    bool lowered = false;
+    for (long long t = first; t < items; t += step) {
+      const int i = static_cast<int>(t / G);
+      const int c0 = 4 * static_cast<int>(t - static_cast<long long>(i) * G);
+      const float4 old = load_cols(in, in_stride, in_vec, i, c0, D);
+      float4 best = old;
+      const int n = slot_count[i];
+      const int2* sl = slots + static_cast<size_t>(i) * K;
+      for (int j0 = 0; j0 < n; j0 += kSlotChunk) {
+        // The chunk's slot words (loaded up to K, so that they need not
+        // wait for the row's count), then its successor rows, in flight
+        // together; the minima in slot order.
+        int2 e[kSlotChunk];
+        float4 v[kSlotChunk];
+#pragma unroll
+        for (int j = 0; j < kSlotChunk; ++j) {
+          if (j0 + j < K) e[j] = sl[j0 + j];
+        }
+#pragma unroll
+        for (int j = 0; j < kSlotChunk; ++j) {
+          if (j0 + j < n) v[j] = load_cols(in, in_stride, in_vec, e[j].x,
+                                           c0, D);
+        }
+#pragma unroll
+        for (int j = 0; j < kSlotChunk; ++j) {
+          if (j0 + j < n) relax_cols(best, __int_as_float(e[j].y), v[j]);
+        }
+      }
+      lowered |= dropped(best, old, D - c0);
+      store_cols(out, out_stride, true, i, c0, D, best);
+    }
+    // Nothing reads the table after the last capped sweep where it went
+    // to dist_out and no next roads follow.
+    const bool last = sweep == max_sweeps - 1 && road_out == nullptr &&
+                      out == dist_out;
+    const bool any = last || grid_barrier(sync, lowered, flags + sweep % 3,
+                                          flags + sweep % 3) != 0;
+    // At a fixpoint the table read equals the one written: keep dist_out
+    // if it is either.
+    if (any || in != dist_out) {
+      in = out;
+      in_stride = out_stride;
+      in_vec = true;
+    }
+    if (!any || last) break;
+  }
+  // The final pass: the final table copied to dist_out where it lies
+  // elsewhere (no sweep, a scratch table, an exit after a first sweep into
+  // scratch), element by element so that a warp's stores are contiguous
+  // whatever D, and the next roads from it.
+  if (in != dist_out) {
+    const long long n = static_cast<long long>(I) * D;
+    for (long long e = first; e < n; e += step) {
+      const long long i = e / D;
+      dist_out[e] = in[i * in_stride + (e - i * D)];
+    }
+  }
+  if (road_out == nullptr) return;
+  const bool vec_road = D % 4 == 0 && aligned16(road_out);
+  for (long long t = first; t < items; t += step) {
+    const int i = static_cast<int>(t / G);
+    const int c0 = 4 * static_cast<int>(t - static_cast<long long>(i) * G);
+    float4 best = make_float4(kBig, kBig, kBig, kBig);
+    float4 road = make_float4(-1.0f, -1.0f, -1.0f, -1.0f);
+    const int n = slot_count[i];
+    const size_t row = static_cast<size_t>(i) * K;
+    for (int j0 = 0; j0 < n; j0 += kSlotChunk) {
+      int2 e[kSlotChunk];
+      float4 v[kSlotChunk];
+#pragma unroll
+      for (int j = 0; j < kSlotChunk; ++j) {
+        if (j0 + j < K) e[j] = slots[row + j0 + j];
+      }
+#pragma unroll
+      for (int j = 0; j < kSlotChunk; ++j) {
+        if (j0 + j < n) v[j] = load_cols(in, in_stride, in_vec, e[j].x, c0,
+                                         D);
+      }
+#pragma unroll
+      for (int j = 0; j < kSlotChunk; ++j) {
+        if (j0 + j < n) {
+          road_cols(best, road, __int_as_float(e[j].y),
+                    static_cast<float>(slot_road[row + j0 + j]), v[j]);
+        }
+      }
+    }
+    if (!(best.x < kBig)) road.x = -1.0f;
+    if (!(best.y < kBig)) road.y = -1.0f;
+    if (!(best.z < kBig)) road.z = -1.0f;
+    if (!(best.w < kBig)) road.w = -1.0f;
+    store_cols(road_out, D, vec_road, i, c0, D, road);
   }
 }
 
@@ -837,33 +1170,57 @@ int dispatch_cluster(const float* dist0, float* dist_out, float* road_out,
 
 }  // namespace
 
-// `sweeps` Jacobi sweeps from `src`: sweep s writes buf_a for even s and
-// buf_b for odd s, reading the previous sweep's buffer (src for s = 0), so
-// the result is in buf_a when `sweeps` is odd and in buf_b when it is
-// even.  buf_a must differ from src; buf_b may be src.  With `changed`
-// non-null, it is zeroed before the last sweep, which sets it to 1 if any
-// entry dropped.  Returns the first CUDA error, or 0.
-extern "C" int tarl_primal_sweeps(
-    const float* src, float* buf_a, float* buf_b, const float* cost,
-    const int* out_road, const unsigned char* out_ok, const int* road_to,
-    int I, int D, int K, int sweeps, int* changed, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned int blocks = num_blocks(I, D);
-  const float* in = src;
-  for (int sweep = 0; sweep < sweeps; ++sweep) {
-    float* out = (sweep % 2 == 0) ? buf_a : buf_b;
-    int* flag = nullptr;
-    if (changed != nullptr && sweep == sweeps - 1) {
-      cudaError_t err = cudaMemsetAsync(changed, 0, sizeof(int), s);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      flag = changed;
-    }
-    pr_sweep_kernel<<<blocks, kThreads, 0, s>>>(
-        in, out, cost, out_road, out_ok, road_to, I, D, K, flag);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    in = out;
-  }
+// The global form: up to `max_sweeps` Jacobi sweeps from dist0, stopping
+// at the first that lowers nothing, then (road_out non-null) the next-road
+// pass, in one cooperative launch of min(blocks, the blocks the items
+// fill) blocks (`blocks` from tarl_primal_global_fit).  dist_out and
+// road_out are written in full and must differ from dist0; `scratch` holds
+// I * round_up(D, 4) floats where D is a multiple of 4 and dist_out is
+// 16-byte aligned, else twice that; `work` I * (3 * K + 1) ints (8-byte
+// aligned), and `sync` kSyncWords words, zero before the first launch on the stream
+// and left so by every launch.  Returns the first CUDA error, or 0.
+extern "C" int tarl_primal_global(
+    const float* dist0, float* dist_out, float* road_out, float* scratch,
+    int* work, unsigned* sync, const float* cost, const int* out_road,
+    const unsigned char* out_ok, const int* road_to, int I, int D, int K,
+    int max_sweeps, int blocks, void* stream) {
+  if (I == 0 || D == 0) return 0;
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = static_cast<long long>(I) * ((D + 3) / 4);
+  const long long fill = (items + kGlobalThreads - 1) / kGlobalThreads;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(std::min<long long>(blocks,
+                                                                  fill)),
+                        1, 1);
+  config.blockDim = dim3(kGlobalThreads, 1, 1);
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &config, pr_global_kernel, dist0, dist_out, road_out, scratch, work,
+      sync, cost, out_road, out_ok, road_to, I, D, K, max_sweeps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The blocks of the global form that card `device` holds at once (its SMs
+// times cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks; 0
+// means it cannot schedule one.  The kernel's resources do not depend on
+// the shape.  Returns the first CUDA error, or 0.
+extern "C" int tarl_primal_global_fit(int device, int* blocks) {
+  *blocks = 0;
+  int sms = 0;
+  int per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, pr_global_kernel, kGlobalThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *blocks = sms * per_sm;
   return 0;
 }
 

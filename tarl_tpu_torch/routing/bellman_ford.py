@@ -31,18 +31,23 @@ The relax takes one of three forms, chosen by shape, never as a fallback
   clusters fill the card's last wave (:func:`launch_cluster_plan`; the
   card's capacity is asked once per shape, and a cluster it cannot
   schedule raises);
-* the global form elsewhere (a single sweep, more slots, more than
-  65,536 intersections): one launch per sweep through device memory, then
-  the next-road launch; the uncapped relax reads a convergence flag on
-  the host every :data:`CHECK_EVERY` sweeps (the plain version every
-  sweep), counted by :mod:`~tarl_tpu_torch.core.sync`.
+* the global form elsewhere (a single sweep, more slots than 4, more
+  than 65,536 intersections: the radial metro's zoned tables, the TPU's
+  K6): one cooperative launch of as many blocks as the card holds at once
+  (asked once per card, :func:`_global_fit`; a card that holds none
+  raises), which compacts each row's slots (:func:`compact_slots` is the
+  rule's plain twin), sweeps through two tables in device memory with a
+  grid barrier between sweeps and an early-exit flag read on the device,
+  and writes the next roads in the same launch.
 
 Min-plus relaxation is idempotent at its fixpoint, so the early exit of
-the first two forms gives tables equal bit for bit to those of every
-capped sweep, and their uncapped relax (``max_iters=None``, at most ``I -
-1`` sweeps) makes no host read.  Each form's calls are counted apart
-(:data:`RESIDENT_LAUNCHES`, :data:`CLUSTER_LAUNCHES`,
-:data:`GLOBAL_LAUNCHES`; :data:`LAUNCHES` counts every call).
+every form gives tables equal bit for bit to those of every capped sweep,
+and the uncapped relax (``max_iters=None``, at most ``I - 1`` sweeps)
+makes no host read (the plain version reads its convergence test every
+sweep, counted by :mod:`~tarl_tpu_torch.core.sync`).  Each form's calls
+are counted apart (:data:`RESIDENT_LAUNCHES`, :data:`CLUSTER_LAUNCHES`,
+:data:`GLOBAL_LAUNCHES`; :data:`LAUNCHES` counts every call), one launch
+each.
 
 Left out: ``primal_delta_buckets``, ``epilogue_slot_tables``,
 ``_epilogue_rep_tables``, the row windows, the VMEM plans and every
@@ -74,8 +79,8 @@ from ..state import RoadState
 BIG = float(np.float32(1e18))
 
 # Kernel launches: relax calls through primal_relax_next_roads (and of
-# those, the calls each form ran: one launch of the resident or the cluster
-# kernel, or the global form's launches), and the next-road kernel through
+# those, the calls each form ran: one launch of the resident, the cluster
+# or the global kernel), and the next-road kernel through
 # primal_next_roads.  The plain version does not count.
 LAUNCHES = 0
 RESIDENT_LAUNCHES = 0
@@ -83,9 +88,8 @@ CLUSTER_LAUNCHES = 0
 GLOBAL_LAUNCHES = 0
 NEXT_ROAD_LAUNCHES = 0
 
-# Sweeps between host reads of the convergence flag (uncapped relax of the
-# global form, and the dual all-pairs relaxation); sweeps past the
-# fixpoint change nothing.
+# Sweeps between host reads of the convergence flag of the dual all-pairs
+# relaxation; sweeps past the fixpoint change nothing.
 CHECK_EVERY = 8
 
 # The resident kernel's limits (csrc/primal_relax.cu): MAX_TILE_COLS
@@ -102,11 +106,19 @@ RESIDENT_MIN_SWEEPS = 2
 # staged next roads, fill a block's shared memory at RESIDENT_ROWS rows).
 CLUSTER_MAX_BLOCKS = 16
 CLUSTER_TILE_COLS = 7
+# The global kernel's grid-barrier state: 4-byte words, zero before a
+# stream's first launch and left so by every launch (csrc kSyncWords).
+GLOBAL_SYNC_WORDS = 96
 
 _FNS = None
 # Clusters the card can hold at once, by (device, I, K, B): asked once per
 # shape (cudaOccupancyMaxActiveClusters).
 _CLUSTER_FIT: dict = {}
+# Blocks of the global kernel the card holds at once, by device index, and
+# its barrier state, by (device index, stream): launches on one stream run
+# in order, launches on two streams each have their own.
+_GLOBAL_FIT: dict = {}
+_GLOBAL_SYNC: dict = {}
 
 
 def reset_launches() -> None:
@@ -248,6 +260,23 @@ def _next_roads_plain(dist, w, succ, inter_out_road):
     return torch.where(best < BIG, road, -1.0)
 
 
+def compact_slots(inter_out_road: torch.Tensor,
+                  inter_out_ok: torch.Tensor) -> torch.Tensor:
+    """bool[I, K]: the slots the global kernel's prologue keeps, in their
+    order (the rule's plain twin): every slot but a padding slot whose road
+    repeats an earlier padding slot of its row.  Such a slot's candidate is
+    the earlier one's bit for bit (weight BIG, the same successor and
+    road), so it can lower no minimum and win no strict <: the relax over
+    the kept slots is the padded loop's, for any table."""
+    pad = ~inter_out_ok
+    k_n = inter_out_road.shape[1]
+    earlier = torch.ones(k_n, k_n, dtype=torch.bool,
+                         device=pad.device).tril(-1)          # [k, j]: j < k
+    same = inter_out_road[:, :, None] == inter_out_road[:, None, :]
+    repeat = (same & pad[:, None, :] & earlier).any(dim=2) & pad
+    return ~repeat
+
+
 def primal_relax_next_roads_plain(
     road_cost: torch.Tensor,
     inter_out_road: torch.Tensor,
@@ -325,9 +354,12 @@ def _kernel_fns():
 
         lib = load_library("primal_relax")
         p, i = ctypes.c_void_p, ctypes.c_int
-        sweeps = lib.tarl_primal_sweeps
-        sweeps.argtypes = [p] * 7 + [i] * 4 + [p, p]
-        sweeps.restype = ctypes.c_int
+        global_form = lib.tarl_primal_global
+        global_form.argtypes = [p] * 10 + [i] * 5 + [p]
+        global_form.restype = ctypes.c_int
+        global_fit = lib.tarl_primal_global_fit
+        global_fit.argtypes = [i, p]
+        global_fit.restype = ctypes.c_int
         next_road = lib.tarl_primal_next_road
         next_road.argtypes = [p] * 5 + [i] * 3 + [p, p]
         next_road.restype = ctypes.c_int
@@ -340,7 +372,8 @@ def _kernel_fns():
         cluster_fit = lib.tarl_primal_cluster_fit
         cluster_fit.argtypes = [i] * 4 + [p]
         cluster_fit.restype = ctypes.c_int
-        _FNS = (sweeps, next_road, resident, cluster, cluster_fit)
+        _FNS = (global_form, next_road, resident, cluster, cluster_fit,
+                global_fit)
     return _FNS
 
 
@@ -431,6 +464,54 @@ def launch_cluster_plan(device, i_n: int, d_n: int, k_n: int,
                         _cluster_fit(device, i_n, k_n, plan[1]))
 
 
+def _global_fit(device) -> int:
+    """Blocks of the global kernel the card holds at once (its resources
+    do not depend on the shape), asked the first time the card launches
+    it; raises where the card cannot schedule one."""
+    if device.index not in _GLOBAL_FIT:
+        n = ctypes.c_int(0)
+        err = _kernel_fns()[5](device.index, ctypes.addressof(n))
+        if err != 0:
+            raise RuntimeError(f"primal_relax global occupancy query failed: "
+                               f"CUDA error {err}")
+        if n.value < 1:
+            raise RuntimeError("the card cannot schedule a block of the "
+                               "global relax kernel")
+        _GLOBAL_FIT[device.index] = n.value
+    return _GLOBAL_FIT[device.index]
+
+
+def _launch_global(road_cost, inter_out_road, inter_out_ok, road_to, dist0,
+                   relax_only, iters):
+    """One launch of the global kernel: ``iters`` sweeps at most, with
+    its scratch table, its slot lists and the stream's barrier state."""
+    i_n, k_n = inter_out_road.shape
+    d_n = dist0.shape[1]
+    dev = dist0.device
+    stream = current_stream(dev)
+    if (dev.index, stream) not in _GLOBAL_SYNC:
+        _GLOBAL_SYNC[dev.index, stream] = torch.zeros(
+            GLOBAL_SYNC_WORDS, dtype=torch.int32, device=dev)
+    dist = torch.empty_like(dist0)
+    road = None if relax_only else torch.empty_like(dist0)
+    # One table of rows padded to 4 columns beside dist where its rows
+    # take float4, else two.
+    scratch = torch.empty((1 if d_n % 4 == 0 else 2) * i_n * -(-d_n // 4)
+                          * 4, dtype=torch.float32, device=dev)
+    work = torch.empty(i_n * (3 * k_n + 1), dtype=torch.int32, device=dev)
+    err = _kernel_fns()[0](
+        dist0.data_ptr(), dist.data_ptr(),
+        None if road is None else road.data_ptr(), scratch.data_ptr(),
+        work.data_ptr(), _GLOBAL_SYNC[dev.index, stream].data_ptr(),
+        road_cost.data_ptr(), inter_out_road.data_ptr(),
+        inter_out_ok.data_ptr(), road_to.data_ptr(), i_n, d_n, k_n, iters,
+        _global_fit(dev), stream)
+    if err != 0:
+        raise RuntimeError(f"primal_relax global launch failed: CUDA error "
+                           f"{err}")
+    return dist, road
+
+
 def _launch_relax(road_cost, inter_out_road, inter_out_ok, road_to, dist0,
                   max_iters, relax_only):
     """The relax in the form its shape takes: the resident kernel where
@@ -453,34 +534,9 @@ def _launch_relax(road_cost, inter_out_road, inter_out_ok, road_to, dist0,
         out = _launch_tiled("cluster", *args, *plan, iters)
         CLUSTER_LAUNCHES += 1
         return out
-    sweeps = _kernel_fns()[0]
-    tables = (road_cost.data_ptr(), inter_out_road.data_ptr(),
-              inter_out_ok.data_ptr(), road_to.data_ptr())
-    flag = (torch.zeros(1, dtype=torch.int32, device=dist0.device)
-            if max_iters is None else None)
-    bufs = [torch.empty_like(dist0), torch.empty_like(dist0)]
-    dist, done = dist0, 0
-    while done < iters:
-        n = iters - done if flag is None else min(CHECK_EVERY, iters - done)
-        a, b = (bufs if dist is dist0 or dist is bufs[1]
-                else (bufs[1], bufs[0]))
-        err = sweeps(dist.data_ptr(), a.data_ptr(), b.data_ptr(), *tables,
-                     i_n, d_n, k_n, n,
-                     None if flag is None else flag.data_ptr(),
-                     current_stream(dist0.device))
-        if err != 0:
-            raise RuntimeError(f"primal_relax sweep launch failed: CUDA "
-                               f"error {err}")
-        dist = a if n % 2 == 1 else b
-        done += n
-        if flag is not None and not host_read(flag[0])[0]:
-            break
-    if dist is dist0:
-        dist = dist0.clone()
-    road = None if relax_only else _launch_next_road(
-        dist, road_cost, inter_out_road, inter_out_ok, road_to)
+    out = _launch_global(*args, iters)
     GLOBAL_LAUNCHES += 1
-    return dist, road
+    return out
 
 
 def primal_relax_next_roads(
@@ -500,11 +556,11 @@ def primal_relax_next_roads(
     from ``dist0``, then ``next_road[i, d]``, the out-road of the first slot
     attaining the minimum of ``w + dist[succ]`` (float32 id, -1.0 where that
     minimum is not below BIG).  ``dist0`` must carry its anchor zeros.  The
-    CUDA kernels for CUDA tensors (one call counted; one launch where
-    :func:`resident_plan` or :func:`cluster_plan` takes the shape, else
-    the global form's launch per sweep and the next-road launch), the
-    plain version for CPU tensors; inputs the kernels would not take raise
-    on either device."""
+    CUDA kernels for CUDA tensors (one call counted, one launch: the
+    resident form where :func:`resident_plan` takes the shape, the cluster
+    form where :func:`cluster_plan` does, else the global form), the plain
+    version for CPU tensors; inputs the kernels would not take raise on
+    either device."""
     global LAUNCHES
     _check_inputs(road_cost, inter_out_road, inter_out_ok, road_to, dist0)
     if dist0.device.type == "cuda":

@@ -237,10 +237,12 @@ def test_relax_kernel_source_and_build_command(tmp_path, monkeypatch):
     source = os.path.join(os.path.dirname(tarl_tpu_torch.__file__), "csrc",
                           "primal_relax.cu")
     text = open(source).read()
-    for entry in ("tarl_primal_sweeps", "tarl_primal_next_road"):
+    for entry in ("tarl_primal_global", "tarl_primal_global_fit",
+                  "tarl_primal_next_road"):
         assert f'extern "C" int {entry}(' in text
     assert "tarl_tpu/routing/bellman_ford.py::_multisweep_nr_kernel_body" \
         in text
+    assert "_sweep_kernel_body" in text
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
     cmd = _build.nvcc_command(_build.PACKAGE_DIR / "csrc" / "primal_relax.cu",
                               tmp_path / "lib.so")
