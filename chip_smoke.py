@@ -273,7 +273,41 @@ with its plain version run outside those windows.
    the state at tick 1,020 bitwise that of a whole-population insert
    (with escalation the windowed insert's monitor counts its extra
    passes, printed).
-24. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
+24. The CLI's default evaluation (``python main.py`` runs dijkstra on
+   Easy): (a) the classical rows ``CLASSICAL_ROWS`` (Easy dijkstra, 3,600
+   ticks of 2 s from 06:00; Braess dijkstra and random, 9,000 ticks of
+   1 s; Bottleneck dijkstra, 4,000 ticks) each through a
+   ``TransportationSimulator`` built from the port's caches under
+   ``build/``, ``make_policy(algo, network=...)`` (the dual backend) and
+   ``algorithms.episode.run_episode(mode="fused")``, then ``nash_gap``,
+   ``tstt`` and ``equilibrium_report``.  Asserts conservation, the
+   reference's done count, one K1 launch a tick, a refresh every 10 ticks
+   under dijkstra, the average travel time within 0.5% and the relative
+   gap within 10% or 0.005 of the reference's exact numbers
+   (``CLASSICAL_REFERENCE``, from the reference on the CPU), and Braess's
+   random row ranked worse than dijkstra; prints ms/tick, host reads per
+   tick, refreshes and the report's seconds.  Braess's first 200 ticks
+   again through the facade's eager ``run()``, with K1 and with its plain
+   version: both bitwise the fused run's state; prints the phase timers.
+   (b) The dual row: phase 2's scenario under ``make_policy("dijkstra")``
+   with the default routing (N = 1,472 dual nodes, a refresh every 10
+   ticks, uncapped), phase 5's windowed insert, 3,600 ticks of
+   ``run_episode_periodic`` timed after two warm-up periods.  Asserts
+   conservation, arrivals, one K1 launch a tick, no relax kernel, and a
+   table with the node itself on its diagonal and a next hop from every
+   road and SRC node toward every DEST node; prints agent-steps/s,
+   ms/tick, ms per refresh (CUDA events), sweeps and host reads per
+   refresh, host reads per tick and the table's bytes; the equilibrium
+   report on the final state, timed.  Its first 600 ticks again with the
+   plain K1 (bitwise, no K1 launch), and its first 1,200 under
+   ``RoutingConfig(backend="primal")`` (uncapped: K2's resident form once
+   a refresh): the same episode bitwise (the routing scratch and the
+   selections aside).  (c) One free-flow ``all_pairs_next_hop_nbr`` on
+   Grid36x36 (N = 7,632, the largest network on which "auto" picks the
+   dual backend): ms (CUDA events), device ms (``torch.profiler``),
+   sweeps, host reads, peak memory and the bound from the bytes each
+   sweep moves.
+25. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
    ``segment_sum``, ``segment_max``, ``segment_argmax``, ``fused_core``,
    ``fused_shard_winner``, and the K3-K6 and K8a/K8b rows covered by
    ``primal_relax`` and ``fused_winner``; K3's and K5's rows the cluster
@@ -283,15 +317,16 @@ with its plain version run outside those windows.
    every kernel but K8a/K8b; K11's row times its action entry, the bare
    argmax beside it; K10's row its log-prob entry, the bare max beside
    it; K9's launches are 0: no main path runs the bare sum;
-   ``launches_training`` beside K1's and K9-K11's launches), the card's
-   name and power limit,
+   ``launches_training`` beside K1's and K9-K11's launches; K1's launches
+   in phase 24's rows and K2's in its primal cross-check beside them),
+   the card's name and power limit,
    then
    ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, where no CUDA device is available or
 the package is missing beside this script.  Scenario files are written
-under ``build/scenarios`` and phase 21's checkpoints under ``build/train``
-in the checkout.
+under ``build/scenarios``, phase 24's caches under ``build/save`` and
+phase 21's checkpoints under ``build/train`` in the checkout.
 """
 from __future__ import annotations
 
@@ -360,6 +395,36 @@ RADIAL_RINGS = 64
 RADIAL_SPOKES = 128
 RADIAL_AGENTS = 200_000
 RADIAL_EXACT_TICKS = 1020
+# Phase 24a: the CLI's default classical rows through the facade, as
+# ``python main.py --algo A --scenario S`` runs them: name -> (scenario,
+# algorithm, start time, timestep, ticks).
+CLASSICAL_ROWS = {
+    "Easy dijkstra": ("Easy", "dijkstra", 21600, 2, 3600),
+    "Braess dijkstra": ("Braess", "dijkstra", 21600, 1, 9000),
+    "Braess random": ("Braess", "random", 21600, 1, 9000),
+    "Bottleneck dijkstra": ("Bottleneck", "dijkstra", 21600, 1, 4000),
+}
+# The reference's numbers on those rows, (average travel time s, done,
+# relative Nash gap), printed by
+#   PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_equilibrium.py
+CLASSICAL_REFERENCE = {
+    "Easy dijkstra": (32.46500015258789, 200, 0.1309862583875656),
+    "Braess dijkstra": (105.17500305175781, 200, 0.0016666667070239782),
+    "Braess random": (139.72000122070312, 200, 0.3306666612625122),
+    "Bottleneck dijkstra": (80.54444122314453, 720, 1.013611078262329),
+}
+# The card may differ from the reference only where two Gumbel scores lie
+# within an ulp: the average travel time within 0.5%, the relative gap
+# within 10% or 0.005, whichever is larger.
+CLASSICAL_TT_RTOL = 0.005
+CLASSICAL_GAP_RTOL = 0.10
+CLASSICAL_GAP_ATOL = 0.005
+EAGER_TICKS = 200            # Braess's ticks through the eager run()
+# Phase 24b: the dual backend on phase 2's scenario.
+DUAL_TICKS = 3600
+DUAL_CONTEXT_TICKS = 600     # the plain-K1 cross-check's depth
+DUAL_PRIMAL_TICKS = 1200     # the primal cross-check's depth
+DUAL_BIG_GRID = 36           # phase 24c: N = 7,632, the last dual size
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
@@ -2841,6 +2906,502 @@ def collection_in_context(net8, trained, st8, steps=LEARNED_CONTEXT_STEPS):
     return {k: v[2] for k, v in runs.items()}, err
 
 
+# --- the CLI's default evaluation (phase 24) ---------------------------------
+
+def classical_sim(name: str, dev, root: str = None):
+    """A :class:`TransportationSimulator` set up for ``CLASSICAL_ROWS[name]``
+    as the reference CLI sets it up: scenarios generated and cached under
+    ``build/`` (or ``root``), ``make_policy(algo, network=...)`` (backend
+    "auto": the dual one), the clock at the row's start."""
+    from tarl_tpu_torch.config import SimConfig
+    from tarl_tpu_torch.simulator import TransportationSimulator, make_policy
+
+    scenario, algo, start, timestep, ticks = CLASSICAL_ROWS[name]
+    root = root or os.path.join(ROOT, "build")
+    sim = TransportationSimulator(
+        sim=SimConfig(timestep=timestep, start_time=start,
+                      end_time=start + timestep * ticks),
+        data_root=os.path.join(root, "scenarios"),
+        save_root=os.path.join(root, "save"), device=dev)
+    sim.load_network(scenario)
+    sim.load_population(scenario)
+    sim.set_policy(make_policy(algo, network=sim.network))
+    sim.config_parameters(timestep_size=timestep, start_time=start)
+    return sim
+
+
+def classical_row(name: str, dev, root: str = None) -> dict:
+    """One row of phase 24a: ``algorithms.episode.run_episode(mode="fused")``
+    on :func:`classical_sim`, then ``nash_gap``, ``tstt`` and
+    ``equilibrium_report`` on the final state.  Counts (K1's launches, the
+    host reads, the refreshes) are set to 0 just before the episode and
+    read just after."""
+    import torch
+
+    from tarl_tpu_torch.algorithms.episode import run_episode
+    from tarl_tpu_torch.core import fused_winner, sync
+    from tarl_tpu_torch.metrics.equilibrium import (
+        equilibrium_report, nash_gap, tstt)
+
+    sim = classical_sim(name, dev, root)
+    ticks = CLASSICAL_ROWS[name][4]
+    refreshes = []
+    if sim.policy.refresh is not None:
+        refresh = sim.policy.refresh
+
+        def counted(state, network):
+            refreshes.append(1)
+            return refresh(state, network)
+
+        sim.policy = sim.policy._replace(refresh=counted)
+    on_card = sim.network.device.type == "cuda"
+    fused_winner.reset_launches()
+    sync.reset()
+    t0 = time.perf_counter()
+    run_episode(sim, ticks, mode="fused", progress=False)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, reads = fused_winner.LAUNCHES, sync.HOST_READS
+    st = sim.state
+    t0 = time.perf_counter()
+    gap = nash_gap(st.agents, st.road, sim.network)
+    total_tt = float(tstt(st.agents, st.time))
+    report = equilibrium_report(st.agents, st.road, sim.network, st.time)
+    report_s = time.perf_counter() - t0
+    return {
+        "name": name, "sim": sim, "ticks": ticks, "wall": wall,
+        "launches": launches, "reads_per_tick": reads / ticks,
+        "refreshes": len(refreshes),
+        "avg_tt": sim.average_travel_time(),
+        "done": int(st.agents.done[1:].sum()),
+        "on_road": int(st.road.count.sum()),
+        "on_way": int(st.agents.on_way.sum()),
+        "rel_gap": float(gap["relative_gap"]), "tstt": total_tt,
+        "report": report, "report_s": report_s,
+    }
+
+
+def check_classical_row(res) -> None:
+    """Phase 24a's asserts: conservation, the reference's done count, one
+    K1 launch a tick, a refresh every 10 ticks under dijkstra, and the
+    reference's average travel time and relative gap within the margins."""
+    name = res["name"]
+    want_tt, want_done, want_gap = CLASSICAL_REFERENCE[name]
+    if res["on_road"] != res["on_way"]:
+        raise AssertionError(f"{name}: conservation, {res['on_road']} on "
+                             f"roads, {res['on_way']} on the way")
+    if res["done"] != want_done:
+        raise AssertionError(f"{name}: {res['done']} done, the reference "
+                             f"{want_done}")
+    # The CPU's wrappers take the plain versions and count nothing.
+    on_card = res["sim"].network.device.type == "cuda"
+    if on_card and res["launches"] != res["ticks"]:
+        raise AssertionError(f"{name}: {res['launches']} K1 launches in "
+                             f"{res['ticks']} ticks")
+    want_refresh = (res["ticks"] // 10 if CLASSICAL_ROWS[name][1]
+                    == "dijkstra" else 0)
+    if res["refreshes"] != want_refresh:
+        raise AssertionError(f"{name}: {res['refreshes']} refreshes, "
+                             f"expected {want_refresh}")
+    if abs(res["avg_tt"] - want_tt) > CLASSICAL_TT_RTOL * want_tt:
+        raise AssertionError(f"{name}: average travel time "
+                             f"{res['avg_tt']!r}, the reference {want_tt!r}")
+    slack = max(CLASSICAL_GAP_RTOL * want_gap, CLASSICAL_GAP_ATOL)
+    if abs(res["rel_gap"] - want_gap) > slack:
+        raise AssertionError(f"{name}: relative gap {res['rel_gap']!r}, "
+                             f"the reference {want_gap!r}")
+    if abs(res["report"]["relative_nash_gap"] - res["rel_gap"]) > 1e-6:
+        raise AssertionError(f"{name}: the report's gap differs from "
+                             "nash_gap's")
+
+
+def eager_in_context(dev, root: str = None,
+                     ticks: int = EAGER_TICKS) -> dict:
+    """Braess's dual dijkstra row for ``ticks`` ticks three ways: fused
+    (``run_fast``), and through the facade's eager ``run()`` with K1 and
+    with its plain version.  The three states must be equal bitwise; K1
+    launches once a tick in the eager run with it and never with the plain
+    one.  Returns the eager runs' phase timers."""
+    from tarl_tpu_torch.core import fused_winner
+
+    fused = classical_sim("Braess dijkstra", dev, root)
+    fused.run_fast(ticks)
+    want = _state_bits(fused.state)
+    timers, launches = {}, {}
+    for label, core in (("K1", fused_winner.direction_confirm),
+                        ("plain", fused_winner.direction_confirm_plain)):
+        eager = classical_sim("Braess dijkstra", dev, root)
+        fused_winner.reset_launches()
+        for _ in range(ticks):
+            eager.run(core=core)
+        launches[label] = fused_winner.LAUNCHES
+        bad = _diff_paths(want, _state_bits(eager.state))
+        if bad:
+            raise AssertionError(f"eager run() with {label} and the fused "
+                                 f"run differ at tick {ticks}: {bad}")
+        timers[label] = eager.timers
+    if dev.type == "cuda" and launches != {"K1": ticks, "plain": 0}:
+        raise AssertionError(f"eager launches {launches}")
+    return {"timers": timers, "launches": launches}
+
+
+def dual_row_config():
+    """Phase 24b: ``(RoutingConfig, SimConfig)`` of the dual row: the
+    default routing (the dual backend at N = 1,472, a refresh every 10
+    ticks, uncapped), phase 5's windowed insert."""
+    from tarl_tpu_torch.config import RoutingConfig
+
+    _, sim = sp_row_config()
+    return RoutingConfig(), sim
+
+
+def dual_row(net, agents, ticks=DUAL_TICKS, warmup=SP_WARMUP_TICKS,
+             keep=(DUAL_CONTEXT_TICKS, DUAL_PRIMAL_TICKS), routing=None,
+             core=None) -> dict:
+    """Phase 24b's row: ``make_policy("dijkstra", routing, network=net)``
+    and ``run_episode_periodic`` for ``ticks`` ticks, timed after
+    ``warmup``; keeps the states at the ticks in ``keep``.  Each refresh is
+    timed with CUDA events and its sweeps counted; the counts are set to 0
+    just before the initial state and read at the end."""
+    import torch
+
+    from tarl_tpu_torch.core import fused_winner, sync
+    from tarl_tpu_torch.core.step import init_sim_state, run_episode_periodic
+    from tarl_tpu_torch.routing import bellman_ford as bf
+    from tarl_tpu_torch.simulator import make_policy
+
+    default_routing, sim = dual_row_config()
+    policy = make_policy("dijkstra", routing or default_routing,
+                         network=net)
+    on_card = net.device.type == "cuda"
+    events, sweeps = [], []
+    refresh = policy.refresh
+
+    def timed_refresh(state, network):
+        before = bf.DUAL_SWEEPS
+        if on_card:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        buf = refresh(state, network)
+        if on_card:
+            ev[1].record()
+            events.append(ev)
+        sweeps.append(bf.DUAL_SWEEPS - before)
+        return buf
+
+    policy = policy._replace(refresh=timed_refresh)
+    kw = {} if core is None else {"core": core}
+
+    def sync_dev():
+        if on_card:
+            torch.cuda.synchronize()
+
+    fused_winner.reset_launches()
+    bf.reset_launches()
+    sync.reset()
+    t0 = time.perf_counter()
+    state0 = init_sim_state(net, agents, sim=sim, policy=policy)
+    sync_dev()
+    init_s = time.perf_counter() - t0
+    init_reads = sync.HOST_READS
+    init_sweeps = bf.DUAL_SWEEPS
+    state, _ = run_episode_periodic(state0, net, policy, warmup, sim=sim,
+                                    **kw)
+    sync_dev()
+    reads_before = sync.HOST_READS
+    kept, done = {}, warmup
+    t0 = time.perf_counter()
+    for stop in sorted(k for k in keep if warmup < k <= ticks) + [ticks]:
+        if stop > done:
+            state, _ = run_episode_periodic(state, net, policy, stop - done,
+                                            sim=sim, **kw)
+            done = stop
+        kept[stop] = state
+    sync_dev()
+    wall = time.perf_counter() - t0
+    measured = ticks - warmup
+    refresh_ms = [a.elapsed_time(b) for a, b in events]
+    return {
+        "state0": state0, "final": state, "kept": kept, "init_s": init_s,
+        "init_reads": init_reads, "init_sweeps": init_sweeps,
+        "wall": wall, "measured": measured,
+        "rate": agents.num_agents * measured / wall,
+        "reads_per_tick": (sync.HOST_READS - reads_before) / measured,
+        "refreshes": len(sweeps),
+        "sweeps_per_refresh": sum(sweeps) / max(len(sweeps), 1),
+        "reads_per_refresh": (sum(sweeps) / bf.CHECK_EVERY
+                              / max(len(sweeps), 1)),
+        "refresh_ms": (sum(refresh_ms) / len(refresh_ms) if refresh_ms
+                       else float("nan")),
+        "winner_launches": fused_winner.LAUNCHES,
+        "relax_launches": bf.LAUNCHES,
+        "resident_launches": bf.RESIDENT_LAUNCHES,
+        "sim": sim, "policy": policy,
+    }
+
+
+def check_dual_row(res, net, ticks=DUAL_TICKS) -> None:
+    """Phase 24b's asserts: conservation, arrivals, a refresh every 10
+    ticks, K1 once a tick, no relax kernel, and the next-hop table: the
+    node itself on the diagonal, and from every road and SRC node a next
+    hop toward every DEST node (the grid is strongly connected)."""
+    import torch
+
+    final = res["final"]
+    on_road = int(final.road.count.sum())
+    on_way = int(final.agents.on_way.sum())
+    if on_road != on_way:
+        raise AssertionError(f"dual row conservation: {on_road} on roads, "
+                             f"{on_way} on the way")
+    if int(final.agents.done.sum()) <= 0:
+        raise AssertionError("dual row: no agent arrived")
+    want = {"refreshes": ticks // 10, "relax_launches": 0}
+    if net.device.type == "cuda":
+        want["winner_launches"] = ticks
+    for name, value in want.items():
+        if res[name] != value:
+            raise AssertionError(f"dual row: {name} = {res[name]}, "
+                                 f"expected {value}")
+    nh = final.next_hop
+    n, r, i_n = net.num_nodes, net.num_roads, net.num_intersections
+    if tuple(nh.shape) != (n, n) or nh.dtype != torch.int32:
+        raise AssertionError(f"dual table {nh.dtype}{tuple(nh.shape)}")
+    iota = torch.arange(n, dtype=torch.int32, device=nh.device)
+    if not bool((nh.diagonal() == iota).all()):
+        raise AssertionError("dual table: a diagonal entry is not the node")
+    rows = torch.cat([torch.arange(r, device=nh.device),
+                      r + 2 * torch.arange(i_n, device=nh.device)])
+    dests = r + 2 * torch.arange(i_n, device=nh.device) + 1
+    sub = nh[rows][:, dests]
+    off = rows[:, None] != dests[None, :]
+    if not bool(((sub >= 0) & (sub < n) | ~off).all()):
+        raise AssertionError("dual table: a road or SRC node without a next "
+                             "hop toward a DEST node")
+
+
+def _same_episode(a, b) -> list:
+    """Fields at which two states of one episode under the two routing
+    backends differ: everything but the routing scratch and the
+    selections (an empty road routes the dummy agent, differently on each
+    table, and no one follows)."""
+    da, db = _state_bits(a), _state_bits(b)
+    for d in (da, db):
+        for k in ("next_hop", "sel_dest", "selected_road"):
+            d.pop(k)
+    return _diff_paths(da, db)
+
+
+def free_flow_table_ok(net, dist, nh) -> bool:
+    """A grid's free-flow dual tables: the node itself on the diagonal, and
+    every road and DEST node reachable from every road (no SRC node is:
+    none has an incoming edge)."""
+    import torch
+
+    from tarl_tpu_torch.routing.bellman_ford import BIG
+
+    n, r = net.num_nodes, net.num_roads
+    cols = torch.cat([torch.arange(r, device=dist.device),
+                      r + 1 + 2 * torch.arange(net.num_intersections,
+                                               device=dist.device)])
+    iota = torch.arange(n, dtype=torch.int32, device=nh.device)
+    return (bool((nh.diagonal() == iota).all())
+            and float(dist[:r][:, cols].max()) < BIG
+            and bool((nh[:r][:, cols] >= 0).all()))
+
+
+def big_dual_relax(dev, card: str, grid: int = DUAL_BIG_GRID) -> dict:
+    """Phase 24c: one free-flow ``all_pairs_next_hop_nbr`` on a ``grid`` x
+    ``grid`` network (Grid36x36: the largest on which ``make_policy``'s
+    "auto" picks the dual backend), after a warm-up call: its milliseconds
+    (CUDA events), device time (``torch.profiler``), sweeps, host reads,
+    peak memory above the tables' and the bound."""
+    import torch
+
+    from tarl_tpu_torch.core import sync
+    from tarl_tpu_torch.routing import bellman_ford as bf
+
+    net = grid_network(grid, grid, dev)
+    n, d = net.nbr.shape
+    cost = net.entry_cost()
+    args = (net.nbr, net.nbr_ok, cost)
+    bf.all_pairs_next_hop_nbr(*args)    # warm-up: the allocator's blocks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bf.reset_launches()
+    sync.reset()
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    dist, nh = bf.all_pairs_next_hop_nbr(*args)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1])
+    sweeps, reads = bf.DUAL_SWEEPS, sync.HOST_READS
+    peak = torch.cuda.max_memory_allocated() - base
+    if not free_flow_table_ok(net, dist, nh):
+        raise AssertionError(f"Grid{grid}x{grid} dual table: a road cannot "
+                             "reach a road or DEST node, or the diagonal is "
+                             "wrong")
+    del dist, nh
+    dev_ms, acts = device_time_per_call(bf.all_pairs_next_hop_nbr, args,
+                                        calls=2)
+    # One sweep reads the distances and writes them once, and reads the
+    # slot weights and neighbours; an add and a min per slot and pair.
+    sweep_bytes = 2 * 4 * n * n + 9 * n * d
+    sweep_ops = 2 * d * n * n
+    by_bytes = sweep_bytes / HBM_BYTES_PER_S
+    by_ops = sweep_ops / F32_OPS_PER_S
+    # The next-hop pass: the distances read, the table written.
+    bound_ms = (sweeps * max(by_bytes, by_ops)
+                + 2 * 4 * n * n / HBM_BYTES_PER_S) * 1e3
+    return {"n": n, "d": d, "ms": ms, "device_ms": dev_ms,
+            "device_acts": acts, "sweeps": sweeps, "reads": reads,
+            "peak_bytes": peak, "table_bytes": 4 * n * n,
+            "sweep_bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "card": card}
+
+
+def cli_default_phase(dev, card: str, root: str = None,
+                      dual_ticks: int = DUAL_TICKS,
+                      dual_agents: tuple = None) -> dict:
+    """Phase 24: the CLI's default path on the card: (a) the classical
+    rows through the facade, Braess in the eager tick; (b) the dual row
+    and its cross-checks with the plain K1 and the primal backend; (c) the
+    dual relax at the largest dual size.  Returns the numbers for the
+    results line."""
+    import torch
+
+    from tarl_tpu_torch.config import RoutingConfig
+    from tarl_tpu_torch.core import fused_winner
+    from tarl_tpu_torch.metrics.equilibrium import equilibrium_report
+    from tarl_tpu_torch.routing import bellman_ford as bf
+    from tarl_tpu_torch.state import sort_agents_by_departure
+
+    on_card = dev.type == "cuda"
+    out = {"rows": {}}
+    # --- a. the classical rows ---
+    for name in CLASSICAL_ROWS:
+        res = classical_row(name, dev, root)
+        check_classical_row(res)
+        out["rows"][name] = res
+        want_tt, want_done, want_gap = CLASSICAL_REFERENCE[name]
+        rep = res["report"]
+        log(f"{name}: {res['ticks']} ticks in {res['wall']:.2f} s "
+            f"({res['wall'] / res['ticks'] * 1e3:.3f} ms/tick), average "
+            f"travel time {res['avg_tt']:.3f} s (reference {want_tt:.3f}), "
+            f"done {res['done']} (reference {want_done}), relative gap "
+            f"{res['rel_gap']:.5f} (reference {want_gap:.5f}), TSTT "
+            f"{res['tstt']:.0f} s, K1 launches {res['launches']}, host "
+            f"reads per tick {res['reads_per_tick']:.3f}, refreshes "
+            f"{res['refreshes']}; report in {res['report_s']:.2f} s (PoA "
+            f"{rep['price_of_anarchy']:.4f}, FW iterations "
+            f"{rep['msa_iterations_ue']}, converged "
+            f"{rep['converged_ue']}/{rep['converged_so']})")
+    rows = out["rows"]
+    if not rows["Braess random"]["rel_gap"] > rows["Braess dijkstra"][
+            "rel_gap"] or not rows["Braess random"]["avg_tt"] > rows[
+            "Braess dijkstra"]["avg_tt"]:
+        raise AssertionError("Braess: the metrics do not rank random below "
+                             "dijkstra")
+    eager = eager_in_context(dev, root)
+    out["eager"] = eager
+    for label, t in eager["timers"].items():
+        log(f"Braess eager run() with {label}: {EAGER_TICKS} ticks bitwise "
+            f"the fused run's; phase timers insert {t.inserting_time:.3f} "
+            f"s, withdraw {t.withdraw_time:.3f} s, choice "
+            f"{t.choice_time:.3f} s, core {t.core_time:.3f} s, total "
+            f"{t.total:.3f} s; K1 launches {eager['launches'][label]}")
+
+    # --- b. the dual row ---
+    if dual_agents is None:
+        net, agents = load_scenario("Grid16x16_50000", 16, 16, 50000, dev)
+    else:
+        net, agents = dual_agents
+    agents = sort_agents_by_departure(agents)
+    dual = dual_row(net, agents, ticks=dual_ticks)
+    check_dual_row(dual, net, dual_ticks)
+    final = dual["final"]
+    n = net.num_nodes
+    log(f"dual row: {net.num_roads} roads, N={n} dual nodes, "
+        f"{agents.num_agents} agent "
+        f"rows; initial table in {dual['init_s']:.2f} s "
+        f"({dual['init_sweeps']} sweeps, {dual['init_reads']} host reads)")
+    log(f"dual row: {dual['rate']:.1f} agent-steps/s ({dual['measured']} "
+        f"ticks in {dual['wall']:.2f} s, "
+        f"{dual['wall'] / dual['measured'] * 1e3:.3f} ms/tick), "
+        f"{dual['refresh_ms']:.3f} ms per refresh (CUDA events, "
+        f"{dual['refreshes']} refreshes), {dual['sweeps_per_refresh']:.1f} "
+        f"sweeps and {dual['reads_per_refresh']:.2f} host reads per "
+        f"refresh, host reads per tick {dual['reads_per_tick']:.3f}, done "
+        f"{int(final.agents.done.sum())}, on roads "
+        f"{int(final.road.count.sum())}, table {4 * n * n} bytes, "
+        f"fused_winner calls {dual['winner_launches']} ({card})")
+    t0 = time.perf_counter()
+    report = equilibrium_report(final.agents, final.road, net, final.time)
+    out["dual_report_s"] = time.perf_counter() - t0
+    log(f"dual row equilibrium report in {out['dual_report_s']:.2f} s: "
+        + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in report.items()))
+    # In context: the plain K1 from the same start.
+    fused_winner.reset_launches()
+    plain = dual_row(net, agents, ticks=DUAL_CONTEXT_TICKS,
+                     keep=(), core=fused_winner.direction_confirm_plain)
+    if plain["winner_launches"] != 0:
+        raise AssertionError("the plain-K1 dual row launched K1")
+    bad = _diff_paths(_state_bits(dual["kept"][DUAL_CONTEXT_TICKS]),
+                      _state_bits(plain["final"]))
+    if bad:
+        raise AssertionError(f"dual row with K1 and with the plain K1 differ "
+                             f"at tick {DUAL_CONTEXT_TICKS}: {bad}")
+    log(f"dual row in context: K1 and plain K1 states equal bitwise at "
+        f"tick {DUAL_CONTEXT_TICKS}")
+    # The primal backend, uncapped: K2's resident form, once a refresh and
+    # once for the table init's relax.
+    primal = dual_row(net, agents, ticks=DUAL_PRIMAL_TICKS, keep=(),
+                      routing=RoutingConfig(backend="primal"))
+    want = {"refreshes": DUAL_PRIMAL_TICKS // 10,
+            "relax_launches": DUAL_PRIMAL_TICKS // 10 + 1,
+            "resident_launches": DUAL_PRIMAL_TICKS // 10 + 1}
+    for k, v in want.items():
+        if on_card and primal[k] != v:
+            raise AssertionError(f"primal cross-check: {k} = {primal[k]}, "
+                                 f"expected {v}")
+    bad = _same_episode(dual["kept"][DUAL_PRIMAL_TICKS], primal["final"])
+    if bad:
+        raise AssertionError(f"dual and primal rows differ at tick "
+                             f"{DUAL_PRIMAL_TICKS}: {bad}")
+    keep = ("winner_launches", "relax_launches", "resident_launches",
+            "refreshes", "wall", "measured")
+    out.update(dual={k: dual[k] for k in keep},
+               primal={k: primal[k] for k in keep}, net_n=n)
+    log(f"dual row against the primal backend: states equal bitwise at tick "
+        f"{DUAL_PRIMAL_TICKS} (routing scratch and selections aside); "
+        f"primal {primal['wall'] / primal['measured'] * 1e3:.3f} ms/tick, "
+        f"{primal['relax_launches']} relax calls "
+        f"({primal['resident_launches']} resident launches)")
+    del dual, plain, primal, final
+
+    # --- c. the largest dual network ---
+    if on_card:
+        big = big_dual_relax(dev, card)
+        out["big"] = big
+        log(f"dual relax Grid{DUAL_BIG_GRID}x{DUAL_BIG_GRID}: N={big['n']}, "
+            f"D={big['d']} slots, {big['ms']:.3f} ms (CUDA events), device "
+            f"{fmt_us(big['device_ms'])} in {big['device_acts']:.1f} "
+            f"kernels (torch.profiler over 2 calls), {big['sweeps']} sweeps, "
+            f"{big['reads']} host reads, peak memory "
+            f"{big['peak_bytes'] / 2 ** 20:.1f} MiB above the start (dist "
+            f"and next_hop {big['table_bytes'] / 2 ** 20:.1f} MiB each), "
+            f"bound {big['bound_ms']:.3f} ms by {big['bound_by']} "
+            f"({big['sweep_bound_ms']:.4f} ms a sweep) ({card})")
+    return out
+
+
 # --- training (phase 21) -----------------------------------------------------
 
 def _stamp(on_card: bool):
@@ -3831,7 +4392,12 @@ def main() -> int:
     rad_sp, rad_t = rad["sp"], rad["timed"]
     log(f"radial row phase in {time.perf_counter() - t0:.1f} s")
 
-    # --- 24. results ------------------------------------------------------
+    # --- 24. the CLI's default evaluation ----------------------------------
+    t0 = time.perf_counter()
+    cli = cli_default_phase(dev, card)
+    log(f"CLI default phase in {time.perf_counter() - t0:.1f} s")
+
+    # --- 25. results ------------------------------------------------------
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     train_launches = train["launches"]
     kern_ms, plain_ms, kern_dev_ms, k1_bound = timings["Grid16x16"]
@@ -3941,6 +4507,12 @@ def main() -> int:
         "bound_ms_grid64": timings["Grid64x64"][3][0],
         "launches_sp_row": sp["winner_launches"],
         "launches_training": train_launches["K1"],
+        "launches_classical_rows": {name: r["launches"]
+                                    for name, r in cli["rows"].items()},
+        "launches_eager_braess": cli["eager"]["launches"]["K1"],
+        "launches_dual_row": cli["dual"]["winner_launches"],
+        "launches_dual_primal_cross_check":
+            cli["primal"]["winner_launches"],
     }, {
         "name": "primal_relax",
         "route": "cuda",
@@ -3957,6 +4529,9 @@ def main() -> int:
         "library_ms": None,
         "modes": list(errs),
         "tile_columns": width64,
+        "launches_dual_primal_cross_check": cli["primal"]["relax_launches"],
+        "resident_launches_dual_primal_cross_check":
+            cli["primal"]["resident_launches"],
         "ms_grid256_cluster16": relax_t["Grid256 K2 mode"][0],
         "device_ms_grid256_cluster16": relax_t["Grid256 K2 mode"][4],
         "plain_ms_grid256_cluster16": relax_t["Grid256 K2 mode"][1],

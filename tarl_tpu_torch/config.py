@@ -1,11 +1,11 @@
 """Typed configuration of the PyTorch port (ports ``tarl_tpu/config.py``).
 
-``PhysicsConfig``, ``SimConfig``, ``RoutingConfig`` and ``RLConfig``
-keep the reference's field names and defaults so one configuration reads
-the same in both packages. A few ``SimConfig`` fields only choose
-between bitwise-identical evaluation strategies of the TPU build
-(``insert_compact``, ``withdraw_compact``); the port accepts and ignores
-them. ``fused_core`` selects the fused edge-phase core
+``PhysicsConfig``, ``SimConfig``, ``RoutingConfig``, ``RLConfig`` and
+``MSAConfig`` keep the reference's field names and defaults so one
+configuration reads the same in both packages. A few ``SimConfig``
+fields only choose between bitwise-identical evaluation strategies of the
+TPU build (``insert_compact``, ``withdraw_compact``); the port accepts and
+ignores them. ``fused_core`` selects the fused edge-phase core
 (:mod:`tarl_tpu_torch.core.fused_core`) for networks of at most 4,096
 roads, as the reference does on its own chip; it samples the same law as
 the default core from another random stream.
@@ -79,10 +79,11 @@ class RoutingConfig:
     refresh_rate: int = 10
     # Cap on Bellman-Ford sweeps per refresh (None = until converged).
     max_bf_iters: int | None = None
-    # The reference simulator's own entry-road and edge-cost quirks; needs
-    # the dual backend, which the port does not have yet.
+    # The reference simulator's own entry-road and edge-cost quirks (the
+    # dual backend only).
     strict_compat: bool = False
-    # "primal" (intersection tables), "dual" (not ported) or "auto".
+    # "primal" (intersection tables), "dual" (dual-node tables) or "auto"
+    # (dual up to 8,000 dual nodes).
     backend: str = "auto"
     # "travel_time" (user-equilibrium seeking) or "marginal" (system
     # optimal: tt + n * dtt/dn).
@@ -129,7 +130,26 @@ class RLConfig:
     extra_obs: bool = False
 
 
+@dataclasses.dataclass(frozen=True)
+class MSAConfig:
+    """Static-assignment solver parameters (same fields and defaults as
+    the reference).  ``method`` "fw" is Frank-Wolfe with an exact bisection
+    line search on the Beckmann objective, stopping at the relative gap
+    ``rel_gap_tol``; "msa" is the method of successive averages (step
+    ``1/it``), stopping at the L1 flow gap ``tol``."""
+
+    tol: float = 1e-5
+    max_iter: int = 1000
+    bpr_alpha: float = 0.15
+    bpr_beta: float = 4.0
+    method: str = "fw"
+    rel_gap_tol: float = 1e-4
+    # Bisection steps of the exact line search (interval width 2^-k).
+    fw_line_search_steps: int = 40
+
+
 DEFAULT_PHYSICS = PhysicsConfig()
 DEFAULT_SIM = SimConfig()
 DEFAULT_ROUTING = RoutingConfig()
 DEFAULT_RL = RLConfig()
+DEFAULT_MSA = MSAConfig()

@@ -3,15 +3,17 @@
 ``run_episode``, ``run_episode_periodic`` and ``average_travel_time``).
 
 A tick runs insert -> withdraw -> choice -> core, then advances the clock
-and updates the metrics.  The core is :func:`~tarl_tpu_torch.core.
-fused_winner.direction_confirm` (the CUDA kernel K1 on a CUDA device)
-followed by the tail push and head pop in PyTorch; with
-``SimConfig.fused_core`` and at most 4,096 roads it is
+and updates the metrics: :func:`insert_phase`, :func:`withdraw_phase`, the
+policy's choice and :func:`core_phase`, which the simulator facade's eager
+``run()`` also calls one by one, timing each.  The core is
+:func:`~tarl_tpu_torch.core.fused_winner.direction_confirm` (the CUDA
+kernel K1 on a CUDA device) followed by the tail push and head pop in
+PyTorch; with ``SimConfig.fused_core`` and at most 4,096 roads it is
 :func:`~tarl_tpu_torch.core.fused_core.fused_core_step` instead (the
 eligibility, the logits and the per-downstream Gumbel-max over the turn
-edges in one launch of kernel K12).  The episode
-functions are Python loops over ticks; the reference's ``lax.scan`` has no
-counterpart that eager PyTorch needs.
+edges in one launch of kernel K12).  The episode functions are Python
+loops over ticks; the reference's ``lax.scan`` has no counterpart that
+eager PyTorch needs.
 """
 from __future__ import annotations
 
@@ -50,10 +52,11 @@ class Policy(NamedTuple):
     ``entry(state, network) -> int32[A]`` and ``entry_lookup(state, network,
     agent_ids) -> roads`` give per-agent entry roads (entrants take
     ``selected_road[origin]`` without them); ``needs_next_hop`` asks for the
-    dual table (not ported); ``table_init(network)`` builds the routing
-    scratch ``state.next_hop``; ``learned`` marks a trained neural policy
-    (the reference carries its ``LearnedSpec`` there), which the
-    road-sharded episode refuses until its branch is ported.
+    dual next-hop table (int32[N, N], the uncapped free-flow
+    ``all_pairs_next_hop_nbr`` at init); ``table_init(network)`` builds the
+    routing scratch ``state.next_hop`` instead; ``learned`` marks a trained
+    neural policy (the reference carries its ``LearnedSpec`` there), which
+    the road-sharded episode refuses until its branch is ported.
     ``refresh(state, network) -> buf``,
     ``lookup(state, network, buf) -> state`` and ``periodic_rate`` split a
     periodic-refresh choice for :func:`run_episode_periodic`; ``choice``
@@ -98,7 +101,10 @@ def init_sim_state(
     if policy is not None and policy.table_init is not None:
         next_hop = policy.table_init(network)
     elif policy is not None and policy.needs_next_hop:
-        raise NotImplementedError("the dual next-hop table is not ported")
+        from ..routing.bellman_ford import all_pairs_next_hop_nbr
+
+        _, next_hop = all_pairs_next_hop_nbr(network.nbr, network.nbr_ok,
+                                             network.entry_cost())
     if policy is not None and (policy.needs_next_hop
                                or policy.table_init is not None):
         sel_dest = torch.full((network.num_roads,), -1, dtype=torch.int32,
@@ -147,6 +153,140 @@ def reset_sim_state(state: SimState, start_time) -> SimState:
     )
 
 
+def insert_phase(state: SimState, network: Network, policy: Policy,
+                 sim: SimConfig = DEFAULT_SIM,
+                 physics: PhysicsConfig = DEFAULT_PHYSICS,
+                 lazy_inserted: bool = False) -> tuple[SimState, float]:
+    """The tick's insert: the backlog, windowed or whole-population insert
+    as ``sim`` asks, with the policy's entry roads (read from
+    ``state.next_hop`` as it is before this tick's choice).  Returns the
+    state and the window's saturation monitor."""
+    t = state.time
+    if sim.insert_window is not None and \
+            sim.insert_backlog is not None and state.backlog is not None:
+        road, agents, backlog, insert_ptr, saturated = \
+            insert_agents_backlogged(
+                state.road, state.agents, state.backlog,
+                state.selected_road, network, t, state.insert_ptr,
+                sim.insert_window, physics, escalate=sim.insert_escalate,
+                update_inserted=not lazy_inserted,
+            )
+        return state._replace(road=road, agents=agents, backlog=backlog,
+                              insert_ptr=insert_ptr), saturated
+    if sim.insert_window is not None:
+        entry_fn = entry_road = None
+        if policy.entry_lookup is not None:
+            def entry_fn(ids, s=state):
+                return policy.entry_lookup(s, network, ids)
+        elif policy.entry is not None:
+            entry_road = policy.entry(state, network)
+        road, agents, insert_ptr, saturated = insert_agents_windowed(
+            state.road, state.agents, state.selected_road, network, t,
+            state.insert_order, state.insert_ptr, sim.insert_window,
+            physics, entry_road=entry_road, entry_lookup=entry_fn,
+            sorted_fast=sim.sorted_population, escalate=sim.insert_escalate,
+        )
+        return state._replace(road=road, agents=agents,
+                              insert_ptr=insert_ptr), saturated
+    entry_road = (policy.entry(state, network)
+                  if policy.entry is not None else None)
+    road, agents = insert_agents(
+        state.road, state.agents, state.selected_road, network, t,
+        physics, entry_road=entry_road,
+    )
+    return state._replace(road=road, agents=agents), 0.0
+
+
+def withdraw_phase(state: SimState, network: Network,
+                   sim: SimConfig = DEFAULT_SIM
+                   ) -> tuple[SimState, torch.Tensor]:
+    """The tick's withdraw; returns the state and each road's withdrawals
+    (int32[R])."""
+    road, agents, wcount = withdraw_agents(
+        state.road, state.agents, network, state.time,
+        depth=sim.withdraw_depth, escalate=sim.withdraw_escalate,
+    )
+    return state._replace(road=road, agents=agents), wcount
+
+
+def core_phase(
+    state: SimState,
+    network: Network,
+    wcount: torch.Tensor,
+    saturated,
+    sim: SimConfig = DEFAULT_SIM,
+    physics: PhysicsConfig = DEFAULT_PHYSICS,
+    core: Callable = direction_confirm,
+    payload: Callable = fused_core_sample,
+) -> tuple[SimState, TickLog]:
+    """The tick's core (direction winner, confirm, tail push and head pop),
+    then the clock and the metrics; ``wcount`` and ``saturated`` come from
+    this tick's withdraw and insert.  ``core`` and ``payload`` as in
+    :func:`tick`."""
+    t = state.time
+    dev = state.road.count.device
+    road = state.road
+    key, k_dir = split(state.key)
+    want_delta = (sim.record_road_optimality
+                  or sim.record_road_optimality_hourly)
+    # The reference's choice on its own chip: the fused core where asked
+    # and R <= 4,096 (past that its one-hot tiles overflowed VMEM).
+    if sim.fused_core and network.num_roads <= 4096:
+        road, popped, road_delta_tt = fused_core_step(
+            road, state.selected_road, network, t, k_dir, physics,
+            compute_delta=want_delta, payload=payload)
+    else:
+        accept, _win, agent, dest, popped = core(
+            road, state.selected_road, network, t, k_dir, physics)
+        road, road_delta_tt = apply_transfers(
+            road, network, t, accept, agent, dest, popped, physics,
+            compute_delta=want_delta,
+        )
+
+    # --- clock + metrics ---
+    new_time = t + sim.timestep
+    hour = min(max(int(np.float32(t) / np.float32(3600.0)), 0),
+               sim.num_hours - 1)
+    traversals = ((wcount > 0) | popped).to(torch.int32)
+    metrics = state.metrics
+    hourly = metrics.hourly_counts.clone()
+    hourly[hour] += traversals
+    delta_hourly = metrics.delta_tt_hourly
+    if sim.record_road_optimality_hourly and road_delta_tt.shape[0]:
+        delta_hourly = delta_hourly.clone()
+        delta_hourly[hour] += road_delta_tt
+    if not sim.record_road_optimality:
+        road_delta_tt = torch.zeros((0,), dtype=torch.float32, device=dev)
+
+    on_way_total = road.count.sum().to(torch.float32)
+    done_total = metrics.done_before + wcount.sum().to(torch.float32)
+    departures = (on_way_total - metrics.on_way_before + done_total
+                  - metrics.done_before)
+    arrivals = done_total - metrics.done_before
+
+    new_state = state._replace(
+        road=road,
+        time=new_time,
+        key=key,
+        metrics=MetricState(
+            hourly_counts=hourly,
+            on_way_before=on_way_total,
+            done_before=done_total,
+            delta_tt_hourly=delta_hourly,
+        ),
+    )
+    f32 = torch.float32
+    log = TickLog(
+        departures=departures,
+        arrivals=arrivals,
+        on_way=on_way_total,
+        time=torch.tensor(new_time, dtype=f32),
+        road_delta_tt=road_delta_tt,
+        window_saturated=torch.tensor(saturated, dtype=f32),
+    )
+    return new_state, log
+
+
 def tick(
     state: SimState,
     network: Network,
@@ -170,116 +310,12 @@ def tick(
     fused_core.fused_core_sample_plain` the same way.  ``choice_fn`` replaces
     ``policy.choice`` (same signature).  Entry roads read
     ``state.next_hop`` as it was before this tick's choice."""
-    t = state.time
-    dev = state.road.count.device
-
-    # --- insert ---
-    insert_ptr = state.insert_ptr
-    backlog = state.backlog
-    saturated = 0.0
-    if sim.insert_window is not None and \
-            sim.insert_backlog is not None and backlog is not None:
-        road, agents, backlog, insert_ptr, saturated = \
-            insert_agents_backlogged(
-                state.road, state.agents, backlog, state.selected_road,
-                network, t, state.insert_ptr, sim.insert_window, physics,
-                escalate=sim.insert_escalate,
-                update_inserted=not lazy_inserted,
-            )
-    elif sim.insert_window is not None:
-        entry_fn = entry_road = None
-        if policy.entry_lookup is not None:
-            def entry_fn(ids, s=state):
-                return policy.entry_lookup(s, network, ids)
-        elif policy.entry is not None:
-            entry_road = policy.entry(state, network)
-        road, agents, insert_ptr, saturated = insert_agents_windowed(
-            state.road, state.agents, state.selected_road, network, t,
-            state.insert_order, state.insert_ptr, sim.insert_window,
-            physics, entry_road=entry_road, entry_lookup=entry_fn,
-            sorted_fast=sim.sorted_population, escalate=sim.insert_escalate,
-        )
-    else:
-        entry_road = (policy.entry(state, network)
-                      if policy.entry is not None else None)
-        road, agents = insert_agents(
-            state.road, state.agents, state.selected_road, network, t,
-            physics, entry_road=entry_road,
-        )
-
-    # --- withdraw ---
-    road, agents, wcount = withdraw_agents(
-        road, agents, network, t, depth=sim.withdraw_depth,
-        escalate=sim.withdraw_escalate,
-    )
-    withdrawn = wcount > 0
-    state = state._replace(road=road, agents=agents)
-
-    # --- choice ---
+    state, saturated = insert_phase(state, network, policy, sim, physics,
+                                    lazy_inserted)
+    state, wcount = withdraw_phase(state, network, sim)
     state, _ = (choice_fn or policy.choice)(state, network)
-
-    # --- core: direction + confirm ---
-    key, k_dir = split(state.key)
-    want_delta = sim.record_road_optimality or sim.record_road_optimality_hourly
-    # The reference's choice on its own chip: the fused core where asked
-    # and R <= 4,096 (past that its one-hot tiles overflowed VMEM).
-    if sim.fused_core and network.num_roads <= 4096:
-        road, popped, road_delta_tt = fused_core_step(
-            road, state.selected_road, network, t, k_dir, physics,
-            compute_delta=want_delta, payload=payload)
-    else:
-        accept, _win, agent, dest, popped = core(
-            road, state.selected_road, network, t, k_dir, physics)
-        road, road_delta_tt = apply_transfers(
-            road, network, t, accept, agent, dest, popped, physics,
-            compute_delta=want_delta,
-        )
-
-    # --- clock + metrics ---
-    new_time = t + sim.timestep
-    hour = min(max(int(np.float32(t) / np.float32(3600.0)), 0),
-               sim.num_hours - 1)
-    traversals = (withdrawn | popped).to(torch.int32)
-    metrics = state.metrics
-    hourly = metrics.hourly_counts.clone()
-    hourly[hour] += traversals
-    delta_hourly = metrics.delta_tt_hourly
-    if sim.record_road_optimality_hourly and road_delta_tt.shape[0]:
-        delta_hourly = delta_hourly.clone()
-        delta_hourly[hour] += road_delta_tt
-    if not sim.record_road_optimality:
-        road_delta_tt = torch.zeros((0,), dtype=torch.float32, device=dev)
-
-    on_way_total = road.count.sum().to(torch.float32)
-    done_total = metrics.done_before + wcount.sum().to(torch.float32)
-    departures = (on_way_total - metrics.on_way_before + done_total
-                  - metrics.done_before)
-    arrivals = done_total - metrics.done_before
-
-    new_state = state._replace(
-        road=road,
-        agents=agents,
-        time=new_time,
-        key=key,
-        insert_ptr=insert_ptr,
-        backlog=backlog,
-        metrics=MetricState(
-            hourly_counts=hourly,
-            on_way_before=on_way_total,
-            done_before=done_total,
-            delta_tt_hourly=delta_hourly,
-        ),
-    )
-    f32 = torch.float32
-    log = TickLog(
-        departures=departures,
-        arrivals=arrivals,
-        on_way=on_way_total,
-        time=torch.tensor(new_time, dtype=f32),
-        road_delta_tt=road_delta_tt,
-        window_saturated=torch.tensor(saturated, dtype=f32),
-    )
-    return new_state, log
+    return core_phase(state, network, wcount, saturated, sim, physics,
+                      core=core, payload=payload)
 
 
 def run_episode(

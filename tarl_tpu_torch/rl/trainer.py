@@ -20,6 +20,7 @@ import torch
 from ..config import DEFAULT_RL, RLConfig
 from ..core.rng import Key, prng_key
 from ..core.step import average_travel_time
+from ..metrics.equilibrium import nash_gap, tstt
 from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
 from .ppo import PPO, TrainState, tree_map
 
@@ -130,13 +131,12 @@ def ppo_train(
     Every ``eval_interval`` iterations a greedy evaluation (and with
     ``stochastic_eval`` the mean of ``stochastic_eval_samples`` sampled
     ones) of ``eval_steps`` steps logs ``eval/avg_return``,
-    ``eval/episode_len``, ``eval/avg_travel_time`` and
+    ``eval/episode_len``, ``eval/tstt`` and ``eval/relative_nash_gap``
+    (:mod:`~tarl_tpu_torch.metrics.equilibrium` on the rollout's final
+    state and congested costs), ``eval/avg_travel_time`` and
     ``eval/computation_time_ms`` (``eval_stochastic/...`` for the sampled
     ones), from keys of their own (``prng_key(it + s * 7919)``), so the
-    training trajectory does not depend on them.  The reference also logs
-    the TSTT, the relative Nash gap and the leg histogram there; their
-    modules (``metrics.equilibrium``, ``metrics.reporting``) are not
-    ported yet, and these scalars are left out.  ``track_best`` names an
+    training trajectory does not depend on them.  ``track_best`` names an
     eval scalar to minimise: each improvement writes ``<checkpoint_dir>/
     best`` and ``best.json``.  ``ema_decay`` keeps an exponential moving
     average of the parameters, which every evaluation and the best
@@ -208,11 +208,16 @@ def ppo_train(
                     eval_env, rewards, _, _ = ppo.eval_rollout(
                         eval_params, sim_state, prng_key(it + s * 7919),
                         eval_steps, deterministic=det)
+                    fsim = eval_env.sim
+                    gap = nash_gap(fsim.agents, fsim.road, ppo.network)
                     sample = {
                         f"{tag}/avg_return": float(rewards.sum()),
                         f"{tag}/episode_len": int(rewards.shape[0]),
+                        f"{tag}/tstt": float(tstt(fsim.agents, fsim.time)),
+                        f"{tag}/relative_nash_gap": float(
+                            gap["relative_gap"]),
                         f"{tag}/avg_travel_time": float(
-                            average_travel_time(eval_env.sim.agents)),
+                            average_travel_time(fsim.agents)),
                     }
                     for k, v in sample.items():
                         acc[k] = acc.get(k, 0.0) + v / n_samples

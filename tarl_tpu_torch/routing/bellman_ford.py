@@ -53,14 +53,18 @@ Left out: ``primal_delta_buckets``, ``epilogue_slot_tables``,
 ``_epilogue_rep_tables``, the row windows, the VMEM plans and every
 ``TARL_*`` environment gate.  They choose between bitwise-identical
 evaluations of the same relaxation on the TPU (rotations against row
-gathers, tile widths, row blocks); the GPU kernels gather directly.  The
-edge-list form ``all_pairs_next_hop`` waits for the dual backend.
+gathers, tile widths, row blocks); the GPU kernels gather directly.
 
 :func:`all_pairs_next_hop_nbr` is the dual-graph all-pairs relaxation over
 the padded neighbour table, plain PyTorch (the reference has no kernel for
-it): it gives the learned policy's distance prior and the progress reward's
-potential.  It reads its convergence flag every :data:`CHECK_EVERY`
-sweeps.
+it): it gives the dual routing backend's next-hop table, the learned
+policy's distance prior, the progress reward's potential, the Nash gap and
+MSA's shortest paths.  :func:`all_pairs_next_hop` is the same relaxation
+over the full edge list with optional per-edge costs (``strict_compat``'s
+table, with :func:`reference_edge_costs`), its own tie rule kept.  Both
+read their convergence flag every :data:`CHECK_EVERY` sweeps (where the
+reference reads none: its loop runs on the device) and add the sweeps they
+ran to :data:`DUAL_SWEEPS`.
 """
 from __future__ import annotations
 
@@ -73,6 +77,7 @@ from .._build import check_tensor, current_stream
 from ..config import DEFAULT_PHYSICS, PhysicsConfig
 from ..core.sync import host_read
 from ..network import Network
+from ..ops.segment import segment_min
 from ..state import RoadState
 
 # The reference's jnp.float32(1e18): exactly representable in float32.
@@ -89,8 +94,11 @@ GLOBAL_LAUNCHES = 0
 NEXT_ROAD_LAUNCHES = 0
 
 # Sweeps between host reads of the convergence flag of the dual all-pairs
-# relaxation; sweeps past the fixpoint change nothing.
+# relaxations; sweeps past the fixpoint change nothing.
 CHECK_EVERY = 8
+# Sweeps run by the dual all-pairs relaxations (whole batches of
+# CHECK_EVERY, the last one cut at the cap).
+DUAL_SWEEPS = 0
 
 # The resident kernel's limits (csrc/primal_relax.cu): MAX_TILE_COLS
 # destination columns a block, at most RESIDENT_ROWS rows of at most
@@ -123,12 +131,13 @@ _GLOBAL_SYNC: dict = {}
 
 def reset_launches() -> None:
     global LAUNCHES, RESIDENT_LAUNCHES, CLUSTER_LAUNCHES, GLOBAL_LAUNCHES
-    global NEXT_ROAD_LAUNCHES
+    global NEXT_ROAD_LAUNCHES, DUAL_SWEEPS
     LAUNCHES = 0
     RESIDENT_LAUNCHES = 0
     CLUSTER_LAUNCHES = 0
     GLOBAL_LAUNCHES = 0
     NEXT_ROAD_LAUNCHES = 0
+    DUAL_SWEEPS = 0
 
 
 # --- dual all-pairs relaxation ----------------------------------------------
@@ -150,34 +159,95 @@ def all_pairs_next_hop_nbr(
     :data:`CHECK_EVERY` sweeps, and the sweeps past the fixpoint change
     nothing, so the tables equal the reference's bit for bit."""
     n, d = nbr.shape
-    dev = nbr.device
-    iters = (n - 1) if max_iters is None else max_iters
     nbr_l = nbr.long()
-    eye = torch.eye(n, dtype=torch.bool, device=dev)
-    dist = torch.full((n, n), BIG, dtype=torch.float32, device=dev)
-    dist.fill_diagonal_(0.0)
     w = torch.where(nbr_ok, entry_cost[nbr_l], BIG)
 
+    def sweep(dist):
+        new = dist
+        for slot in range(d):
+            new = torch.minimum(new, w[:, slot][:, None]
+                                + dist[nbr_l[:, slot]])
+        return new
+
+    dist = _relax_batched(sweep, n, max_iters, nbr.device)
+    cand = w[:, :, None] + dist[nbr_l]                    # [N, D, N]
+    hop = nbr.gather(1, torch.argmin(cand, dim=1))       # first slot on ties
+    return dist, _finish_next_hop(dist, hop)
+
+
+def _relax_batched(sweep, n: int, max_iters: int | None, dev):
+    """Jacobi sweeps from the all-pairs cold start (0 on the diagonal, BIG
+    elsewhere) in batches of :data:`CHECK_EVERY`, reading after each batch
+    whether its last sweep lowered anything; at most ``max_iters`` (``n -
+    1`` when None)."""
+    global DUAL_SWEEPS
+    iters = (n - 1) if max_iters is None else max_iters
+    dist = torch.full((n, n), BIG, dtype=torch.float32, device=dev)
+    dist.fill_diagonal_(0.0)
     done = 0
     while done < iters:
         n_sweeps = min(CHECK_EVERY, iters - done)
         for k in range(n_sweeps):
-            new = dist
-            for slot in range(d):
-                new = torch.minimum(new, w[:, slot][:, None]
-                                    + dist[nbr_l[:, slot]])
+            new = sweep(dist)
             if k == n_sweeps - 1:
                 changed = torch.any(new < dist)
             dist = new
         done += n_sweeps
+        DUAL_SWEEPS += n_sweeps
         if not host_read(changed)[0]:
             break
+    return dist
 
-    cand = w[:, :, None] + dist[nbr_l]                    # [N, D, N]
-    hop = nbr.gather(1, torch.argmin(cand, dim=1))       # first slot on ties
+
+def _finish_next_hop(dist, hop):
+    """``hop`` where the pair is reachable and off the diagonal, -1 where
+    unreachable, the node itself on the diagonal.  int32[N, N]."""
+    n = dist.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=dist.device)
     next_hop = torch.where((dist < BIG) & ~eye, hop, -1)
-    iota = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
-    return dist, torch.where(eye, iota, next_hop).to(torch.int32)
+    iota = torch.arange(n, dtype=torch.int32, device=dist.device)[:, None]
+    return torch.where(eye, iota, next_hop).to(torch.int32)
+
+
+def all_pairs_next_hop(
+    edge_src: torch.Tensor,    # int32[E]
+    edge_dst: torch.Tensor,    # int32[E]
+    entry_cost: torch.Tensor,  # float32[N]
+    num_nodes: int,
+    max_iters: int | None = None,
+    edge_cost: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dist[N, N], next_hop[N, N])`` by Jacobi sweeps over the edge
+    list: ``cand[e, d] = w[e] + dist[edge_dst[e], d]`` min-reduced over each
+    node's out-edges, with ``w`` the entry cost of each edge's head or
+    ``edge_cost`` (float32[E]) where given.  Stops and reads as
+    :func:`all_pairs_next_hop_nbr` does.
+
+    The next hop keeps the reference's tie rule, which is not the
+    neighbour form's: among the out-edges whose candidate lies within
+    ``1e-6`` of the minimum (``cand <= best + 1e-6`` in float32), the
+    lowest edge id; ``v`` itself on the diagonal and -1 where d is
+    unreachable (or v has no out-edge).  Min is exact, so the segment
+    reductions are bitwise on every device."""
+    n = num_nodes
+    e_n = edge_src.shape[0]
+    dst = edge_dst.long()
+    w = edge_cost if edge_cost is not None else entry_cost[dst]
+
+    def sweep(dist):
+        cand = w[:, None] + dist[dst]
+        return torch.minimum(dist, segment_min(cand, edge_src, n))
+
+    dist = _relax_batched(sweep, n, max_iters, edge_src.device)
+    cand = w[:, None] + dist[dst]                          # [E, N]
+    best = segment_min(cand, edge_src, n)                  # [N, N]
+    e_ids = torch.arange(e_n, dtype=torch.int32, device=edge_src.device)
+    is_best = cand <= best[edge_src.long()] + 1e-6
+    arg_e = segment_min(torch.where(is_best, e_ids[:, None], e_n),
+                        edge_src, n)
+    hop = torch.where(arg_e < e_n,
+                      edge_dst[torch.clamp(arg_e, max=e_n - 1).long()], -1)
+    return dist, _finish_next_hop(dist, hop)
 
 
 # --- costs -------------------------------------------------------------------
@@ -217,6 +287,30 @@ def marginal_road_costs(road: RoadState, network: Network,
                       count_f * network.congestion_constant / (denom * denom),
                       0.0)
     return tt + ext
+
+
+def reference_edge_costs(road: RoadState, network: Network,
+                         physics: PhysicsConfig = DEFAULT_PHYSICS
+                         ) -> torch.Tensor:
+    """``strict_compat``'s per-edge costs over the full edge list: the
+    reference simulator's ``w(u -> v) = max(fftt[u], cc[v] / (cap[u] + 10
+    - n[u]))``, the source's free-flow time, occupancy and capacity with
+    the target's congestion constant; SRC/DEST nodes carry zeros.
+    float32[Ef]."""
+    n, r = network.num_nodes, network.num_roads
+    dev = road.count.device
+
+    def pad(x):
+        out = torch.zeros(n, dtype=torch.float32, device=dev)
+        out[:r] = x
+        return out
+
+    fftt, cap = pad(network.free_flow), pad(network.capacity)
+    cc = pad(network.congestion_constant)
+    cnt = pad(road.count.to(torch.float32))
+    u, v = network.full_src.long(), network.full_dst.long()
+    tc = cc[v] / (cap[u] + physics.congestion_softening - cnt[u])
+    return torch.maximum(fftt[u], tc)
 
 
 def marginal_node_costs(road: RoadState, network: Network,

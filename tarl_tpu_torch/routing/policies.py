@@ -1,5 +1,7 @@
 """Route-choice policies (ports ``tarl_tpu/routing/policies.py``:
-``random_choice``, ``ExternalChoice``, the primal shortest-path policy —
+``random_choice``, ``ExternalChoice``, the dual shortest-path policy —
+``make_shortest_path_choice`` with its ``strict_compat`` branch, and
+``shortest_path_entry`` — the primal one —
 ``make_shortest_path_choice_primal``, ``primal_table_init``,
 ``primal_entry_lookup`` — and its destination-restricted form,
 ``make_primal_dest_parts``).
@@ -8,9 +10,13 @@ A policy is a function ``choice(state, network) -> (state, entry_road)``
 that updates ``state.selected_road`` and optionally returns per-agent entry
 roads for insertion.
 
-The shortest-path policies keep one flat float32 routing scratch in
-``state.next_hop``: ``dist[I, D] ++ cost[R] ++ next_road[I, D]`` (the
-destination-restricted form appends its int8 slot table, bitcast).  Every
+The dual policy keeps the next-hop table over the dual nodes in
+``state.next_hop`` (int32[N, N], rebuilt every ``refresh_rate``-th choice
+by :func:`~tarl_tpu_torch.routing.bellman_ford.all_pairs_next_hop_nbr`,
+plain PyTorch as in the reference).  The primal policies keep one flat
+float32 routing scratch there: ``dist[I, D] ++ cost[R] ++ next_road[I,
+D]`` (the destination-restricted form appends its int8 slot table,
+bitcast).  Every
 ``refresh_rate``-th choice rebuilds it from the current congestion with
 the relax of :mod:`~tarl_tpu_torch.routing.bellman_ford`, warm-started
 from the previous table; every choice sets each road's selection to the
@@ -21,8 +27,7 @@ The reference's incremental lookup (``_incremental_sel_roads``, a top_k
 compaction over changed head destinations) is bitwise-identical to its
 full pass; the port runs the full pass and keeps its effect on the state:
 where the state carries ``sel_dest``, each lookup sets it to the head
-destinations.  The dual-graph policy (``make_shortest_path_choice``,
-``shortest_path_entry``) and ``strict_compat`` wait for the dual backend.
+destinations.
 """
 from __future__ import annotations
 
@@ -41,10 +46,15 @@ from ..core.rng import choice_gumbel, split
 from ..ops.scatter import scatter_set
 from .bellman_ford import (
     BIG,
+    all_pairs_next_hop,
+    all_pairs_next_hop_nbr,
+    marginal_node_costs,
     marginal_road_costs,
+    node_entry_costs,
     primal_all_pairs_dist,
     primal_next_roads,
     primal_relax_next_roads,
+    reference_edge_costs,
     road_costs,
 )
 
@@ -187,13 +197,17 @@ def primal_table_init(network, max_iters: int | None = None) -> torch.Tensor:
     return _primal_pack(dist, network.free_flow, road)
 
 
-def _choice_from(routing: RoutingConfig, refresh_fn, lookup_fn):
+def _choice_from(routing: RoutingConfig, refresh_fn, lookup_fn,
+                 never_static: bool = True):
     """``choice = lookup ∘ (refresh every refresh_rate-th call)``, with the
-    periodic split attached."""
+    periodic split attached.  A ``refresh_rate`` of :data:`_NEVER_REFRESH`
+    or more never refreshes where ``never_static`` (the primal
+    policies); the reference's dual policy has no such rule and refreshes
+    at its first call."""
 
     def choice(state, network):
         buf = state.next_hop
-        if (routing.refresh_rate < _NEVER_REFRESH
+        if ((routing.refresh_rate < _NEVER_REFRESH or not never_static)
                 and state.choice_count % routing.refresh_rate == 0):
             buf = refresh_fn(state, network)
         return lookup_fn(state, network, buf)._replace(next_hop=buf), None
@@ -201,6 +215,81 @@ def _choice_from(routing: RoutingConfig, refresh_fn, lookup_fn):
     choice.refresh_fn = refresh_fn
     choice.lookup_fn = lookup_fn
     return choice
+
+
+# --- the dual-graph policy ---------------------------------------------------
+
+def make_shortest_path_choice(routing: RoutingConfig = DEFAULT_ROUTING,
+                              physics: PhysicsConfig = DEFAULT_PHYSICS):
+    """Shortest-path policy on the dual graph with a periodic refresh of
+    the all-pairs next-hop table ``state.next_hop`` (int32[N, N]).
+
+    Default: every ``refresh_rate``-th call rebuilds the table from the
+    current congestion (``node_entry_costs``, or ``marginal_node_costs``
+    for ``cost_mode="marginal"``) by the uncapped or ``max_bf_iters``-capped
+    :func:`~tarl_tpu_torch.routing.bellman_ford.all_pairs_next_hop_nbr`;
+    every call sets each road's selection to the next hop toward its head
+    agent's destination (and ``sel_dest`` to those destinations where the
+    state carries it).  Entrants route through :func:`shortest_path_entry`.
+
+    ``strict_compat``: the refresh runs the edge-list table under
+    :func:`~tarl_tpu_torch.routing.bellman_ford.reference_edge_costs`, and
+    every one of the N rows routes by its FIFO head (the dummy agent 0 for
+    SRC/DEST nodes, so entrants follow the dummy's destination, as in the
+    reference simulator).  It has no periodic split."""
+    if routing.strict_compat:
+        def choice(state, network):
+            n, r = network.num_nodes, network.num_roads
+            next_hop = state.next_hop
+            if state.choice_count % routing.refresh_rate == 0:
+                w = reference_edge_costs(state.road, network, physics)
+                _, next_hop = all_pairs_next_hop(
+                    network.full_src, network.full_dst,
+                    torch.zeros(n, dtype=torch.float32,
+                                device=w.device), n,
+                    max_iters=routing.max_bf_iters, edge_cost=w)
+            head_all = torch.zeros(n, dtype=torch.int32,
+                                   device=next_hop.device)
+            head_all[:r] = state.road.head_ids()
+            dests = state.agents.dest[head_all.long()]
+            rows = torch.arange(n, device=next_hop.device)
+            sel = next_hop[rows, dests.long()].to(torch.int32)
+            return state._replace(selected_road=sel, next_hop=next_hop,
+                                  choice_count=state.choice_count + 1), None
+
+        return choice
+
+    node_cost_fn = (marginal_node_costs if routing.cost_mode == "marginal"
+                    else node_entry_costs)
+
+    def refresh_fn(state, network):
+        cost = node_cost_fn(state.road, network, physics)
+        _, nh = all_pairs_next_hop_nbr(network.nbr, network.nbr_ok, cost,
+                                       max_iters=routing.max_bf_iters)
+        return nh
+
+    def lookup_fn(state, network, next_hop):
+        # Roads route their head agent toward its destination (the ring's
+        # head dest: the dummy agent's dest is 0, as agents.dest[0]).
+        dests = state.road.head_dests()
+        rows = torch.arange(network.num_roads, device=next_hop.device)
+        sel_roads = next_hop[rows, dests.long()].to(torch.int32)
+        kw = {} if state.sel_dest is None else {"sel_dest": dests}
+        return state._replace(selected_road=_set_roads(state, network,
+                                                       sel_roads),
+                              choice_count=state.choice_count + 1, **kw)
+
+    return _choice_from(routing, refresh_fn, lookup_fn, never_static=False)
+
+
+def shortest_path_entry(state, network, agent_ids=None) -> torch.Tensor:
+    """Per-agent entry road from the dual next-hop table: ``next_hop[
+    origin, dest]``, for the agents ``agent_ids`` where given (O(W) a
+    tick)."""
+    origin, dest = state.agents.origin, state.agents.dest
+    if agent_ids is not None:
+        origin, dest = origin[agent_ids.long()], dest[agent_ids.long()]
+    return state.next_hop[origin.long(), dest.long()]
 
 
 def make_shortest_path_choice_primal(

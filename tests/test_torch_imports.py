@@ -61,6 +61,11 @@ def test_imports_without_jax():
         assert "tarl_tpu_torch.rl.trainer" in names
         assert "tarl_tpu_torch.parallel.shard_map_episode" in names
         assert "tarl_tpu_torch.parallel.sharded_episode" in names
+        assert "tarl_tpu_torch.algorithms.episode" in names
+        assert "tarl_tpu_torch.algorithms.msa" in names
+        assert "tarl_tpu_torch.metrics.equilibrium" in names
+        assert "tarl_tpu_torch.io.cache" in names
+        assert "tarl_tpu_torch.utils.timers" in names
         assert sys.modules["jax"] is None
         print(len(names))
     """)

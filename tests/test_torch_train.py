@@ -423,8 +423,10 @@ TRAIN_COLUMNS = [
     "PPO/avg_return", "transport/avg_on_network",
     "transport/avg_travel_time", "transport/avg_vc_ratio",
     "transport/std_vc_ratio", "eval/avg_return", "eval/episode_len",
+    "eval/tstt", "eval/relative_nash_gap",
     "eval/avg_travel_time", "eval/computation_time_ms",
     "eval_stochastic/avg_return", "eval_stochastic/episode_len",
+    "eval_stochastic/tstt", "eval_stochastic/relative_nash_gap",
     "eval_stochastic/avg_travel_time", "eval_stochastic/computation_time_ms",
 ]
 
