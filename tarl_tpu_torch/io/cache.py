@@ -26,8 +26,9 @@ from ..schema import agent_features_matrix, agents_from_matrix
 from ..state import AgentState, SimState
 
 # Written into every file under "__tarl_tpu_torch__"; bump when the
-# Network, AgentState or SimState fields change.
-CACHE_TAG = "tarl_tpu_torch.cache.1"
+# Network, AgentState or SimState fields or their build change (2: road
+# numbering by the renumbering search).
+CACHE_TAG = "tarl_tpu_torch.cache.2"
 NETWORK_FILE = "torch_network.npz"
 POPULATION_FILE = "torch_population.npz"
 _TAG_KEY = "__tarl_tpu_torch__"

@@ -1,21 +1,34 @@
 """Static road-network representation, the dual graph (ports
-``tarl_tpu/network.py``: ``Network``, ``build_network`` and
-``default_selected_road``).
+``tarl_tpu/network.py``: ``Network``, the road-renumbering search
+(``_turn_edge_pairs``, ``_order_exceptions``, ``polar_rank``,
+``hilbert_rank``, ``rcm_rank``, ``roll_friendly_road_order``),
+``build_network`` and ``default_selected_road``).
 
 Nodes are roads, then one SRC/DEST node pair per intersection (SRC of
 intersection k is ``R + 2k``, DEST ``R + 2k + 1``); edges are allowed turns.
 The build is the reference's, array for array, on numpy; the result lives
 on one torch device.
 
+The renumbering search fixes the road ids.  From 512 roads up, where the
+input (XML link-list) order scatters the turn-edge offsets ``(u - v) mod
+R`` and a locality order of the intersections concentrates them, the
+build numbers the roads in that order, as the reference does; grids and
+other small or well-ordered inputs keep the identity order.  So the road
+ids of every report (``node_metrics.csv``, the road-optimality series,
+``daily_counts.csv``) are the reference's on every network.  A renumbered
+build keeps every slot table's within-column order canonical (by input
+position), and the Gumbel streams are addressed by canonical position
+(``core.rng``), so an episode is the same whichever order the build
+chose.  ``road_order`` maps a road id to its input position.
+
 Not ported, because on a GPU they carry no semantics: the roll plans
 (``in_roll_*`` / ``out_roll_*``), which evaluated the in-slot gather as
-rotations on the TPU, and the roll-friendly renumbering search that served
-them.  The port keeps the identity road order (``road_order = arange(R)``,
-``renumbered = False``), which is what the reference builds for every grid.
-The primal routing tables (``road_to``, ``inter_out_road``,
-``inter_out_ok``) and the dual neighbour table (``nbr``, ``nbr_ok``, read
-by the all-pairs relaxation of the learned policy's distance prior) are
-built as the reference builds them.
+rotations on the TPU.  The search keeps its acceptance rule, the roll
+plan's exception budget (:func:`roll_cost_budget`), because that rule
+decides the numbering.  The primal routing tables (``road_to``,
+``inter_out_road``, ``inter_out_ok``) and the dual neighbour table
+(``nbr``, ``nbr_ok``, read by the all-pairs relaxation of the learned
+policy's distance prior) are built as the reference builds them.
 """
 from __future__ import annotations
 
@@ -85,7 +98,8 @@ class Network:
     inter_x: torch.Tensor              # float32[I]
     inter_y: torch.Tensor              # float32[I]
 
-    # Road index -> input (XML link-list) position; identity in the port.
+    # Road index -> input (XML link-list) position, and whether that is a
+    # non-identity permutation (the renumbering search's order).
     road_order: torch.Tensor           # int32[R]
     renumbered: bool = False
 
@@ -159,9 +173,10 @@ class Network:
         })
 
 
-def _edge_table(by: np.ndarray, n_rows: int):
+def _edge_table(by: np.ndarray, n_rows: int, order_key=None):
     """K-major padded table of edge ids grouped by ``by`` (slot order =
-    increasing edge id)."""
+    increasing edge id, or increasing ``order_key[e]`` where given: the
+    renumbered build's canonical order)."""
     groups: list[list[int]] = [[] for _ in range(n_rows)]
     for e, g in enumerate(by):
         groups[int(g)].append(e)
@@ -169,10 +184,183 @@ def _edge_table(by: np.ndarray, n_rows: int):
     tab = np.zeros((kmax, n_rows), dtype=np.int32)
     ok = np.zeros((kmax, n_rows), dtype=bool)
     for g, es in enumerate(groups):
+        if order_key is not None:
+            es = sorted(es, key=lambda e: order_key[e])
         for s, e in enumerate(es):
             tab[s, g] = e
             ok[s, g] = True
     return tab, ok
+
+
+# --- the road-renumbering search ---------------------------------------------
+
+# The reference's roll-plan cost model (``tarl_tpu/core/roll_gather.py``):
+# an index of the serial gather costs ``_IDX_NS``, a roll bucket
+# ``_ROLL_NS``; a plan is accepted while it costs under ``_COST_MARGIN`` of
+# the direct gather.  They decide the numbering, so they are kept as they
+# are.
+_IDX_NS = 7.0
+_ROLL_NS = 8000.0
+_COST_MARGIN = 0.9
+RENUMBER_MIN_ROADS = 512
+
+
+def roll_cost_budget(num_entries: int, num_buckets: int) -> int:
+    """The most exceptions a ``num_buckets``-roll plan of ``num_entries``
+    indices may have under the cost model (0 when the rolls alone cost
+    more)."""
+    budget = (_COST_MARGIN * num_entries
+              - num_buckets * (_ROLL_NS / _IDX_NS))
+    return max(int(budget), 0)
+
+
+def _turn_edge_pairs(from_inter, to_inter, num_intersections):
+    """Every turn-edge road pair ``(u, v)`` (``head(u) == tail(v)``) as two
+    int64 arrays, independent of the road numbering."""
+    r = from_inter.shape[0]
+    order_by_tail = np.argsort(from_inter, kind="stable")
+    cnt_out = np.bincount(from_inter, minlength=num_intersections)
+    starts = np.concatenate([[0], np.cumsum(cnt_out)])[:-1]
+    deg = cnt_out[to_inter]
+    e_u = np.repeat(np.arange(r, dtype=np.int64), deg)
+    run_start = np.cumsum(deg) - deg
+    within = np.arange(int(deg.sum()), dtype=np.int64) - np.repeat(
+        run_start, deg)
+    e_v = order_by_tail[np.repeat(starts[to_inter], deg) + within]
+    return e_u, e_v
+
+
+def _order_exceptions(pos, e_u, e_v, num_roads, max_buckets, floor):
+    """The turn edges outside the ``max_buckets`` most frequent offsets
+    ``(pos[u] - pos[v]) mod R`` of at least ``floor`` edges each, under
+    the road order ``pos`` (``pos[input road] = new index``)."""
+    off = (pos[e_u] - pos[e_v]) % num_roads
+    _, cnts = np.unique(off, return_counts=True)
+    cnts = np.sort(cnts)[::-1][:max_buckets]
+    cnts = cnts[cnts >= floor]
+    return int(off.size - cnts.sum())
+
+
+def _rank_of(key: np.ndarray) -> np.ndarray:
+    rank = np.empty(key.shape[0], np.int64)
+    rank[key] = np.arange(key.shape[0])
+    return rank
+
+
+def polar_rank(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Rank nodes by (radius group, angle) around the centroid: the order
+    of ring-and-spoke layouts.  Radius groups split the sorted radii at
+    gaps wider than 0.1% of the radial range, so that coordinate noise
+    within a ring does not split it."""
+    cx, cy = x.mean(), y.mean()
+    r = np.hypot(x - cx, y - cy)
+    th = np.arctan2(y - cy, x - cx)
+    rs = np.sort(r)
+    thresh = max((rs[-1] - rs[0]) * 1e-3, 1e-9)
+    jump = np.nonzero(np.diff(rs) > thresh)[0]
+    bounds = rs[jump] + np.diff(rs)[jump] / 2
+    rq = np.searchsorted(bounds, r)
+    return _rank_of(np.lexsort((th, rq)))
+
+
+def hilbert_rank(x: np.ndarray, y: np.ndarray, order: int = 10
+                 ) -> np.ndarray:
+    """Rank nodes by their position on a Hilbert curve over the
+    coordinates' bounding box (``2**order`` cells a side): the locality
+    order of irregular layouts."""
+    n = 1 << order
+    span_x = max(float(np.ptp(x)), 1e-12)
+    span_y = max(float(np.ptp(y)), 1e-12)
+    xi = np.minimum(((x - x.min()) / span_x * n).astype(np.int64), n - 1)
+    yi = np.minimum(((y - y.min()) / span_y * n).astype(np.int64), n - 1)
+    d = np.zeros_like(xi)
+    s = n >> 1
+    while s > 0:
+        rx = ((xi & s) > 0).astype(np.int64)
+        ry = ((yi & s) > 0).astype(np.int64)
+        d += s * s * ((3 * rx) ^ ry)
+        # Rotate the quadrant: where ry == 0 swap x and y, reflecting them
+        # first where rx == 1.
+        flip = ry == 0
+        xr = np.where(flip & (rx == 1), s - 1 - xi, xi)
+        yr = np.where(flip & (rx == 1), s - 1 - yi, yi)
+        xi = np.where(flip, yr, xi)
+        yi = np.where(flip, xr, yi)
+        s >>= 1
+    return _rank_of(np.lexsort((np.arange(x.shape[0]), d)))
+
+
+def rcm_rank(from_inter: np.ndarray, to_inter: np.ndarray,
+             num_intersections: int) -> np.ndarray | None:
+    """Reverse-Cuthill-McKee rank over the intersection adjacency, the
+    order for networks without coordinates; ``None`` without scipy."""
+    try:
+        from scipy.sparse import coo_matrix
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+    except ImportError:
+        return None
+    i = np.concatenate([from_inter, to_inter]).astype(np.int64)
+    j = np.concatenate([to_inter, from_inter]).astype(np.int64)
+    adj = coo_matrix((np.ones(i.shape[0], np.int8), (i, j)),
+                     shape=(num_intersections, num_intersections)).tocsr()
+    return _rank_of(np.asarray(reverse_cuthill_mckee(adj,
+                                                     symmetric_mode=True)))
+
+
+def roll_friendly_road_order(
+    from_inter: np.ndarray,
+    to_inter: np.ndarray,
+    num_intersections: int,
+    inter_x: np.ndarray | None,
+    inter_y: np.ndarray | None,
+    *,
+    max_buckets: int = 24,
+    max_exc_frac: float = 0.05,
+) -> np.ndarray | None:
+    """The reference's road renumbering: ``None`` (keep the input order)
+    where the input order's turn-edge offsets already concentrate on
+    ``max_buckets`` values with at most ``max_exc_frac`` exceptions; else
+    the best of the tail-major orders ``lexsort(head rank, tail rank)``
+    over the intersection ranks (row- and column-major coordinates,
+    :func:`polar_rank`, :func:`hilbert_rank`, :func:`rcm_rank`) whose
+    exceptions fit the budget and are below 0.9 of the input order's, as
+    an int64 array ``order`` (``order[new index] = input road``); ``None``
+    where none qualifies."""
+    r = int(from_inter.shape[0])
+    e_u, e_v = _turn_edge_pairs(from_inter, to_inter, num_intersections)
+    floor = max(64, e_u.size // 512)
+    budget = max(max_exc_frac * e_u.size,
+                 min(roll_cost_budget(e_u.size, max_buckets),
+                     e_u.size // 2))
+    id_exc = _order_exceptions(np.arange(r, dtype=np.int64), e_u, e_v, r,
+                               max_buckets, floor)
+    if id_exc <= max_exc_frac * e_u.size:
+        return None
+
+    ranks: list[np.ndarray] = []
+    if inter_x is not None and inter_y is not None:
+        x = np.asarray(inter_x, np.float64)
+        y = np.asarray(inter_y, np.float64)
+        if np.ptp(x) > 0 or np.ptp(y) > 0:
+            ranks += [_rank_of(np.lexsort((x, y))),
+                      _rank_of(np.lexsort((y, x))),
+                      polar_rank(x, y), hilbert_rank(x, y)]
+    rcm = rcm_rank(from_inter, to_inter, num_intersections)
+    if rcm is not None:
+        ranks.append(rcm)
+
+    best, best_exc = None, None
+    for rank in ranks:
+        order = np.lexsort(
+            (np.arange(r), rank[to_inter], rank[from_inter])).astype(np.int64)
+        pos = np.empty(r, np.int64)
+        pos[order] = np.arange(r)
+        exc = _order_exceptions(pos, e_u, e_v, r, max_buckets, floor)
+        if exc <= budget and (best_exc is None or exc < best_exc):
+            best, best_exc = order, exc
+    if best is not None and best_exc > 0.9 * id_exc:
+        best = None
+    return best
 
 
 def build_network(
@@ -192,7 +380,9 @@ def build_network(
     """Construct a :class:`Network` from raw per-link attributes: cell
     capacity ``int(length*lanes/cell) + 1``, ``Nmax = max(capacity) + 1``,
     turn edges with capacity-share weights normalised per upstream link,
-    weight-0 SRC->road and road->DEST edges, and the congestion constants."""
+    weight-0 SRC->road and road->DEST edges, and the congestion constants.
+    From 512 roads up the roads are numbered in the order
+    :func:`roll_friendly_road_order` finds, if it finds one."""
     device = resolve_device(device)
     length = np.asarray(length, dtype=np.float64)
     max_flow = np.asarray(max_flow, dtype=np.float64)
@@ -202,6 +392,20 @@ def build_network(
     to_inter = np.asarray(to_inter, dtype=np.int64)
     num_roads = int(length.shape[0])
 
+    # The links as if parsed in the searched order; intersections, SRC and
+    # DEST nodes and agents keep their indices.
+    road_order = np.arange(num_roads, dtype=np.int64)
+    perm = None
+    if num_roads >= RENUMBER_MIN_ROADS:
+        perm = roll_friendly_road_order(from_inter, to_inter,
+                                        num_intersections, inter_x, inter_y)
+    if perm is not None:
+        road_order = perm
+        length, max_flow = length[perm], max_flow[perm]
+        free_speed, perm_lanes = free_speed[perm], perm_lanes[perm]
+        from_inter, to_inter = from_inter[perm], to_inter[perm]
+    renumbered = not np.array_equal(road_order, np.arange(num_roads))
+
     free_flow = length / free_speed
     capacity = (length * perm_lanes / physics.effective_cell_size).astype(
         np.int64) + 1
@@ -210,6 +414,13 @@ def build_network(
     outgoing: list[list[int]] = [[] for _ in range(num_intersections)]
     for i in range(num_roads):
         outgoing[from_inter[i]].append(i)
+    # A renumbered build orders every slot structure by input position, so
+    # that ascending-slot tie-breaks pick the same physical edge as the
+    # identity build and in-slot (k, v) sits at stream position
+    # ``k*R + road_order[v]``.
+    if renumbered:
+        for roads in outgoing:
+            roads.sort(key=lambda r: road_order[r])
 
     e_src, e_dst, e_w = [], [], []
     for u in range(num_roads):
@@ -264,9 +475,13 @@ def build_network(
         capacity + physics.congestion_softening - critical
     )
 
-
     e_w_np = np.asarray(e_w, dtype=np.float32)
-    in_tab, in_tab_ok = _edge_table(e_dst_np, num_roads)
+    # An in-slot column gathers edges across source roads: sort it by the
+    # sources' input positions where renumbered (the other tables inherit
+    # the order of ``outgoing``).
+    in_tab, in_tab_ok = _edge_table(
+        e_dst_np, num_roads,
+        order_key=road_order[e_src_np] if renumbered else None)
     out_tab, out_tab_ok = _edge_table(e_src_np, num_roads)
     ch_tab, ch_tab_ok = _edge_table(f_src_np[choice_mask], num_nodes)
     in_src = np.where(in_tab_ok, e_src_np[in_tab], 0).astype(np.int32)
@@ -322,8 +537,8 @@ def build_network(
                   f32),
         inter_y=t(np.zeros(num_intersections) if inter_y is None else inter_y,
                   f32),
-        road_order=t(np.arange(num_roads), i32),
-        renumbered=False,
+        road_order=t(road_order, i32),
+        renumbered=renumbered,
     )
 
 

@@ -12,9 +12,11 @@ edge costs) or the primal one (intersection tables), as
 scenario loading through the caches of :mod:`~tarl_tpu_torch.io.cache`,
 ``config_parameters``, ``set_policy``, the clock, ``reset``, the eager
 tick ``run()`` with its four phase timers, ``run_fast(n)`` over the
-episode drivers, the per-tick logs and the road-optimality stores.  Its
-plots and ``compute_node_metrics`` belong to ``metrics.reporting``, which
-is not ported: they raise ``NotImplementedError``.
+episode drivers, the per-tick logs and the road-optimality stores, and
+the reports of :mod:`~tarl_tpu_torch.metrics.reporting` on them
+(``plot_computation_time``, ``plot_leg_histogram``,
+``plot_road_optimality``, ``compute_node_metrics``, ``plot_daily_counts``)
+and ``get_info``.
 """
 from __future__ import annotations
 
@@ -153,10 +155,6 @@ class PhaseTimers:
     def total(self) -> float:
         return (self.inserting_time + self.withdraw_time + self.choice_time
                 + self.core_time)
-
-
-_REPORTING = ("metrics.reporting (the plots and node metrics) is not "
-              "ported to tarl_tpu_torch")
 
 
 class TransportationSimulator:
@@ -386,17 +384,73 @@ class TransportationSimulator:
     def average_travel_time(self) -> float:
         return float(average_travel_time(self.state.agents))
 
-    def plot_computation_time(self, *args, **kwargs):
-        raise NotImplementedError(_REPORTING)
+    def plot_computation_time(self, output_dir: str = "data/outputs"):
+        from .metrics.reporting import plot_computation_time
 
-    def plot_leg_histogram(self, *args, **kwargs):
-        raise NotImplementedError(_REPORTING)
+        return plot_computation_time(self.timers, output_dir)
 
-    def plot_road_optimality(self, *args, **kwargs):
-        raise NotImplementedError(_REPORTING)
+    def plot_leg_histogram(self, output_dir: Optional[str] = "data/outputs"):
+        from .metrics.reporting import plot_leg_histogram
 
-    def compute_node_metrics(self, *args, **kwargs):
-        raise NotImplementedError(_REPORTING)
+        return plot_leg_histogram(self.leg_histogram_values,
+                                  self.sim.timestep, output_dir)
 
-    def plot_daily_counts(self, *args, **kwargs):
-        raise NotImplementedError(_REPORTING)
+    def plot_road_optimality(self, output_dir: Optional[str] = "data/outputs",
+                             road_ids: Optional[list] = None):
+        """The road-optimality figure from the active store: the sparse
+        store's columns (by default the 20 roads of most delay), else the
+        dense rows, else, where no per-tick series was kept, the hourly
+        accumulator at hour resolution."""
+        from .metrics.reporting import (
+            plot_road_optimality, plot_road_optimality_columns)
+
+        if (self.road_optimality_store == "sparse"
+                and self.road_optimality_sparse):
+            if road_ids is None:
+                tot = self._sparse_road_total
+                road_ids = [int(r) for r in
+                            np.argsort(-tot)[:min(20, tot.size)]]
+            times, mat = self.road_optimality_series(road_ids)
+            return plot_road_optimality_columns(
+                times, {rid: mat[:, j] for j, rid in enumerate(road_ids)},
+                output_dir)
+        values = self.road_optimality_values
+        if not values and self.sim.record_road_optimality_hourly:
+            mat = self.state.metrics.delta_tt_hourly.cpu().numpy()
+            hours = np.nonzero(mat.sum(axis=1))[0]
+            last = int(hours[-1]) + 1 if hours.size else 0
+            values = [(h * 3600.0, mat[h]) for h in range(last)]
+        return plot_road_optimality(values, output_dir, road_ids)
+
+    def compute_node_metrics(self,
+                             output_dir: Optional[str] = "data/outputs"):
+        from .metrics.reporting import compute_node_metrics
+
+        return compute_node_metrics(
+            self.state.metrics.hourly_counts.cpu().numpy(),
+            self.network.max_flow.cpu().numpy(), output_dir)
+
+    def plot_daily_counts(self, expected_counts: dict,
+                          output_dir: Optional[str] = "data/outputs"):
+        from .metrics.reporting import plot_daily_counts
+
+        return plot_daily_counts(
+            self.state.metrics.hourly_counts.cpu().numpy(),
+            expected_counts, output_dir)
+
+    def get_info(self, road_id: int) -> str:
+        """One road's occupancy, its first 15 queued agents (head first),
+        its head's time to departure and selected road, and the clock."""
+        road = self.state.road
+        nmax = road.fifo_ids.shape[1]
+        head = int(road.head[road_id])
+        cols = [(head + j) % nmax for j in range(nmax)]
+        ids = road.fifo_ids[road_id].cpu().numpy()[cols]
+        cnt = int(road.count[road_id])
+        cap = float(self.network.capacity[road_id])
+        next_dep = float(road.fifo_departure[road_id, head]) - self.time
+        sel = int(self.state.selected_road[road_id])
+        return (f"Road {road_id}: {cnt} / {cap:.0f}\n"
+                f"Queue: {ids[:15]}\n"
+                f"Next departure in {next_dep:.0f}s toward road {sel}\n"
+                f"Current time: {self.time:.0f}")

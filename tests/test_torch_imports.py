@@ -10,6 +10,9 @@
   versions (without counting a launch) and raise on inputs the kernels
   would not take; a segment layout or a K7 table the kernels would not
   take is refused where it is built or first used.
+* ``main_torch.py --help`` lists the reference CLI's flags with ``jax``,
+  ``tarl_tpu`` and ``pandas`` blocked, and importing the port imports
+  neither pandas nor matplotlib.
 * The kernels' CUDA sources exist and the build targets ``sm_90a``.
 * On a machine with an NVIDIA GPU, each kernel equals its plain version
   (marked ``cuda``; skipped here).
@@ -66,6 +69,9 @@ def test_imports_without_jax():
         assert "tarl_tpu_torch.metrics.equilibrium" in names
         assert "tarl_tpu_torch.io.cache" in names
         assert "tarl_tpu_torch.utils.timers" in names
+        assert "tarl_tpu_torch.runner" in names
+        assert "tarl_tpu_torch.metrics.reporting" in names
+        assert "tarl_tpu_torch.io.city" in names
         assert sys.modules["jax"] is None
         print(len(names))
     """)
@@ -73,6 +79,38 @@ def test_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 25
+
+
+def test_cli_without_jax_or_pandas():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, runpy, sys
+        for name in ("jax", "jaxlib", "flax", "optax", "orbax", "tarl_tpu",
+                     "pandas"):
+            sys.modules[name] = None
+        import tarl_tpu_torch
+        for m in pkgutil.walk_packages(tarl_tpu_torch.__path__,
+                                       "tarl_tpu_torch."):
+            importlib.import_module(m.name)
+        assert "matplotlib" not in sys.modules
+        sys.argv = ["main_torch.py", "--help"]
+        runpy.run_path("main_torch.py", run_name="__main__")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    ref = subprocess.run([sys.executable, "-c", textwrap.dedent("""
+        import sys
+        sys.argv = ["main.py", "--help"]
+        from tarl_tpu.runner import main
+        main()
+    """)], cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert ref.returncode == 0, ref.stderr
+    flags = {w.split("=")[0].strip("[],") for w in ref.stdout.split()
+             if w.startswith("--")}
+    assert len(flags) >= 20
+    for flag in flags:
+        assert flag in out.stdout, flag
 
 
 def test_no_public_function_defaults_to_the_cpu():

@@ -27,7 +27,11 @@ CPU runs as its plain version:
 * (d) the global kernel's slot compaction (``compact_slots``, the plain
   twin of its prologue): on random tables with repeated and scattered
   padding, and on the radial's own, the relax and next roads over the kept
-  slots equal the padded loop's bitwise.
+  slots equal the padded loop's bitwise;
+* (e) a radial that both packages renumber: 32 rings of 64 spokes (8,080
+  roads, the smallest radial the reference renumbers; its polar order),
+  every table bitwise and a 300-tick zoned episode of the bounded row,
+  bitwise.
 
 The kernel itself against the plain version on a card:
 ``tests/test_torch_card_k6.py``.
@@ -60,7 +64,7 @@ from tarl_tpu_torch.routing.policies import _dest_inter as p_dest_inter
 from tarl_tpu_torch.simulator import make_policy as p_make_policy
 from tarl_tpu_torch.state import sort_agents_by_departure as p_sort
 
-from test_torch_network import assert_tree_equal
+from test_torch_network import PORT_NETWORK_FIELDS, assert_tree_equal
 
 torch.set_num_threads(1)
 
@@ -222,6 +226,38 @@ def test_radial_zoned_episode_bitwise(radial, row):
     assert int(pfinal.agents.done.sum()) > 0
     if row == "exact":
         assert float(plogs.window_saturated.sum()) == 0.0
+
+
+def test_renumbered_radial_zoned_episode_bitwise(tmp_path):
+    radial_scenario(str(tmp_path), "Radial", **dict(SCENARIO, rings=32,
+                                                    spokes=64))
+    net_path = os.path.join(str(tmp_path), "Radial", "network")
+    pop_path = os.path.join(str(tmp_path), "Radial", "population")
+    net = load_network(net_path)
+    pnet = p_matsim.load_network(net_path, device="cpu")
+    assert net.renumbered and pnet.renumbered
+    ref, port = convert.to_numpy(net), convert.to_numpy(pnet)
+    for name in PORT_NETWORK_FIELDS:
+        assert_tree_equal(ref[name], port[name], name)
+    agents, _ = load_population(pop_path, net_path)
+    pagents, _ = p_matsim.load_population(pop_path, net_path, device="cpu")
+    agents, pagents = sort_agents_by_departure(agents), p_sort(pagents)
+    dest = np.unique(np.asarray(_dest_inter(net, agents.dest)))
+    sim, psim = SimConfig(**ROWS["bounded"]), PortSimConfig(**ROWS["bounded"])
+    policy = make_policy("dijkstra", RoutingConfig(**ROUTING), network=net,
+                         dest_inters=dest)
+    ppolicy = p_make_policy("dijkstra", PortRoutingConfig(**ROUTING),
+                            network=pnet, dest_inters=dest)
+    state = init_sim_state(net, agents, sim=sim, policy=policy)
+    pstate = p_step.init_sim_state(pnet, pagents, sim=psim, policy=ppolicy)
+    assert_tree_equal(_bits(state), _bits(pstate), "initial state")
+    final, logs = run_episode_periodic(state, net, policy, TICKS, sim=sim)
+    pfinal, plogs = p_step.run_episode_periodic(pstate, pnet, ppolicy,
+                                                TICKS, sim=psim)
+    assert_tree_equal(_bits(final), _bits(pfinal), "final state")
+    assert_tree_equal(convert.to_numpy(logs), convert.to_numpy(plogs),
+                      "logs")
+    assert int(pfinal.agents.done.sum()) > 0
 
 
 def _relax_kept(cost, out_road, ok, road_to, dist0, iters, keep):

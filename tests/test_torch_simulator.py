@@ -9,7 +9,8 @@ reference.
   the same state and logs, bitwise; the phase timers.
 * The road-optimality stores on Grid4x4: "sparse" reconstructs "dense"
   bitwise (all roads and a subset), its per-road totals; the blow-out to
-  "hourly" at once and after a kept prefix.
+  "hourly" at once and after a kept prefix, after which the figure is
+  drawn from the hourly accumulator.
 * The caches: network, population and mid-episode state round trips
   (bitwise); a reference cache file in the same directory is left as it
   is, and neither package's loader takes the other's file; a stale tag is
@@ -159,9 +160,17 @@ def test_sparse_blowout_to_hourly(data_root, tmp_path, budget, kept):
     times, mat = sim.road_optimality_series([0, 1])
     assert times.shape == (kept,) and mat.shape == (kept, 2)
     assert float(sim.state.metrics.delta_tt_hourly.sum()) > 0.0
-    for plot in (sim.plot_road_optimality, sim.compute_node_metrics):
-        with pytest.raises(NotImplementedError, match="metrics.reporting"):
-            plot()
+    # Past the blow-out the road-optimality figure comes from the hourly
+    # accumulator, a line a road over the hours with traffic.
+    import matplotlib.pyplot as plt
+
+    hourly = sim.state.metrics.delta_tt_hourly.sum(dim=1).numpy()
+    lines = sim.plot_road_optimality(None).axes[0].get_lines()
+    plt.close("all")
+    assert len(lines) == sim.network.num_roads
+    np.testing.assert_array_equal(lines[0].get_xdata(),
+                                  np.arange(np.nonzero(hourly)[0][-1] + 1))
+    assert len(sim.compute_node_metrics(None)) == sim.network.num_roads
 
 
 def test_cache_round_trips(data_root, tmp_path):
