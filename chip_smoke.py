@@ -77,10 +77,10 @@ with its plain version run outside those windows.
    (``tarl_tpu_torch/weights/grid8x8_mpnn_best.npz``, carried by
    ``convert.mpnn_params_from_numpy``) and ``scripts/train_rl_demo.py``'s
    settings (progress reward, gamma 0.98, distance prior at scale 30,
-   pending entrants observed); the greedy ``PPO.eval_rollout`` for 6,000
-   steps, half the recorded run's 12,000 (cut to keep the script's time
-   under its limit).  Asserts conservation, at least 3,000 of the 5,000
-   done (about three quarters arrive by then; all 5,000 by 12,000 steps),
+   pending entrants observed); the greedy ``PPO.eval_rollout`` for 3,000
+   steps, a quarter of the recorded run's 12,000 (cut to keep the script's
+   time under its limit).  Asserts conservation, at least 1,500 of the
+   5,000 done (1,789 arrive by then on the CPU; all 5,000 by 12,000 steps),
    an average travel time below 90 s, and one K1 and one K11 launch per step
    (K11's action entry: the
    mode's scaled argmax and multi-hot action in one kernel); prints
@@ -90,7 +90,7 @@ with its plain version run outside those windows.
    step's calls imply (per step: K1 once, K11's action entry once, its
    Gumbel noise drawn inside, K10's log-prob entry once, K9 never).
 10. Scale: the Grid16x16 scenario of phase 2 with weights drawn by
-   ``PPO.init`` from a seed; greedy evaluation for 1,000 steps, with the
+   ``PPO.init`` from a seed; greedy evaluation for 500 steps, with the
    asserts of phase 8 on conservation and launches.
 11. Segment kernels (K9-K11) against plain, bitwise: on the inputs
    captured in phases 8-10 (Grid8x8 and Grid16x16 shapes; the bare
@@ -141,8 +141,9 @@ with its plain version run outside those windows.
    segment kernel): actions, rewards, values and the final environment
    states equal bitwise in all three, log-probs bitwise between the first
    two and within rtol 1e-5, atol 1e-5 of the plain run's.
-13. The fused-core headline: phase 2's episode with
-   ``SimConfig(fused_core=True)``: the eligibility, the logits and the
+13. The fused-core headline: phase 2's episode's first 1,800 ticks (half
+   its depth, cut to keep the script's time under its limit)
+   with ``SimConfig(fused_core=True)``: the eligibility, the logits and the
    per-downstream Gumbel-max over the turn edges in one launch (K12's
    fused entry, ``fused_core_sample``, noise drawn in the kernel) in place
    of K1.  Asserts a zero overflow monitor, conservation, arrivals, one
@@ -170,11 +171,12 @@ with its plain version run outside those windows.
    the device time per call from ``torch.profiler``: the fused entry at
    the headline shape and at Grid64x64, the bare one at the headline
    shape and at Grid256x256.
-17. The sharded headline: the first 3,600 ticks of phase 2's episode
+17. The sharded headline: the first 1,200 ticks of phase 2's episode
    through ``run_episode_shard_map`` on ``make_road_mesh(4)`` (four road
-   blocks of 240 roads on the card, no padding; half the headline's depth,
-   to leave the script's time to phase 22).  Asserts bitwise equality with
-   phase 2's state at tick 3,600 and the integer-valued fields of its
+   blocks of 240 roads on the card, no padding; a sixth of the headline's
+   depth, to leave the script's time to phases 22 and 27).  Asserts
+   bitwise equality with
+   phase 2's state at tick 1,200 and the integer-valued fields of its
    tick logs to there,
    ``road_delta_tt`` bitwise or within the reference's ``rtol=1e-5,
    atol=1e-3`` (printing which held), a zero overflow monitor,
@@ -271,15 +273,18 @@ with its plain version run outside those windows.
    order, padding on three seeded roads, -BIG in the warm start so that
    every padding term counts).  Times the refresh's relax plain, kernel,
    kernel, plain, with its device time, beside its bound, and the
-   uncapped table init.  Its exact row: both escalations, 1,020 ticks
-   timed the same way; asserts conservation, the launches and exactness:
-   the state at tick 1,020 bitwise that of a whole-population insert
+   uncapped table init.  Its exact row: both escalations, 510 ticks (cut
+   from 1,020 for the script's time) timed the same way; asserts
+   conservation, the launches and exactness: the state at tick 510
+   bitwise that of a whole-population insert
    (with escalation the windowed insert's monitor counts its extra
    passes, printed).
 24. The CLI's default evaluation (``python main.py`` runs dijkstra on
    Easy): (a) the classical rows ``CLASSICAL_ROWS`` (Easy dijkstra, 3,600
-   ticks of 2 s from 06:00; Braess dijkstra and random, 9,000 ticks of
-   1 s; Bottleneck dijkstra, 4,000 ticks) each through a
+   ticks of 2 s from 06:00; Braess dijkstra and random, 3,000 ticks of
+   1 s; Bottleneck dijkstra, 2,000 ticks: every agent has arrived by then,
+   and the reference's numbers equal those at 9,000 and 4,000) each
+   through a
    ``TransportationSimulator`` built from the port's caches under
    ``build/``, ``make_policy(algo, network=...)`` (the dual backend) and
    ``algorithms.episode.run_episode(mode="fused")``, then ``nash_gap``,
@@ -294,7 +299,7 @@ with its plain version run outside those windows.
    version: both bitwise the fused run's state; prints the phase timers.
    (b) The dual row: phase 2's scenario under ``make_policy("dijkstra")``
    with the default routing (N = 1,472 dual nodes, a refresh every 10
-   ticks, uncapped), phase 5's windowed insert, 3,600 ticks of
+   ticks, uncapped), phase 5's windowed insert, 1,800 ticks of
    ``run_episode_periodic`` timed after two warm-up periods.  Asserts
    conservation, arrivals, one K1 launch a tick, no relax kernel, and a
    table with the node itself on its diagonal and a next hop from every
@@ -320,7 +325,7 @@ with its plain version run outside those windows.
    and ``daily_counts.csv`` written, the four PNGs where matplotlib imports
    (printed whether it does) and none where it does not, and K1 launched
    once a tick.  (b) ``--algo mpnn+ppo --mode train --scenario Braess
-   --iterations 2 --rollout-steps 32`` over 1,800 ticks from 06:00, then
+   --iterations 2 --rollout-steps 32`` over 600 ticks from 06:00, then
    ``--mode eval --checkpoint`` of its checkpoint over the same window:
    the restored parameters bitwise the trained ones, the evaluated state
    bitwise the trained run's final evaluation's, the metrics (the
@@ -348,7 +353,42 @@ with its plain version run outside those windows.
    refresh, the first included, and on the cold start (8 sweeps with and
    without next roads, 1 sweep).  Prints ms/tick, agent-steps/s, ms per refresh and host reads
    per tick.
-27. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
+27. The Graph Transformer policy, under
+   ``torch.use_deterministic_algorithms(True)`` in (a).  (a) The committed
+   Braess weights (``tarl_tpu_torch/weights/braess_transformer_best.npz``,
+   with the positional encoding they carry) at
+   ``scripts/train_rl_demo.py``'s settings (``GT_RL``): the first 600
+   greedy steps written out as ``PPO.eval_rollout`` takes them (the
+   forward timed by CUDA events), one K1 and one K11 launch a step, the
+   first 300 actions equal to the reference's recorded ones and, at step
+   300, the done count equal and the TSTT within 0.5% of the reference's;
+   the same 600 steps with ``PLAIN`` and the plain K1: the environment at
+   step 600 bitwise equal; the sampled ``PPO.eval_rollout`` of 1,800 steps
+   from key 3: one K1 and one K11 launch a step, the done count equal and
+   the TSTT within 0.5% of the reference's recorded ones (printed beside
+   each other); the forward alone timed with and without deterministic
+   algorithms, its device time and kernels a call from
+   ``torch.profiler``.  (b) 256 collection steps from the same weights
+   (K1, K11's sample and K10's log-prob entry once a step) and one
+   ``train_iteration`` at the recorded run's settings (512 steps, 4
+   epochs, minibatch 128), its collection, GAE and update in ms; the
+   parameters finite and changed.  (c) ``runner.main`` with ``--algo
+   transformer+ppo --mode train`` (2 iterations of 32 steps over 120
+   ticks), its checkpoint evaluated (the parameters restored bitwise), and
+   ``--algo transformer --mode eval --checkpoint`` of the committed weights
+   over the reference's greedy window (300 ticks from 05:59): the
+   encoding the file carries taken, the done count equal and the TSTT
+   within 0.5% of the reference's; seconds and launches per command.  (d)
+   The headline scenario in phase 2's exact mode with
+   ``make_learned_choice`` of a ``TransformerRoutePolicy`` (the port's
+   encoding of Grid16x16, the Braess weights), sampled, 1,020 ticks after
+   the 64-tick warm-up: overflow 0, conservation, one K1 launch a tick and
+   no segment kernel; agent-steps/s, ms/tick and the choice's ms/tick
+   (CUDA events); on the states at ticks 400, 600 and 800 the slot twin's
+   logits within atol/rtol 2e-5 of the flat forward's; the first 200 ticks
+   again with the plain K1, cut into calls as the kernel run was (the
+   64-tick warm-up, then 136), bitwise.
+28. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
    ``segment_sum``, ``segment_max``, ``segment_argmax``, ``fused_core``,
    ``fused_shard_winner``, and the K3-K6 and K8a/K8b rows covered by
    ``primal_relax`` and ``fused_winner``; K3's and K5's rows the cluster
@@ -360,7 +400,8 @@ with its plain version run outside those windows.
    it; K9's launches are 0: no main path runs the bare sum;
    ``launches_training`` beside K1's and K9-K11's launches; K1's launches
    in phase 24's rows and K2's in its primal cross-check beside them; K1's,
-   K6's, K10's and K11's in phases 25 and 26 beside them),
+   K6's, K10's and K11's in phases 25 and 26 beside them, and K1's,
+   K10's and K11's on phase 27's paths in ``launches_transformer``),
    the card's name and power limit,
    then
    ``{"ok": true, "device": {...}}``.
@@ -368,7 +409,7 @@ with its plain version run outside those windows.
 Exits nonzero, printing no result, where no CUDA device is available or
 the package is missing beside this script.  Scenario files are written
 under ``build/scenarios``, phase 24's caches under ``build/save``, phase
-21's checkpoints under ``build/train`` and phase 25's files under
+21's checkpoints under ``build/train`` and phase 25's and 27's files under
 ``build/cli`` in the checkout.
 """
 from __future__ import annotations
@@ -396,12 +437,13 @@ SP_CAPTURE_EVERY = 20        # refreshes
 SP_RANDOM_STATES = 5
 RELAX_TIMED_CALLS = 20
 BIG_DESTS = 512
-# Phase 8's depth: half of train_rl_demo.EVAL_STEPS["Grid8x8"] (12,000),
-# by which about three quarters of the 5,000 commuters arrive.
-EVAL_STEPS = 6000
-EVAL_MIN_DONE = 3000
+# Phase 8's depth: a quarter of train_rl_demo.EVAL_STEPS["Grid8x8"]
+# (12,000), by which 1,789 of the 5,000 commuters arrive on the CPU (3,658
+# by 6,000 steps there, 3,629 on the card).
+EVAL_STEPS = 3000
+EVAL_MIN_DONE = 1500
 COLLECT_STEPS = 256
-SCALE_STEPS = 1000
+SCALE_STEPS = 500
 LEARNED_CONTEXT_STEPS = 200
 CAPTURE_STEPS = 2000          # steps between captured segment inputs
 PRIOR_SCALE = 30.0            # train_rl_demo.PRIOR_SCALE
@@ -409,7 +451,8 @@ TRAIN_ITERATIONS = 3
 K8_STATES = 3                 # random Grid256x256 road states for K1
 K8_GRID = 256                 # the TPU's tiled-winner record size
 SHARD_BLOCKS = 4              # road blocks of the sharded phases
-SHARD_TICKS = 3600            # the sharded headline's depth (phase 17)
+SHARD_TICKS = 1200            # the sharded headline's depth (phase 17)
+FUSED_TICKS = 1800            # the fused-core headline's depth (phase 13)
 PADDED_BLOCKS = 7             # 960 roads -> 7 blocks of 138, 6 rows inert
 # Operations K7 (and K1) does for each valid in-slot: the eligibility's
 # decode and compares, the score add and the running max.
@@ -440,15 +483,17 @@ MILLION_EXACT_WINDOW = 64
 RADIAL_RINGS = 64
 RADIAL_SPOKES = 128
 RADIAL_AGENTS = 200_000
-RADIAL_EXACT_TICKS = 1020
+RADIAL_EXACT_TICKS = 510
 # Phase 24a: the CLI's default classical rows through the facade, as
 # ``python main.py --algo A --scenario S`` runs them: name -> (scenario,
-# algorithm, start time, timestep, ticks).
+# algorithm, start time, timestep, ticks).  Braess and Bottleneck run
+# until every agent has arrived (the reference's numbers at 9,000 and 4,000
+# ticks are the same).
 CLASSICAL_ROWS = {
     "Easy dijkstra": ("Easy", "dijkstra", 21600, 2, 3600),
-    "Braess dijkstra": ("Braess", "dijkstra", 21600, 1, 9000),
-    "Braess random": ("Braess", "random", 21600, 1, 9000),
-    "Bottleneck dijkstra": ("Bottleneck", "dijkstra", 21600, 1, 4000),
+    "Braess dijkstra": ("Braess", "dijkstra", 21600, 1, 3000),
+    "Braess random": ("Braess", "random", 21600, 1, 3000),
+    "Bottleneck dijkstra": ("Bottleneck", "dijkstra", 21600, 1, 2000),
 }
 # The reference's numbers on those rows, (average travel time s, done,
 # relative Nash gap), printed by
@@ -467,18 +512,18 @@ CLASSICAL_GAP_RTOL = 0.10
 CLASSICAL_GAP_ATOL = 0.005
 EAGER_TICKS = 200            # Braess's ticks through the eager run()
 # Phase 24b: the dual backend on phase 2's scenario.
-DUAL_TICKS = 3600
+DUAL_TICKS = 1800
 DUAL_CONTEXT_TICKS = 600     # the plain-K1 cross-check's depth
 DUAL_PRIMAL_TICKS = 1200     # the primal cross-check's depth
 DUAL_BIG_GRID = 36           # phase 24c: N = 7,632, the last dual size
 # Phase 25: the CLI (``tarl_tpu_torch.runner.main``).  (a) The README's
 # evaluation, phase 24a's Easy row; (b) training, then the evaluation of its
-# checkpoint over CLI_WINDOW (1,800 ticks).
+# checkpoint over CLI_WINDOW (600 ticks).
 README_EVAL = ["--algo", "dijkstra", "--scenario", "Easy", "--mode", "eval",
                "--start-end-time", "21600", "28800", "--timestep_size", "2"]
 CLI_TRAIN = ["--algo", "mpnn+ppo", "--scenario", "Braess", "--iterations",
              "2", "--rollout-steps", "32"]
-CLI_WINDOW = (21600, 23400)
+CLI_WINDOW = (21600, 22200)
 REPORT_FILES = ("node_metrics.csv", "daily_counts.csv",
                 "equilibrium_report.json")
 REPORT_PNGS = ("computation_time.png", "leg_histogram.png",
@@ -489,6 +534,31 @@ CITY_AGENTS = 250_000
 CITY_ZONES = 256
 CITY_BACKLOG = 8192
 CITY_CONTEXT_TICKS = 300     # the plain-K1 cross-check's depth
+# Phase 27: the Graph Transformer.  The committed Braess weights, with the
+# encoding they were evaluated with and the reference's results on the CPU
+# (scripts/export_transformer_params.py), at scripts/train_rl_demo.py's RL
+# settings, which the recorded run (runs/learning/braess_transformer) used.
+GT_WEIGHTS = os.path.join("tarl_tpu_torch", "weights",
+                          "braess_transformer_best.npz")
+GT_RL = dict(rollout_steps=512, minibatch_size=128, num_epochs=4,
+             entropy_coef=0.003, learning_rate=1e-3, reward_mode="progress",
+             gamma=0.98, gae_lambda=0.9)
+GT_EVAL_STEPS = 1800          # (a) the export's sampled evaluation
+GT_SAMPLE_KEY = 3             # (a) its key, as train_rl_demo samples
+GT_CHECK_STEPS = 300          # (a) the recorded greedy actions and outcome
+GT_CONTEXT_STEPS = 600        # (a) the PLAIN / plain-K1 cross-check
+GT_TSTT_RTOL = 0.005
+GT_COLLECT_STEPS = 256        # (b)
+GT_CLI_TRAIN = ["--algo", "transformer+ppo", "--scenario", "Braess",
+                "--iterations", "2", "--rollout-steps", "32"]
+GT_CLI_WINDOW = (21600, 21720)  # (c) train and the checkpoint's eval
+# (c) the committed weights' eval: the reference's recorded greedy window
+# (RLConfig's episode start, 06:00 less a minute, and GT_CHECK_STEPS).
+GT_CLI_EVAL_WINDOW = (21540, 21540 + GT_CHECK_STEPS)
+GT_TICKS = 1020               # (d) after WARMUP_TICKS
+GT_CONTEXT_TICKS = 200        # (d) the plain-K1 cross-check
+GT_CAPTURES = 3               # (d) states for the slot twin's check
+GT_TIMED_CALLS = 20           # (a) the forward alone
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
@@ -3857,6 +3927,503 @@ def city_phase(dev, card: str, num_intersections=CITY_INTERSECTIONS,
             "nmax": net.nmax, "renumbered": net.renumbered}
 
 
+# --- the Graph Transformer (phase 27) ----------------------------------------
+
+def gt_braess(dev):
+    """``(net, agents, state, ppo, params, tree)``: Braess on ``dev``, the
+    recorded transformer run's PPO (``GT_RL``, ``value_uses_graph``) with
+    the committed weights and the encoding they carry, the reset state the
+    reference evaluated from, and the ``.npz`` tree (its ``reference``
+    results)."""
+    from tarl_tpu_torch.config import RLConfig
+    from tarl_tpu_torch.convert import (
+        load_params_npz, transformer_params_from_numpy)
+    from tarl_tpu_torch.core.step import Policy, init_sim_state
+    from tarl_tpu_torch.io.matsim import load_network, load_population
+    from tarl_tpu_torch.io.scenarios import ensure_scenario
+    from tarl_tpu_torch.models.transformer.agent import (
+        TransformerRoutePolicy, TransformerValueNet)
+    from tarl_tpu_torch.rl.ppo import PPO
+    from tarl_tpu_torch.routing.policies import random_choice
+
+    base = ensure_scenario(os.path.join(ROOT, "build", "scenarios"),
+                           "Braess")
+    net = load_network(os.path.join(base, "network"), device=dev)
+    agents, _ = load_population(os.path.join(base, "population"),
+                                os.path.join(base, "network"), device=dev)
+    st = init_sim_state(net, agents, policy=Policy(choice=random_choice))
+    tree = load_params_npz(os.path.join(ROOT, GT_WEIGHTS))
+    pe = tree["pe"]
+    ppo = PPO(net, TransformerRoutePolicy(pe), TransformerValueNet(pe),
+              rl=RLConfig(**GT_RL), value_uses_graph=True)
+    return net, agents, st, ppo, transformer_params_from_numpy(tree, dev), \
+        tree
+
+
+def _outcome(sim) -> tuple[int, float, float]:
+    """Done count, average travel time and TSTT of an evaluation's final
+    ``SimState``, as the reference's export script counts them."""
+    from tarl_tpu_torch.core.step import average_travel_time
+    from tarl_tpu_torch.metrics.equilibrium import tstt
+
+    a = sim.agents
+    return (int(a.done[1:].sum()), float(average_travel_time(a)),
+            float(tstt(a, sim.time)))
+
+
+def _check_outcome(label: str, got: tuple, ref: dict) -> str:
+    """Asserts the done count equal to the reference's recorded ``ref`` and
+    the TSTT within ``GT_TSTT_RTOL`` of it; returns both side by side."""
+    done, att, tstt = got
+    r_done, r_att, r_tstt = (int(ref["done"]), float(ref["avg_travel_time"]),
+                             float(ref["tstt"]))
+    text = (f"done {done} (reference {r_done}), average travel time "
+            f"{att:.3f} s (reference {r_att:.3f} s), TSTT {tstt:.1f} s "
+            f"(reference {r_tstt:.1f} s)")
+    if done != r_done or abs(tstt - r_tstt) > GT_TSTT_RTOL * r_tstt:
+        raise AssertionError(f"{label}: {text}: not within "
+                             f"{GT_TSTT_RTOL:.1%}")
+    return text
+
+
+def gt_greedy_steps(ppo, params, st, steps: int, on_card: bool,
+                    check_at: int = GT_CHECK_STEPS):
+    """``steps`` greedy steps as ``PPO.eval_rollout`` takes them, written
+    out to record each action and to time the policy's forward with CUDA
+    events.  Returns ``(env, actions [steps, Ef] numpy, forward ms, the
+    outcome after check_at steps)``."""
+    import torch
+
+    from tarl_tpu_torch.core import rng
+    from tarl_tpu_torch.rl.env import env_reset, env_step
+
+    key = rng.prng_key(0)
+    env, obs = env_reset(st, ppo.network, ppo.rl, ppo.physics, ppo._dist_ff)
+    actions, marks, at_check = [], [], None
+    with torch.no_grad():
+        for i in range(steps):
+            key, _k = rng.split(key)
+            x = ppo._context(env, obs)
+            m0 = _stamp(on_card)
+            logits = ppo._policy_logits(params["policy"], x)
+            marks.append((m0, _stamp(on_card)))
+            action = ppo._dist(logits).mode()
+            actions.append(action)
+            env, obs, *_ = env_step(env, action, ppo.network, ppo.rl,
+                                    ppo.sim_cfg, ppo.physics,
+                                    dist_ff=ppo._dist_ff)
+            if i + 1 == check_at:
+                at_check = _outcome(env.sim)
+    if on_card:
+        torch.cuda.synchronize()
+    forward_ms = sum(_ms_between(a, b) for a, b in marks)
+    return env, torch.stack(actions).cpu().numpy(), forward_ms, at_check
+
+
+def gt_recorded_eval(dev, card: str, steps=GT_EVAL_STEPS,
+                     context=GT_CONTEXT_STEPS) -> dict:
+    """Phase 27a: the committed Braess weights against the reference's
+    recorded results: the first ``context`` greedy steps written out (the
+    first ``GT_CHECK_STEPS`` actions and the outcome there), again with
+    ``PLAIN`` and the plain K1, and the sampled evaluation of ``steps``
+    steps from key ``GT_SAMPLE_KEY``."""
+    import numpy as np
+    import torch
+
+    from tarl_tpu_torch.core import rng
+    from tarl_tpu_torch.core.fused_winner import direction_confirm_plain
+    from tarl_tpu_torch.ops import segment as seg
+
+    on_card = dev.type == "cuda"
+    net, agents, st, ppo, params, tree = gt_braess(dev)
+    rec = tree["reference"]
+
+    # The first `context` greedy steps written out (actions and the
+    # forward's time), then with the plain versions: bitwise at step
+    # `context`.
+    reset_counts()
+    t0 = time.perf_counter()
+    env_k, actions, fwd_ms, at_check = gt_greedy_steps(ppo, params, st,
+                                                       context, on_card)
+    loop_wall = time.perf_counter() - t0
+    loop_counts = counts()
+    want = {"K1": context, "K11": context, "K9": 0, "K10": 0, "K12": 0,
+            "K7": 0}
+    if on_card and loop_counts != want:
+        raise AssertionError(f"27a: greedy launches {loop_counts}, "
+                             f"expected {want}")
+    recorded = rec[f"actions_{GT_CHECK_STEPS}"]
+    parted = [i for i in range(GT_CHECK_STEPS)
+              if not np.array_equal(actions[i], recorded[i])]
+    if parted:
+        raise AssertionError(
+            f"27a: the greedy actions part from the reference's at step "
+            f"{parted[0]} ({len(parted)} of {GT_CHECK_STEPS} steps differ)")
+    greedy = _check_outcome(f"27a greedy at step {GT_CHECK_STEPS}",
+                            at_check, rec[f"eval_{GT_CHECK_STEPS}"])
+    reset_counts()
+    env_p, _, _, _ = ppo.eval_rollout(params, st, rng.prng_key(0), context,
+                                      segment_ops=seg.PLAIN,
+                                      core=direction_confirm_plain)
+    plain_counts = counts()
+    if any(plain_counts[k] for k in ("K1", "K9", "K10", "K11")):
+        raise AssertionError(f"27a: the plain run launched a kernel: "
+                             f"{plain_counts}")
+    bad = _diff_paths(_env_bits(env_k), _env_bits(env_p))
+    if bad:
+        raise AssertionError(f"27a: kernel and plain runs differ at step "
+                             f"{context}: {bad}")
+
+    # The sampled evaluation through the entry point.
+    reset_counts()
+    t0 = time.perf_counter()
+    env, rewards, _, _ = ppo.eval_rollout(params, st,
+                                          rng.prng_key(GT_SAMPLE_KEY), steps,
+                                          deterministic=False)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    want = {"K1": steps, "K11": steps, "K9": 0, "K10": 0, "K12": 0, "K7": 0}
+    if on_card and launches != want:
+        raise AssertionError(f"27a: launches {launches}, expected {want}")
+    if not bool(torch.isfinite(rewards).all()):
+        raise AssertionError("27a: a reward is not finite")
+    sampled = _check_outcome(f"27a sampled, {steps} steps",
+                             _outcome(env.sim), rec[f"sampled_{steps}"])
+
+    # The forward alone on the reset's context, with and without
+    # deterministic algorithms (this phase runs under them).
+    from tarl_tpu_torch.rl.env import env_reset
+
+    env0, obs0 = env_reset(st, net, ppo.rl, ppo.physics, ppo._dist_ff)
+    x0 = ppo._context(env0, obs0)
+
+    def forward(x):
+        with torch.no_grad():
+            return ppo._policy_logits(params["policy"], x)
+
+    fwd = {}
+    if on_card:
+        fwd["det"] = time_per_call(forward, (x0,), GT_TIMED_CALLS)
+        torch.use_deterministic_algorithms(False)
+        try:
+            fwd["free"] = time_per_call(forward, (x0,), GT_TIMED_CALLS)
+            fwd["device"], fwd["acts"] = device_time_per_call(
+                forward, (x0,), GT_TIMED_CALLS)
+        finally:
+            torch.use_deterministic_algorithms(True)
+    log(f"27a recorded Braess transformer, sampled (key {GT_SAMPLE_KEY}): "
+        f"{steps} steps in {wall:.2f} s, {wall / steps * 1e3:.3f} ms/step; "
+        f"{sampled}; launches {launches}; greedy, the first {context} steps "
+        f"written out in {loop_wall:.2f} s, {loop_wall / context * 1e3:.3f} "
+        f"ms/step, the forward {fwd_ms / context:.3f} ms/step (CUDA events), "
+        f"launches {loop_counts}: the first {GT_CHECK_STEPS} actions equal "
+        f"the reference's, at step {GT_CHECK_STEPS} {greedy}; with PLAIN "
+        f"and the plain K1 the state at step {context} is bitwise the "
+        f"kernels' (plain launches {plain_counts}) ({card})")
+    if fwd:
+        log(f"27a the policy's forward alone (Braess, E "
+            f"{net.full_src.shape[0]}): {fwd['det']:.3f} ms a call under "
+            f"deterministic algorithms, {fwd['free']:.3f} ms without (CUDA "
+            f"events, {GT_TIMED_CALLS} calls); device "
+            f"{fmt_us(fwd['device'])} in {fwd['acts']:.1f} kernels a call "
+            f"(torch.profiler) ({card})")
+    return {"launches": launches, "ms_step": wall / steps * 1e3,
+            "greedy_ms_step": loop_wall / context * 1e3,
+            "forward_ms_step": fwd_ms / context, "forward": fwd,
+            "ppo": ppo, "params": params, "st": st}
+
+
+def gt_training(ppo, params, st, card: str, collect=GT_COLLECT_STEPS
+                ) -> dict:
+    """Phase 27b: ``collect`` collection steps from the committed weights,
+    then one ``train_iteration`` at the recorded run's settings
+    (``GT_RL``: 512 steps, 4 epochs of minibatches of 128), its
+    collection, GAE and update timed by CUDA events."""
+    import math
+
+    import torch
+
+    from tarl_tpu_torch.core import rng
+
+    on_card = st.road.count.device.type == "cuda"
+    ts = ppo.init(st, rng.prng_key(0), torch.Generator().manual_seed(0))
+    ts = ts._replace(params=params, opt_state=ppo.optimizer.init(params))
+    steps = ppo.rl.rollout_steps
+    ppo.rl = dataclasses.replace(ppo.rl, rollout_steps=collect)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        _, _, _, traj, last = ppo.collect_rollout(params, ts.env, ts.obs,
+                                                  ts.key)
+        if on_card:
+            torch.cuda.synchronize()
+        c_wall = time.perf_counter() - t0
+        c_counts = counts()
+    finally:
+        ppo.rl = dataclasses.replace(ppo.rl, rollout_steps=steps)
+    want = {"K1": collect, "K9": 0, "K10": collect, "K11": collect,
+            "K12": 0, "K7": 0}
+    if on_card and c_counts != want:
+        raise AssertionError(f"27b: collection launches {c_counts}, "
+                             f"expected {want}")
+    if not (bool(torch.isfinite(traj.log_prob).all())
+            and bool(torch.isfinite(traj.value).all())
+            and bool(torch.isfinite(last))):
+        raise AssertionError("27b: a log-prob or value is not finite")
+    probe = TrainProbe(ppo, on_card)
+    reset_counts()
+    ts1, metrics = ppo.train_iteration(ts)
+    rec = probe.records[-1]
+    n_mb = max(steps // min(ppo.rl.minibatch_size, steps), 1)
+    updates = ppo.rl.num_epochs * n_mb
+    col = rec["collection_launches"]
+    if on_card and ({k: col[k] for k in ("K1", "K10", "K11", "K9")}
+                    != {"K1": steps, "K10": steps, "K11": steps, "K9": 0}
+                    or any(rec["gae_launches"].values())
+                    or any(rec["update_launches"].values())):
+        raise AssertionError(f"27b: iteration launches: collection {col}, "
+                             f"GAE {rec['gae_launches']}, update "
+                             f"{rec['update_launches']}")
+    if rec["updates"] != updates:
+        raise AssertionError(f"27b: {rec['updates']} updates, expected "
+                             f"{updates}")
+    values = [float(v) for v in metrics]
+    finite = all(bool(torch.isfinite(t).all()) for sub in ts1.params.values()
+                 for t in sub.values())
+    changed = sum(int((ts1.params[p][k] != params[p][k]).sum())
+                  for p in params for k in params[p])
+    total = sum(t.numel() for sub in params.values() for t in sub.values())
+    if not (finite and all(map(math.isfinite, values)) and changed > 0):
+        raise AssertionError(f"27b: parameters finite {finite}, changed "
+                             f"{changed}, metrics {values}")
+    log(f"27b transformer training (Braess): {collect} collection steps in "
+        f"{c_wall:.2f} s, {c_wall / collect * 1e3:.3f} ms/step, launches "
+        f"{c_counts}; one train_iteration ({steps} steps, "
+        f"{ppo.rl.num_epochs} epochs, minibatch {ppo.rl.minibatch_size}, "
+        f"{updates} updates) in {rec['wall_ms']:.1f} ms: collection "
+        f"{rec['collection_ms']:.1f} ms, GAE {rec['gae_ms']:.2f} ms, update "
+        f"{rec['update_ms']:.1f} ms (CUDA events); collection launches "
+        f"{col}; loss {float(metrics.loss_total):.5g}, approx_kl "
+        f"{float(metrics.approx_kl):.4g}, grad_norm "
+        f"{float(metrics.grad_norm):.4g}; {changed} of {total} parameters "
+        f"changed, all finite ({card})")
+    return {"collect": c_counts, "iteration": col,
+            "collect_ms_step": c_wall / collect * 1e3,
+            "iteration_ms": rec["wall_ms"],
+            "split_ms": (rec["collection_ms"], rec["gae_ms"],
+                         rec["update_ms"])}
+
+
+def gt_cli(dev, card: str, root: str = None, window=GT_CLI_WINDOW,
+           eval_window=GT_CLI_EVAL_WINDOW) -> dict:
+    """Phase 27c: ``runner.main`` with ``--algo transformer+ppo --mode
+    train`` (``GT_CLI_TRAIN``) over ``window``, its checkpoint evaluated
+    there, and ``--algo transformer --mode eval`` of the committed weights
+    over ``eval_window``, against the reference's recorded greedy outcome;
+    from ``root`` (default ``build/cli``)."""
+    import numpy as np
+    import torch
+
+    from tarl_tpu_torch import runner
+    from tarl_tpu_torch.convert import load_params_npz
+
+    on_card = dev.type == "cuda"
+    root = root or os.path.join(ROOT, "build", "cli")
+    os.makedirs(root, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        dev_args = ["--device", dev.type]
+        steps = window[1] - window[0]
+        eval_steps = eval_window[1] - eval_window[0]
+        rollout = int(GT_CLI_TRAIN[GT_CLI_TRAIN.index("--rollout-steps") + 1])
+        iters = int(GT_CLI_TRAIN[GT_CLI_TRAIN.index("--iterations") + 1])
+        runs, seconds, launches = {}, {}, {}
+        for label, argv, win in (
+                ("train", GT_CLI_TRAIN + ["--mode", "train"], window),
+                ("checkpoint", GT_CLI_TRAIN[:4] + [
+                    "--mode", "eval", "--checkpoint",
+                    os.path.join("gt_train", "checkpoints")], window),
+                ("eval", ["--algo", "transformer", "--scenario", "Braess",
+                          "--mode", "eval", "--checkpoint",
+                          os.path.join(ROOT, GT_WEIGHTS)], eval_window)):
+            reset_counts()
+            t0 = time.perf_counter()
+            runs[label] = runner.main(argv + [
+                "--start-end-time", str(win[0]), str(win[1]),
+                "--output-dir", f"gt_{label}"] + dev_args)
+            seconds[label] = time.perf_counter() - t0
+            launches[label] = counts()
+    finally:
+        os.chdir(cwd)
+    env_steps = iters * rollout * 2 + steps
+    want = {"train": {"K1": env_steps, "K9": 0, "K10": iters * rollout,
+                      "K11": env_steps},
+            "checkpoint": {"K1": steps, "K9": 0, "K10": 0, "K11": steps},
+            "eval": {"K1": eval_steps, "K9": 0, "K10": 0,
+                     "K11": eval_steps}}
+    if on_card:
+        for label, w in want.items():
+            have = {k: launches[label][k] for k in w}
+            if have != w:
+                raise AssertionError(f"27c {label}: launches {have}, "
+                                     f"expected {w}")
+    p_a = runs["train"].train_state.params
+    p_b = runs["checkpoint"].eval_params
+    if not all(torch.equal(p_a[p][k], p_b[p][k]) for p in p_a for k in p_a[p]):
+        raise AssertionError("27c: the restored parameters are not the "
+                             "trained ones bitwise")
+    same_state = not _diff_paths(_state_bits(runs["train"].sim.state),
+                                 _state_bits(runs["checkpoint"].sim.state))
+    tree = load_params_npz(os.path.join(ROOT, GT_WEIGHTS))
+    if not np.array_equal(runs["eval"].policy_net.pe.cpu().numpy(),
+                          tree["pe"]):
+        raise AssertionError("27c: the eval did not take the encoding the "
+                             "weights carry")
+    outcome = _check_outcome("27c eval", _outcome(runs["eval"].sim.state),
+                             tree["reference"][f"eval_{eval_steps}"])
+    log(f"27c the CLI, {' '.join(GT_CLI_TRAIN)} over {steps} ticks: train "
+        f"{seconds['train']:.2f} s (launches {launches['train']}); its "
+        f"checkpoint evaluated {seconds['checkpoint']:.2f} s (parameters "
+        f"restored bitwise; the evaluated state "
+        f"{'bitwise' if same_state else 'not'} the trained run's, the "
+        f"encoding drawn afresh, R4); --algo transformer --mode eval "
+        f"--checkpoint {GT_WEIGHTS} over {eval_window[0]}-{eval_window[1]} "
+        f"{seconds['eval']:.2f} s: {outcome} ({card})")
+    return {"launches": launches, "seconds": seconds}
+
+
+def gt_learned_episode(dev, card: str, net, agents, params,
+                       ticks=GT_TICKS, warmup=WARMUP_TICKS,
+                       context=GT_CONTEXT_TICKS) -> dict:
+    """Phase 27d: the learned transformer on ``net, agents`` (the
+    headline scenario) in phase 2's exact mode: ``make_learned_choice``
+    (sampled) of a ``TransformerRoutePolicy`` with the port's encoding of
+    ``net`` and the Braess weights ``params``, ``ticks`` ticks after
+    ``warmup``.  The slot twin against the flat forward on three captured
+    states; the first ``context`` ticks again with the plain K1."""
+    import numpy as np
+    import torch
+    from torch.func import functional_call
+
+    from tarl_tpu_torch.core.fused_winner import direction_confirm_plain
+    from tarl_tpu_torch.core.step import init_sim_state, run_episode
+    from tarl_tpu_torch.models.transformer.agent import (
+        TransformerRoutePolicy, network_positional_encoding)
+    from tarl_tpu_torch.rl.learned_policy import (
+        make_learned_choice, rollout_context)
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    pe = network_positional_encoding(net, 16)
+    pe_s = time.perf_counter() - t0
+    policy_net = TransformerRoutePolicy(pe).to(dev)
+    policy = make_learned_choice(policy_net, params["policy"], net)
+    marks = []
+
+    def timed_choice(state, network):
+        m0 = _stamp(on_card)
+        out = policy.choice(state, network)
+        marks.append((m0, _stamp(on_card)))
+        return out
+
+    timed = policy._replace(choice=timed_choice)
+    sim = headline_sim(ticks=warmup + ticks)
+    res = headline_run(net, agents, sim, timed, ticks=warmup + ticks,
+                       warmup=warmup, capture_every=context)
+    choice_ms = sum(_ms_between(a, b) for a, b in marks[warmup:]) / ticks
+    check_headline(res, "27d", {"K1": warmup + ticks, "K9": 0, "K10": 0,
+                                "K11": 0, "K12": 0, "K7": 0}
+                   if on_card else {})
+    # The slot twin against the flat forward on captured states.
+    spec = policy.learned
+    tables = spec.slot_tables
+    cols = torch.arange(net.num_nodes, dtype=torch.int32, device=dev)
+    src = net.full_src.cpu().numpy()
+    rank = np.zeros(len(src), np.int64)
+    seen = np.zeros(net.num_nodes, np.int64)
+    for e, s in enumerate(src):
+        rank[e], seen[s] = seen[s], seen[s] + 1
+    worst = 0.0
+    with torch.no_grad():
+        for state in res["captured"][1:1 + GT_CAPTURES]:
+            x = rollout_context(state, net)
+            slot = functional_call(spec.slot_net, spec.params,
+                                   (x, tables, cols))
+            flat = functional_call(policy_net, spec.params,
+                                   (x, net.full_attr.reshape(-1, 1),
+                                    net.full_src, net.full_dst))
+            got = slot[torch.as_tensor(rank, device=dev), net.full_src.long()]
+            bad = ~torch.isclose(got, flat, rtol=2e-5, atol=2e-5)
+            if bool(bad.any()):
+                raise AssertionError(
+                    f"27d: the slot twin and the flat forward differ on "
+                    f"{int(bad.sum())} edges, worst "
+                    f"{float((got - flat).abs().max()):.3g}")
+            worst = max(worst, float((got - flat).abs().max()))
+    # The first `context` ticks again with the plain K1, cut into calls
+    # as the kernel run was (warm-up, then the rest): backlog mode keeps
+    # the inserted flag lazily within a call, so a learned episode depends
+    # on its cut (the reference's fault R5).
+    plain = init_sim_state(net, agents, sim=sim, policy=policy)
+    reset_counts()
+    for n in (warmup, context - warmup):
+        plain, _ = run_episode(plain, net, policy, n, sim=sim,
+                               core=direction_confirm_plain)
+    if counts()["K1"]:
+        raise AssertionError("27d: the plain run launched K1")
+    bad = _diff_paths(_state_bits(res["captured"][0]), _state_bits(plain))
+    if bad:
+        raise AssertionError(f"27d: K1 and the plain K1 differ at tick "
+                             f"{context}: {bad}")
+    ms_tick = res["wall"] / res["measured"] * 1e3
+    log(f"27d learned transformer on {net.num_roads} roads, "
+        f"{net.num_nodes} nodes, {net.full_src.shape[0]} full edges, "
+        f"{agents.num_agents} agent rows (encoding drawn in {pe_s:.2f} s; "
+        f"slot tables KA {tables.in_ok.shape[0]}, KF "
+        f"{tables.out_ok.shape[0]}): {res['rate']:.1f} agent-steps/s, "
+        f"{ms_tick:.3f} ms/tick over {res['measured']} ticks after "
+        f"{warmup}, the choice {choice_ms:.3f} ms/tick (CUDA events), done "
+        f"{res['done']}, on roads {res['on_road']}, average travel time "
+        f"{res['avg_tt']:.3f} s, overflow {res['overflow']}, host reads per "
+        f"tick {res['syncs_per_tick']:.3f}, launches {res['launches']}; the "
+        f"slot twin within 2e-5 of the flat forward on {GT_CAPTURES} "
+        f"captured states (worst {worst:.3g}); the first {context} ticks "
+        f"bitwise with the plain K1 ({card})")
+    return {"launches": res["launches"], "ms_tick": ms_tick,
+            "choice_ms": choice_ms, "rate": res["rate"],
+            "done": res["done"]}
+
+
+def transformer_phase(dev, card: str, net, agents, cli_root: str = None,
+                      eval_steps=GT_EVAL_STEPS, context=GT_CONTEXT_STEPS,
+                      collect=GT_COLLECT_STEPS, ticks=GT_TICKS,
+                      warmup=WARMUP_TICKS, tick_context=GT_CONTEXT_TICKS
+                      ) -> dict:
+    """Phase 27: (a) the recorded Braess weights, under
+    ``torch.use_deterministic_algorithms(True)`` (the flat forward's
+    segment sums are ``index_add_``, whose atomics would otherwise order
+    the sums anew in each run, and (a) compares two runs bitwise); (b)
+    training, (c) the CLI, (d) a learned episode on ``net, agents``."""
+    import torch
+
+    t0 = time.perf_counter()
+    was_det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = gt_recorded_eval(dev, card, eval_steps, context)
+    finally:
+        torch.use_deterministic_algorithms(was_det)
+    b = gt_training(a["ppo"], a["params"], a["st"], card, collect)
+    c = gt_cli(dev, card, cli_root)
+    d = gt_learned_episode(dev, card, net, agents, a["params"], ticks,
+                           warmup, tick_context)
+    return {"a": a, "b": b, "c": c, "d": d,
+            "seconds": time.perf_counter() - t0}
+
+
 # --- training (phase 21) -----------------------------------------------------
 
 def _stamp(on_card: bool):
@@ -4566,17 +5133,22 @@ def main() -> int:
     collect_ctx, collect_ctx_err = collection_in_context(net8, trained, st8)
 
     # --- 13. the fused-core headline -------------------------------------
-    sim_fc = headline_sim(fused_core=True)
+    sim_fc = headline_sim(fused_core=True, ticks=FUSED_TICKS)
     cap12 = CapturePayload(CAPTURE_EVERY)
-    fc = headline_run(net, agents, sim_fc, policy, payload=cap12)
-    check_headline(fc, "fused-core headline", {"K12": HEADLINE_TICKS,
+    fc = headline_run(net, agents, sim_fc, policy, payload=cap12,
+                      ticks=FUSED_TICKS)
+    check_headline(fc, "fused-core headline", {"K12": FUSED_TICKS,
                                                "K1": 0, "K7": 0})
+    from tarl_tpu_torch.core.step import average_travel_time
+
+    at_fc = captured[FUSED_TICKS // CAPTURE_EVERY - 1].agents
     log(f"fused-core headline: {fc['rate']:.1f} agent-steps/s "
         f"({fc['measured']} ticks in {fc['wall']:.2f} s, "
         f"{fc['wall'] / fc['measured'] * 1e3:.3f} ms/tick; phase 2 "
         f"{head['wall'] / head['measured'] * 1e3:.3f}), done {fc['done']} "
-        f"(phase 2 {head['done']}), on roads {fc['on_road']}, average "
-        f"travel time {fc['avg_tt']:.3f} s (phase 2 {head['avg_tt']:.3f} s; "
+        f"(phase 2 at tick {FUSED_TICKS}: {int(at_fc.done.sum())}), on "
+        f"roads {fc['on_road']}, average travel time {fc['avg_tt']:.3f} s "
+        f"(phase 2 {float(average_travel_time(at_fc)):.3f} s; "
         f"same law, another stream), host syncs per tick "
         f"{fc['syncs_per_tick']:.3f}, overflow {fc['overflow']}, launches "
         f"{fc['launches']} ({card})")
@@ -4862,7 +5434,20 @@ def main() -> int:
     city = city_phase(dev, card)
     log(f"city row phase in {time.perf_counter() - t0:.1f} s")
 
-    # --- 27. results ------------------------------------------------------
+    # --- 27. the Graph Transformer ------------------------------------------
+    gt = transformer_phase(dev, card, net, agents)
+    log(f"transformer phase in {gt['seconds']:.1f} s")
+    gt_launches = {key: {
+        "eval_braess": gt["a"]["launches"][key],
+        "collection_braess": gt["b"]["collect"][key],
+        "training_iteration": gt["b"]["iteration"][key],
+        "cli_train": gt["c"]["launches"]["train"][key],
+        "cli_checkpoint_eval": gt["c"]["launches"]["checkpoint"][key],
+        "cli_eval": gt["c"]["launches"]["eval"][key],
+        "learned_episode": gt["d"]["launches"][key]}
+        for key in ("K1", "K10", "K11")}
+
+    # --- 28. results ------------------------------------------------------
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     train_launches = train["launches"]
     kern_ms, plain_ms, kern_dev_ms, k1_bound = timings["Grid16x16"]
@@ -4880,7 +5465,8 @@ def main() -> int:
             "launches_from": ("learned eval (phase 8)" if key == "K11"
                               else "rollout collection (phase 9)")
             + "; the CLI's training and checkpoint evaluation (phase 25) in "
-              "launches_cli_train and launches_cli_eval",
+              "launches_cli_train and launches_cli_eval; the transformer's "
+              "paths (phase 27) in launches_transformer",
             "max_abs_err": seg_err[name],
             "ms": seg_t[name]["ms"],
             "device_ms": seg_t[name]["device_ms"],
@@ -4895,6 +5481,8 @@ def main() -> int:
             "launches_cli_train": cli_run["train"][key],
             "launches_cli_eval": cli_run["eval"][key],
         })
+        if key in gt_launches:
+            seg_entries[-1]["launches_transformer"] = gt_launches[key]
     # K10's row: the log-prob entry, which the collection launches; the bare
     # max (the TPU kernel's own function) beside it.
     lp, lps = lp_t["log_prob"], lp_t["log_probs"]
@@ -4987,9 +5575,11 @@ def main() -> int:
         "launches_cli_eval": cli_run["eval"]["K1"],
         "launches_city_random": city["exact"]["launches"]["K1"],
         "launches_city_sp": city["sp"]["winner_launches"],
+        "launches_transformer": gt_launches["K1"],
         "launches_from": "headline (phase 2); beside it the sp row (5), "
                          "training (21), the classical and dual rows (24), "
-                         "the CLI (25) and the city rows (26)",
+                         "the CLI (25), the city rows (26) and the "
+                         "transformer's paths (27)",
     }, {
         "name": "primal_relax",
         "route": "cuda",

@@ -13,7 +13,10 @@ keep (the roll plans) are ignored on the way in.
 :func:`mpnn_params_from_numpy` carries the reference's MPNN parameters
 (Flax trees as numpy: ``{"policy": {"params": {layer: {"kernel", "bias"}}},
 "value": ...}``) into the port's state dicts, and
-:func:`mpnn_params_to_numpy` goes back; :func:`load_params_npz` reads such a
+:func:`mpnn_params_to_numpy` goes back; the transformer's nested trees
+(LayerNorm ``scale`` as ``weight``) come in through the same function,
+also named :data:`transformer_params_from_numpy`, and go back through
+:func:`transformer_params_to_numpy`; :func:`load_params_npz` reads such a
 tree from an ``.npz`` of flat ``policy/params/edge_fc1/kernel`` keys.
 :func:`adam_state_from_numpy` carries optax's ``ScaleByAdamState``
 (``count``, and ``mu`` and ``nu`` keyed like those parameter trees) into the
@@ -109,32 +112,42 @@ def to_numpy(obj: Any) -> Any:
     return np.asarray(obj)
 
 
-def _module_params_from_numpy(tree: dict, device) -> dict:
-    """One Flax module tree -> a state dict: a Dense ``kernel [in, out]``
-    becomes ``<name>.weight [out, in]``, an Embed ``embedding`` becomes
-    ``<name>.weight``."""
-    tree = tree.get("params", tree)
+def _module_params_from_numpy(tree: dict, device, prefix: str = "") -> dict:
+    """One Flax module tree (under its ``params`` key) -> a state dict: a
+    Dense ``kernel [in, out]`` becomes ``<path>.weight [out, in]``, an
+    Embed ``embedding`` and a LayerNorm ``scale`` become
+    ``<path>.weight``; nested modules join their names with dots."""
     out = {}
-    for name, leaves in tree.items():
-        for leaf, arr in leaves.items():
-            a = np.asarray(arr, dtype=np.float32)
-            if leaf == "kernel":
-                out[f"{name}.weight"] = _t(a.T, device)
-            elif leaf == "bias":
-                out[f"{name}.bias"] = _t(a, device)
-            elif leaf == "embedding":
-                out[f"{name}.weight"] = _t(a, device)
-            else:
-                raise ValueError(f"unknown parameter {name}/{leaf}")
+    for name, node in tree.items():
+        if isinstance(node, dict):
+            out.update(_module_params_from_numpy(node, device,
+                                                 f"{prefix}{name}."))
+            continue
+        a = np.asarray(node, dtype=np.float32)
+        path = prefix.rstrip(".")
+        if name == "kernel":
+            out[f"{path}.weight"] = _t(a.T, device)
+        elif name == "bias":
+            out[f"{path}.bias"] = _t(a, device)
+        elif name in ("embedding", "scale"):
+            out[f"{path}.weight"] = _t(a, device)
+        else:
+            raise ValueError(f"unknown parameter {path}/{name}")
     return out
 
 
 def mpnn_params_from_numpy(tree: dict, device: torch.device | str | None = None
                            ) -> dict:
     """``{"policy": state_dict, "value": state_dict}`` from the reference's
-    ``{"policy": ..., "value": ...}`` parameter trees."""
-    return {part: _module_params_from_numpy(tree[part], device)
-            for part in ("policy", "value")}
+    ``{"policy": ..., "value": ...}`` parameter trees: nested module names
+    joined with dots, Dense kernels transposed, Embed embeddings and
+    LayerNorm scales as ``weight``.  It serves the MPNN's and the
+    transformer's trees alike (``transformer/gt_0/WQ/kernel``,
+    ``.../norm1/scale``, ``time_head``), so
+    :data:`transformer_params_from_numpy` is another name for it."""
+    return {part: _module_params_from_numpy(
+        tree[part].get("params", tree[part]), device)
+        for part in ("policy", "value")}
 
 
 # The Flax Embed modules of the MPNN nets (the rest are Dense).
@@ -158,6 +171,32 @@ def mpnn_params_to_numpy(params: dict) -> dict:
             else:
                 layers.setdefault(name, {})["bias"] = a
         out[part] = {"params": layers}
+    return out
+
+
+transformer_params_from_numpy = mpnn_params_from_numpy
+
+
+def transformer_params_to_numpy(params: dict) -> dict:
+    """The inverse of :func:`transformer_params_from_numpy`: a 2-D
+    ``weight`` is a Dense kernel (transposed back), a 1-D one a LayerNorm
+    scale."""
+    out = {}
+    for part, state in params.items():
+        tree: dict = {}
+        for key, t in state.items():
+            *names, leaf = key.split(".")
+            node = tree
+            for name in names:
+                node = node.setdefault(name, {})
+            a = t.detach().cpu().numpy()
+            if leaf == "bias":
+                node["bias"] = a
+            elif a.ndim == 2:
+                node["kernel"] = np.ascontiguousarray(a.T)
+            else:
+                node["scale"] = a
+        out[part] = {"params": tree}
     return out
 
 

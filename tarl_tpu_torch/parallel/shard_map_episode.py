@@ -37,7 +37,8 @@ evaluation of the slot reads, which are direct gathers here; the
 ``TARL_SHARD_SKIP`` diagnostics; the compiled-episode cache (nothing is
 compiled, so its faults R1 and R2 cannot occur).  The learned,
 strict-compat and dual shortest-path branches of the choice raise
-``NotImplementedError`` until their serial policies are ported.
+``NotImplementedError``: their serial policies exist, their sharded
+branches come with road blocks across processes.
 """
 from __future__ import annotations
 
@@ -172,11 +173,13 @@ def _check_policy(policy: Policy, routing: RoutingConfig) -> None:
     if routing.strict_compat or policy.needs_next_hop:
         raise NotImplementedError(
             "the strict-compat and dual shortest-path branches of the "
-            "sharded choice come with the dual routing backend (slice 7)")
+            "sharded choice come with slice 5b, road blocks across "
+            "processes (queue 1 item 6 of the port's roadmap)")
     if policy.learned is not None:
         raise NotImplementedError(
             "the learned policy's branch of the sharded choice comes with "
-            "rl/learned_policy.py (slice 6)")
+            "slice 5b, road blocks across processes (queue 1 item 6 of the "
+            "port's roadmap)")
 
 
 def run_episode_shard_map(

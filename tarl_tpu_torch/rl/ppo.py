@@ -28,7 +28,7 @@ on.  PyTorch leaves it off; the caller owns that process-wide flag.
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -42,6 +42,7 @@ from ..config import (
     RLConfig,
     SimConfig,
 )
+from ..core.fused_winner import direction_confirm
 from ..core.rng import Key, permutation, split
 from ..core.sync import host_read
 from ..network import Network
@@ -187,17 +188,23 @@ def init_params(module: torch.nn.Module,
     standard deviations, scaled to variance 1/fan_in; the fan-in is the
     weight's second axis, the first of the Flax kernel it transposes) and
     its bias zero; embeddings standard normal.  Equal to the reference's
-    draw in law, not in stream."""
+    draw in law, not in stream.  A LayerNorm takes Flax's scale 1 and bias
+    0, and a Linear without bias (the transformer's embeddings and
+    projections) only its weight."""
     params = {}
     for name, sub in module.named_modules():
         prefix = f"{name}." if name else ""
         if isinstance(sub, torch.nn.Linear):
             params[prefix + "weight"] = _lecun_normal(sub.weight.shape,
                                                       generator)
-            params[prefix + "bias"] = torch.zeros(sub.bias.shape)
+            if sub.bias is not None:
+                params[prefix + "bias"] = torch.zeros(sub.bias.shape)
         elif isinstance(sub, torch.nn.Embedding):
             params[prefix + "weight"] = torch.empty(
                 sub.weight.shape).normal_(generator=generator)
+        elif isinstance(sub, torch.nn.LayerNorm):
+            params[prefix + "weight"] = torch.ones(sub.weight.shape)
+            params[prefix + "bias"] = torch.zeros(sub.bias.shape)
     return params
 
 
@@ -341,12 +348,14 @@ class PPO:
     @torch.no_grad()
     def eval_rollout(self, params, sim_state, key: Key, num_steps: int,
                      deterministic: bool = True,
-                     segment_ops: SegmentOps = KERNELS):
+                     segment_ops: SegmentOps = KERNELS,
+                     core: Callable = direction_confirm):
         """An evaluation episode of ``num_steps`` steps from the reset
         ``sim_state``, with no host read.  Returns ``(env, rewards [T],
         dones [T], logs)``, ``logs`` holding the per-step arrivals,
         occupancy and time.  ``segment_ops`` overrides the segment kernels
-        (K9-K11), e.g. with their plain versions."""
+        (K9-K11) and ``core`` the winner kernel (K1), e.g. with their
+        plain versions."""
         env, obs = env_reset(sim_state, self.network, self.rl, self.physics,
                              self._dist_ff)
         out = []
@@ -356,7 +365,7 @@ class PPO:
                               segment_ops)
             env, obs, reward, done, info = env_step(
                 env, action, self.network, self.rl, self.sim_cfg,
-                self.physics, dist_ff=self._dist_ff)
+                self.physics, dist_ff=self._dist_ff, core=core)
             out.append((reward, done, info["arrivals"], info["on_network"],
                         env.sim.time))
         cols = ([torch.stack(col) for col in zip(*out)] if out

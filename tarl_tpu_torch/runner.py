@@ -14,9 +14,12 @@ takes the reference CLI's flags.  Where the reference's differ:
 * the per-tick road-optimality budgets are constants
   (:data:`PER_TICK_BUDGET`, :data:`PER_TICK_DEV_BUDGET`), and past the
   first the series is kept in the sparse store;
-* ``--algo transformer|transformer+ppo`` and ``--num-envs`` above 1 raise
-  ``NotImplementedError``: the transformer policy and the batched
-  environments are not ported yet (slice 6b of the port's roadmap).
+* ``--num-envs`` above 1 raises ``NotImplementedError``: the batched
+  trainer (``parallel/shard.py::BatchedPPO``) is not ported yet;
+* ``--algo transformer|transformer+ppo`` draws its Laplacian positional
+  encoding afresh, as the reference's does (not reproducible call to call:
+  ``models.transformer.embedding``); an ``.npz`` of its parameters is
+  evaluated with the encoding it carries, where it carries one.
 
 Without matplotlib (the optional ``reports`` extra) the summary prints one
 line naming the figures it did not draw, and still writes the CSV files
@@ -42,6 +45,11 @@ from .io.cache import load_or_build_network
 from .metrics import reporting
 from .metrics.equilibrium import equilibrium_report
 from .models.mpnn import MPNNPolicyNet, MPNNValueNetSimple
+from .models.transformer.agent import (
+    TransformerRoutePolicy,
+    TransformerValueNet,
+    network_positional_encoding,
+)
 from .rl.checkpoint import latest_checkpoint, restore_checkpoint
 from .rl.ppo import PPO
 from .rl.trainer import ppo_train
@@ -54,14 +62,17 @@ from .simulator import TransportationSimulator, make_policy
 # cap the chunk.
 PER_TICK_BUDGET = 2 * 10 ** 8
 PER_TICK_DEV_BUDGET = 5 * 10 ** 7
+# The transformer's positional encoding width.
+PE_DIM = 16
 # The equilibrium comparison solves an all-pairs assignment an iteration;
 # past this many dual nodes the summary skips it.
 MAX_REPORT_NODES = 4096
 
 _CLASSICAL = ("dijkstra", "random", "so")
 _LEARNED = ("mpnn", "mpnn+ppo", "transformer", "transformer+ppo")
-_NOT_PORTED = ("not ported yet: the transformer policy and the batched "
-               "environments come with slice 6b of the port's roadmap")
+_NOT_PORTED = ("not ported yet: the batched trainer "
+               "(parallel/shard.py::BatchedPPO) comes with the second half "
+               "of slice 6b of the port's roadmap")
 
 
 @dataclasses.dataclass
@@ -113,9 +124,9 @@ class Runner:
                                "(pass --device cpu to run on the CPU)")
         if a.algo not in _CLASSICAL + _LEARNED:
             raise ValueError(f"Unknown algorithm {a.algo!r}")
-        if a.algo.startswith("transformer") or a.num_envs > 1:
-            raise NotImplementedError(
-                f"--algo {a.algo} --num-envs {a.num_envs}: {_NOT_PORTED}")
+        if a.num_envs > 1:
+            raise NotImplementedError(f"--num-envs {a.num_envs}: "
+                                      f"{_NOT_PORTED}")
         # The per-tick road-optimality series: dense rows while ticks x
         # roads fits PER_TICK_BUDGET, else the sparse store; the fused
         # chunk is capped so that its [chunk, R] log fits
@@ -161,16 +172,26 @@ class Runner:
                 entropy_coef=a.entropy_coef,
                 extra_obs=a.extra_obs,
             )
-            self.policy_net = MPNNPolicyNet(
-                num_nodes=net.num_nodes,
-                num_node_embeddings=net.num_roads + 1,
-                use_distance_prior=a.distance_prior,
-                prior_scale=30.0,
-                context_dim=19 if a.extra_obs else 16,
-            )
-            self.value_net = MPNNValueNetSimple(net.num_nodes)
+            context_dim = 19 if a.extra_obs else 16
+            transformer = a.algo.startswith("transformer")
+            if transformer:
+                pe = network_positional_encoding(net, PE_DIM)
+                self.policy_net = TransformerRoutePolicy(
+                    pe=pe, context_dim=context_dim)
+                self.value_net = TransformerValueNet(
+                    pe=pe, context_dim=context_dim)
+            else:
+                self.policy_net = MPNNPolicyNet(
+                    num_nodes=net.num_nodes,
+                    num_node_embeddings=net.num_roads + 1,
+                    use_distance_prior=a.distance_prior,
+                    prior_scale=30.0,
+                    context_dim=context_dim,
+                )
+                self.value_net = MPNNValueNetSimple(net.num_nodes)
             self.ppo = PPO(net, self.policy_net, self.value_net,
-                           rl=self.rl_cfg, sim_cfg=self.sim.sim)
+                           rl=self.rl_cfg, sim_cfg=self.sim.sim,
+                           value_uses_graph=transformer)
             self.sim.set_policy(Policy(choice=random_choice))
         self.sim.config_parameters(timestep_size=a.timestep_size,
                                    start_time=a.start_end_time[0])
@@ -179,7 +200,8 @@ class Runner:
     def train(self):
         a = self.args
         if not a.algo.endswith("+ppo") or a.mode != "train":
-            raise RuntimeError("Training needs --algo mpnn+ppo --mode train")
+            raise RuntimeError("Training needs --algo mpnn+ppo or "
+                               "transformer+ppo and --mode train")
         out = Path(a.output_dir)
         out.mkdir(parents=True, exist_ok=True)
         self.train_state = ppo_train(
@@ -191,17 +213,30 @@ class Runner:
 
     # ------------------------------------------------------------------
     def _restore(self, path: str) -> dict:
-        """Policy and value parameters from ``path``: an ``.npz`` of MPNN
-        parameters, a checkpoint file, or a directory of them (the
-        latest)."""
+        """Policy and value parameters from ``path``: an ``.npz`` of the
+        algorithm's parameters (a transformer's with the encoding it holds
+        under ``pe``, where it holds one), a checkpoint file, or a
+        directory of them (the latest)."""
         if path.endswith(".npz"):
-            return mpnn_params_from_numpy(load_params_npz(path), self.device)
+            tree = load_params_npz(path)
+            if self.args.algo.startswith("transformer") and "pe" in tree:
+                self._set_encoding(tree["pe"])
+            return mpnn_params_from_numpy(tree, self.device)
         if os.path.isdir(path):
             found = latest_checkpoint(path)
             if found is None:
                 raise FileNotFoundError(f"no ckpt_<iter> under {path}")
             path = found
         return restore_checkpoint(path, self.device)["params"]
+
+    def _set_encoding(self, pe) -> None:
+        """Both transformer nets take the encoding ``pe``."""
+        pe = torch.as_tensor(pe, dtype=torch.float32, device=self.device)
+        if tuple(pe.shape) != tuple(self.policy_net.pe.shape):
+            raise ValueError(f"encoding of shape {tuple(pe.shape)}, the "
+                             f"network takes {tuple(self.policy_net.pe.shape)}")
+        for m in (self.policy_net, self.value_net):
+            m.pe = pe
 
     def eval(self):
         a = self.args
@@ -328,7 +363,8 @@ def build_parser():
     parser.add_argument("--checkpoint", type=str, default="",
                         help="Parameters to evaluate: a checkpoint written "
                              "by --mode train (a ckpt_<iter> file or its "
-                             "directory) or an .npz of MPNN parameters")
+                             "directory) or an .npz of the algorithm's "
+                             "parameters")
     parser.add_argument("--num-envs", type=int, default=1,
                         help="PPO environment replicas (not ported yet: 1)")
     parser.add_argument("--reward-mode", default="progress",

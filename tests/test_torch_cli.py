@@ -3,8 +3,8 @@ against the reference's (``tarl_tpu.runner``).
 
 * The reference's CLI tests (``tests/test_cli.py``), on the port:
   setup/train/eval sequencing, argument forwarding, an unknown algorithm
-  refused; and the paths not ported yet (``transformer*``, ``--num-envs``
-  above 1) refused with ``NotImplementedError``.
+  refused; and the path not ported yet (``--num-envs`` above 1, for every
+  learned algorithm) refused with ``NotImplementedError``.
 * The README's evaluation, ``--algo dijkstra --scenario Easy --mode eval
   --start-end-time 21600 28800 --timestep_size 2``, through both CLIs (the
   port's with ``--device cpu``): the average travel time and the done
@@ -18,6 +18,13 @@ against the reference's (``tarl_tpu.runner``).
   equals the trained run's, bitwise.
 * ``--checkpoint tarl_tpu_torch/weights/grid8x8_mpnn_best.npz``: the
   learned evaluation equals a direct ``PPO.eval_rollout`` call, bitwise.
+* The transformer: ``--algo transformer+ppo --mode train`` (one iteration
+  of 16 steps on Braess) writes its checkpoint and reports, and
+  ``--checkpoint`` restores the trained parameters bitwise;
+  ``--algo transformer --mode eval`` runs from an initial draw; and
+  ``--checkpoint tarl_tpu_torch/weights/braess_transformer_best.npz``
+  evaluates with the encoding the file carries, equal to a direct
+  ``PPO.eval_rollout`` call with it, bitwise.
 """
 import json
 import os
@@ -48,6 +55,8 @@ README_EVAL = ["--algo", "dijkstra", "--scenario", "Easy", "--mode", "eval",
                "--start-end-time", "21600", "28800", "--timestep_size", "2"]
 WEIGHTS = os.path.join(REPO, "tarl_tpu_torch", "weights",
                        "grid8x8_mpnn_best.npz")
+GT_WEIGHTS = os.path.join(REPO, "tarl_tpu_torch", "weights",
+                          "braess_transformer_best.npz")
 
 
 @pytest.fixture
@@ -100,13 +109,14 @@ def test_unknown_algo_rejected():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--algo", "transformer"], ["--algo", "transformer+ppo"],
+    ["--algo", "transformer", "--num-envs", "2"],
+    ["--algo", "transformer+ppo", "--num-envs", "2"],
     ["--algo", "mpnn+ppo", "--num-envs", "2"]])
 def test_not_ported_paths_refused(argv):
     args = runner_mod.build_parser().parse_args(argv + ["--device", "cpu"])
     r = runner_mod.Runner(runner_mod.RunnerArgs(
         algo=args.algo, num_envs=args.num_envs, device="cpu"))
-    with pytest.raises(NotImplementedError, match="slice 6b"):
+    with pytest.raises(NotImplementedError, match="BatchedPPO"):
         r.setup()
 
 
@@ -211,3 +221,64 @@ def test_npz_evaluation_equals_eval_rollout(tmp_path, monkeypatch):
             logs["arrivals"].tolist(), logs["on_network"].tolist(),
             logs["time"].tolist())]
     assert float(logs["on_network"][-1]) > 0
+
+
+def test_transformer_train_writes_checkpoint_and_reports(tmp_path,
+                                                         monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    common = ["--algo", "transformer+ppo", "--scenario", "Braess",
+              "--start-end-time", "21600", "21660", "--device", "cpu"]
+    trained = runner_mod.main(common + [
+        "--mode", "train", "--iterations", "1", "--rollout-steps", "16",
+        "--output-dir", "train"])
+    assert trained.ppo.value_uses_graph
+    assert os.path.exists(os.path.join("train", "checkpoints", "ckpt_1"))
+    for name in ("node_metrics.csv", "equilibrium_report.json",
+                 "metrics.csv"):
+        assert os.path.exists(os.path.join("train", name)), name
+    report = json.load(open(os.path.join("train", "equilibrium_report.json")))
+    assert np.isfinite(report["tstt_simulated"])
+    restored = runner_mod.main(common + [
+        "--mode", "eval", "--checkpoint", os.path.join("train",
+                                                       "checkpoints"),
+        "--output-dir", "eval"])
+    assert_tree_equal(_bits(trained.train_state.params),
+                      _bits(restored.eval_params), "params")
+    # From an initial draw, with no checkpoint.
+    fresh = runner_mod.main(["--algo", "transformer", "--scenario", "Braess",
+                             "--mode", "eval", "--start-end-time", "21600",
+                             "21660", "--device", "cpu", "--output-dir",
+                             "fresh"])
+    assert fresh.sim.leg_histogram_values
+    assert os.path.exists(os.path.join("fresh", "equilibrium_report.json"))
+
+
+def test_transformer_npz_evaluation_uses_its_encoding(tmp_path, monkeypatch):
+    from tarl_tpu_torch.models.transformer.agent import (
+        TransformerRoutePolicy,
+        TransformerValueNet,
+    )
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(runner_mod.Runner, "_summary", lambda self, sim: None)
+    start, steps = 21600, 120
+    r = runner_mod.main(["--algo", "transformer", "--scenario", "Braess",
+                         "--start-end-time", str(start), str(start + steps),
+                         "--checkpoint", GT_WEIGHTS, "--device", "cpu"])
+    tree = convert.load_params_npz(GT_WEIGHTS)
+    np.testing.assert_array_equal(r.policy_net.pe.numpy(), tree["pe"])
+    np.testing.assert_array_equal(r.value_net.pe.numpy(), tree["pe"])
+    net = load_or_build_network("Braess", device="cpu")
+    agents = load_or_build_population("Braess", device="cpu")
+    rl = RLConfig(episode_start=start, reward_mode="progress", gamma=0.98,
+                  gae_lambda=0.9, minibatch_size=32, entropy_coef=0.003)
+    sim_cfg = SimConfig(timestep=1, start_time=start, end_time=start + steps)
+    ppo = PPO(net, TransformerRoutePolicy(tree["pe"]),
+              TransformerValueNet(tree["pe"]), rl=rl, sim_cfg=sim_cfg,
+              value_uses_graph=True)
+    state = init_sim_state(net, agents, sim=sim_cfg,
+                           policy=Policy(choice=random_choice))
+    params = convert.transformer_params_from_numpy(tree, "cpu")
+    env, _, _, _ = ppo.eval_rollout(params, state, prng_key(0), steps)
+    assert_tree_equal(_bits(params), _bits(r.eval_params), "params")
+    assert_tree_equal(_bits(env.sim), _bits(r.sim.state), "final state")

@@ -1,7 +1,8 @@
 """The port's package boundary and its kernel wrapper, on the CPU.
 
 * ``tarl_tpu_torch`` and every submodule (the training modules
-  ``rl.gae``, ``rl.checkpoint`` and ``rl.trainer`` among them) import with
+  ``rl.gae``, ``rl.checkpoint`` and ``rl.trainer``, the six modules of
+  ``models.transformer`` and ``rl.learned_policy`` among them) import with
   ``jax``, ``flax``, ``optax``, ``orbax`` and ``tarl_tpu`` blocked.
 * No public function of the port places tensors on the CPU by default:
   every ``device`` parameter defaults to ``None``, the card.
@@ -72,6 +73,10 @@ def test_imports_without_jax():
         assert "tarl_tpu_torch.runner" in names
         assert "tarl_tpu_torch.metrics.reporting" in names
         assert "tarl_tpu_torch.io.city" in names
+        for name in ("mlp", "embedding", "gt_conv", "model", "agent",
+                     "slot_forward"):
+            assert f"tarl_tpu_torch.models.transformer.{name}" in names
+        assert "tarl_tpu_torch.rl.learned_policy" in names
         assert sys.modules["jax"] is None
         print(len(names))
     """)
@@ -129,7 +134,9 @@ def test_no_public_function_defaults_to_the_cpu():
     listed = [matsim.load_network, matsim.load_population,
               network.build_network, convert.network_from_numpy,
               convert.agents_from_numpy, convert.sim_state_from_numpy,
-              convert.mpnn_params_from_numpy, schema.agents_from_matrix,
+              convert.mpnn_params_from_numpy,
+              convert.transformer_params_from_numpy,
+              schema.agents_from_matrix,
               shard_map_episode.make_road_mesh,
               convert.adam_state_from_numpy, rng.permutation,
               checkpoint.restore_checkpoint]
