@@ -388,7 +388,30 @@ with its plain version run outside those windows.
    logits within atol/rtol 2e-5 of the flat forward's; the first 200 ticks
    again with the plain K1, cut into calls as the kernel run was (the
    64-tick warm-up, then 136), bitwise.
-28. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
+28. Batched training and the native parser.  (a) The headline's and the
+   sp row's scenario files (Grid16x16 / 50,000 and Grid64x64 / 200,000)
+   parsed by ``parser="python"`` and ``parser="native"``: rows, link
+   arrays, intersection ids and positions bitwise equal, the seconds of
+   each printed.  Every scenario phase parses with the native default
+   and prints its network's and population's seconds and the parser;
+   asserted: the native parser for the headline, the sp row, the million
+   and the radial rows (their plans name links), the Python one for the
+   city's population (its coordinate plans), as the reference's.  (b)
+   ``parallel.shard.BatchedPPO`` of 4 replicas at phase 21's settings
+   (256 steps each, 5 epochs of 8 minibatches of 128) from the committed
+   weights, one ``train_step`` under deterministic algorithms, then the
+   same step with ``PLAIN`` and the plain K1 in the collection: the ``[4,
+   256]`` actions, rewards, dones and values bitwise, the log-probs
+   within rtol 1e-5, the parameters within twice the learning rate times
+   the 40 updates (shares printed), 1,024 launches each of K1, K11 and
+   K10 and none in GAE or the update, none of the plain step; the ms of
+   collection, GAE and update, and ms per replica step beside phase 21's
+   single-environment ms per step.  (c) ``runner.main`` with phase 25's
+   training command and ``--num-envs 4``, then its checkpoint's
+   evaluation over 600 ticks: the parameters restored bitwise, the
+   evaluated state the trained run's, the launches (K10 once a replica's
+   collection step, K11 and K1 once an environment step), the seconds.
+29. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
    ``segment_sum``, ``segment_max``, ``segment_argmax``, ``fused_core``,
    ``fused_shard_winner``, and the K3-K6 and K8a/K8b rows covered by
    ``primal_relax`` and ``fused_winner``; K3's and K5's rows the cluster
@@ -401,7 +424,8 @@ with its plain version run outside those windows.
    ``launches_training`` beside K1's and K9-K11's launches; K1's launches
    in phase 24's rows and K2's in its primal cross-check beside them; K1's,
    K6's, K10's and K11's in phases 25 and 26 beside them, and K1's,
-   K10's and K11's on phase 27's paths in ``launches_transformer``),
+   K10's and K11's on phase 27's paths in ``launches_transformer`` and on
+   phase 28's in ``launches_batched``),
    the card's name and power limit,
    then
    ``{"ok": true, "device": {...}}``.
@@ -409,8 +433,8 @@ with its plain version run outside those windows.
 Exits nonzero, printing no result, where no CUDA device is available or
 the package is missing beside this script.  Scenario files are written
 under ``build/scenarios``, phase 24's caches under ``build/save``, phase
-21's checkpoints under ``build/train`` and phase 25's and 27's files under
-``build/cli`` in the checkout.
+21's checkpoints under ``build/train`` and phase 25's, 27's and 28's files
+under ``build/cli`` in the checkout.
 """
 from __future__ import annotations
 
@@ -559,6 +583,10 @@ GT_TICKS = 1020               # (d) after WARMUP_TICKS
 GT_CONTEXT_TICKS = 200        # (d) the plain-K1 cross-check
 GT_CAPTURES = 3               # (d) states for the slot twin's check
 GT_TIMED_CALLS = 20           # (a) the forward alone
+# Phase 28: replicas of the batched trainer (b, c).
+BATCH_ENVS = 4
+# Every scenario parse of the run (note_parse), for phase 28a.
+PARSES: list = []
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
@@ -586,9 +614,13 @@ def load_scenario(name, rows, cols, num_agents, device):
         grid_scenario(cache, name, rows=rows, cols=cols,
                       num_agents=num_agents, peak_start=6 * 3600,
                       peak_spread=2 * 3600)
+    t0 = time.perf_counter()
     net = load_network(os.path.join(base, "network"), device=device)
-    agents, _ = load_population(os.path.join(base, "population"),
-                                os.path.join(base, "network"), device=device)
+    t1 = time.perf_counter()
+    agents, stats = load_population(os.path.join(base, "population"),
+                                    os.path.join(base, "network"),
+                                    device=device)
+    note_parse(name, t1 - t0, time.perf_counter() - t1, stats)
     return net, agents
 
 
@@ -921,10 +953,12 @@ def million_scenario(device, grid=MILLION_GRID, num_agents=MILLION_AGENTS,
     net = load_network(os.path.join(base, "network"), device=device)
     seconds["network"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    agents, _ = load_population(os.path.join(base, "population"),
-                                os.path.join(base, "network"), device=device)
+    agents, stats = load_population(os.path.join(base, "population"),
+                                    os.path.join(base, "network"),
+                                    device=device)
     agents = sort_agents_by_departure(agents)
     seconds["population"] = time.perf_counter() - t0
+    note_parse("million", seconds["network"], seconds["population"], stats)
     dest = np.unique(_dest_inter(net, agents.dest).cpu().numpy())
     return net, agents, dest, seconds
 
@@ -1247,10 +1281,12 @@ def radial_scenario_on(device, rings=RADIAL_RINGS, spokes=RADIAL_SPOKES,
     net = load_network(os.path.join(base, "network"), device=device)
     seconds["network"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    agents, _ = load_population(os.path.join(base, "population"),
-                                os.path.join(base, "network"), device=device)
+    agents, stats = load_population(os.path.join(base, "population"),
+                                    os.path.join(base, "network"),
+                                    device=device)
     agents = sort_agents_by_departure(agents)
     seconds["population"] = time.perf_counter() - t0
+    note_parse("radial", seconds["network"], seconds["population"], stats)
     dest = np.unique(_dest_inter(net, agents.dest).cpu().numpy())
     return net, agents, dest, seconds
 
@@ -3768,9 +3804,11 @@ def city_scenario_on(device, num_intersections=CITY_INTERSECTIONS,
     net = load_network(os.path.join(base, "network"), device=device)
     seconds["network"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    agents, _ = load_population(os.path.join(base, "population"),
-                                os.path.join(base, "network"), device=device)
+    agents, stats = load_population(os.path.join(base, "population"),
+                                    os.path.join(base, "network"),
+                                    device=device)
     seconds["population"] = time.perf_counter() - t0
+    note_parse("city", seconds["network"], seconds["population"], stats)
     agents = sort_agents_by_departure(agents)
     dest = np.unique(_dest_inter(net, agents.dest).cpu().numpy())
     return net, agents, dest, seconds
@@ -3937,7 +3975,7 @@ def gt_braess(dev):
     results)."""
     from tarl_tpu_torch.config import RLConfig
     from tarl_tpu_torch.convert import (
-        load_params_npz, transformer_params_from_numpy)
+        load_params_npz, mpnn_params_from_numpy)
     from tarl_tpu_torch.core.step import Policy, init_sim_state
     from tarl_tpu_torch.io.matsim import load_network, load_population
     from tarl_tpu_torch.io.scenarios import ensure_scenario
@@ -3956,7 +3994,7 @@ def gt_braess(dev):
     pe = tree["pe"]
     ppo = PPO(net, TransformerRoutePolicy(pe), TransformerValueNet(pe),
               rl=RLConfig(**GT_RL), value_uses_graph=True)
-    return net, agents, st, ppo, transformer_params_from_numpy(tree, dev), \
+    return net, agents, st, ppo, mpnn_params_from_numpy(tree, dev), \
         tree
 
 
@@ -4443,23 +4481,26 @@ def _ms_between(a, b) -> float:
 
 
 class TrainProbe:
-    """Wraps a ``PPO``'s ``train_iteration``, ``collect_rollout`` and
-    ``_update_epochs`` on the instance and keeps, per iteration, the state
-    in and out, the metrics, the trajectory, the number of updates, and at
-    each boundary a device stamp, the launch counts and the host reads
-    (read, never reset, so the counts of the whole run stay whole).  The
-    only work between the collection's end and the update's start is GAE
-    and the advantages' normalisation."""
+    """Wraps a ``PPO``'s ``collect_rollout`` and ``_update_epochs`` and a
+    trainer's ``train_iteration`` (the ``PPO``'s own, or a ``BatchedPPO``'s
+    over it) on the instances and keeps, per iteration, the state in and
+    out, the metrics, the trajectories (one per replica), the number of
+    updates, and at each boundary (the first collection's start, the last
+    one's end, the update's start and end) a device stamp, the launch
+    counts and the host reads (read, never reset, so the counts of the
+    whole run stay whole).  The only work between the collections' end and
+    the update's start is GAE and the advantages' normalisation."""
 
-    def __init__(self, ppo, on_card: bool):
+    def __init__(self, ppo, on_card: bool, trainer=None):
+        trainer = trainer or ppo
         self.on_card = on_card
         self.records = []
         self._collect = ppo.collect_rollout
         self._update = ppo._update_epochs
-        self._iterate = ppo.train_iteration
+        self._iterate = trainer.train_iteration
         ppo.collect_rollout = self.collect_rollout
         ppo._update_epochs = self.update_epochs
-        ppo.train_iteration = self.train_iteration
+        trainer.train_iteration = self.train_iteration
 
     def _mark(self, name: str) -> None:
         from tarl_tpu_torch.core import sync
@@ -4467,10 +4508,11 @@ class TrainProbe:
         self.rec[name] = (_stamp(self.on_card), counts(), sync.HOST_READS)
 
     def collect_rollout(self, *args, **kw):
-        self._mark("collect0")
+        if "collect0" not in self.rec:
+            self._mark("collect0")
         out = self._collect(*args, **kw)
         self._mark("collect1")
-        self.rec["traj"] = out[3]
+        self.rec["trajs"].append(out[3])
         return out
 
     def update_epochs(self, *args, **kw):
@@ -4483,7 +4525,7 @@ class TrainProbe:
     def train_iteration(self, ts, *args, **kw):
         import torch
 
-        self.rec = {"ts_in": ts}
+        self.rec = {"ts_in": ts, "trajs": []}
         t0 = time.perf_counter()
         ts_out, metrics = self._iterate(ts, *args, **kw)
         if self.on_card:
@@ -4633,7 +4675,7 @@ def training_phase(net8, trained, st8, card: str,
                              f"all, expected {iterations * updates}")
 
     # The kernels against their plain versions on the training path.
-    kern, first = records[0]["traj"], plain["traj"]
+    kern, first = records[0]["trajs"][0], plain["trajs"][0]
     mismatched = [f for f in ("action", "reward", "done", "value")
                   if not torch.equal(getattr(kern, f).cpu().view(torch.uint8),
                                      getattr(first, f).cpu().view(
@@ -4691,6 +4733,325 @@ def training_phase(net8, trained, st8, card: str,
     return {"launches": run_counts, "records": records, "wall": wall,
             "param_worst": worst, "param_shares": shares,
             "log_prob_err": lp_err}
+
+
+# --- batched training and the native parser (phase 28) ----------------------
+
+def note_parse(label: str, net_s: float, pop_s: float, stats) -> None:
+    """Keep (and print) a scenario's parse: the network's and the
+    population's seconds and which parser read the population."""
+    why = f", {stats.fallback}" if stats.fallback else ""
+    PARSES.append({"scenario": label, "network_s": net_s,
+                   "population_s": pop_s, "parser": stats.parser,
+                   "fallback": stats.fallback})
+    log(f"scenario {label}: network parsed and built in {net_s:.3f} s, "
+        f"population parsed in {pop_s:.3f} s ({stats.parser} parser{why}; "
+        f"{stats.total_trips} trips)")
+
+
+def compare_parsers(label: str, base: str) -> dict:
+    """The scenario under ``base`` parsed by the Python and the native
+    parser (network and population each): the rows, link arrays,
+    intersection ids and positions bitwise equal.  Returns the seconds."""
+    import numpy as np
+
+    from tarl_tpu_torch.io.matsim import (parse_network_xml,
+                                          parse_population_xml)
+
+    out, secs = {}, {}
+    for parser in ("python", "native"):
+        net = parse_network_xml(os.path.join(base, "network"), parser)
+        rows, stats = parse_population_xml(os.path.join(base, "population"),
+                                           net, parser)
+        if (net.parser, stats.parser) != (parser, parser):
+            raise AssertionError(f"{label}: asked for the {parser} parser, "
+                                 f"got {net.parser} and {stats.parser}")
+        out[parser] = (net, rows)
+        secs[parser] = (net.seconds, stats.seconds)
+    (py, py_rows), (nat, nat_rows) = out["python"], out["native"]
+    bad = [f for f in ("length", "max_flow", "free_speed", "perm_lanes",
+                       "from_inter", "to_inter")
+           if getattr(py, f).dtype != getattr(nat, f).dtype
+           or not np.array_equal(getattr(py, f), getattr(nat, f))]
+    if py_rows.dtype != nat_rows.dtype or not np.array_equal(py_rows,
+                                                             nat_rows):
+        bad.append("rows")
+    if py.sorted_intersections != nat.sorted_intersections:
+        bad.append("intersection ids")
+    if any(py.node_positions.get(i, (0.0, 0.0)) != nat.node_positions[i]
+           for i in nat.sorted_intersections):
+        bad.append("positions")
+    if bad:
+        raise AssertionError(f"{label}: the native and Python parses differ "
+                             f"in {bad}")
+    log(f"parsers on {label}: {py_rows.shape[0] - 1} trips, "
+        f"{py.num_roads} links, {py.num_intersections} intersections, rows, "
+        f"link arrays, ids and positions bitwise equal; Python "
+        f"{secs['python'][0]:.3f} s network + {secs['python'][1]:.3f} s "
+        f"population, native {secs['native'][0]:.3f} s + "
+        f"{secs['native'][1]:.3f} s")
+    return secs
+
+
+# Phase 28a: the parser each scenario phase's population must take.
+PARSERS_EXPECTED = {"Grid16x16_50000": "native", "Grid64x64_200000": "native",
+                    "million": "native", "radial": "native",
+                    "city": "python"}
+
+
+def parser_phase(card: str, compared=("Grid16x16_50000", "Grid64x64_200000"),
+                 want=PARSERS_EXPECTED) -> dict:
+    """Phase 28a: the ``compared`` scenarios' files (by default the
+    headline's and the sp row's) through both parsers, bitwise; every
+    scenario phase's parse as kept by :func:`note_parse` held to ``want``:
+    the native parser wherever the plans name links (the headline, the sp
+    row, the million and radial rows), the Python one for the city's
+    coordinate plans."""
+    secs = {}
+    for label in compared:
+        secs[label] = compare_parsers(
+            label, os.path.join(ROOT, "build", "scenarios", label))
+    seen = {p["scenario"]: p for p in PARSES}
+    bad = {k: seen.get(k) for k, v in want.items()
+           if k not in seen or seen[k]["parser"] != v
+           or (v == "python") != (seen[k]["fallback"] == "coordinate plans")}
+    if bad:
+        raise AssertionError(f"parsers: expected {want} (the Python parser "
+                             f"for coordinate plans), got {bad}")
+    log("parsers in the scenario phases: " + "; ".join(
+        f"{p['scenario']} {p['parser']} (network {p['network_s']:.3f} s, "
+        f"population {p['population_s']:.3f} s)" for p in PARSES)
+        + f" ({card})")
+    return {"compare": secs, "parses": list(PARSES)}
+
+
+def batched_phase(net8, trained, st8, card: str, single: list,
+                  num_envs: int = BATCH_ENVS,
+                  collect_steps: int = COLLECT_STEPS) -> dict:
+    """Phase 28b: one ``BatchedPPO.train_step`` of ``num_envs`` replicas at
+    the recorded Grid8x8 run's settings (``learned_ppo``) from the
+    committed weights, under ``torch.use_deterministic_algorithms(True)``,
+    then the same step with ``PLAIN`` and the plain K1 in the collection.
+    Asserts one K1, K11 and K10 launch per replica step and none in GAE
+    or the update, the ``[B, T]`` actions, rewards, dones and values
+    bitwise and the log-probs within rtol 1e-5 between the two, the
+    parameters within twice the learning rate times the updates, finite
+    metrics.  Prints the split beside phase 21's single-environment
+    iterations (``single``, its probe records).  Returns the numbers for
+    the results line."""
+    import torch
+
+    from tarl_tpu_torch.core import rng
+    from tarl_tpu_torch.core.fused_winner import direction_confirm_plain
+    from tarl_tpu_torch.ops import segment as seg
+    from tarl_tpu_torch.parallel.mesh import make_mesh
+    from tarl_tpu_torch.parallel.shard import BatchedPPO
+
+    dev = st8.road.count.device
+    on_card = dev.type == "cuda"
+    ppo = learned_ppo(net8, collect_steps)
+    rl = ppo.rl
+    trainer = BatchedPPO(ppo, make_mesh(1, sp=1, device=dev), num_envs)
+    steps = num_envs * rl.rollout_steps
+    updates = rl.num_epochs * trainer.num_minibatches
+    ts = trainer.init(st8, rng.prng_key(0),
+                      torch.Generator().manual_seed(0))
+    ts = ts._replace(params=trained, opt_state=ppo.optimizer.init(trained))
+    probe = TrainProbe(ppo, on_card, trainer)
+    was_det = torch.are_deterministic_algorithms_enabled()
+    was_fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        reset_counts()
+        trainer.train_iteration(ts)
+        run_counts = counts()
+        reset_counts()
+        trainer.train_iteration(ts, seg.PLAIN, direction_confirm_plain)
+        plain_counts = counts()
+    finally:
+        torch.use_deterministic_algorithms(was_det)
+        torch.utils.deterministic.fill_uninitialized_memory = was_fill
+    kern, plain = probe.records
+    want = {"K1": steps, "K9": 0, "K10": steps, "K11": steps, "K12": 0,
+            "K7": 0}
+    idle = {k: 0 for k in want}
+    if on_card and (run_counts != want or kern["gae_launches"] != idle
+                    or kern["update_launches"] != idle
+                    or plain_counts != idle):
+        raise AssertionError(
+            f"batched training: launches {run_counts} (GAE "
+            f"{kern['gae_launches']}, update {kern['update_launches']}), "
+            f"expected {want} and none in GAE or the update; the plain run "
+            f"{plain_counts}")
+    if kern["updates"] != updates or kern["ts_out"].opt_state.count != \
+            updates:
+        raise AssertionError(f"batched training: {kern['updates']} "
+                             f"updates, expected {updates}")
+    values = {f: float(getattr(kern["metrics"], f))
+              for f in kern["metrics"]._fields}
+    bad = [f for f, v in values.items() if v != v or abs(v) == float("inf")]
+    if bad or values["approx_kl"] < -1e-6:
+        raise AssertionError(f"batched training: metrics {values}")
+    stacked = {name: {f: torch.stack([getattr(t, f) for t in rec["trajs"]])
+                      for f in ("action", "reward", "done", "value",
+                                "log_prob")}
+               for name, rec in (("kern", kern), ("plain", plain))}
+    shape = tuple(stacked["kern"]["action"].shape[:2])
+    if shape != (num_envs, rl.rollout_steps):
+        raise AssertionError(f"batched training: trajectories {shape}")
+    mismatched = [f for f in ("action", "reward", "done", "value")
+                  if not torch.equal(stacked["kern"][f].cpu().view(
+                      torch.uint8), stacked["plain"][f].cpu().view(
+                      torch.uint8))]
+    if mismatched:
+        raise AssertionError(f"batched training: the kernels' and the plain "
+                             f"versions' collections differ in {mismatched}")
+    lp_k, lp_p = stacked["kern"]["log_prob"], stacked["plain"]["log_prob"]
+    lp_err = _max_abs_diff(lp_k, lp_p)
+    if not torch.allclose(lp_k.cpu(), lp_p.cpu(), rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"batched training: log-probs differ beyond "
+                             f"rtol 1e-5, atol 1e-5 (max |diff| {lp_err})")
+    worst, shares, numel = _tree_diff(kern["ts_out"].params,
+                                      plain["ts_out"].params)
+    bound = 2 * rl.learning_rate * updates
+    if not worst <= bound:
+        raise AssertionError(f"batched training: parameters after the "
+                             f"kernel and plain steps differ by up to "
+                             f"{worst}, beyond {bound}")
+    single_ms = [r["collection_ms"] / rl.rollout_steps for r in single]
+    per_step = kern["collection_ms"] / steps
+    log(f"batched training, {num_envs} replicas x {rl.rollout_steps} steps "
+        f"({updates} updates of {trainer.minibatch_size}): collection "
+        f"{kern['collection_ms']:.3f} ms ({per_step:.3f} ms per replica "
+        f"step; phase 21's single environment "
+        + ", ".join(f"{m:.3f}" for m in single_ms)
+        + f" ms per step), GAE {kern['gae_ms']:.3f} ms, update "
+        f"{kern['update_ms']:.3f} ms ({kern['update_ms'] / updates:.3f} ms "
+        f"each), iteration {kern['wall_ms']:.3f} ms (host clock); the plain "
+        f"run's collection {plain['collection_ms']:.3f} ms; launches "
+        f"{run_counts}, in GAE {sum(kern['gae_launches'].values())}, in the "
+        f"update {sum(kern['update_launches'].values())}; host reads: "
+        f"collection {kern['collection_reads']}, GAE {kern['gae_reads']}, "
+        f"update {kern['update_reads']}; metrics "
+        + ", ".join(f"{f} {v:.6g}" for f, v in values.items()) + f" ({card})")
+    log(f"batched training, kernels against PLAIN and the plain K1: "
+        f"[{num_envs}, {rl.rollout_steps}] actions, rewards, dones and "
+        f"values bitwise equal, log-probs within max |diff| {lp_err:.3g}; "
+        f"parameters after the {updates} updates within {worst:.3g} "
+        f"(tolerance {bound:g}), of {numel} elements "
+        + ", ".join(f"{v:.4%} within {t:g}" for t, v in shares.items())
+        + f"; plain launches {plain_counts}")
+    return {"launches": run_counts, "record": kern, "per_step_ms": per_step,
+            "single_ms": single_ms, "param_worst": worst,
+            "log_prob_err": lp_err, "plain_collection_ms":
+            plain["collection_ms"]}
+
+
+def batched_cli(dev, card: str, root: str = None, window=CLI_WINDOW,
+                num_envs: int = BATCH_ENVS) -> dict:
+    """Phase 28c: ``runner.main`` with ``--algo mpnn+ppo --num-envs
+    num_envs`` (phase 25's training command) over ``window``, then
+    ``--mode eval --checkpoint`` of its checkpoint: the parameters restored
+    bitwise, the evaluated state the trained run's, metrics finite; K10
+    once a replica's collection step, K11 and K1 once an environment step,
+    K9 never and no plain segment version outside the loss.  Returns the
+    launch counts and seconds."""
+    import math
+
+    import torch
+
+    from tarl_tpu_torch import runner
+
+    on_card = dev.type == "cuda"
+    root = root or os.path.join(ROOT, "build", "cli")
+    os.makedirs(root, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(root)
+    win = ["--start-end-time", str(window[0]), str(window[1])]
+    argv = CLI_TRAIN + win + ["--num-envs", str(num_envs), "--device",
+                              dev.type]
+    steps = window[1] - window[0]
+    rollout = int(CLI_TRAIN[CLI_TRAIN.index("--rollout-steps") + 1])
+    iters = int(CLI_TRAIN[CLI_TRAIN.index("--iterations") + 1])
+    calls, restore = _plain_segment_spy()
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        trained = runner.main(argv + ["--mode", "train", "--output-dir",
+                                      "train_batched"])
+        train_s = time.perf_counter() - t0
+        train_counts, train_calls = counts(), dict(calls)
+        calls.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        restored = runner.main(CLI_TRAIN[:4] + win + [
+            "--mode", "eval", "--checkpoint",
+            os.path.join("train_batched", "checkpoints"), "--output-dir",
+            "eval_batched", "--device", dev.type])
+        eval_s = time.perf_counter() - t0
+        eval_counts, eval_calls = counts(), dict(calls)
+        with open(os.path.join("train_batched", "metrics.csv")) as f:
+            rows = [line.split(",") for line in f.read().split()[1:]]
+    finally:
+        restore()
+        os.chdir(cwd)
+    collect = iters * rollout * num_envs
+    env_steps = collect + iters * rollout + steps
+    want_train = {"K1": env_steps, "K9": 0, "K10": collect,
+                  "K11": env_steps}
+    want_eval = {"K1": steps, "K9": 0, "K10": 0, "K11": steps}
+    if on_card:
+        for label, have, want, plain in (
+                ("train", train_counts, want_train, train_calls),
+                ("eval", eval_counts, want_eval, eval_calls)):
+            if {k: have[k] for k in want} != want or plain:
+                raise AssertionError(
+                    f"the batched CLI's {label} run: launches {have}, "
+                    f"expected {want}; plain segment calls outside the "
+                    f"loss {plain}")
+    envs = trained.train_state.envs
+    if envs.sim.agents.arrival.shape[0] != num_envs:
+        raise AssertionError(f"the batched CLI trained "
+                             f"{envs.sim.agents.arrival.shape[0]} replicas")
+    p_a, p_b = trained.train_state.params, restored.eval_params
+    if not all(torch.equal(p_a[part][k], p_b[part][k])
+               for part in p_a for k in p_a[part]):
+        raise AssertionError("the batched CLI's restored parameters are not "
+                             "the trained ones bitwise")
+    bad = _diff_paths(_state_bits(trained.sim.state),
+                      _state_bits(restored.sim.state))
+    numbers = [restored.sim.average_travel_time()] + [
+        float(x) for row in rows for x in row if x]
+    if bad or not all(math.isfinite(v) for v in numbers):
+        raise AssertionError(f"the batched CLI: the checkpoint's evaluation "
+                             f"differs in {bad}, or a metric is not finite")
+    log(f"CLI (28c) {' '.join(argv)} --mode train: {train_s:.2f} s "
+        f"({len(rows)} metric rows), launches {train_counts}; --mode eval "
+        f"--checkpoint over {steps} ticks: {eval_s:.2f} s, launches "
+        f"{eval_counts}; parameters restored bitwise, the evaluated state "
+        f"the trained run's; average travel time "
+        f"{restored.sim.average_travel_time():.3f} s ({card})")
+    return {"train": train_counts, "eval": eval_counts, "train_s": train_s,
+            "eval_s": eval_s}
+
+
+def batched_parser_phase(net8, trained, st8, card: str, train: dict) -> dict:
+    """Phase 28: (a) the parsers, (b) batched training, (c) the batched
+    CLI; each timed."""
+    out, secs = {}, {}
+    for name, fn in (("a", lambda: parser_phase(card)),
+                     ("b", lambda: batched_phase(net8, trained, st8, card,
+                                                 train["records"])),
+                     ("c", lambda: batched_cli(st8.road.count.device,
+                                               card))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t0
+    log("phase 28 in " + ", ".join(f"({k}) {v:.1f} s"
+                                   for k, v in secs.items()))
+    out["seconds"] = secs
+    return out
 
 
 def main() -> int:
@@ -5447,7 +5808,14 @@ def main() -> int:
         "learned_episode": gt["d"]["launches"][key]}
         for key in ("K1", "K10", "K11")}
 
-    # --- 28. results ------------------------------------------------------
+    # --- 28. batched training and the native parser -----------------------
+    bat = batched_parser_phase(net8, trained, st8, card, train)
+    bat_launches = {key: {"training_step": bat["b"]["launches"][key],
+                          "cli_train": bat["c"]["train"][key],
+                          "cli_checkpoint_eval": bat["c"]["eval"][key]}
+                    for key in ("K1", "K10", "K11")}
+
+    # --- 29. results ------------------------------------------------------
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     train_launches = train["launches"]
     kern_ms, plain_ms, kern_dev_ms, k1_bound = timings["Grid16x16"]
@@ -5466,7 +5834,8 @@ def main() -> int:
                               else "rollout collection (phase 9)")
             + "; the CLI's training and checkpoint evaluation (phase 25) in "
               "launches_cli_train and launches_cli_eval; the transformer's "
-              "paths (phase 27) in launches_transformer",
+              "paths (phase 27) in launches_transformer; batched training "
+              "and its CLI (phase 28) in launches_batched",
             "max_abs_err": seg_err[name],
             "ms": seg_t[name]["ms"],
             "device_ms": seg_t[name]["device_ms"],
@@ -5483,6 +5852,7 @@ def main() -> int:
         })
         if key in gt_launches:
             seg_entries[-1]["launches_transformer"] = gt_launches[key]
+            seg_entries[-1]["launches_batched"] = bat_launches[key]
     # K10's row: the log-prob entry, which the collection launches; the bare
     # max (the TPU kernel's own function) beside it.
     lp, lps = lp_t["log_prob"], lp_t["log_probs"]
@@ -5576,10 +5946,12 @@ def main() -> int:
         "launches_city_random": city["exact"]["launches"]["K1"],
         "launches_city_sp": city["sp"]["winner_launches"],
         "launches_transformer": gt_launches["K1"],
+        "launches_batched": bat_launches["K1"],
         "launches_from": "headline (phase 2); beside it the sp row (5), "
                          "training (21), the classical and dual rows (24), "
-                         "the CLI (25), the city rows (26) and the "
-                         "transformer's paths (27)",
+                         "the CLI (25), the city rows (26), the "
+                         "transformer's paths (27) and batched training "
+                         "(28)",
     }, {
         "name": "primal_relax",
         "route": "cuda",

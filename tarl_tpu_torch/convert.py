@@ -14,10 +14,10 @@ keep (the roll plans) are ignored on the way in.
 (Flax trees as numpy: ``{"policy": {"params": {layer: {"kernel", "bias"}}},
 "value": ...}``) into the port's state dicts, and
 :func:`mpnn_params_to_numpy` goes back; the transformer's nested trees
-(LayerNorm ``scale`` as ``weight``) come in through the same function,
-also named :data:`transformer_params_from_numpy`, and go back through
-:func:`transformer_params_to_numpy`; :func:`load_params_npz` reads such a
-tree from an ``.npz`` of flat ``policy/params/edge_fc1/kernel`` keys.
+(LayerNorm ``scale`` as ``weight``) come in through the same function
+and go back through :func:`transformer_params_to_numpy`;
+:func:`load_params_npz` reads such a tree from an ``.npz`` of flat
+``policy/params/edge_fc1/kernel`` keys.
 :func:`adam_state_from_numpy` carries optax's ``ScaleByAdamState``
 (``count``, and ``mu`` and ``nu`` keyed like those parameter trees) into the
 port's ``rl.ppo.AdamState``, and :func:`adam_state_to_numpy` goes back.
@@ -143,8 +143,7 @@ def mpnn_params_from_numpy(tree: dict, device: torch.device | str | None = None
     joined with dots, Dense kernels transposed, Embed embeddings and
     LayerNorm scales as ``weight``.  It serves the MPNN's and the
     transformer's trees alike (``transformer/gt_0/WQ/kernel``,
-    ``.../norm1/scale``, ``time_head``), so
-    :data:`transformer_params_from_numpy` is another name for it."""
+    ``.../norm1/scale``, ``time_head``)."""
     return {part: _module_params_from_numpy(
         tree[part].get("params", tree[part]), device)
         for part in ("policy", "value")}
@@ -174,13 +173,10 @@ def mpnn_params_to_numpy(params: dict) -> dict:
     return out
 
 
-transformer_params_from_numpy = mpnn_params_from_numpy
-
-
 def transformer_params_to_numpy(params: dict) -> dict:
-    """The inverse of :func:`transformer_params_from_numpy`: a 2-D
-    ``weight`` is a Dense kernel (transposed back), a 1-D one a LayerNorm
-    scale."""
+    """The inverse of :func:`mpnn_params_from_numpy` on a transformer's
+    trees: a 2-D ``weight`` is a Dense kernel (transposed back), a 1-D one
+    a LayerNorm scale."""
     out = {}
     for part, state in params.items():
         tree: dict = {}

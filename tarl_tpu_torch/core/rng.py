@@ -5,6 +5,7 @@ The port reproduces JAX's partitionable threefry stream bit for bit:
 
 * ``prng_key(seed)`` is ``(0, seed mod 2**32)`` for a 32-bit seed;
 * ``split(key)[i] = threefry2x32(key, (0, i))``;
+* ``fold_in(key, d) = threefry2x32(key, (0, d mod 2**32))``;
 * element i (row-major flat index) of ``random_bits(key, shape)`` is
   ``b1 ^ b2`` of ``threefry2x32(key, (hi32(i), lo32(i)))``;
 * uniform and Gumbel follow ``jax.random`` op for op: mantissa fill,
@@ -35,7 +36,7 @@ import torch
 from ..device import resolve_device
 
 __all__ = [
-    "prng_key", "threefry2x32", "split", "random_bits", "gumbel",
+    "prng_key", "threefry2x32", "split", "fold_in", "random_bits", "gumbel",
     "gumbel_at_positions", "direction_positions", "direction_gumbel",
     "choice_gumbel",
     "payload_gumbel", "key_words", "permutation",
@@ -88,6 +89,12 @@ def threefry2x32(k1: int, k2: int, x1, x2):
 def split(key: Key, num: int = 2) -> list[Key]:
     """``jax.random.split(key, num)`` under ``jax_threefry_partitionable``."""
     return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in(key, data)``: the block on the counter ``(0,
+    data)``, ``data`` taken as a uint32 (JAX casts it so)."""
+    return threefry2x32(key[0], key[1], 0, operator.index(data) & _MASK)
 
 
 def _bits_at(key: Key, q: torch.Tensor) -> torch.Tensor:

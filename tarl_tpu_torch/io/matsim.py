@@ -1,21 +1,33 @@
 """MATSim XML scenario ingestion (ports ``tarl_tpu/io/matsim.py``).
 
-The pure-Python XML parser of the reference, unchanged in its conventions:
-effective cell size default 7.5, sorted-intersection SRC/DEST indexing
-(SRC of intersection k is ``R + 2k``, DEST ``R + 2k + 1``), the person
-filters (``car_avail == "always"``, at least two activities), one trip row
-per consecutive activity pair, the nearest-intersection fallback for
-coordinate plans, and the dummy agent row 0 whose departure lies past any
-horizon.  The reference's native C++ parser and its npz cache are not
-ported; this parser is the reference's own fallback and gives the same
-arrays.
+Two parsers with the reference's conventions: effective cell size default
+7.5, sorted-intersection SRC/DEST indexing (SRC of intersection k is ``R +
+2k``, DEST ``R + 2k + 1``), the person filters (``car_avail ==
+"always"``, at least two activities), one trip row per consecutive
+activity pair, the nearest-intersection fallback for coordinate plans,
+and the dummy agent row 0 whose departure lies past any horizon.
+
+The native C++ parser (:mod:`~tarl_tpu_torch.io.native`) reads the
+network, and the population where its plans name links; a population with
+coordinate plans goes, whole, to the pure-Python parser, which alone has
+the nearest-intersection search, as in the reference.  Every parse entry
+takes ``parser``: ``None`` (the default) is native, warning once and
+taking the Python parser where the native one cannot be built or fails
+on a file; ``"native"`` raises there instead; ``"python"`` is the Python
+parser.  Each parse records which parser read the file and its seconds
+(``ParsedNetwork.parser``/``seconds``, ``PopulationStats.parser``/
+``fallback``/``seconds``).  The reference's ``TARL_NATIVE`` environment
+switch is this keyword.
 """
 from __future__ import annotations
 
 import dataclasses
 import gzip
 import os
+import time
+import warnings
 from datetime import datetime
+from typing import Optional
 from xml.etree import ElementTree
 
 import numpy as np
@@ -24,6 +36,10 @@ import torch
 from ..config import DEFAULT_PHYSICS, PhysicsConfig
 from ..network import Network, build_network
 from ..state import AgentState
+from . import native
+
+PARSERS = ("native", "python")
+_warned: set = set()
 
 
 def resolve_xml_path(file_path: str) -> str:
@@ -35,6 +51,23 @@ def resolve_xml_path(file_path: str) -> str:
     if os.path.exists(xml_path):
         return xml_path
     raise FileNotFoundError(f"Neither {gz_path} nor {xml_path} exists.")
+
+
+def _check_parser(parser: Optional[str]) -> None:
+    if parser is not None and parser not in PARSERS:
+        raise ValueError(f"parser {parser!r}: expected one of {PARSERS} "
+                         "or None")
+
+
+def _native_failed(parser: Optional[str], err: Exception) -> None:
+    """An explicit ``parser="native"`` raises ``err``; the default warns
+    (once per message) and returns, for the Python parser to run."""
+    if parser == "native":
+        raise err
+    msg = f"{err}; taking the Python parser"
+    if msg not in _warned:
+        _warned.add(msg)
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
 
 
 def _parse_root(path: str):
@@ -59,6 +92,9 @@ class ParsedNetwork:
     sorted_intersections: list[str]
     node_positions: dict[str, tuple[float, float]]
     effective_cell_size: float
+    source_path: Optional[str] = None  # the resolved file
+    parser: str = "python"             # "native" or "python"
+    seconds: float = 0.0               # the parse's wall time
 
     @property
     def num_roads(self) -> int:
@@ -69,9 +105,32 @@ class ParsedNetwork:
         return len(self.sorted_intersections)
 
 
-def parse_network_xml(file_path: str) -> ParsedNetwork:
-    """Parse a MATSim network file (``file_path`` without extension)."""
-    root = _parse_root(resolve_xml_path(file_path))
+def parse_network_xml(file_path: str,
+                      parser: Optional[str] = None) -> ParsedNetwork:
+    """Parse a MATSim network file (``file_path`` without extension) with
+    ``parser`` (module docstring).  The native parser numbers the links
+    ``"0"...``, as the reference's does, and places only the intersections
+    the links name (at (0, 0) where no ``<node>`` gives them)."""
+    _check_parser(parser)
+    actual = resolve_xml_path(file_path)
+    t0 = time.perf_counter()
+    if parser != "python":
+        try:
+            p = native.parse_network_native(actual)
+        except native.NativeError as e:
+            _native_failed(parser, e)
+        else:
+            return ParsedNetwork(
+                link_ids=[str(i) for i in range(len(p["length"]))],
+                length=p["length"], max_flow=p["max_flow"],
+                free_speed=p["free_speed"], perm_lanes=p["perm_lanes"],
+                from_inter=p["from_inter"], to_inter=p["to_inter"],
+                sorted_intersections=p["sorted_intersections"],
+                node_positions=p["node_positions"],
+                effective_cell_size=p["effective_cell_size"],
+                source_path=actual, parser="native",
+                seconds=time.perf_counter() - t0)
+    root = _parse_root(actual)
     links = root.find("links")
     if links is None:
         raise ValueError("The XML file does not contain a 'links' element.")
@@ -120,6 +179,8 @@ def parse_network_xml(file_path: str) -> ParsedNetwork:
         sorted_intersections=sorted_inters,
         node_positions=node_positions,
         effective_cell_size=cell_size,
+        source_path=actual,
+        seconds=time.perf_counter() - t0,
     )
 
 
@@ -127,9 +188,11 @@ def load_network(
     file_path: str,
     physics: PhysicsConfig = DEFAULT_PHYSICS,
     device: torch.device | str | None = None,
+    parser: Optional[str] = None,
 ) -> Network:
-    """MATSim network file -> :class:`Network` on ``device``."""
-    parsed = parse_network_xml(file_path)
+    """MATSim network file -> :class:`Network` on ``device``, read by
+    ``parser`` (module docstring)."""
+    parsed = parse_network_xml(file_path, parser)
     physics = dataclasses.replace(
         physics, effective_cell_size=parsed.effective_cell_size
     )
@@ -204,6 +267,11 @@ class PopulationStats:
     exclusions: dict = dataclasses.field(default_factory=dict)
     invalid_trip_coords: int = 0
     trips_per_agent: list = dataclasses.field(default_factory=list)
+    parser: str = "python"            # "native" or "python"
+    # Why the native parser handed the population to the Python one
+    # ("coordinate plans"), where it did.
+    fallback: Optional[str] = None
+    seconds: float = 0.0              # the population file's parse
 
 
 # Dummy agent row 0: departure at 48 h, so it never departs.
@@ -211,11 +279,50 @@ DUMMY_DEPARTURE = 48 * 3600.0
 
 
 def parse_population_xml(
-    population_path: str, parsed_network: ParsedNetwork
+    population_path: str, parsed_network: ParsedNetwork,
+    parser: Optional[str] = None,
 ) -> tuple[np.ndarray, PopulationStats]:
     """Parse a MATSim population into ``[A, 9]`` float32 trip rows in
-    :class:`~tarl_tpu_torch.schema.AgentFeatureHelpers` column order."""
-    population = _parse_root(resolve_xml_path(population_path))
+    :class:`~tarl_tpu_torch.schema.AgentFeatureHelpers` column order, with
+    ``parser`` (module docstring).  The native parser reads the network
+    again from ``parsed_network.source_path``; where plans name
+    coordinates, the Python parser reads the whole population."""
+    _check_parser(parser)
+    actual = resolve_xml_path(population_path)
+    t0 = time.perf_counter()
+    fallback = None
+    if parser != "python":
+        try:
+            if parsed_network.source_path is None:
+                raise native.NativeError(
+                    "the native parser reads the network from its file: "
+                    "the parsed network has none")
+            result = native.parse_population_native(
+                actual, parsed_network.source_path)
+        except native.NativeError as e:
+            _native_failed(parser, e)
+        else:
+            if result is not None:
+                rows, d = result
+                return rows, PopulationStats(
+                    total_agents=d["total_agents"],
+                    selected_agents=d["selected_agents"],
+                    total_trips=rows.shape[0] - 1,
+                    exclusions={k: d[k] for k in (
+                        "car_avail_not_always", "no_plan",
+                        "too_few_activities", "no_valid_trip")},
+                    invalid_trip_coords=d["invalid_trip_coords"],
+                    parser="native", seconds=time.perf_counter() - t0)
+            fallback = "coordinate plans"
+    rows, stats = _parse_population_python(actual, parsed_network)
+    stats.fallback = fallback
+    stats.seconds = time.perf_counter() - t0
+    return rows, stats
+
+
+def _parse_population_python(actual: str, parsed_network: ParsedNetwork
+                             ) -> tuple[np.ndarray, PopulationStats]:
+    population = _parse_root(actual)
 
     inter_index = {
         name: (parsed_network.num_roads + 2 * k,
@@ -306,10 +413,12 @@ def load_population(
     population_path: str,
     network_path: str,
     device: torch.device | str | None = None,
+    parser: Optional[str] = None,
 ) -> tuple[AgentState, PopulationStats]:
-    """MATSim population + network files -> :class:`AgentState`."""
+    """MATSim population + network files -> :class:`AgentState`, both read
+    by ``parser`` (module docstring)."""
     from ..schema import agents_from_matrix
 
-    parsed = parse_network_xml(network_path)
-    rows, stats = parse_population_xml(population_path, parsed)
+    parsed = parse_network_xml(network_path, parser)
+    rows, stats = parse_population_xml(population_path, parsed, parser)
     return agents_from_matrix(rows, device=device), stats

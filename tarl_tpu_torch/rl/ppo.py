@@ -107,6 +107,23 @@ class IterationMetrics(NamedTuple):
     avg_on_network: torch.Tensor
 
 
+def iteration_metrics(stats: list, traj: Transition,
+                      returns: torch.Tensor) -> IterationMetrics:
+    """An iteration's metrics from :meth:`PPO._update_epochs`' per-update
+    ``stats``, the collected ``traj`` and the ``returns``: the loss terms,
+    ``approx_kl``, ``clip_fraction`` and ``grad_norm`` means over the
+    updates, the rest means over the steps."""
+    loss = torch.stack([s[0] for s in stats])
+    aux = [torch.stack(col) for col in zip(*(s[1] for s in stats))]
+    gnorm = torch.stack([s[2] for s in stats])
+    return IterationMetrics(
+        loss_objective=aux[0].mean(), loss_critic=aux[1].mean(),
+        loss_entropy=aux[2].mean(), loss_total=loss.mean(),
+        approx_kl=aux[3].mean(), clip_fraction=aux[4].mean(),
+        grad_norm=gnorm.mean(), avg_reward=traj.reward.mean(),
+        avg_return=returns.mean(), avg_on_network=traj.on_network.mean())
+
+
 def tree_map(fn, *trees: dict) -> dict:
     """``fn`` over the leaves of ``{part: {name: tensor}}`` trees."""
     return {part: {k: fn(*(t[part][k] for t in trees)) for k in sub}
@@ -376,11 +393,12 @@ class PPO:
 
     @torch.no_grad()
     def collect_rollout(self, params, env: EnvState, obs: Observation,
-                        key: Key, segment_ops: SegmentOps = KERNELS):
+                        key: Key, segment_ops: SegmentOps = KERNELS,
+                        core: Callable = direction_confirm):
         """``rl.rollout_steps`` sampled transitions, resetting the
         environment where an episode ends.  Returns ``(env, obs, key,
         traj, last_value)``, ``traj`` a :class:`Transition` of stacked
-        steps.
+        steps.  ``segment_ops`` and ``core`` as in :meth:`eval_rollout`.
 
         The done flag is read on the host only once an episode could have
         ended: the clock advances at most one timestep per step, so the
@@ -401,7 +419,7 @@ class PPO:
             value = self._value(params["value"], x, obs.time)
             env2, obs2, reward, done, info = env_step(
                 env, action, self.network, rl, self.sim_cfg, self.physics,
-                dist_ff=self._dist_ff)
+                dist_ff=self._dist_ff, core=core)
             t_high += step_dt
             if t_high > rl.episode_end:
                 ended, t_high = host_read(done, torch.ceil(env2.sim.time))
@@ -505,16 +523,6 @@ class PPO:
         advantages = normalize(advantages)
         (params, opt_state, key), stats = self._update_epochs(
             ts.params, ts.opt_state, traj, advantages, returns, key)
-        loss = torch.stack([s[0] for s in stats])
-        aux = [torch.stack(col) for col in zip(*(s[1] for s in stats))]
-        gnorm = torch.stack([s[2] for s in stats])
-        metrics = IterationMetrics(
-            loss_objective=aux[0].mean(), loss_critic=aux[1].mean(),
-            loss_entropy=aux[2].mean(), loss_total=loss.mean(),
-            approx_kl=aux[3].mean(), clip_fraction=aux[4].mean(),
-            grad_norm=gnorm.mean(), avg_reward=traj.reward.mean(),
-            avg_return=returns.mean(),
-            avg_on_network=traj.on_network.mean())
-        return TrainState(params=params, opt_state=opt_state, env=env,
-                          obs=obs, key=key,
-                          iteration=ts.iteration + 1), metrics
+        ts = TrainState(params=params, opt_state=opt_state, env=env,
+                        obs=obs, key=key, iteration=ts.iteration + 1)
+        return ts, iteration_metrics(stats, traj, returns)

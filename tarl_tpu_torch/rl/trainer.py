@@ -1,11 +1,12 @@
 """The PPO training loop: logging, evaluation, checkpoints (ports
 ``tarl_tpu/rl/trainer.py``: ``MetricLogger`` and ``ppo_train``).
 
-Each iteration is one :meth:`~tarl_tpu_torch.rl.ppo.PPO.train_iteration`;
-this module is the host-side shell around it: the reference's scalars
-(TensorBoard through ``torch.utils.tensorboard`` where it imports, a CSV
-always), periodic greedy and stochastic evaluation rollouts, and
-checkpoints with resume.
+Each iteration is one :meth:`~tarl_tpu_torch.rl.ppo.PPO.train_iteration`
+(or a :class:`~tarl_tpu_torch.parallel.shard.BatchedPPO`'s, over several
+environments); this module is the host-side shell around it: the
+reference's scalars (TensorBoard through ``torch.utils.tensorboard`` where
+it imports, a CSV always), periodic greedy and stochastic evaluation
+rollouts, and checkpoints with resume.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from ..config import DEFAULT_RL, RLConfig
 from ..core.rng import Key, prng_key
 from ..core.step import average_travel_time
 from ..metrics.equilibrium import nash_gap, tstt
+from ..parallel.shard import BatchedPPO, replica
 from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
 from .ppo import PPO, TrainState, tree_map
 
@@ -76,7 +78,16 @@ _METRIC_FIELDS, _SCALAR_NAMES = zip(
     ("avg_on_network", "transport/avg_on_network"))
 
 
-def _transport_scalars(ppo: PPO, sim) -> dict:
+def _rollout_fields(ts) -> tuple[str, ...]:
+    """The fields of a trainer state that the next iteration collects
+    from: a batched state's replicas, their keys and the update key, or
+    the environment, observation and key."""
+    if hasattr(ts, "envs"):
+        return ("envs", "obss", "keys", "update_key")
+    return ("env", "obs", "key")
+
+
+def _transport_scalars(ppo: PPO | BatchedPPO, sim) -> dict:
     """The average travel time and the episode's V/C ratio (hourly
     traversals over flow capacity, mean and std over the hours with
     traffic), from the live simulation state."""
@@ -97,7 +108,7 @@ def _transport_scalars(ppo: PPO, sim) -> dict:
 
 
 def ppo_train(
-    ppo: PPO,
+    ppo: PPO | BatchedPPO,
     sim_state,
     *,
     num_iterations: int,
@@ -117,15 +128,17 @@ def ppo_train(
     ema_decay: Optional[float] = None,
 ) -> TrainState:
     """Train for ``num_iterations`` PPO iterations; returns the last
-    :class:`TrainState`.
+    :class:`TrainState` (a ``BatchTrainState`` for a :class:`BatchedPPO`,
+    whose transport scalars are its first replica's, as the reference's).
 
     ``key`` (default ``prng_key(rl.episode_start)``) seeds the rollouts
     and minibatch orders, ``generator`` (a CPU ``torch.Generator``, default
     seeded with ``rl.episode_start``) the initial parameters.  With
     ``resume`` the latest ``ckpt_<iter>`` under ``checkpoint_dir`` replaces
     them: its parameters, optimiser state and iteration, and, where it
-    holds them, the environment, observation and key, so that the resumed
-    run continues the uninterrupted one exactly.  A checkpoint is written
+    holds them, the environment, observation and key (a batched run's
+    replicas, their keys and the update key), so that the resumed run
+    continues the uninterrupted one exactly.  A checkpoint is written
     every ``checkpoint_interval`` iterations and at the end.
 
     Every ``eval_interval`` iterations a greedy evaluation (and with
@@ -160,8 +173,8 @@ def ppo_train(
                              opt_state=restored["opt_state"],
                              iteration=start_iter)
             if "rollout" in restored:
-                env, obs, rkey = restored["rollout"]
-                ts = ts._replace(env=env, obs=obs, key=rkey)
+                ts = ts._replace(**dict(zip(_rollout_fields(ts),
+                                            restored["rollout"])))
             if verbose:
                 print(f"Resumed from {path} (iteration {start_iter})")
 
@@ -170,9 +183,11 @@ def ppo_train(
     best_metric = None
     ema_params = ts.params if ema_decay else None
 
-    def checkpoint(name, params, iteration, rollout=None):
+    def checkpoint(name, params, iteration, rollout=False):
         save_checkpoint(os.path.join(checkpoint_dir, name), params,
-                        ts.opt_state, iteration, rollout)
+                        ts.opt_state, iteration,
+                        tuple(getattr(ts, f) for f in _rollout_fields(ts))
+                        if rollout else None)
 
     t0 = _time.time()
     for it in range(start_iter, num_iterations):
@@ -185,7 +200,8 @@ def ppo_train(
         # The iteration's scalars reach the host in one transfer.
         scalars = dict(zip(_SCALAR_NAMES, torch.stack(
             [getattr(metrics, f) for f in _METRIC_FIELDS]).tolist()))
-        scalars.update(_transport_scalars(ppo, ts.env.sim))
+        env = replica(ts.envs, 0) if hasattr(ts, "envs") else ts.env
+        scalars.update(_transport_scalars(ppo, env.sim))
         logger.scalars(step, scalars)
         if verbose:
             print(f"iter {it + 1}/{num_iterations} "
@@ -238,12 +254,11 @@ def ppo_train(
                                   f"iteration {it + 1}")
 
         if checkpoint_dir and (it + 1) % checkpoint_interval == 0:
-            checkpoint(f"ckpt_{it + 1}", ts.params, it + 1,
-                       (ts.env, ts.obs, ts.key))
+            checkpoint(f"ckpt_{it + 1}", ts.params, it + 1, rollout=True)
 
     if checkpoint_dir:
         checkpoint(f"ckpt_{num_iterations}", ts.params, num_iterations,
-                   (ts.env, ts.obs, ts.key))
+                   rollout=True)
         if ema_decay:
             checkpoint("final_ema", ema_params, num_iterations)
     logger.close()

@@ -14,8 +14,10 @@ takes the reference CLI's flags.  Where the reference's differ:
 * the per-tick road-optimality budgets are constants
   (:data:`PER_TICK_BUDGET`, :data:`PER_TICK_DEV_BUDGET`), and past the
   first the series is kept in the sparse store;
-* ``--num-envs`` above 1 raises ``NotImplementedError``: the batched
-  trainer (``parallel/shard.py::BatchedPPO``) is not ported yet;
+* ``--num-envs B`` above 1 trains with
+  :class:`~tarl_tpu_torch.parallel.shard.BatchedPPO` over B environment
+  replicas, all on the one device ``--device`` names (a one-device mesh,
+  which is what the reference's runner builds on one card);
 * ``--algo transformer|transformer+ppo`` draws its Laplacian positional
   encoding afresh, as the reference's does (not reproducible call to call:
   ``models.transformer.embedding``); an ``.npz`` of its parameters is
@@ -50,6 +52,8 @@ from .models.transformer.agent import (
     TransformerValueNet,
     network_positional_encoding,
 )
+from .parallel.mesh import make_mesh
+from .parallel.shard import BatchedPPO
 from .rl.checkpoint import latest_checkpoint, restore_checkpoint
 from .rl.ppo import PPO
 from .rl.trainer import ppo_train
@@ -70,9 +74,6 @@ MAX_REPORT_NODES = 4096
 
 _CLASSICAL = ("dijkstra", "random", "so")
 _LEARNED = ("mpnn", "mpnn+ppo", "transformer", "transformer+ppo")
-_NOT_PORTED = ("not ported yet: the batched trainer "
-               "(parallel/shard.py::BatchedPPO) comes with the second half "
-               "of slice 6b of the port's roadmap")
 
 
 @dataclasses.dataclass
@@ -124,9 +125,6 @@ class Runner:
                                "(pass --device cpu to run on the CPU)")
         if a.algo not in _CLASSICAL + _LEARNED:
             raise ValueError(f"Unknown algorithm {a.algo!r}")
-        if a.num_envs > 1:
-            raise NotImplementedError(f"--num-envs {a.num_envs}: "
-                                      f"{_NOT_PORTED}")
         # The per-tick road-optimality series: dense rows while ticks x
         # roads fits PER_TICK_BUDGET, else the sparse store; the fused
         # chunk is capped so that its [chunk, R] log fits
@@ -192,6 +190,11 @@ class Runner:
             self.ppo = PPO(net, self.policy_net, self.value_net,
                            rl=self.rl_cfg, sim_cfg=self.sim.sim,
                            value_uses_graph=transformer)
+            self.trainer = self.ppo
+            if a.num_envs > 1:
+                self.trainer = BatchedPPO(
+                    self.ppo, make_mesh(1, sp=1, device=self.device),
+                    num_envs=a.num_envs)
             self.sim.set_policy(Policy(choice=random_choice))
         self.sim.config_parameters(timestep_size=a.timestep_size,
                                    start_time=a.start_end_time[0])
@@ -205,7 +208,7 @@ class Runner:
         out = Path(a.output_dir)
         out.mkdir(parents=True, exist_ok=True)
         self.train_state = ppo_train(
-            self.ppo, self.sim.state, num_iterations=a.iterations,
+            self.trainer, self.sim.state, num_iterations=a.iterations,
             key=self.key, generator=self._generator(), rl=self.rl_cfg,
             log_dir=str(out), checkpoint_dir=str(out / "checkpoints"),
             eval_interval=1)
@@ -366,7 +369,8 @@ def build_parser():
                              "directory) or an .npz of the algorithm's "
                              "parameters")
     parser.add_argument("--num-envs", type=int, default=1,
-                        help="PPO environment replicas (not ported yet: 1)")
+                        help="PPO environment replicas (BatchedPPO above "
+                             "1, every replica on the --device)")
     parser.add_argument("--reward-mode", default="progress",
                         choices=["progress", "on_network", "individual",
                                  "throughput", "system"],

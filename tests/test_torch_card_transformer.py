@@ -26,7 +26,7 @@ from tarl_tpu_torch.config import RLConfig
 from tarl_tpu_torch.convert import (
     load_params_npz,
     to_numpy,
-    transformer_params_from_numpy,
+    mpnn_params_from_numpy,
 )
 from tarl_tpu_torch.core import fused_winner, rng
 from tarl_tpu_torch.core.step import Policy, init_sim_state
@@ -84,7 +84,7 @@ def _flat(tree, path="env"):
 def test_braess_eval_kernels_equal_plain(card, tmp_path):
     net, agents = _load(card, str(tmp_path), "Braess")
     tree = load_params_npz(WEIGHTS)
-    params = transformer_params_from_numpy(tree, card)
+    params = mpnn_params_from_numpy(tree, card)
     pe = tree["pe"]
     ppo = PPO(net, TransformerRoutePolicy(pe), TransformerValueNet(pe),
               rl=RLConfig(**RL), value_uses_graph=True)
@@ -128,7 +128,7 @@ def test_braess_eval_kernels_equal_plain(card, tmp_path):
 def test_slot_twin_equals_the_flat_forward(card, tmp_path, name):
     net, _ = _load(card, str(tmp_path), name)
     tree = load_params_npz(WEIGHTS)
-    params = transformer_params_from_numpy(tree, card)["policy"]
+    params = mpnn_params_from_numpy(tree, card)["policy"]
     pe = tree["pe"] if name == "Braess" else network_positional_encoding(
         net, 16)
     policy = TransformerRoutePolicy(pe).to(card)

@@ -3,8 +3,9 @@ against the reference's (``tarl_tpu.runner``).
 
 * The reference's CLI tests (``tests/test_cli.py``), on the port:
   setup/train/eval sequencing, argument forwarding, an unknown algorithm
-  refused; and the path not ported yet (``--num-envs`` above 1, for every
-  learned algorithm) refused with ``NotImplementedError``.
+  refused; and ``--num-envs`` above 1, refused until the batched trainer
+  was ported, setting up a ``BatchedPPO`` on the one-device mesh for every
+  learned algorithm (its training: ``test_torch_batched.py``).
 * The README's evaluation, ``--algo dijkstra --scenario Easy --mode eval
   --start-end-time 21600 28800 --timestep_size 2``, through both CLIs (the
   port's with ``--device cpu``): the average travel time and the done
@@ -43,6 +44,7 @@ from tarl_tpu_torch.core.step import Policy, init_sim_state
 from tarl_tpu_torch.io.cache import (
     load_or_build_network, load_or_build_population)
 from tarl_tpu_torch.models.mpnn import MPNNPolicyNet, MPNNValueNetSimple
+from tarl_tpu_torch.parallel.shard import BatchedPPO
 from tarl_tpu_torch.rl.ppo import PPO
 from tarl_tpu_torch.routing.policies import random_choice
 
@@ -112,12 +114,17 @@ def test_unknown_algo_rejected():
     ["--algo", "transformer", "--num-envs", "2"],
     ["--algo", "transformer+ppo", "--num-envs", "2"],
     ["--algo", "mpnn+ppo", "--num-envs", "2"]])
-def test_not_ported_paths_refused(argv):
+def test_not_ported_paths_refused(argv, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
     args = runner_mod.build_parser().parse_args(argv + ["--device", "cpu"])
     r = runner_mod.Runner(runner_mod.RunnerArgs(
-        algo=args.algo, num_envs=args.num_envs, device="cpu"))
-    with pytest.raises(NotImplementedError, match="BatchedPPO"):
-        r.setup()
+        algo=args.algo, scenario="Braess", num_envs=args.num_envs,
+        device="cpu"))
+    r.setup()
+    assert isinstance(r.trainer, BatchedPPO) and r.trainer.ppo is r.ppo
+    assert r.trainer.num_envs == 2
+    assert r.trainer.mesh.shape == {"dp": 1, "sp": 1}
+    assert r.trainer.mesh.devices == [torch.device("cpu")]
 
 
 def test_device_defaults_to_the_card(monkeypatch):
@@ -278,7 +285,7 @@ def test_transformer_npz_evaluation_uses_its_encoding(tmp_path, monkeypatch):
               value_uses_graph=True)
     state = init_sim_state(net, agents, sim=sim_cfg,
                            policy=Policy(choice=random_choice))
-    params = convert.transformer_params_from_numpy(tree, "cpu")
+    params = convert.mpnn_params_from_numpy(tree, "cpu")
     env, _, _, _ = ppo.eval_rollout(params, state, prng_key(0), steps)
     assert_tree_equal(_bits(params), _bits(r.eval_params), "params")
     assert_tree_equal(_bits(env.sim), _bits(r.sim.state), "final state")

@@ -77,6 +77,8 @@ def test_imports_without_jax():
                      "slot_forward"):
             assert f"tarl_tpu_torch.models.transformer.{name}" in names
         assert "tarl_tpu_torch.rl.learned_policy" in names
+        for name in ("parallel.mesh", "parallel.shard", "io.native"):
+            assert f"tarl_tpu_torch.{name}" in names
         assert sys.modules["jax"] is None
         print(len(names))
     """)
@@ -126,7 +128,7 @@ def test_no_public_function_defaults_to_the_cpu():
     from tarl_tpu_torch import convert, network, schema
     from tarl_tpu_torch.device import resolve_device
     from tarl_tpu_torch.io import matsim
-    from tarl_tpu_torch.parallel import shard_map_episode
+    from tarl_tpu_torch.parallel import mesh, shard_map_episode
     from tarl_tpu_torch.rl import checkpoint
 
     assert resolve_device(None) == torch.device("cuda")
@@ -134,8 +136,7 @@ def test_no_public_function_defaults_to_the_cpu():
     listed = [matsim.load_network, matsim.load_population,
               network.build_network, convert.network_from_numpy,
               convert.agents_from_numpy, convert.sim_state_from_numpy,
-              convert.mpnn_params_from_numpy,
-              convert.transformer_params_from_numpy,
+              convert.mpnn_params_from_numpy, mesh.make_mesh,
               schema.agents_from_matrix,
               shard_map_episode.make_road_mesh,
               convert.adam_state_from_numpy, rng.permutation,
@@ -298,6 +299,29 @@ def test_relax_kernel_source_and_build_command(tmp_path, monkeypatch):
                               tmp_path / "lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "--fmad=false" in cmd
     assert cmd[-1].endswith("primal_relax.cu")
+
+
+def test_native_parser_is_the_ports_own():
+    """The port, ``main_torch.py`` and ``chip_smoke.py`` name no library of
+    the reference's native tier; the parser's copy and its build command
+    are the port's (no host-specific vector flags)."""
+    sources = [os.path.join(REPO, "main_torch.py"),
+               os.path.join(REPO, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.dirname(tarl_tpu_torch.__file__)):
+        sources += [os.path.join(d, f) for f in files
+                    if f.endswith((".py", ".cpp", ".cu", ".cuh"))]
+    assert len(sources) > 40
+    for path in sources:
+        text = open(path).read()
+        for banned in ("native/build", "libtarl_native", "tarl_tpu.io",
+                       "from tarl_tpu ", "from tarl_tpu.", "import tarl_tpu\n",
+                       "import jax"):
+            assert banned not in text, f"{path}: {banned}"
+    source = _build.PACKAGE_DIR / "native" / "matsim_parser.cpp"
+    text = source.read_text()
+    assert 'extern "C"' in text and "TARL_NO_ZLIB" in text
+    assert "-march=native" not in _build.CXX_FLAGS
+    assert {"-O3", "-fPIC", "-shared", "-std=c++17"} <= set(_build.CXX_FLAGS)
 
 
 @pytest.mark.cuda

@@ -160,7 +160,7 @@ def _nets(net, pnet, kind: str, x):
                                                pnet.entry_cost())
         fp = ref.init(jax.random.PRNGKey(0), x, ef, net.full_src,
                       net.full_dst, dist)
-    params = convert.transformer_params_from_numpy(
+    params = convert.mpnn_params_from_numpy(
         {"policy": jax.tree.map(np.asarray, fp), "value": {}},
         device="cpu")["policy"]
     return ref, port, fp, params, dist, pdist
@@ -239,7 +239,7 @@ def test_learned_backlog_episode_equals_the_references(tmp_path, cuts):
         jax.tree.map(jnp.asarray, tree["policy"]), net)
     ppolicy = p_lp.make_learned_choice(
         p_agent.TransformerRoutePolicy(pe),
-        convert.transformer_params_from_numpy(tree, device="cpu")["policy"],
+        convert.mpnn_params_from_numpy(tree, device="cpu")["policy"],
         pnet)
     kw = dict(timestep=1, start_time=START, end_time=START + 600,
               record_road_optimality=False, insert_window=32,
@@ -265,7 +265,7 @@ def _braess(scenarios):
 
     _, _, pnet, pagents = scenarios["Braess"]
     tree = convert.load_params_npz(WEIGHTS)
-    params = convert.transformer_params_from_numpy(tree, device="cpu")
+    params = convert.mpnn_params_from_numpy(tree, device="cpu")
     pe = tree["pe"]
     ppo = PortPPO(pnet, p_agent.TransformerRoutePolicy(pe),
                   p_agent.TransformerValueNet(pe),

@@ -2,7 +2,7 @@
 against the JAX reference, on the CPU (Grid4x4: N = 80, E = 248; Braess).
 
 Each test feeds one positional encoding and one parameter set, carried
-from a Flax ``init`` through ``convert.transformer_params_from_numpy``, to
+from a Flax ``init`` through ``convert.mpnn_params_from_numpy``, to
 both packages, with inputs made by numpy from a seed.
 
 * Forwards at atol/rtol 2e-5 (float32 products summed in another order,
@@ -98,7 +98,7 @@ def grid(scenarios):
 
 def _port(tree) -> dict:
     """A Flax variable tree as a state dict."""
-    return convert.transformer_params_from_numpy(
+    return convert.mpnn_params_from_numpy(
         {"policy": jax.tree.map(np.asarray, tree), "value": {}},
         device="cpu")["policy"]
 
@@ -189,7 +189,7 @@ def _policy_value(net, pe, x, ef, key=0):
     fp = pol.init(jax.random.PRNGKey(key), *args)
     fv = val.init(jax.random.PRNGKey(key + 1), *args, t)
     tree = jax.tree.map(np.asarray, {"policy": fp, "value": fv})
-    return (pol, val, fp, fv), convert.transformer_params_from_numpy(
+    return (pol, val, fp, fv), convert.mpnn_params_from_numpy(
         tree, device="cpu")
 
 
@@ -369,7 +369,7 @@ def test_committed_weights_round_trip_and_equal_the_checkpoint():
     for part in ("policy", "value"):
         assert_tree_equal(restored[part], committed[part], part)
         assert_tree_equal(committed[part], restored[part], part)
-    params = convert.transformer_params_from_numpy(committed, device="cpu")
+    params = convert.mpnn_params_from_numpy(committed, device="cpu")
     assert sum(t.numel() for sub in params.values()
                for t in sub.values()) == 15624
     pe = committed["pe"]
@@ -402,7 +402,7 @@ def test_train_iteration_matches_the_reference(scenarios):
                    p_agent.TransformerValueNet(pe), rl=PortRLConfig(**kw),
                    value_uses_graph=True)
     ts = ref.init(st, jax.random.PRNGKey(0))
-    params = convert.transformer_params_from_numpy(
+    params = convert.mpnn_params_from_numpy(
         jax.tree.map(np.asarray, ts.params), device="cpu")
     pts = port.init(pst, p_rng.prng_key(0), torch.Generator())
     pts = pts._replace(params=params, opt_state=port.optimizer.init(params),
@@ -418,7 +418,7 @@ def test_train_iteration_matches_the_reference(scenarios):
                                    float(getattr(metrics, f)), rtol=1e-5,
                                    atol=1e-7, err_msg=f)
     assert pts1.opt_state.count == 4
-    want = convert.transformer_params_from_numpy(
+    want = convert.mpnn_params_from_numpy(
         jax.tree.map(np.asarray, ts1.params), device="cpu")
     diffs = torch.cat([(want[p][k] - pts1.params[p][k]).abs().reshape(-1)
                        for p in want for k in want[p]])
