@@ -411,7 +411,22 @@ with its plain version run outside those windows.
    evaluation over 600 ticks: the parameters restored bitwise, the
    evaluated state the trained run's, the launches (K10 once a replica's
    collection step, K11 and K1 once an environment step), the seconds.
-29. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
+29. Every policy on road blocks, and blocks across processes, each on
+   ``make_road_mesh(4)`` against its serial run, bitwise, with one K7
+   launch a tick and no K1: (a) the trained Grid8x8 MPNN (committed
+   weights, distance prior), sampled, 600 ticks of 5,000 commuters, the
+   forward edge-sharded; (b) phase 27d's learned transformer on the
+   headline scenario, its first 200 ticks cut as 27d's plain rerun (64,
+   then 136), against that rerun; (c) phase 24b's dual row (N = 1,472),
+   300 ticks, and Braess under ``strict_compat``, 300 ticks; (d) the
+   headline (phase 2's exact mode) for 600 ticks in 2 spawned processes
+   over gloo, 2 blocks each, and in 1 NCCL process of world size 1, all
+   started together on the one card: every rank's state bitwise phase 2's
+   at tick 600, K7 once a tick on every rank, and the last gloo rank's K7
+   launches (first column 480) bitwise the plain version's on its kept
+   inputs.  ms/tick beside the serial runs'; (d)'s is a protocol check,
+   not a timing of work across cards.
+30. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
    ``segment_sum``, ``segment_max``, ``segment_argmax``, ``fused_core``,
    ``fused_shard_winner``, and the K3-K6 and K8a/K8b rows covered by
    ``primal_relax`` and ``fused_winner``; K3's and K5's rows the cluster
@@ -425,7 +440,8 @@ with its plain version run outside those windows.
    in phase 24's rows and K2's in its primal cross-check beside them; K1's,
    K6's, K10's and K11's in phases 25 and 26 beside them, and K1's,
    K10's and K11's on phase 27's paths in ``launches_transformer`` and on
-   phase 28's in ``launches_batched``),
+   phase 28's in ``launches_batched``; K7's on phase 29's paths in
+   ``launches_blocks``),
    the card's name and power limit,
    then
    ``{"ok": true, "device": {...}}``.
@@ -539,6 +555,7 @@ EAGER_TICKS = 200            # Braess's ticks through the eager run()
 DUAL_TICKS = 1800
 DUAL_CONTEXT_TICKS = 600     # the plain-K1 cross-check's depth
 DUAL_PRIMAL_TICKS = 1200     # the primal cross-check's depth
+DUAL_BLOCKS_TICKS = 300      # phase 29c: the dual row on road blocks
 DUAL_BIG_GRID = 36           # phase 24c: N = 7,632, the last dual size
 # Phase 25: the CLI (``tarl_tpu_torch.runner.main``).  (a) The README's
 # evaluation, phase 24a's Easy row; (b) training, then the evaluation of its
@@ -585,6 +602,13 @@ GT_CAPTURES = 3               # (d) states for the slot twin's check
 GT_TIMED_CALLS = 20           # (a) the forward alone
 # Phase 28: replicas of the batched trainer (b, c).
 BATCH_ENVS = 4
+# Phase 29: every policy on road blocks, and blocks across processes.
+BLOCKS_TICKS = 600            # (a) and (d)
+HEADLINE_SCENARIO = ("Grid16x16_50000", 16, 16, 50000)   # phase 2's, (d)
+# (d): (backend, processes, blocks): 2 gloo ranks of 2 blocks each, and
+# one NCCL rank holding all 4.
+BLOCK_GROUPS = (("gloo", 2, SHARD_BLOCKS), ("nccl", 1, SHARD_BLOCKS))
+SPAWN_TIMEOUT = 300           # (d): seconds for the spawned ranks in all
 # Every scenario parse of the run (note_parse), for phase 28a.
 PARSES: list = []
 HBM_BYTES_PER_S = 3.35e12
@@ -3233,7 +3257,8 @@ def dual_row_config():
 
 
 def dual_row(net, agents, ticks=DUAL_TICKS, warmup=SP_WARMUP_TICKS,
-             keep=(DUAL_CONTEXT_TICKS, DUAL_PRIMAL_TICKS), routing=None,
+             keep=(DUAL_BLOCKS_TICKS, DUAL_CONTEXT_TICKS, DUAL_PRIMAL_TICKS),
+             routing=None,
              core=None) -> dict:
     """Phase 24b's row: ``make_policy("dijkstra", routing, network=net)``
     and ``run_episode_periodic`` for ``ticks`` ticks, timed after
@@ -3554,7 +3579,11 @@ def cli_default_phase(dev, card: str, root: str = None,
     keep = ("winner_launches", "relax_launches", "resident_launches",
             "refreshes", "wall", "measured")
     out.update(dual={k: dual[k] for k in keep},
-               primal={k: primal[k] for k in keep}, net_n=n)
+               primal={k: primal[k] for k in keep}, net_n=n,
+               dual_blocks={"net": net, "state0": dual["state0"],
+                            "policy": dual["policy"], "sim": dual["sim"],
+                            "want": dual["kept"][DUAL_BLOCKS_TICKS],
+                            "ms_tick": dual["wall"] / dual["measured"] * 1e3})
     log(f"dual row against the primal backend: states equal bitwise at tick "
         f"{DUAL_PRIMAL_TICKS} (routing scratch and selections aside); "
         f"primal {primal['wall'] / primal['measured'] * 1e3:.3f} ms/tick, "
@@ -4405,9 +4434,11 @@ def gt_learned_episode(dev, card: str, net, agents, params,
     # as the kernel run was (warm-up, then the rest): backlog mode keeps
     # the inserted flag lazily within a call, so a learned episode depends
     # on its cut (the reference's fault R5).
-    plain = init_sim_state(net, agents, sim=sim, policy=policy)
+    state0 = init_sim_state(net, agents, sim=sim, policy=policy)
+    cuts = (warmup, context - warmup)
+    plain = state0
     reset_counts()
-    for n in (warmup, context - warmup):
+    for n in cuts:
         plain, _ = run_episode(plain, net, policy, n, sim=sim,
                                core=direction_confirm_plain)
     if counts()["K1"]:
@@ -4432,7 +4463,8 @@ def gt_learned_episode(dev, card: str, net, agents, params,
         f"bitwise with the plain K1 ({card})")
     return {"launches": res["launches"], "ms_tick": ms_tick,
             "choice_ms": choice_ms, "rate": res["rate"],
-            "done": res["done"]}
+            "done": res["done"], "policy": policy, "sim": sim,
+            "net": net, "state0": state0, "cuts": cuts, "want": plain}
 
 
 def transformer_phase(dev, card: str, net, agents, cli_root: str = None,
@@ -5051,6 +5083,284 @@ def batched_parser_phase(net8, trained, st8, card: str, train: dict) -> dict:
     log("phase 28 in " + ", ".join(f"({k}) {v:.1f} s"
                                    for k, v in secs.items()))
     out["seconds"] = secs
+    return out
+
+
+# --- every policy on road blocks, and blocks across processes (phase 29) ----
+
+def blocks_run(label: str, net, state0, policy, sim, cuts, want=None,
+               routing=None, blocks: int = SHARD_BLOCKS) -> dict:
+    """``cuts`` ``run_episode`` calls of ``policy`` from ``state0``, serially
+    (unless ``want``, the serial state at their end, is given) and then
+    through ``run_episode_shard_map`` on ``make_road_mesh(blocks)``, each
+    timed to a synchronise.  Asserts the sharded state equal to the serial
+    one bitwise and, on the card, one K7 launch a tick and no K1 (the
+    counts set to 0 just before the sharded run and read just after)."""
+    import torch
+
+    from tarl_tpu_torch.config import DEFAULT_ROUTING
+    from tarl_tpu_torch.core.step import run_episode
+    from tarl_tpu_torch.parallel.shard_map_episode import (
+        make_road_mesh, run_episode_shard_map)
+
+    on_card = net.device.type == "cuda"
+
+    def sync_dev():
+        if on_card:
+            torch.cuda.synchronize()
+
+    ticks = sum(cuts)
+    out = {"ticks": ticks, "serial_ms": None}
+    if want is None:
+        want = state0
+        sync_dev()
+        t0 = time.perf_counter()
+        for n in cuts:
+            want, _ = run_episode(want, net, policy, n, sim=sim)
+        sync_dev()
+        out["serial_ms"] = (time.perf_counter() - t0) / ticks * 1e3
+    mesh = make_road_mesh(blocks, net.device)
+    state = state0
+    sync_dev()
+    reset_counts()
+    t0 = time.perf_counter()
+    for n in cuts:
+        state, _ = run_episode_shard_map(state, net, policy, n, mesh,
+                                         sim=sim,
+                                         routing=routing or DEFAULT_ROUTING)
+    sync_dev()
+    out["blocks_ms"] = (time.perf_counter() - t0) / ticks * 1e3
+    out["launches"] = counts()
+    if on_card and (out["launches"]["K7"], out["launches"]["K1"]) != (
+            ticks, 0):
+        raise AssertionError(f"{label}: launches {out['launches']}, "
+                             f"expected K7 {ticks}, K1 0")
+    bad = _diff_paths(_state_bits(want), _state_bits(state))
+    if bad:
+        raise AssertionError(f"{label}: {blocks} blocks and the serial run "
+                             f"differ at tick {ticks}: {bad}")
+    out["done"] = int(state.agents.done.sum())
+    out["on_road"] = int(state.road.count.sum())
+    return out
+
+
+def _blocks_rank(rank: int, world: int, backend: str, store: str,
+                 blocks: int, ticks: int, out_dir: str, scenario: tuple,
+                 device: str) -> None:
+    """A spawned rank of phase 29d: the headline episode (phase 2's exact
+    mode, random choice) on ``scenario`` (``load_scenario``'s arguments)
+    for ``ticks`` ticks on ``blocks`` road blocks split over the
+    ``backend`` group of ``world`` processes on ``device``, K7's inputs
+    kept at the middle and the end; the last rank holds its launches
+    bitwise against the plain version on them.  Writes its state and
+    numbers to ``out_dir``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from tarl_tpu_torch.core.step import Policy, init_sim_state
+    from tarl_tpu_torch.parallel.shard_map_episode import (
+        make_road_mesh, run_episode_shard_map)
+    from tarl_tpu_torch.routing.policies import random_choice
+    from tarl_tpu_torch.state import sort_agents_by_departure
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        net, agents = load_scenario(*scenario, dev)
+        agents = sort_agents_by_departure(agents)
+        sim, policy = headline_sim(), Policy(choice=random_choice)
+        mesh = make_road_mesh(blocks, dev, group=dist.group.WORLD)
+        state = init_sim_state(net, agents, sim=sim, policy=policy)
+        cap = CaptureWinner(ticks // 2, f"{backend} rank {rank}")
+        if on_card:
+            torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, _ = run_episode_shard_map(state, net, policy, ticks, mesh,
+                                         sim=sim, winner=cap)
+        if on_card:
+            torch.cuda.synchronize()
+        res = {"wall": time.perf_counter() - t0, "launches": counts(),
+               "first": mesh.first, "held": mesh.held,
+               "col0": [args[6] for _, args in cap.inputs],
+               "state": _state_bits(state)}
+        if rank == world - 1:
+            res["k7_err"] = compare_shard_winner(
+                [(lb, args, mesh.held) for lb, args in cap.inputs])
+        with open(os.path.join(out_dir, f"{backend}{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_blocks(groups, ticks: int, scenario=HEADLINE_SCENARIO,
+                 device: str = "cuda:0", timeout: float = SPAWN_TIMEOUT
+                 ) -> dict:
+    """Phase 29d's processes: for each ``(backend, world, blocks)`` group,
+    ``world`` spawned ranks of :func:`_blocks_rank` (a ``FileStore`` of
+    their own, no port), all started together and joined within
+    ``timeout`` seconds; a rank that hangs is killed and fails the phase,
+    as does a nonzero exit.  Returns ``{(backend, rank): result}``."""
+    import multiprocessing
+    import pickle
+    import shutil
+
+    out_dir = os.path.join(ROOT, "build", "blocks29")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ctx = multiprocessing.get_context("spawn")
+    procs = {}
+    for backend, world, blocks in groups:
+        store = os.path.join(out_dir, f"{backend}.store")
+        for rank in range(world):
+            procs[backend, rank] = ctx.Process(target=_blocks_rank, args=(
+                rank, world, backend, store, blocks, ticks, out_dir,
+                scenario, device))
+    for p in procs.values():
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs.values():
+            p.join(max(deadline - time.monotonic(), 0.0))
+    finally:
+        hung = [key for key, p in procs.items() if p.is_alive()]
+        for p in procs.values():
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if hung:
+        raise AssertionError(f"29d: ranks {hung} did not end within "
+                             f"{timeout:.0f} s")
+    failed = {key: p.exitcode for key, p in procs.items() if p.exitcode}
+    if failed:
+        raise AssertionError(f"29d: ranks exited with {failed}")
+    out = {}
+    for backend, rank in procs:
+        with open(os.path.join(out_dir, f"{backend}{rank}.pkl"), "rb") as f:
+            out[backend, rank] = pickle.load(f)
+    return out
+
+
+def check_processes(results, want, ticks: int, on_card: bool) -> None:
+    """Phase 29d's asserts: every rank's state equal to ``want`` (phase
+    2's at the same tick) bitwise, on the card K7 once a tick on every rank
+    and no K1, the last gloo rank's K7 inputs at a nonzero first column and
+    its launches bitwise the plain version's."""
+    for (backend, rank), res in results.items():
+        bad = _diff_paths(want, res["state"])
+        if bad:
+            raise AssertionError(f"29d {backend} rank {rank}: the state at "
+                                 f"tick {ticks} differs from phase 2's: "
+                                 f"{bad}")
+        got = (res["launches"]["K7"], res["launches"]["K1"])
+        if on_card and got != (ticks, 0):
+            raise AssertionError(f"29d {backend} rank {rank}: launches "
+                                 f"{res['launches']}")
+    last = max(rank for backend, rank in results if backend == "gloo")
+    res = results["gloo", last]
+    if not res["col0"] or min(res["col0"]) <= 0 or res["k7_err"] != 0:
+        raise AssertionError(f"29d: K7 on gloo rank {last}: first columns "
+                             f"{res['col0']}, error {res['k7_err']}")
+
+
+def road_blocks_phase(dev, card: str, want600, learned8, gt_d,
+                      dual_blocks, ticks: int = BLOCKS_TICKS,
+                      scenario=HEADLINE_SCENARIO, groups=BLOCK_GROUPS
+                      ) -> dict:
+    """Phase 29: (a) the trained MPNN sampled on Grid8x8 (``learned8``:
+    ``(net8, agents8, ppo8, trained)``), (b) phase 27d's transformer
+    (``gt_d``), (c) phase 24b's dual row (``dual_blocks``) and Braess under
+    ``strict_compat``, each on 4 road blocks against its serial run; (d)
+    the headline ``scenario`` on 4 blocks in the spawned process
+    ``groups`` (gloo ranks and one NCCL rank), against phase 2's state
+    ``want600`` (state bits) at tick ``ticks``."""
+    from tarl_tpu_torch.config import RoutingConfig, SimConfig
+    from tarl_tpu_torch.core.step import init_sim_state
+    from tarl_tpu_torch.io.matsim import load_network, load_population
+    from tarl_tpu_torch.io.scenarios import ensure_scenario
+    from tarl_tpu_torch.rl.learned_policy import make_learned_choice
+    from tarl_tpu_torch.simulator import make_policy
+
+    t_phase = time.perf_counter()
+    out = {}
+    # --- a. the learned MPNN ---
+    net8, agents8, ppo8, trained = learned8
+    sim = SimConfig(start_time=6 * 3600)
+    policy = make_learned_choice(ppo8.policy_net, trained["policy"], net8,
+                                 dist=ppo8._policy_dist)
+    state0 = init_sim_state(net8, agents8, sim=sim, policy=policy)
+    a = out["a"] = blocks_run("29a", net8, state0, policy, sim, (ticks,))
+    log(f"29a the trained MPNN, sampled, on {SHARD_BLOCKS} blocks of "
+        f"Grid8x8 ({net8.num_roads} roads, {agents8.num_agents} agent rows, "
+        f"edge-sharded forward): state bitwise the serial run's at tick "
+        f"{ticks} (done {a['done']}, on roads {a['on_road']}); "
+        f"{a['blocks_ms']:.3f} ms/tick on blocks, serial "
+        f"{a['serial_ms']:.3f}; launches {a['launches']} ({card})")
+    # --- b. the learned transformer on the headline scenario ---
+    b = out["b"] = blocks_run("29b", gt_d["net"], gt_d["state0"],
+                              gt_d["policy"], gt_d["sim"], gt_d["cuts"],
+                              want=gt_d["want"])
+    log(f"29b the learned transformer on {SHARD_BLOCKS} blocks of the "
+        f"headline scenario, cut {gt_d['cuts']} as phase 27d's plain rerun: "
+        f"state bitwise that rerun's at tick {b['ticks']} (done "
+        f"{b['done']}, on roads {b['on_road']}); {b['blocks_ms']:.3f} "
+        f"ms/tick on blocks (phase 27d serial {gt_d['ms_tick']:.3f}); "
+        f"launches {b['launches']} ({card})")
+    # --- c. the dual row and strict-compat ---
+    dual_ms = dual_blocks["ms_tick"]
+    c = out["c_dual"] = blocks_run(
+        "29c dual", dual_blocks["net"], dual_blocks["state0"],
+        dual_blocks["policy"], dual_blocks["sim"], (DUAL_BLOCKS_TICKS,),
+        want=dual_blocks["want"])
+    log(f"29c the dual row (N = {dual_blocks['net'].num_nodes}) on "
+        f"{SHARD_BLOCKS} blocks: state bitwise phase 24b's at tick "
+        f"{c['ticks']}, next-hop table included; {c['blocks_ms']:.3f} "
+        f"ms/tick on blocks (phase 24b {dual_ms:.3f}); launches "
+        f"{c['launches']} ({card})")
+    base = ensure_scenario(os.path.join(ROOT, "build", "scenarios"),
+                           "Braess")
+    netb = load_network(os.path.join(base, "network"), device=dev)
+    agentsb, _ = load_population(os.path.join(base, "population"),
+                                 os.path.join(base, "network"), device=dev)
+    routing = RoutingConfig(strict_compat=True)
+    policy = make_policy("dijkstra", routing, network=netb)
+    simb = SimConfig(start_time=6 * 3600)
+    c = out["c_strict"] = blocks_run(
+        "29c strict", netb, init_sim_state(netb, agentsb, sim=simb,
+                                           policy=policy),
+        policy, simb, (DUAL_BLOCKS_TICKS,), routing=routing)
+    log(f"29c Braess under strict_compat on {SHARD_BLOCKS} blocks "
+        f"({netb.num_roads} roads, padded): state bitwise the serial run's "
+        f"at tick {c['ticks']} (done {c['done']}); {c['blocks_ms']:.3f} "
+        f"ms/tick on blocks, serial {c['serial_ms']:.3f}; launches "
+        f"{c['launches']} ({card})")
+    # --- d. across processes ---
+    t0 = time.perf_counter()
+    d = out["d"] = spawn_blocks(groups, ticks, scenario, str(dev))
+    check_processes(d, want600, ticks, dev.type == "cuda")
+    last = max(k for b, k in d if b == "gloo")
+    log(f"29d the headline on {SHARD_BLOCKS} blocks across processes ("
+        + ", ".join(f"{w} {b} rank(s) of {n} blocks" for b, w, n in groups)
+        + f"; gloo host-staged) started together on the one card, "
+        f"{time.perf_counter() - t0:.1f} s with their start-up: every "
+        f"rank's state bitwise phase 2's at tick {ticks}; K7 once a tick on "
+        f"every rank; the last gloo rank's K7 (first columns "
+        f"{d['gloo', last]['col0']}) bitwise its "
+        f"plain version on its kept inputs.  ms/tick, a protocol check and "
+        f"not a timing of work across cards: "
+        + ", ".join(f"{b} rank {k} (blocks {r['first']}-"
+                    f"{r['first'] + r['held'] - 1}) "
+                    f"{r['wall'] / ticks * 1e3:.3f}"
+                    for (b, k), r in sorted(d.items()))
+        + f" ({card})")
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -5815,7 +6125,20 @@ def main() -> int:
                           "cli_checkpoint_eval": bat["c"]["eval"][key]}
                     for key in ("K1", "K10", "K11")}
 
-    # --- 29. results ------------------------------------------------------
+    # --- 29. every policy on road blocks, blocks across processes --------
+    blk = road_blocks_phase(dev, card, _state_bits(captured[0]),
+                            (net8, st8.agents, ppo8, trained), gt["d"],
+                            cli["dual_blocks"])
+    log(f"road blocks phase in {blk['seconds']:.1f} s")
+    blk_launches = {
+        "29a_mpnn": blk["a"]["launches"]["K7"],
+        "29b_transformer": blk["b"]["launches"]["K7"],
+        "29c_dual": blk["c_dual"]["launches"]["K7"],
+        "29c_strict": blk["c_strict"]["launches"]["K7"],
+        **{f"29d_{b}_rank{k}": r["launches"]["K7"]
+           for (b, k), r in sorted(blk["d"].items())}}
+
+    # --- 30. results ------------------------------------------------------
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     train_launches = train["launches"]
     kern_ms, plain_ms, kern_dev_ms, k1_bound = timings["Grid16x16"]
@@ -6113,9 +6436,12 @@ def main() -> int:
         "source": "tarl_tpu_torch/csrc/fused_winner.cu",
         "replaces": "tarl_tpu/core/fused_winner.py:647",
         "launches": sh["launches"]["K7"],
-        "launches_from": "sharded headline (phase 17)",
+        "launches_from": "sharded headline (phase 17); every policy on "
+                         "blocks and the ranks across processes (phase 29) "
+                         "in launches_blocks",
         "launches_padded_mesh": padded_counts["K7"],
         "launches_sp_row": sp_sh_counts["K7"],
+        "launches_blocks": blk_launches,
         "max_abs_err": err7,
         "ms": k7_t["Grid16x16"][0],
         "device_ms": k7_t["Grid16x16"][2],

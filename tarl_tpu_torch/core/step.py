@@ -55,8 +55,8 @@ class Policy(NamedTuple):
     dual next-hop table (int32[N, N], the uncapped free-flow
     ``all_pairs_next_hop_nbr`` at init); ``table_init(network)`` builds the
     routing scratch ``state.next_hop`` instead; ``learned`` marks a trained
-    neural policy (the reference carries its ``LearnedSpec`` there), which
-    the road-sharded episode refuses until its branch is ported.
+    neural policy (the reference carries its ``LearnedSpec`` there), whose
+    forward the road-sharded episode runs edge-sharded.
     ``refresh(state, network) -> buf``,
     ``lookup(state, network, buf) -> state`` and ``periodic_rate`` split a
     periodic-refresh choice for :func:`run_episode_periodic`; ``choice``

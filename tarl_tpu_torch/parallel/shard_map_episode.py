@@ -3,11 +3,11 @@
 
 The roads are split into S contiguous blocks of ``rl = ceil(R / S)`` roads;
 the last block is padded with inert rows (capacity 0, no in-edges, DEST -1,
-empty rings), which nothing enters, leaves or crosses.  A device holds some
-of the blocks (their FIFO rings, their columns of the hourly metrics and of
-the in-slot tables; block ``b``'s rows are local rows ``(b - first) * rl``
-on) and a copy of everything else: agents, selections, the key, the routing
-scratch, the backlog queues.  A tick is the serial tick
+empty rings), which nothing enters, leaves or crosses.  A process holds
+some of the blocks (their FIFO rings, their columns of the hourly metrics
+and of the in-slot tables; block ``b``'s rows are local rows ``(b - first)
+* rl`` on) and a copy of everything else: agents, selections, the key, the
+routing scratch, the backlog queues.  A tick is the serial tick
 (:func:`~tarl_tpu_torch.core.step.tick`) with every read of another block's
 rows replaced by a collective of the :class:`RoadMesh`:
 
@@ -18,34 +18,44 @@ rows replaced by a collective of the :class:`RoadMesh`:
   block pops its head;
 * ``psum`` of the agent-side writes (the whole-population insert's
   inserted flags, the withdraw's arrivals; an agent sits on one road, so
-  the blocks' writes are disjoint) and of the tick's on-way and done counts.
+  the blocks' writes are disjoint) and of the tick's on-way and done counts;
+* for a learned policy, ``all_gather`` of the blocks' selections and, for
+  an attention net, of each layer's node rows.
 
-Replicated work runs once per device: the frontier appends, the admission
-math, the route choice with its refreshes (K2) and the key schedule.  Each
-block writes only its own rows.  The winner of every local road is one
-launch of K7 (:func:`~tarl_tpu_torch.core.fused_winner.fused_shard_winner`)
-for all of the device's blocks, which draws the tick's direction noise
-inside from its key, at the serial tick's addresses: no ``[KIN, R]``
-matrix is drawn.  The episode equals the serial one bitwise.
+Replicated work runs once per process: the frontier appends, the admission
+math, the key schedule and the route choice.  The random and the
+shortest-path policies (primal, dual and strict-compat) choose replicated
+on the halo, which they read as a :class:`~tarl_tpu_torch.state.RoadState`'s
+heads and counts: their refreshes take their costs from the halo's counts
+under the policy's own ``cost_mode`` and edge-cost form.  A learned policy
+(``Policy.learned``) runs edge-sharded: the node context is built
+replicated from the halo, the net scores only the out-edge columns of the
+held blocks and the virtual SRC/DEST columns, and the blocks' selections
+are gathered (:func:`_learned_block_choice`).  Each block writes only its
+own rows.  The winner of every local road is one launch of K7
+(:func:`~tarl_tpu_torch.core.fused_winner.fused_shard_winner`) for all of
+the process's blocks, which draws the tick's direction noise inside from
+its key, at the serial tick's addresses: no ``[KIN, R]`` matrix is drawn.
+The episode equals the serial one bitwise.
 
-:class:`RoadMesh` holds every block on one device, where its collectives
-are a reshape and a sum over the block axis.  Blocks spread over several
-cards need the same interface over ``torch.distributed``.
+:class:`RoadMesh` holds every block in one process, where its collectives
+are a reshape and a sum over the block axis, or spreads them over the
+ranks of a ``torch.distributed`` process group.
 
 Not ported: the roll plan (``_block_roll_read``), a bitwise-neutral TPU
 evaluation of the slot reads, which are direct gathers here; the
 ``TARL_SHARD_SKIP`` diagnostics; the compiled-episode cache (nothing is
-compiled, so its faults R1 and R2 cannot occur).  The learned,
-strict-compat and dual shortest-path branches of the choice raise
-``NotImplementedError``: their serial policies exist, their sharded
-branches come with road blocks across processes.
+compiled, so its faults R1 and R2 cannot occur).
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.func import functional_call
 
 from ..config import (
     DEFAULT_PHYSICS,
@@ -55,6 +65,7 @@ from ..config import (
     RoutingConfig,
     SimConfig,
 )
+from ..core import rng
 from ..core.direction import (
     pack_upstream,
     push_winners,
@@ -80,38 +91,102 @@ from ..core.withdraw import scan_run
 from ..device import resolve_device
 from ..network import Network
 from ..ops.scatter import scatter_add, scatter_set
+from ..rl.learned_policy import (
+    _slot_argmax,
+    full_out_tables,
+    rollout_context,
+    slot_logits,
+)
 from ..state import MetricState, RoadState, SimState, TickLog
 
 
 class RoadMesh:
-    """``num_blocks`` road blocks, of which the device holds ``held``
-    contiguous blocks from block ``first``: here all of them, on
-    ``device``.  The tick reads other blocks' rows through
-    :meth:`all_gather` and :meth:`psum` only."""
+    """``num_blocks`` road blocks, of which this process holds ``held``
+    contiguous blocks from block ``first``, on ``device``.  The tick reads
+    other blocks' rows through :meth:`all_gather` and :meth:`psum` only.
 
-    def __init__(self, num_blocks: int, device=None):
+    Without a ``group`` the process holds every block, and the collectives
+    are a reshape and a sum over the block axis.  With a
+    ``torch.distributed`` process group of W ranks, rank k holds blocks
+    ``[k S/W, (k+1) S/W)`` and the collectives run over the group, in rank
+    order.  An NCCL group takes the tensors on the card as they are.  A
+    gloo group takes them on the host: tensors on the card are copied to
+    the host and back around each collective.  That is the CPU's transport,
+    and on one card the check of the protocol across processes, not a
+    transport for work across cards.  Neither backend stands in for the
+    other.
+
+    Every rank ends each collective with the same bits.  An all-gather
+    copies.  The tick's sums are of integers only: the inserted and arrival
+    marks (int32 per agent, written by one block each) and the on-way and
+    done counts (int32, cast to float32 after the sum, as the serial tick
+    casts its own integer sum), so the ring order of a reduction cannot
+    change a bit; a bool sums as int32.  A float sum would be bitwise only
+    where one rank's part is nonzero; the tick makes none."""
+
+    def __init__(self, num_blocks: int, device=None, group=None):
         if num_blocks < 1:
             raise ValueError(f"num_blocks must be positive, got {num_blocks}")
         self.num_blocks = num_blocks
+        self.group = group
+        self.world, rank = 1, 0
+        self._staged = False
+        if group is not None:
+            self.world = dist.get_world_size(group)
+            rank = dist.get_rank(group)
+            if num_blocks % self.world:
+                raise ValueError(f"{num_blocks} road blocks do not split "
+                                 f"over {self.world} ranks")
+            if device is None:
+                local = int(os.environ.get("LOCAL_RANK", rank))
+                device = torch.device("cuda", local)
         self.device = resolve_device(device)
-        self.first = 0
-        self.held = num_blocks
+        if group is not None:
+            backend = dist.get_backend(group)
+            if backend == "nccl" and self.device.type != "cuda":
+                raise ValueError(f"an NCCL group takes tensors on the card, "
+                                 f"not on {self.device}")
+            if backend not in ("nccl", "gloo"):
+                raise ValueError(f"no road mesh over the {backend} backend")
+            self._staged = backend == "gloo" and self.device.type != "cpu"
+        self.held = num_blocks // self.world
+        self.first = rank * self.held
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """``[held, rl, ...]`` rows of the held blocks -> ``[num_blocks *
         rl, ...]``, the rows of every block in block order."""
-        return x.reshape(-1, *x.shape[2:])
+        rows = x.reshape(-1, *x.shape[2:])
+        if self.group is None:
+            return rows
+        part = rows.cpu() if self._staged else rows.contiguous()
+        out = torch.empty((self.world * part.shape[0],) + tuple(
+            part.shape[1:]), dtype=part.dtype, device=part.device)
+        # all_gather_single is all_gather_into_tensor's newer name.
+        gather = getattr(dist, "all_gather_single",
+                         dist.all_gather_into_tensor)
+        gather(out, part, group=self.group)
+        return out.to(self.device) if self._staged else out
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """``[held, ...]`` per-block partials -> their sum over all
-        blocks."""
-        return x.sum(dim=0, dtype=x.dtype)
+        blocks (a bool sums as int32)."""
+        dtype = torch.int32 if x.dtype == torch.bool else x.dtype
+        total = x.sum(dim=0, dtype=dtype)
+        if self.group is None:
+            return total
+        part = total.cpu() if self._staged else total
+        dist.all_reduce(part, op=dist.ReduceOp.SUM, group=self.group)
+        return part.to(self.device) if self._staged else part
 
 
-def make_road_mesh(num_blocks: int, device=None) -> RoadMesh:
+def make_road_mesh(num_blocks: int, device=None, group=None) -> RoadMesh:
     """A mesh of ``num_blocks`` road blocks on ``device`` (``None``: the
-    card)."""
-    return RoadMesh(num_blocks, device)
+    card; with a ``group``, ``cuda:<LOCAL_RANK>``, the group rank where the
+    environment names none), all held by this process, or split over the
+    ranks of the ``torch.distributed`` process ``group`` (see
+    :class:`RoadMesh`).  Raises where the group's size does not divide
+    ``num_blocks``."""
+    return RoadMesh(num_blocks, device, group)
 
 
 class Halo(NamedTuple):
@@ -169,17 +244,74 @@ class _Blocks(NamedTuple):
     count: torch.Tensor
 
 
-def _check_policy(policy: Policy, routing: RoutingConfig) -> None:
-    if routing.strict_compat or policy.needs_next_hop:
-        raise NotImplementedError(
-            "the strict-compat and dual shortest-path branches of the "
-            "sharded choice come with slice 5b, road blocks across "
-            "processes (queue 1 item 6 of the port's roadmap)")
-    if policy.learned is not None:
-        raise NotImplementedError(
-            "the learned policy's branch of the sharded choice comes with "
-            "slice 5b, road blocks across processes (queue 1 item 6 of the "
-            "port's roadmap)")
+def _learned_block_choice(spec, network: Network, mesh: RoadMesh,
+                          rl: int) -> Callable:
+    """The edge-sharded form of ``rl.learned_policy.make_learned_choice``'s
+    choice for ``spec``: ``choice(state, halo) -> state``.
+
+    The node context ``x[N, C]`` is built replicated from the halo's counts
+    and head ids; the key is split once and one replicated ``[KF, N]``
+    Gumbel matrix drawn from its second half (none where deterministic),
+    of which each process reads its blocks' columns and the virtual ones.
+    The net scores the out-edge columns of the held blocks (padded columns
+    clamped to road ``R-1`` and masked) and the virtual SRC/DEST columns
+    ``R..N``, which every process computes: the MPNN's per-edge MLP on
+    those columns alone (``slot_logits``; every edge row is computed on
+    its own), the transformer's slot twin over them with each layer's node
+    update joined by an ``all_gather`` of the blocks' rows.  The
+    ascending-slot argmax runs on the same columns and the blocks'
+    selections are gathered."""
+    r, n_nodes = network.num_roads, network.num_nodes
+    dev = network.device
+    lo, n = mesh.first * rl, mesh.held * rl
+    if spec.slot_net is not None:
+        ok, dst = spec.slot_tables.out_ok, spec.slot_tables.out_dst
+        attr = None
+    else:
+        ok, dst, attr = full_out_tables(network)
+    kf = ok.shape[0]
+    held = torch.arange(lo, lo + n, dtype=torch.int32, device=dev)
+    cols_blk = torch.clamp(held, max=r - 1)
+    real = (held < r)[None, :]
+    ok_blk = ok[:, cols_blk.long()] & real
+    dst_blk = dst[:, cols_blk.long()]
+    virt = torch.arange(r, n_nodes, dtype=torch.int32, device=dev)
+    ok_virt, dst_virt = ok[:, r:], dst[:, r:]
+    cols_all = torch.cat([cols_blk, virt])
+
+    def sync(h_cols):
+        h_blk = mesh.all_gather(h_cols[:n].view(mesh.held, rl, -1))
+        return torch.cat([h_blk[:r], h_cols[n:]])
+
+    @torch.no_grad()
+    def choice(st: SimState, hl: Halo) -> SimState:
+        x = rollout_context(st, network, spec.pending_entrants,
+                            count=hl.count[:r], head_ids=hl.ids[:r],
+                            extra_obs=spec.extra_obs)
+        if spec.slot_net is not None:
+            logits = functional_call(spec.slot_net, spec.params,
+                                     (x, spec.slot_tables, cols_all),
+                                     {"sync": sync})
+            l_blk, l_virt = logits[:, :n], logits[:, n:]
+        else:
+            l_blk = slot_logits(spec, x, network, dst, attr, cols_blk)
+            l_virt = slot_logits(spec, x, network, dst, attr, virt)
+        key, sub = split(st.key)
+        if not spec.deterministic:
+            g = rng.gumbel(sub, (kf, n_nodes), dev)
+            l_blk = l_blk + g[:, cols_blk.long()]
+            l_virt = l_virt + g[:, r:]
+        neg_inf = float("-inf")
+        prev = st.selected_road[cols_blk.long()]
+        sel_blk = _slot_argmax(torch.where(ok_blk, l_blk, neg_inf), dst_blk,
+                               prev)
+        sel_roads = mesh.all_gather(sel_blk.view(mesh.held, rl))[:r]
+        sel_virt = _slot_argmax(torch.where(ok_virt, l_virt, neg_inf),
+                                dst_virt, st.selected_road[r:])
+        return st._replace(selected_road=torch.cat([sel_roads, sel_virt]),
+                           key=key)
+
+    return choice
 
 
 def run_episode_shard_map(
@@ -196,17 +328,22 @@ def run_episode_shard_map(
     """:func:`~tarl_tpu_torch.core.step.run_episode` over the road blocks
     of ``mesh``: ``num_steps`` ticks from ``state``; returns the final state
     and the stacked tick logs, in global road order, equal to the serial
-    run's bitwise.
+    run's bitwise (on every rank of a process group).
 
-    ``policy``'s choice runs replicated on the halo, which it reads as it
-    reads a :class:`~tarl_tpu_torch.state.RoadState`'s heads and counts:
-    the random policy, or a primal shortest-path policy of ``make_policy``
-    (all-pairs or destination-restricted); ``routing`` is the configuration
-    it was built with.  ``winner`` is the road-block winner; pass
+    A learned ``policy`` (``make_learned_choice``: the MPNN or the
+    transformer) chooses edge-sharded; any other choice runs replicated on
+    the halo, which it reads as it reads a
+    :class:`~tarl_tpu_torch.state.RoadState`'s heads and counts: the random
+    policy, or a shortest-path policy of ``make_policy`` (primal all-pairs
+    or destination-restricted, dual, strict-compat); ``routing`` is the
+    configuration it was built with, and ``strict_compat`` there requires
+    the dual backend's policy.  ``winner`` is the road-block winner; pass
     :func:`~tarl_tpu_torch.core.fused_winner.fused_shard_winner_plain` to
     run the plain version on the card; it takes the tick's direction key
     where the reference's took the blocks' Gumbel columns."""
-    _check_policy(policy, routing)
+    if routing.strict_compat and not policy.needs_next_hop:
+        raise ValueError("strict_compat on road blocks requires the dual "
+                         "backend's policy")
     dev = state.road.count.device
     if dev.type != mesh.device.type or (
             mesh.device.index is not None and dev.index != mesh.device.index):
@@ -253,6 +390,8 @@ def run_episode_shard_map(
     )
     cap_p = pad(network.capacity, 0.0)
     owner = torch.arange(n, device=dev) // rl     # held block of a local row
+    learned = (None if policy.learned is None else
+               _learned_block_choice(policy.learned, network, mesh, rl))
 
     def halo(ring: RoadState) -> Halo:
         f32, i32 = torch.float32, torch.int32
@@ -371,13 +510,17 @@ def run_episode_shard_map(
         st, ring, saturated = insert(st, ring, halo(ring))
         st, ring, wcount = withdraw(st, ring)
 
-        # --- choice, replicated on the halo ---
+        # --- choice: edge-sharded (learned) or replicated on the halo ---
         hl = halo(ring)
-        chosen, _ = policy.choice(st._replace(road=hl.roads(r)), network)
-        st = st._replace(selected_road=chosen.selected_road, key=chosen.key,
-                         next_hop=chosen.next_hop,
-                         choice_count=chosen.choice_count,
-                         sel_dest=chosen.sel_dest)
+        if learned is not None:
+            st = learned(st, hl)
+        else:
+            chosen, _ = policy.choice(st._replace(road=hl.roads(r)),
+                                      network)
+            st = st._replace(selected_road=chosen.selected_road,
+                             key=chosen.key, next_hop=chosen.next_hop,
+                             choice_count=chosen.choice_count,
+                             sel_dest=chosen.sel_dest)
 
         # --- core: the blocks' winners (K7), tail push, head pop ---
         key, k_dir = split(st.key)
@@ -407,11 +550,11 @@ def run_episode_shard_map(
             delta_hourly = delta_hourly.clone()
             delta_hourly[hour] += rows(delta, 0.0)
         per_block = (mesh.held, rl)
+        f32, i32 = torch.float32, torch.int32
         on_way = mesh.psum(
-            ring.count.view(per_block).sum(dim=1).to(torch.float32))
+            ring.count.view(per_block).sum(dim=1, dtype=i32)).to(f32)
         done = m.done_before + mesh.psum(
-            wcount.view(per_block).sum(dim=1).to(torch.float32))
-        f32 = torch.float32
+            wcount.view(per_block).sum(dim=1, dtype=i32)).to(f32)
         log = TickLog(
             departures=on_way - m.on_way_before + done - m.done_before,
             arrivals=done - m.done_before,

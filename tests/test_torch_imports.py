@@ -5,7 +5,9 @@
   ``models.transformer`` and ``rl.learned_policy`` among them) import with
   ``jax``, ``flax``, ``optax``, ``orbax`` and ``tarl_tpu`` blocked.
 * No public function of the port places tensors on the CPU by default:
-  every ``device`` parameter defaults to ``None``, the card.
+  every ``device`` parameter defaults to ``None``, the card; the road
+  mesh asks for the card, and ``shard_sim_state`` and
+  ``run_episode_sharded`` place the state on the mesh's device.
 * The fused-winner (K1), road-block winner (K7), primal-relax and
   fused-core wrappers (both K12 entries) send CPU tensors to their plain
   versions (without counting a launch) and raise on inputs the kernels
@@ -31,11 +33,12 @@ import tarl_tpu_torch
 from tarl_tpu_torch import _build
 from tarl_tpu_torch.config import DEFAULT_PHYSICS
 from tarl_tpu_torch.core import fused_core, fused_winner, rng
-from tarl_tpu_torch.core.step import init_sim_state
+from tarl_tpu_torch.core.step import Policy, init_sim_state
 from tarl_tpu_torch.io.matsim import load_network, load_population
 from tarl_tpu_torch.io.scenarios import ensure_scenario
 from tarl_tpu_torch.ops import segment as seg
 from tarl_tpu_torch.routing import bellman_ford as bf
+from tarl_tpu_torch.routing.policies import random_choice
 from tarl_tpu_torch.state import RoadState
 
 torch.set_num_threads(1)
@@ -79,6 +82,10 @@ def test_imports_without_jax():
         assert "tarl_tpu_torch.rl.learned_policy" in names
         for name in ("parallel.mesh", "parallel.shard", "io.native"):
             assert f"tarl_tpu_torch.{name}" in names
+        sharded = sys.modules["tarl_tpu_torch.parallel.sharded_episode"]
+        for fn in ("pad_agents", "road_mesh", "shard_sim_state",
+                   "run_episode_sharded"):
+            assert callable(getattr(sharded, fn)), fn
         assert sys.modules["jax"] is None
         print(len(names))
     """)
@@ -120,7 +127,7 @@ def test_cli_without_jax_or_pandas():
         assert flag in out.stdout, flag
 
 
-def test_no_public_function_defaults_to_the_cpu():
+def test_no_public_function_defaults_to_the_cpu(tmp_path):
     import importlib
     import inspect
     import pkgutil
@@ -129,6 +136,7 @@ def test_no_public_function_defaults_to_the_cpu():
     from tarl_tpu_torch.device import resolve_device
     from tarl_tpu_torch.io import matsim
     from tarl_tpu_torch.parallel import mesh, shard_map_episode
+    from tarl_tpu_torch.parallel import sharded_episode
     from tarl_tpu_torch.rl import checkpoint
 
     assert resolve_device(None) == torch.device("cuda")
@@ -159,8 +167,27 @@ def test_no_public_function_defaults_to_the_cpu():
                 assert param.default is None, f"{info.name}.{obj.__qualname__}"
     assert len(seen) >= len(listed) + 4
     assert "tarl_tpu_torch.core.fused_core" in walked
-    # Called without a device, an entry point asks for the card.
-    assert shard_map_episode.make_road_mesh(4).device == torch.device("cuda")
+    # Called without a device, an entry point asks for the card: the road
+    # mesh, and the sharded episode's entry points, which place the state
+    # on the mesh's device.
+    road_mesh = shard_map_episode.make_road_mesh(4)
+    assert road_mesh.device == torch.device("cuda")
+    assert sharded_episode.road_mesh(road_mesh).device.type == "cuda"
+    base = ensure_scenario(str(tmp_path), "TwoLink")
+    net = load_network(os.path.join(base, "network"), device="cpu")
+    state = init_sim_state(net, load_population(
+        os.path.join(base, "population"), os.path.join(base, "network"),
+        device="cpu")[0])
+    for mesh_in in (road_mesh, mesh.DeviceMesh([torch.device("cuda")], 1, 1)):
+        if torch.cuda.is_available():
+            placed = sharded_episode.shard_sim_state(state, mesh_in)
+            assert placed.road.count.device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                sharded_episode.shard_sim_state(state, mesh_in)
+            with pytest.raises((AssertionError, RuntimeError)):
+                sharded_episode.run_episode_sharded(
+                    state, net, Policy(choice=random_choice), 1, mesh_in)
     mat = np.zeros((2, 9), np.float32)
     if torch.cuda.is_available():
         assert schema.agents_from_matrix(mat).origin.device.type == "cuda"

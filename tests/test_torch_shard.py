@@ -22,8 +22,6 @@ the port's serial episode, bitwise, on the CPU.
   ``psum``s per tick (a counting mesh); and the blocks split over threads,
   each holding its share and reading the others' rows only through the
   mesh, give the serial episode.
-* (f) The learned, strict-compat and dual policies raise
-  ``NotImplementedError``.
 """
 import os
 import sys
@@ -525,22 +523,3 @@ def test_blocks_split_over_threads_match_serial(grid4, world, steps):
         assert_tree_equal(convert.to_numpy(logs), convert.to_numpy(result[1]),
                           f"rank {rank} logs")
     assert int(final.agents.done.sum()) > 0
-
-
-# --- (f) the branches still to port -----------------------------------------
-
-@pytest.mark.parametrize("kind", ["learned", "strict", "dual"])
-def test_unported_policies_raise(grid4, kind):
-    net, agents = grid4[2:]
-    state = p_step.init_sim_state(net, agents)
-    routing = PortRoutingConfig()
-    policy = p_step.Policy(choice=p_random_choice)
-    if kind == "learned":
-        policy = policy._replace(learned=object())
-    elif kind == "strict":
-        routing = PortRoutingConfig(strict_compat=True)
-    else:
-        policy = policy._replace(needs_next_hop=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        run_episode_shard_map(state, net, policy, 1,
-                              make_road_mesh(4, "cpu"), routing=routing)
