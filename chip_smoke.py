@@ -426,7 +426,44 @@ with its plain version run outside those windows.
    launches (first column 480) bitwise the plain version's on its kept
    inputs.  ms/tick beside the serial runs'; (d)'s is a protocol check,
    not a timing of work across cards.
-30. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
+30. Sharded and spatial PPO training, at phase 21's width (Grid8x8, 5,000
+   commuters, ``learned_ppo``'s settings: 256 steps, 5 epochs of
+   minibatches of 128, the committed weights, the distance prior) on 4
+   blocks, each trainer against ``PPO.train_iteration`` from the same
+   ``TrainState`` under deterministic algorithms.  (d)'s and (e)'s ranks
+   are spawned at the phase's start and run beside (a)-(c) and (f), whose
+   times are taken with them running.  Every update of every sharded
+   trainer (here and on (d)'s ranks) has its gradients held against
+   ``PPO._loss_and_grads`` on the same minibatch at the same parameters,
+   after the timed iteration (``GradCheck``).  (a) ``ShardedPPO`` with the
+   MPNN: the trajectory bitwise, every update's gradients within max |d|
+   1e-5 (and the blocks' per-edge logits at the first minibatch's 128
+   rows against the flat forward's, printed), the parameters within
+   Adam's reach (twice the rate times the 10 updates, a sanity bound; the
+   elements beyond the reference tests' rtol 1e-3, atol 5e-3 printed),
+   K1, K11 and K10 once a collection step and none in the update.  (b)
+   The same for the committed Braess transformer at ``GT_RL``, its
+   collection cut to 128 steps (4 updates), the gradients within relative
+   1e-3.  (c) One ``SpatialPPO.train_iteration``: its rollout of 256
+   steps against the unsharded collection (actions, dones, clock,
+   ``on_network``, contexts and values bitwise; log-probs within rtol
+   1e-5; the ``progress`` rewards within rtol 1e-6 and ``progress_atol``,
+   4e-6 of the largest potential over the scale, since a reward is the
+   difference of two float32 potentials of ~1e4 summed in another order),
+   K7 once a step and K1 none, K7's kept inputs (every eighth step, the
+   last included) that move someone bitwise its plain version; every
+   update's gradients within max |d| 1e-5; the iteration's environment
+   bitwise but the potential, the parameters within Adam's reach.  (d)
+   (a), ``SpatialPPO.rollout`` cut to 64 steps (against the first 64 of
+   (c)) and phase 28b's batched step (4 replicas) in 2 gloo processes
+   (``dp = 2``) and 1 NCCL process of world size 1, spawned together on
+   the one card, each rank against the one-process runs.  (e)
+   ``parallel.dryrun.dryrun_multichip(2, "gloo")``, its six paths on each
+   rank.  (f) The legacy confirm ``core.response.response_step`` on phase
+   2's captured states after the direction step's push: K10's bare max
+   bitwise the plain max.  ms per iteration split into collection, GAE
+   and update beside phase 21's.
+31. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
    ``segment_sum``, ``segment_max``, ``segment_argmax``, ``fused_core``,
    ``fused_shard_winner``, and the K3-K6 and K8a/K8b rows covered by
    ``primal_relax`` and ``fused_winner``; K3's and K5's rows the cluster
@@ -440,8 +477,10 @@ with its plain version run outside those windows.
    in phase 24's rows and K2's in its primal cross-check beside them; K1's,
    K6's, K10's and K11's in phases 25 and 26 beside them, and K1's,
    K10's and K11's on phase 27's paths in ``launches_transformer`` and on
-   phase 28's in ``launches_batched``; K7's on phase 29's paths in
-   ``launches_blocks``),
+   phase 28's in ``launches_batched``, and on phase 30's in
+   ``launches_ppo_blocks``; K7's on phase 29's paths in
+   ``launches_blocks`` and on phase 30's in ``launches_spatial_ppo``;
+   K10's bare max in phase 30f's ``bare_launches_response_step``),
    the card's name and power limit,
    then
    ``{"ok": true, "device": {...}}``.
@@ -449,8 +488,9 @@ with its plain version run outside those windows.
 Exits nonzero, printing no result, where no CUDA device is available or
 the package is missing beside this script.  Scenario files are written
 under ``build/scenarios``, phase 24's caches under ``build/save``, phase
-21's checkpoints under ``build/train`` and phase 25's, 27's and 28's files
-under ``build/cli`` in the checkout.
+21's checkpoints under ``build/train``, phase 25's, 27's and 28's files
+under ``build/cli`` and phase 29's and 30's ranks' results under
+``build/blocks29`` and ``build/ppo30`` in the checkout.
 """
 from __future__ import annotations
 
@@ -4512,25 +4552,47 @@ def _ms_between(a, b) -> float:
     return a.elapsed_time(b) if hasattr(a, "elapsed_time") else (b - a) * 1e3
 
 
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` (uninitialised memory
+    left unfilled) for the block, restored after it."""
+    import torch
+
+    was_det = torch.are_deterministic_algorithms_enabled()
+    was_fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was_det)
+        torch.utils.deterministic.fill_uninitialized_memory = was_fill
+
+
 class TrainProbe:
-    """Wraps a ``PPO``'s ``collect_rollout`` and ``_update_epochs`` and a
-    trainer's ``train_iteration`` (the ``PPO``'s own, or a ``BatchedPPO``'s
-    over it) on the instances and keeps, per iteration, the state in and
-    out, the metrics, the trajectories (one per replica), the number of
+    """Wraps a ``PPO``'s ``collect_rollout`` (or ``collector``'s method
+    ``collect_name`` of the same signature and result) and
+    ``_update_epochs`` and a trainer's ``train_iteration`` (the ``PPO``'s
+    own, or a ``BatchedPPO``'s, ``ShardedPPO``'s or ``SpatialPPO``'s over
+    it) on the instances and keeps, per iteration, the state in and out,
+    the metrics, the trajectories (one per replica) and their last values,
+    the number of
     updates, and at each boundary (the first collection's start, the last
     one's end, the update's start and end) a device stamp, the launch
     counts and the host reads (read, never reset, so the counts of the
     whole run stay whole).  The only work between the collections' end and
     the update's start is GAE and the advantages' normalisation."""
 
-    def __init__(self, ppo, on_card: bool, trainer=None):
+    def __init__(self, ppo, on_card: bool, trainer=None, collector=None,
+                 collect_name: str = "collect_rollout"):
         trainer = trainer or ppo
+        collector = collector or ppo
         self.on_card = on_card
         self.records = []
-        self._collect = ppo.collect_rollout
+        self._collect = getattr(collector, collect_name)
         self._update = ppo._update_epochs
         self._iterate = trainer.train_iteration
-        ppo.collect_rollout = self.collect_rollout
+        setattr(collector, collect_name, self.collect_rollout)
         ppo._update_epochs = self.update_epochs
         trainer.train_iteration = self.train_iteration
 
@@ -4545,6 +4607,7 @@ class TrainProbe:
         out = self._collect(*args, **kw)
         self._mark("collect1")
         self.rec["trajs"].append(out[3])
+        self.rec["lasts"].append(out[4])
         return out
 
     def update_epochs(self, *args, **kw):
@@ -4557,7 +4620,7 @@ class TrainProbe:
     def train_iteration(self, ts, *args, **kw):
         import torch
 
-        self.rec = {"ts_in": ts, "trajs": []}
+        self.rec = {"ts_in": ts, "trajs": [], "lasts": []}
         t0 = time.perf_counter()
         ts_out, metrics = self._iterate(ts, *args, **kw)
         if self.on_card:
@@ -4633,11 +4696,7 @@ def training_phase(net8, trained, st8, card: str,
     kw = dict(key=rng.prng_key(0), generator=torch.Generator().manual_seed(0),
               rl=rl, checkpoint_interval=1, eval_interval=0, resume=True,
               verbose=False)
-    was_det = torch.are_deterministic_algorithms_enabled()
-    was_fill = torch.utils.deterministic.fill_uninitialized_memory
-    torch.use_deterministic_algorithms(True)
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    try:
+    with deterministic():
         reset_counts()
         t0 = time.perf_counter()
         ts_a = ppo_train(ppo, st8, num_iterations=iterations,
@@ -4654,9 +4713,6 @@ def training_phase(net8, trained, st8, card: str,
         shutil.copy(os.path.join(dir_a, f"ckpt_{iterations - 1}"), dir_b)
         ts_b = ppo_train(ppo, st8, num_iterations=iterations,
                          checkpoint_dir=dir_b, **kw)
-    finally:
-        torch.use_deterministic_algorithms(was_det)
-        torch.utils.deterministic.fill_uninitialized_memory = was_fill
 
     want_run = {"K1": iterations * steps, "K9": 0, "K10": iterations * steps,
                 "K11": iterations * steps, "K12": 0, "K7": 0}
@@ -4890,20 +4946,13 @@ def batched_phase(net8, trained, st8, card: str, single: list,
                       torch.Generator().manual_seed(0))
     ts = ts._replace(params=trained, opt_state=ppo.optimizer.init(trained))
     probe = TrainProbe(ppo, on_card, trainer)
-    was_det = torch.are_deterministic_algorithms_enabled()
-    was_fill = torch.utils.deterministic.fill_uninitialized_memory
-    torch.use_deterministic_algorithms(True)
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    try:
+    with deterministic():
         reset_counts()
         trainer.train_iteration(ts)
         run_counts = counts()
         reset_counts()
         trainer.train_iteration(ts, seg.PLAIN, direction_confirm_plain)
         plain_counts = counts()
-    finally:
-        torch.use_deterministic_algorithms(was_det)
-        torch.utils.deterministic.fill_uninitialized_memory = was_fill
     kern, plain = probe.records
     want = {"K1": steps, "K9": 0, "K10": steps, "K11": steps, "K12": 0,
             "K7": 0}
@@ -5360,6 +5409,701 @@ def road_blocks_phase(dev, card: str, want600, learned8, gt_d,
                     f"{r['wall'] / ticks * 1e3:.3f}"
                     for (b, k), r in sorted(d.items()))
         + f" ({card})")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# --- sharded and spatial training (phase 30) ---------------------------------
+
+PPO_BLOCKS = 4                # node-column and road blocks of phase 30
+GT_BLOCKS_COLLECT = 128       # (b): GT_RL's collection, cut from 512
+PPO_GROUPS = (("gloo", 2), ("nccl", 1))   # (d): backend, processes
+PPO_SPAWN_TIMEOUT = 300       # (d): seconds for the spawned ranks in all
+GRAD_BAR = {"mpnn": 1e-5, "transformer": 1e-3}   # (a) max |d|, (b) relative
+PARAM_RTOL, PARAM_ATOL = 1e-3, 5e-3
+PPO_RANK_SPATIAL_STEPS = 64   # (d): the ranks' spatial rollout, cut from 256
+
+
+class GradCheck:
+    """Wraps a trainer's minibatch gradients (``owner._grads``, which its
+    iteration hands ``PPO._update_epochs``) and keeps every update's
+    parameters, minibatch and gradients; :meth:`run`, after the iteration
+    (so its timings hold no check), holds each update's gradients against
+    ``ppo._loss_and_grads`` on the same minibatch at the same parameters
+    (``grad_diff``, relative for an attention net, the reference's bar)."""
+
+    def __init__(self, owner, ppo, relative: bool):
+        self.kept, self.relative = [], relative
+        self._grads, self._ppo = owner._grads, ppo
+        owner._grads = self
+
+    def __call__(self, params, batch, advantages, returns):
+        out = self._grads(params, batch, advantages, returns)
+        kept = {p: {k: v.detach().clone() for k, v in sub.items()}
+                for p, sub in params.items()}
+        self.kept.append((kept, batch, advantages, returns, out[1]))
+        return out
+
+    @property
+    def first(self):
+        """The first update's minibatch."""
+        return self.kept[0][1]
+
+    def run(self) -> list:
+        """Each kept update's gradient difference, in update order."""
+        from tarl_tpu_torch.parallel.dryrun import grad_diff
+
+        errs = []
+        for params, batch, adv, ret, got in self.kept:
+            _, want = self._ppo._loss_and_grads(params, batch, adv, ret)
+            errs.append(grad_diff(want, got, self.relative))
+        return errs
+
+
+def check_grads(label: str, errs: list, updates: int,
+                relative: bool) -> float:
+    """Asserts ``updates`` gradient checks (``GradCheck.run``'s), each below
+    ``GRAD_BAR``; returns the largest."""
+    bar = GRAD_BAR["transformer" if relative else "mpnn"]
+    if len(errs) != updates or not max(errs, default=0.0) < bar:
+        raise AssertionError(f"{label}: {len(errs)} of {updates} updates' "
+                             f"gradients checked, differences {errs} "
+                             f"({'relative ' if relative else ''}bar {bar})")
+    return max(errs)
+
+
+def params_close(label: str, want: dict, got: dict, reach: float) -> tuple:
+    """Asserts two parameter trees within ``reach`` (Adam's: twice the
+    learning rate times the updates; an element whose gradient is rounding
+    noise steps by up to the rate either way each update, as phases 21 and
+    28 hold theirs); returns the largest absolute difference and the
+    number of elements beyond rtol ``PARAM_RTOL``, atol ``PARAM_ATOL``
+    (the reference tests' bar at 4 updates)."""
+    import torch
+
+    worst = _tree_diff(want, got)[0]
+    if not worst <= reach:
+        raise AssertionError(f"{label}: parameters differ by up to {worst}, "
+                             f"beyond Adam's reach {reach}")
+    beyond = sum(int((~torch.isclose(got[p][k], want[p][k], rtol=PARAM_RTOL,
+                                     atol=PARAM_ATOL)).sum())
+                 for p in want for k in want[p])
+    return worst, beyond
+
+
+def adam_reach(ppo, updates: int) -> float:
+    return 2 * ppo.rl.learning_rate * updates
+
+
+def traj_bits(traj) -> dict:
+    from tarl_tpu_torch.convert import to_numpy
+
+    return to_numpy(traj)
+
+
+def progress_atol(traj: dict, phi0: float, scale: float) -> float:
+    """The absolute tolerance of a rollout's ``progress`` rewards
+    (``traj_bits``) from a state of potential ``phi0``: a reward is the
+    difference of two float32 potentials, each a sum over the queued
+    agents that the blocks add in another order, held to 2e-6 of its
+    value; every potential of the rollout lies within ``|phi0| + scale *
+    sum |r|`` of 0 (a reset restarts it at 0).  At Grid8x8's potential,
+    ~1e4, one float32 ulp of it is ~1e-5 of a reward."""
+    import numpy as np
+
+    bound = abs(phi0) + scale * float(np.abs(
+        traj["reward"].astype(np.float64)).sum())
+    return 4e-6 * bound / scale
+
+
+def compare_traj(label: str, want, got, exact=("action", "done", "time",
+                                                "on_network", "x", "value",
+                                                "reward"),
+                 reward_atol: float | None = None) -> float:
+    """Asserts two trajectories (``traj_bits``) bitwise in ``exact`` and the
+    log-probs within rtol 1e-5, atol 1e-6, and, with ``reward_atol``, the
+    ``progress`` rewards within rtol 1e-6 and it; returns the log-probs'
+    largest difference."""
+    import numpy as np
+
+    bad = _diff_paths({f: want[f] for f in exact},
+                      {f: got[f] for f in exact}, label)
+    if bad:
+        raise AssertionError(f"{label}: trajectories differ at {bad}")
+    if reward_atol is not None and not np.allclose(
+            got["reward"], want["reward"], rtol=1e-6, atol=reward_atol):
+        worst = float(np.abs(got["reward"].astype(np.float64)
+                             - want["reward"]).max())
+        raise AssertionError(f"{label}: progress rewards differ by up to "
+                             f"{worst}, beyond rtol 1e-6, atol "
+                             f"{reward_atol:.3g}")
+    if not np.allclose(got["log_prob"], want["log_prob"], rtol=1e-5,
+                       atol=1e-6):
+        raise AssertionError(f"{label}: log-probs beyond rtol 1e-5, atol "
+                             f"1e-6")
+    return float(np.abs(got["log_prob"].astype(np.float64)
+                        - want["log_prob"]).max())
+
+
+def fmt_params(res: dict) -> str:
+    return (f"within {res['param_worst']:.3g} of the unsharded iteration's "
+            f"(Adam's reach {res['reach']:g}), {res['param_beyond']} "
+            f"element(s) beyond rtol {PARAM_RTOL}, atol {PARAM_ATOL}")
+
+
+def fmt_split(rec: dict) -> str:
+    steps = rec["trajs"][0].action.shape[0] * len(rec["trajs"])
+    col = rec["collection_ms"]
+    return (f"iteration {rec['wall_ms']:.1f} ms: collection {col:.1f} ms "
+            f"({col / steps:.3f} ms/step), GAE {rec['gae_ms']:.2f} ms, update "
+            f"{rec['update_ms']:.1f} ms ({rec['updates']} updates)")
+
+
+def sharded_training(label: str, make_ppo, ts, card: str,
+                     relative: bool) -> dict:
+    """30a/30b: ``PPO.train_iteration`` and ``ShardedPPO.train_iteration``
+    on ``PPO_BLOCKS`` node-column blocks from ``ts``, each on its own
+    ``make_ppo()``, under deterministic algorithms.  Asserts the
+    trajectories bitwise, one K1, K11 and K10 launch a collection step and
+    none in the update, every update's gradients within ``GRAD_BAR`` of
+    the unsharded gradients at the same parameters (:class:`GradCheck`)
+    and the parameters within Adam's reach of the unsharded iteration's."""
+    import torch
+
+    from tarl_tpu_torch.parallel.sharded_ppo import (
+        ShardedPPO, make_node_mesh)
+
+    ppo_u, ppo_s = make_ppo(), make_ppo()
+    dev = ppo_u.network.device
+    on_card = dev.type == "cuda"
+    steps = ppo_u.rl.rollout_steps
+    sharded = ShardedPPO(ppo_s, make_node_mesh(PPO_BLOCKS, dev))
+    grads = GradCheck(sharded, ppo_s, relative)
+    probe_u = TrainProbe(ppo_u, on_card)
+    probe_s = TrainProbe(ppo_s, on_card, sharded)
+    with deterministic():
+        reset_counts()
+        ts_u, _ = ppo_u.train_iteration(ts)
+        u_counts = counts()
+        reset_counts()
+        ts_s, metrics = sharded.train_iteration(ts)
+        s_counts = counts()
+        rec_u, rec_s = probe_u.records[-1], probe_s.records[-1]
+        errs = grads.run()
+        row_err = None
+        if not relative:
+            # A per-edge row's product at the minibatch's row count on the
+            # blocks' columns against the flat edge list's.
+            x = grads.first.x
+            with torch.no_grad():
+                flat = ppo_u._policy_logits(ts.params["policy"], x)
+                blk = sharded._logits_fn(ts.params["policy"], x)
+            ok = sharded.tables.ok[:, sharded._lo:sharded._lo + sharded._n]
+            eid = sharded.tables.eid[:, sharded._lo:sharded._lo + sharded._n]
+            want_blk = flat[:, torch.where(ok, eid, 0).long()]
+            row_err = _max_abs_diff(torch.where(ok, blk, 0.0),
+                                    torch.where(ok, want_blk, 0.0))
+    want = {"K1": steps, "K9": 0, "K10": steps, "K11": steps, "K12": 0,
+            "K7": 0}
+    idle = {k: 0 for k in want}
+    for name, c, rec in (("unsharded", u_counts, rec_u),
+                         ("sharded", s_counts, rec_s)):
+        if on_card and (c != want or rec["update_launches"] != idle
+                        or rec["gae_launches"] != idle):
+            raise AssertionError(f"{label} {name}: launches {c} (update "
+                                 f"{rec['update_launches']}), expected "
+                                 f"{want} and none in the update")
+    lp_err = compare_traj(label, traj_bits(rec_u["trajs"][0]),
+                          traj_bits(rec_s["trajs"][0]),
+                          exact=("action", "done", "time", "on_network", "x",
+                                 "value", "reward", "log_prob"))
+    err = check_grads(label, errs, rec_s["updates"], relative)
+    reach = adam_reach(ppo_u, rec_u["updates"])
+    worst, beyond = params_close(label, ts_u.params, ts_s.params, reach)
+    if not all(bool(torch.isfinite(v)) for v in metrics):
+        raise AssertionError(f"{label}: metrics {metrics}")
+    return {"launches": s_counts, "rec_u": rec_u, "rec_s": rec_s,
+            "ts_u": ts_u, "ts_s": ts_s, "grad_err": err,
+            "grad_first": errs[0], "row_err": row_err,
+            "param_worst": worst, "param_beyond": beyond, "reach": reach,
+            "log_prob_err": lp_err, "traj": traj_bits(rec_s["trajs"][0])}
+
+
+def spatial_training(make_ppo, ts, want_traj, ts_u, card: str) -> dict:
+    """30c: ``SpatialPPO.train_iteration`` on ``PPO_BLOCKS`` road and
+    node-column blocks from ``ts`` (K7 through ``CaptureWinner``): its
+    rollout against ``want_traj``, the unsharded collection from ``ts``,
+    K7's kept inputs against the plain version, every update's gradients
+    against the unsharded gradients at the same parameters
+    (:class:`GradCheck`), and the iteration's state against the unsharded
+    iteration's ``ts_u``."""
+    import torch
+
+    from tarl_tpu_torch.core.fused_winner import fused_shard_winner_plain
+    from tarl_tpu_torch.parallel.spatial_ppo import (
+        SpatialPPO, make_spatial_mesh)
+
+    ppo = make_ppo()
+    dev = ppo.network.device
+    on_card = dev.type == "cuda"
+    steps = ppo.rl.rollout_steps
+    spat = SpatialPPO(ppo, make_spatial_mesh(PPO_BLOCKS, dev))
+    cap = CaptureWinner(max(steps // 8, 1), "30c")
+    probe = TrainProbe(ppo, on_card, spat, collector=spat,
+                       collect_name="_collect")
+    grads = GradCheck(spat.update, ppo, relative=False)
+    with deterministic():
+        reset_counts()
+        ts_c, metrics = spat.train_iteration(ts, winner=cap)
+        errs = grads.run()
+    rec = probe.records[-1]
+    traj = rec["trajs"][0]
+    want = {"K1": 0, "K9": 0, "K10": 0, "K11": 0, "K12": 0, "K7": steps}
+    if on_card and (rec["collection_launches"] != want
+                    or any(rec["update_launches"].values())):
+        raise AssertionError(f"30c: launches {rec['collection_launches']} "
+                             f"(rollout), {rec['update_launches']} (update), "
+                             f"expected {want} and none")
+    atol = progress_atol(want_traj, float(ts.env.phi), ppo.rl.progress_scale)
+    lp_err = compare_traj("30c rollout", want_traj, traj_bits(traj),
+                          exact=("action", "done", "time", "on_network", "x",
+                                 "value"), reward_atol=atol)
+    rew_err = float(abs(traj.reward.cpu().double()
+                        - torch.as_tensor(want_traj["reward"]).double())
+                    .max())
+    # K7's kept launches (every eighth step, the last included) that move
+    # someone, bitwise the plain version's.
+    moving = [(label, args, PPO_BLOCKS) for label, args in cap.inputs
+              if bool(fused_shard_winner_plain(*args)[0].any())]
+    if not moving:
+        raise AssertionError("30c: no kept K7 launch moves anyone")
+    err7 = compare_shard_winner(moving)
+    want_env, got_env = _env_bits(ts_u.env), _env_bits(ts_c.env)
+    # The progress potential is a float sum over the blocks.
+    phi = (want_env.pop("phi"), got_env.pop("phi"))
+    bad = _diff_paths(want_env, got_env, "env")
+    if bad or not torch.allclose(torch.as_tensor(phi[1]),
+                                 torch.as_tensor(phi[0]), rtol=1e-6,
+                                 atol=1e-5):
+        raise AssertionError(f"30c: the iteration's environment differs "
+                             f"from the unsharded one at {bad}, potential "
+                             f"{phi}")
+    grad_err = check_grads("30c", errs, rec["updates"], relative=False)
+    reach = adam_reach(ppo, rec["updates"])
+    worst, beyond = params_close("30c", ts_u.params, ts_c.params, reach)
+    if not all(bool(torch.isfinite(v)) for v in metrics):
+        raise AssertionError(f"30c: metrics {metrics}")
+    return {"launches": rec["collection_launches"],
+            "iteration_launches": {k: rec["collection_launches"][k]
+                                   + rec["update_launches"][k]
+                                   for k in want},
+            "rollout_ms_step": rec["collection_ms"] / steps, "rec": rec,
+            "log_prob_err": lp_err, "reward_err": rew_err,
+            "reward_atol": atol, "k7_err": err7,
+            "k7_steps": [label.split()[-1] for label, _, _ in moving],
+            "grad_err": grad_err, "param_worst": worst,
+            "param_beyond": beyond, "reach": reach, "traj": traj_bits(traj)}
+
+
+def _ppo_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
+              device: str) -> None:
+    """A spawned rank of phase 30d: ``ShardedPPO.train_iteration`` and
+    ``SpatialPPO.rollout`` on ``PPO_BLOCKS`` blocks and
+    ``BatchedPPO.train_step`` of ``BATCH_ENVS`` replicas on
+    ``make_mesh(group=...)``, over the ``backend`` group of ``world``
+    processes on ``device``, from the committed Grid8x8 weights, as phases
+    30a, 30c and 28b run them in one process, every update's gradients
+    kept beside the unsharded ones at the same parameters
+    (:class:`GradCheck`).  Writes its results to ``out_dir``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from tarl_tpu_torch.convert import load_params_npz, mpnn_params_from_numpy
+    from tarl_tpu_torch.core import rng
+    from tarl_tpu_torch.core.step import Policy, init_sim_state
+    from tarl_tpu_torch.io.matsim import load_network, load_population
+    from tarl_tpu_torch.io.scenarios import ensure_scenario
+    from tarl_tpu_torch.parallel.mesh import make_mesh
+    from tarl_tpu_torch.parallel.shard import BatchedPPO, replica
+    from tarl_tpu_torch.parallel.sharded_ppo import (
+        ShardedPPO, make_node_mesh)
+    from tarl_tpu_torch.parallel.spatial_ppo import SpatialPPO
+    from tarl_tpu_torch.routing.policies import random_choice
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        group = dist.group.WORLD
+        base = ensure_scenario(os.path.join(ROOT, "build", "scenarios"),
+                               "Grid8x8")
+        net8 = load_network(os.path.join(base, "network"), device=dev)
+        agents8, _ = load_population(os.path.join(base, "population"),
+                                     os.path.join(base, "network"),
+                                     device=dev)
+        st8 = init_sim_state(net8, agents8,
+                             policy=Policy(choice=random_choice))
+        trained = mpnn_params_from_numpy(
+            load_params_npz(os.path.join(ROOT, WEIGHTS)), dev)
+        res = {}
+
+        def timed(name, fn):
+            if on_card:
+                torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            if on_card:
+                torch.cuda.synchronize()
+            res[f"{name}_s"] = time.perf_counter() - t0
+            res[f"{name}_launches"] = counts()
+            return out
+
+        with deterministic():
+            ppo = learned_ppo(net8)
+            ts = ppo.init(st8, rng.prng_key(0),
+                          torch.Generator().manual_seed(0))
+            ts = ts._replace(params=trained,
+                             opt_state=ppo.optimizer.init(trained))
+            mesh = make_node_mesh(PPO_BLOCKS, dev, group=group)
+            sharded = ShardedPPO(ppo, mesh)
+            s_grads = GradCheck(sharded, ppo, relative=False)
+            ts_s, _ = timed("sharded", lambda: sharded.train_iteration(ts))
+            ppo_sp = learned_ppo(net8, PPO_RANK_SPATIAL_STEPS)
+            traj = timed("spatial", lambda: SpatialPPO(ppo_sp, mesh)
+                         .rollout(ts))
+            ppo_b = learned_ppo(net8)
+            trainer = BatchedPPO(ppo_b, make_mesh(group=group, device=dev),
+                                 BATCH_ENVS)
+            tb = trainer.init(st8, rng.prng_key(0),
+                              torch.Generator().manual_seed(0))
+            tb = tb._replace(params=trained,
+                             opt_state=ppo_b.optimizer.init(trained))
+            b_grads = GradCheck(trainer, ppo_b, relative=False)
+            tb1, _ = timed("batched", lambda: trainer.train_step(tb))
+            # Checked after the timed runs; a rank reports, the parent
+            # asserts (a rank that raised would leave the others waiting
+            # in a collective).
+            res.update(sharded_grads=s_grads.run(),
+                       batched_grads=b_grads.run())
+        res.update(
+            blocks=(mesh.first, mesh.held), replicas=list(trainer.replicas),
+            shape=dict(trainer.mesh.shape),
+            sharded_params=_tree_numpy(ts_s.params),
+            sharded_env=_env_bits(ts_s.env), spatial_traj=traj_bits(traj),
+            batched_params=_tree_numpy(tb1.params),
+            batched_envs=[_env_bits(replica(tb1.envs, j))
+                          for j in range(len(trainer.replicas))])
+        with open(os.path.join(out_dir, f"{backend}{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tree_cpu(tree: dict) -> dict:
+    return {p: {k: v.detach().cpu() for k, v in sub.items()}
+            for p, sub in tree.items()}
+
+
+def _tree_numpy(tree: dict) -> dict:
+    return {p: {k: v.detach().cpu().numpy() for k, v in sub.items()}
+            for p, sub in tree.items()}
+
+
+def spawn_ppo_ranks(groups=PPO_GROUPS, device: str = "cuda:0",
+                    timeout: float = PPO_SPAWN_TIMEOUT) -> dict:
+    """Phase 30d's processes: for each ``(backend, world)`` group, ``world``
+    spawned ranks of :func:`_ppo_rank` (a ``FileStore`` of their own), all
+    started together and joined within ``timeout`` seconds; a rank that
+    hangs is killed and fails the phase, as does a nonzero exit.  Returns
+    ``{(backend, rank): result}``."""
+    import multiprocessing
+    import pickle
+    import shutil
+
+    out_dir = os.path.join(ROOT, "build", "ppo30")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ctx = multiprocessing.get_context("spawn")
+    procs = {}
+    for backend, world in groups:
+        store = os.path.join(out_dir, f"{backend}.store")
+        for rank in range(world):
+            procs[backend, rank] = ctx.Process(target=_ppo_rank, args=(
+                rank, world, backend, store, out_dir, device))
+    for p in procs.values():
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs.values():
+            p.join(max(deadline - time.monotonic(), 0.0))
+    finally:
+        hung = [key for key, p in procs.items() if p.is_alive()]
+        for p in procs.values():
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if hung:
+        raise AssertionError(f"30d: ranks {hung} did not end within "
+                             f"{timeout:.0f} s")
+    failed = {key: p.exitcode for key, p in procs.items() if p.exitcode}
+    if failed:
+        raise AssertionError(f"30d: ranks exited with {failed}")
+    out = {}
+    for backend, rank in procs:
+        with open(os.path.join(out_dir, f"{backend}{rank}.pkl"), "rb") as f:
+            out[backend, rank] = pickle.load(f)
+    return out
+
+
+def check_ppo_ranks(results, a: dict, c: dict, batched, on_card: bool,
+                    steps: int) -> None:
+    """Phase 30d's asserts: every rank's sharded iteration, spatial rollout
+    and batched step against the one-process runs (``a``, ``c`` and phase
+    28b's record ``batched``): the environments, trajectories and replicas
+    bitwise where discrete, every update's gradients within ``GRAD_BAR``
+    of the unsharded ones at the same parameters, the parameters within
+    Adam's reach; on the card the launches of each."""
+    import torch
+
+    from tarl_tpu_torch.parallel.shard import replica
+
+    rate = a["reach"] / (2 * a["rec_s"]["updates"])
+
+    def close(name, want, got, updates):
+        got = {p: {k: torch.as_tensor(v) for k, v in sub.items()}
+               for p, sub in got.items()}
+        res[f"{name}_worst"] = params_close(f"{label} {name}", want, got,
+                                            2 * rate * updates)[0]
+
+    for (backend, rank), res in results.items():
+        label = f"30d {backend} rank {rank}"
+        for name, updates in (("sharded", a["rec_s"]["updates"]),
+                              ("batched", batched["updates"])):
+            res[f"{name}_grad_err"] = check_grads(
+                f"{label} {name}", res[f"{name}_grads"], updates, False)
+        close("sharded", _tree_cpu(a["ts_s"].params), res["sharded_params"],
+              a["rec_s"]["updates"])
+        bad = _diff_paths(_env_bits(a["ts_s"].env), res["sharded_env"])
+        if bad:
+            raise AssertionError(f"{label}: the sharded iteration's "
+                                 f"environment differs at {bad}")
+        # The ranks' rollout is the first steps of 30c's.
+        head = {f: v[:PPO_RANK_SPATIAL_STEPS] for f, v in c["traj"].items()}
+        compare_traj(f"{label} spatial", head, res["spatial_traj"],
+                     exact=("action", "done", "time", "on_network", "x",
+                            "value"), reward_atol=c["reward_atol"])
+        envs = batched["ts_out"].envs
+        for j, i in enumerate(res["replicas"]):
+            bad = _diff_paths(_env_bits(replica(envs, i)),
+                              res["batched_envs"][j], f"replica {i}")
+            if bad:
+                raise AssertionError(f"{label} batched: {bad}")
+        close("batched", _tree_cpu(batched["ts_out"].params),
+              res["batched_params"], batched["updates"])
+        n_rep = len(res["replicas"])
+        want = {"sharded": {"K1": steps, "K10": steps, "K11": steps,
+                            "K7": 0},
+                "spatial": {"K1": 0, "K10": 0, "K11": 0,
+                            "K7": PPO_RANK_SPATIAL_STEPS},
+                "batched": {"K1": n_rep * steps, "K10": n_rep * steps,
+                            "K11": n_rep * steps, "K7": 0}}
+        for name, w in want.items():
+            got = {k: res[f"{name}_launches"][k] for k in w}
+            if on_card and got != w:
+                raise AssertionError(f"{label} {name}: launches {got}, "
+                                     f"expected {w}")
+
+
+def response_phase(net, captured, card: str) -> dict:
+    """30f: ``core.response.response_step`` (the legacy confirm) on phase
+    2's captured states after the direction step's push (the winners at
+    the tails, no pop), with K10's bare max and with the plain version
+    (``plain_segments()``), bitwise; one K10 launch a call."""
+    import torch
+
+    from tarl_tpu_torch.core import rng
+    from tarl_tpu_torch.core.direction import direction_step
+    from tarl_tpu_torch.core.response import response_step
+    from tarl_tpu_torch.ops import segment as seg
+    from tarl_tpu_torch.routing.policies import random_choice
+
+    on_card = net.device.type == "cuda"
+    pops = confirms = 0
+    reset_counts()
+    for i, st in enumerate(captured):
+        st, _ = random_choice(st, net)
+        road, _, accept, _ = direction_step(
+            st.road, st.selected_road, net, st.time,
+            rng.direction_gumbel(rng.prng_key(3000 + i), net))
+        before = seg.MAX_LAUNCHES
+        got_road, got = response_step(road, net)
+        if on_card and seg.MAX_LAUNCHES != before + 1:
+            raise AssertionError("30f: response_step did not launch K10 once")
+        with seg.plain_segments():
+            want_road, want = response_step(road, net)
+        bad = _diff_paths(_state_bits(st._replace(road=want_road)),
+                          _state_bits(st._replace(road=got_road)), "road")
+        if bad or not torch.equal(got, want):
+            raise AssertionError(f"30f: K10's bare max and the plain max "
+                                 f"differ on captured state {i}: {bad}")
+        pops += int(got.sum())
+        confirms += int(accept.sum())
+    launches = counts()
+    if on_card and launches["K10"] != len(captured):
+        raise AssertionError(f"30f: launches {launches}")
+    if confirms == 0:
+        raise AssertionError("30f: no transfer on the captured states; the "
+                             "comparison would be vacuous")
+    return {"launches": launches, "states": len(captured), "pops": pops,
+            "accepted": confirms}
+
+
+def ppo_blocks_phase(dev, card: str, net8, st8, trained, single: list,
+                     batched, captured, net16, groups=PPO_GROUPS) -> dict:
+    """Phase 30: (a) ``ShardedPPO`` with the trained MPNN and (b) with the
+    committed Braess transformer (its collection cut to
+    ``GT_BLOCKS_COLLECT``), each against ``PPO.train_iteration``; (c)
+    ``SpatialPPO``; (d) (a), (c) and phase 28b's batched step across
+    processes; (e) ``dryrun_multichip(2, "gloo")``; (f) ``response_step`` on
+    phase 2's ``captured`` states of ``net16``.  (d)'s and (e)'s ranks are
+    spawned first and run beside (a)-(c) and (f); (d) is checked once (a)
+    and (c) are done.  ``single`` is phase 21's probe records, ``batched``
+    phase 28b's record; ``groups`` (d)'s process groups."""
+    import torch
+
+    from tarl_tpu_torch.config import RLConfig
+    from tarl_tpu_torch.core import rng
+    from tarl_tpu_torch.models.transformer.agent import (
+        TransformerRoutePolicy, TransformerValueNet)
+    from tarl_tpu_torch.parallel.dryrun import dryrun_multichip
+    from tarl_tpu_torch.rl.ppo import PPO
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    out = {}
+    single_ms = ", ".join(f"{r['wall_ms']:.1f}" for r in single)
+    beside = (f"{sum(w for _, w in groups) + 2} ranks of 30d-e running "
+              f"beside")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        # --- d./e. spawned first; each joins its ranks within its timeout ---
+        ranks = pool.submit(spawn_ppo_ranks, groups, str(dev))
+        dry = pool.submit(dryrun_multichip, 2, "gloo",
+                          None if on_card else "cpu")
+        # --- a. ShardedPPO, the trained MPNN ---
+        ppo8 = learned_ppo(net8)
+        ts = ppo8.init(st8, rng.prng_key(0),
+                       torch.Generator().manual_seed(0))
+        ts = ts._replace(params=trained,
+                         opt_state=ppo8.optimizer.init(trained))
+        a = out["a"] = sharded_training("30a", lambda: learned_ppo(net8), ts,
+                                        card, relative=False)
+        log(f"30a ShardedPPO, the trained MPNN on {PPO_BLOCKS} node-column "
+            f"blocks of Grid8x8 (N = {net8.num_nodes}): trajectory bitwise "
+            f"the unsharded iteration's, every update's gradients "
+            f"({a['rec_s']['updates']}) within max |d| {a['grad_err']:.3g} "
+            f"of the unsharded ones at the same parameters (the first "
+            f"{a['grad_first']:.3g}; the blocks' per-edge logits at its "
+            f"{ppo8.rl.minibatch_size} rows against the flat forward's: max "
+            f"|diff| {a['row_err']:.3g}), the parameters after the update "
+            f"{fmt_params(a)}; launches {a['launches']}; sharded "
+            f"{fmt_split(a['rec_s'])}; unsharded {fmt_split(a['rec_u'])} "
+            f"({beside}); phase 21's single-environment iterations "
+            f"{single_ms} ms ({card})")
+        # --- b. ShardedPPO, the committed Braess transformer ---
+        netb, _, stb, ppob, paramsb, tree = gt_braess(dev)
+        rl_b = RLConfig(**{**GT_RL, "rollout_steps": GT_BLOCKS_COLLECT})
+        pe = tree["pe"]
+
+        def gt_ppo():
+            return PPO(netb, TransformerRoutePolicy(pe),
+                       TransformerValueNet(pe), rl=rl_b,
+                       value_uses_graph=True)
+
+        tsb = gt_ppo().init(stb, rng.prng_key(0),
+                            torch.Generator().manual_seed(0))
+        tsb = tsb._replace(params=paramsb,
+                           opt_state=ppob.optimizer.init(paramsb))
+        b = out["b"] = sharded_training("30b", gt_ppo, tsb, card,
+                                        relative=True)
+        log(f"30b ShardedPPO, the committed Braess transformer at GT_RL "
+            f"(collection cut to {GT_BLOCKS_COLLECT} steps) on {PPO_BLOCKS} "
+            f"node-column blocks (N = {netb.num_nodes}, padded to "
+            f"{-(-netb.num_nodes // PPO_BLOCKS) * PPO_BLOCKS}; the twin's "
+            f"node rows gathered each layer): trajectory bitwise, every "
+            f"update's gradients ({b['rec_s']['updates']}) within relative "
+            f"{b['grad_err']:.3g} of the unsharded ones at the same "
+            f"parameters (the first {b['grad_first']:.3g}), the parameters "
+            f"{fmt_params(b)}; launches {b['launches']}; sharded "
+            f"{fmt_split(b['rec_s'])}; unsharded {fmt_split(b['rec_u'])} "
+            f"({beside}; {card})")
+        # --- c. SpatialPPO ---
+        c = out["c"] = spatial_training(lambda: learned_ppo(net8), ts,
+                                        traj_bits(a["rec_u"]["trajs"][0]),
+                                        a["ts_u"], card)
+        log(f"30c SpatialPPO, the trained MPNN on {PPO_BLOCKS} road and "
+            f"node-column blocks of Grid8x8, one train_iteration: its "
+            f"rollout of {ppo8.rl.rollout_steps} steps in "
+            f"{c['rollout_ms_step']:.3f} ms/step, actions, dones, clock, "
+            f"on_network, contexts and values bitwise the unsharded "
+            f"collection's, progress rewards within {c['reward_err']:.3g} "
+            f"(tolerance {c['reward_atol']:.3g}: 4e-6 of the largest "
+            f"potential over the scale), log-probs within "
+            f"{c['log_prob_err']:.3g}; launches {c['launches']}; K7's "
+            f"launches at steps {', '.join(c['k7_steps'])} (every eighth "
+            f"that moved someone) bitwise its plain version (max |diff| "
+            f"{c['k7_err']}); every update's gradients "
+            f"({c['rec']['updates']}) within max |d| {c['grad_err']:.3g} of "
+            f"the unsharded ones at the same parameters; the iteration's "
+            f"environment bitwise but its potential (within rtol 1e-6), "
+            f"parameters {fmt_params(c)}, {fmt_split(c['rec'])} ({beside}; "
+            f"{card})")
+        # --- f. the legacy confirm ---
+        f = out["f"] = response_phase(net16, captured, card)
+        log(f"30f response_step on {f['states']} captured headline states "
+            f"after the push ({f['accepted']} transfers, {f['pops']} pops "
+            f"with the double fire): K10's bare max bitwise the plain max; "
+            f"launches {f['launches']} ({card})")
+        d = out["d"] = ranks.result()
+        lines = dry.result()
+    out["de_seconds"] = time.perf_counter() - t_phase
+    # --- d. across processes ---
+    check_ppo_ranks(d, a, c, batched, on_card, ppo8.rl.rollout_steps)
+    log(f"30d ShardedPPO, SpatialPPO and BatchedPPO ({BATCH_ENVS} replicas) "
+        f"across processes (the spatial rollout cut to "
+        f"{PPO_RANK_SPATIAL_STEPS} steps; " + ", ".join(
+            f"{w} {bk} rank(s)" for bk, w in groups)
+        + f", all on the one card; gloo host-staged), "
+        f"{out['de_seconds']:.1f} s from their spawn at the phase's start "
+        f"(30e's two ranks and 30a-c and f beside them): every "
+        f"rank's results equal the one-process runs (environments, "
+        f"trajectories and replicas bitwise; every update's gradients "
+        f"within max |d| {GRAD_BAR['mpnn']:g} of the unsharded ones at the "
+        f"same parameters; parameters within Adam's reach).  Seconds, a "
+        f"protocol check and not a timing of work across cards: " + "; ".join(
+            f"{bk} rank {k} (blocks {r['blocks'][0]}-"
+            f"{r['blocks'][0] + r['blocks'][1] - 1}, replicas "
+            f"{r['replicas'][0]}-{r['replicas'][-1]}, mesh {r['shape']}) "
+            f"sharded {r['sharded_s']:.2f}, spatial {r['spatial_s']:.2f}, "
+            f"batched {r['batched_s']:.2f} (gradients within "
+            f"{r['sharded_grad_err']:.3g} over {len(r['sharded_grads'])} "
+            f"updates and {r['batched_grad_err']:.3g} over "
+            f"{len(r['batched_grads'])}; parameters within "
+            f"{r['sharded_worst']:.3g} and {r['batched_worst']:.3g})"
+            for (bk, k), r in sorted(d.items()))
+        + f" ({card})")
+    # --- e. the dry run ---
+    if len(lines) != 12:
+        raise AssertionError(f"30e: {len(lines)} lines")
+    log(f"30e dryrun_multichip(2, 'gloo'): 12 lines, six paths on each "
+        f"rank, run beside 30a-d ({card})")
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -6138,7 +6882,25 @@ def main() -> int:
         **{f"29d_{b}_rank{k}": r["launches"]["K7"]
            for (b, k), r in sorted(blk["d"].items())}}
 
-    # --- 30. results ------------------------------------------------------
+    # --- 30. sharded and spatial training, the dry run, the legacy confirm
+    ppo_blk = ppo_blocks_phase(dev, card, net8, st8, trained,
+                               train["records"], bat["b"]["record"],
+                               captured, net)
+    log(f"sharded and spatial training phase in {ppo_blk['seconds']:.1f} s")
+    ppo_launches = {key: {
+        "30a_sharded_mpnn": ppo_blk["a"]["launches"][key],
+        "30b_sharded_transformer": ppo_blk["b"]["launches"][key],
+        **{f"30d_{b}_rank{k}_{name}": r[f"{name}_launches"][key]
+           for (b, k), r in sorted(ppo_blk["d"].items())
+           for name in ("sharded", "batched")}}
+        for key in ("K1", "K10", "K11")}
+    spatial_launches = {
+        "30c_rollout": ppo_blk["c"]["launches"]["K7"],
+        "30c_iteration": ppo_blk["c"]["iteration_launches"]["K7"],
+        **{f"30d_{b}_rank{k}": r["spatial_launches"]["K7"]
+           for (b, k), r in sorted(ppo_blk["d"].items())}}
+
+    # --- 31. results ------------------------------------------------------
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     train_launches = train["launches"]
     kern_ms, plain_ms, kern_dev_ms, k1_bound = timings["Grid16x16"]
@@ -6176,6 +6938,7 @@ def main() -> int:
         if key in gt_launches:
             seg_entries[-1]["launches_transformer"] = gt_launches[key]
             seg_entries[-1]["launches_batched"] = bat_launches[key]
+            seg_entries[-1]["launches_ppo_blocks"] = ppo_launches[key]
     # K10's row: the log-prob entry, which the collection launches; the bare
     # max (the TPU kernel's own function) beside it.
     lp, lps = lp_t["log_prob"], lp_t["log_probs"]
@@ -6210,6 +6973,7 @@ def main() -> int:
         "bare_plain_ms": seg_t["max"]["plain_ms"],
         "bare_library_ms": seg_t["max"]["library_ms"],
         "bare_bound_ms": segment_bound_ms(e8, n8),
+        "bare_launches_response_step": ppo_blk["f"]["launches"]["K10"],
     })
     # K11's row: the action entry, which the learned paths launch; the
     # bare argmax (the TPU kernel's own function) beside it.
@@ -6270,11 +7034,12 @@ def main() -> int:
         "launches_city_sp": city["sp"]["winner_launches"],
         "launches_transformer": gt_launches["K1"],
         "launches_batched": bat_launches["K1"],
+        "launches_ppo_blocks": ppo_launches["K1"],
         "launches_from": "headline (phase 2); beside it the sp row (5), "
                          "training (21), the classical and dual rows (24), "
                          "the CLI (25), the city rows (26), the "
-                         "transformer's paths (27) and batched training "
-                         "(28)",
+                         "transformer's paths (27), batched training "
+                         "(28) and sharded training (30)",
     }, {
         "name": "primal_relax",
         "route": "cuda",
@@ -6438,11 +7203,13 @@ def main() -> int:
         "launches": sh["launches"]["K7"],
         "launches_from": "sharded headline (phase 17); every policy on "
                          "blocks and the ranks across processes (phase 29) "
-                         "in launches_blocks",
+                         "in launches_blocks; spatial training (phase 30) "
+                         "in launches_spatial_ppo",
         "launches_padded_mesh": padded_counts["K7"],
         "launches_sp_row": sp_sh_counts["K7"],
         "launches_blocks": blk_launches,
-        "max_abs_err": err7,
+        "launches_spatial_ppo": spatial_launches,
+        "max_abs_err": max(err7, ppo_blk["c"]["k7_err"]),
         "ms": k7_t["Grid16x16"][0],
         "device_ms": k7_t["Grid16x16"][2],
         "plain_ms": k7_t["Grid16x16"][1],

@@ -91,10 +91,10 @@ class _SlotGTConv(GTConv):
                 in_ok: torch.Tensor, in_src: torch.Tensor,
                 e_in: torch.Tensor, out_dst: torch.Tensor,
                 e_out: torch.Tensor):
-        """``h[N, D]``, ``cols[M]``, the in-tables ``[KA, M]`` with their
-        edge states ``e_in[KA, M, hidden]``, the out-tables likewise;
-        returns ``(h_cols [M, D], e_in, e_out)`` after the layer."""
-        n = h.shape[0]
+        """``h[..., N, D]`` (leading axes a batch), ``cols[M]``, the
+        in-tables ``[KA, M]`` with their edge states ``e_in[..., KA, M,
+        hidden]``, the out-tables likewise; returns ``(h_cols [..., M, D],
+        e_in, e_out)`` after the layer."""
         q = self.heads(self.WQ(h))
         k = self.heads(self.WK(h))
         v = self.heads(self.WV(h))
@@ -103,26 +103,28 @@ class _SlotGTConv(GTConv):
         # In-entries: attention at the column (target) nodes.  The masked
         # slot softmax is the segment softmax per target: stabilised by the
         # finite masked max, its denominator clamped.
-        scores, e_ij_in = self.edge_scores(e_in, q[cols][None], k[in_src])
+        scores, e_ij_in = self.edge_scores(e_in, q[..., None, cols, :, :],
+                                           k[..., in_src, :, :])
         ok = in_ok[..., None]
-        smax = torch.where(ok, scores, float("-inf")).amax(dim=0)
+        smax = torch.where(ok, scores, float("-inf")).amax(dim=-3)
         smax = torch.where(torch.isfinite(smax), smax, 0.0)
-        expd = torch.where(ok, torch.exp(scores - smax[None]), 0.0)
-        alpha = expd / torch.clamp(expd.sum(dim=0), min=1e-30)[None]
+        expd = torch.where(ok, torch.exp(scores - smax[..., None, :, :]),
+                           0.0)
+        alpha = expd / torch.clamp(expd.sum(dim=-3),
+                                   min=1e-30)[..., None, :, :]
 
-        vals = v[in_src]
+        vals = v[..., in_src, :, :]
         if self.gate:
             g = self.heads(self.n_gate(h))
-            vals = vals * torch.sigmoid(g[in_src])
-        agg = (alpha[..., None] * vals).sum(dim=0).reshape(
-            cols.shape[0], self.hidden_dim)
-        h_cols = self.node_out(agg, h[cols])
+            vals = vals * torch.sigmoid(g[..., in_src, :, :])
+        agg = (alpha[..., None] * vals).sum(dim=-4).flatten(-2)
+        h_cols = self.node_out(agg, h[..., cols, :])
 
         # The edge states of both tables; on the out-entries the column is
         # the source (masked lanes carry values no valid logit reads).
         e_in_next = self.edge_out(e_ij_in, e_in)
-        _, e_ij_out = self.edge_scores(e_out, q[out_dst.long()],
-                                       k[cols][None])
+        _, e_ij_out = self.edge_scores(e_out, q[..., out_dst.long(), :, :],
+                                       k[..., None, cols, :, :])
         return h_cols, e_in_next, self.edge_out(e_ij_out, e_out)
 
 
@@ -155,21 +157,30 @@ class SlotTransformerRoutePolicy(TransformerRoutePolicy):
 
     def forward(self, x: torch.Tensor, tables: SlotEdgeTables,
                 cols: torch.Tensor, sync=None) -> torch.Tensor:
-        """``x[N, C]`` the full node context, ``cols`` int32[M] the source
-        columns to score; ``[KF, M]`` out-slot logits."""
+        """``x[..., N, C]`` the full node context (leading axes a batch),
+        ``cols`` int32[M] the source columns to score; ``[..., KF, M]``
+        out-slot logits.  ``sync`` takes each layer's updated rows ``[...,
+        M, D]`` of the columns to the next layer's node state ``[..., N,
+        D]`` (the columns must then be every node, as without it)."""
         xs = x / (1.0 + torch.abs(x))
         return self.transformer(xs, self.pe, tables, cols, sync=sync)
 
 
-def slot_twin(policy_net: TransformerRoutePolicy
-              ) -> SlotTransformerRoutePolicy:
+def slot_twin(policy_net: TransformerRoutePolicy,
+              num_nodes: int | None = None) -> SlotTransformerRoutePolicy:
     """The slot-major twin of ``policy_net`` (the same hyperparameters and
-    encoding, on its device).  Deterministic rollouts only: raises where
+    encoding, on its device), its encoding padded with zero rows to
+    ``num_nodes`` where that is given (node-column blocks padded to a
+    multiple of the blocks).  Deterministic rollouts only: raises where
     the policy has dropout."""
     if float(policy_net.dropout) != 0.0:
         raise ValueError("slot forward supports deterministic rollouts only")
+    pe = policy_net.pe.cpu().numpy()
+    if num_nodes is not None:
+        pe = np.concatenate([pe, np.zeros((num_nodes - pe.shape[0],
+                                           pe.shape[1]), pe.dtype)])
     twin = SlotTransformerRoutePolicy(
-        pe=policy_net.pe.cpu().numpy(), hidden_dim=policy_net.hidden_dim,
+        pe=pe, hidden_dim=policy_net.hidden_dim,
         num_layers=policy_net.num_layers, num_heads=policy_net.num_heads,
         gate=policy_net.gate, context_dim=policy_net.context_dim,
         edge_dim=policy_net.edge_dim)

@@ -118,6 +118,12 @@ class Network:
         return segment_layout(self.edge_dst, self.num_roads)
 
     @functools.cached_property
+    def edge_src_layout(self) -> SegmentLayout:
+        """The CSR of ``edge_src`` over the roads (each road's outgoing
+        turn edges, the legacy confirm's segments), built on first use."""
+        return segment_layout(self.edge_src, self.num_roads)
+
+    @functools.cached_property
     def winner_tables(self) -> tuple[int, ...]:
         """Addresses of the tables the direction winner's kernel (K1)
         reads: ``capacity``, ``in_src_tab``, ``in_logit_tab``,

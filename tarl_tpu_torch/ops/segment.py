@@ -164,12 +164,13 @@ def segment_sum_plain(data, segment_ids, num_segments: int,
 def segment_max_plain(data, segment_ids, num_segments: int,
                       layout=None):
     """Max per segment from ``NEG_LARGE``; NaN where the segment holds
-    one.  Float32 ``data[E, ...]``: trailing axes reduce independently."""
+    one.  Float ``data[E, ...]`` (float32 on every path; float64 for a
+    reference gradient): trailing axes reduce independently."""
     key = _drop_key(segment_ids, num_segments)
     index = key.reshape((-1,) + (1,) * (data.dim() - 1)).expand(data.shape)
     isnan = torch.isnan(data)
     out = torch.full((num_segments + 1,) + tuple(data.shape[1:]), NEG_LARGE,
-                     dtype=torch.float32, device=data.device)
+                     dtype=data.dtype, device=data.device)
     out.scatter_reduce_(0, index, torch.where(isnan, NEG_LARGE, data),
                         "amax")
     nans = torch.zeros(out.shape, dtype=torch.int32,

@@ -98,6 +98,7 @@ from ..rl.learned_policy import (
     slot_logits,
 )
 from ..state import MetricState, RoadState, SimState, TickLog
+from .mesh import Ranks
 
 
 class RoadMesh:
@@ -109,83 +110,81 @@ class RoadMesh:
     are a reshape and a sum over the block axis.  With a
     ``torch.distributed`` process group of W ranks, rank k holds blocks
     ``[k S/W, (k+1) S/W)`` and the collectives run over the group, in rank
-    order.  An NCCL group takes the tensors on the card as they are.  A
-    gloo group takes them on the host: tensors on the card are copied to
-    the host and back around each collective.  That is the CPU's transport,
-    and on one card the check of the protocol across processes, not a
-    transport for work across cards.  Neither backend stands in for the
-    other.
+    order, through its :class:`~tarl_tpu_torch.parallel.mesh.Ranks`
+    (``ranks``; NCCL on the card, gloo staged through the host).
 
     Every rank ends each collective with the same bits.  An all-gather
     copies.  The tick's sums are of integers only: the inserted and arrival
     marks (int32 per agent, written by one block each) and the on-way and
     done counts (int32, cast to float32 after the sum, as the serial tick
     casts its own integer sum), so the ring order of a reduction cannot
-    change a bit; a bool sums as int32.  A float sum would be bitwise only
-    where one rank's part is nonzero; the tick makes none."""
+    change a bit; a bool sums as int32.
+
+    The training paths (``parallel.sharded_ppo``, ``parallel.spatial_ppo``)
+    also sum floats: per-block log-prob and entropy partials, the
+    ``progress`` potential's block sums and the gradients
+    (:meth:`psum_tensors`).  A float sum adds the held blocks in block
+    order and then the ranks in the ring's order, which is not the
+    one-process order, so those results are held to a tolerance, never
+    bitwise.  :meth:`all_gather` and :meth:`psum` carry gradients across
+    ranks (:class:`~tarl_tpu_torch.parallel.mesh.Ranks`); in one process
+    the reshape and the sum carry them already."""
 
     def __init__(self, num_blocks: int, device=None, group=None):
         if num_blocks < 1:
             raise ValueError(f"num_blocks must be positive, got {num_blocks}")
         self.num_blocks = num_blocks
         self.group = group
-        self.world, rank = 1, 0
-        self._staged = False
+        self.ranks = None
+        world, rank = 1, 0
         if group is not None:
-            self.world = dist.get_world_size(group)
-            rank = dist.get_rank(group)
-            if num_blocks % self.world:
+            world, rank = dist.get_world_size(group), dist.get_rank(group)
+            if num_blocks % world:
                 raise ValueError(f"{num_blocks} road blocks do not split "
-                                 f"over {self.world} ranks")
+                                 f"over {world} ranks")
             if device is None:
                 local = int(os.environ.get("LOCAL_RANK", rank))
                 device = torch.device("cuda", local)
         self.device = resolve_device(device)
         if group is not None:
-            backend = dist.get_backend(group)
-            if backend == "nccl" and self.device.type != "cuda":
-                raise ValueError(f"an NCCL group takes tensors on the card, "
-                                 f"not on {self.device}")
-            if backend not in ("nccl", "gloo"):
-                raise ValueError(f"no road mesh over the {backend} backend")
-            self._staged = backend == "gloo" and self.device.type != "cpu"
-        self.held = num_blocks // self.world
+            self.ranks = Ranks(group, self.device)
+        self.rank = rank
+        self.held = num_blocks // world
         self.first = rank * self.held
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """``[held, rl, ...]`` rows of the held blocks -> ``[num_blocks *
-        rl, ...]``, the rows of every block in block order."""
+        rl, ...]``, the rows of every block in block order; differentiable
+        across ranks."""
         rows = x.reshape(-1, *x.shape[2:])
-        if self.group is None:
-            return rows
-        part = rows.cpu() if self._staged else rows.contiguous()
-        out = torch.empty((self.world * part.shape[0],) + tuple(
-            part.shape[1:]), dtype=part.dtype, device=part.device)
-        # all_gather_single is all_gather_into_tensor's newer name.
-        gather = getattr(dist, "all_gather_single",
-                         dist.all_gather_into_tensor)
-        gather(out, part, group=self.group)
-        return out.to(self.device) if self._staged else out
+        return rows if self.ranks is None else self.ranks.gather(rows)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """``[held, ...]`` per-block partials -> their sum over all
-        blocks (a bool sums as int32)."""
+        blocks (a bool sums as int32); differentiable across ranks."""
         dtype = torch.int32 if x.dtype == torch.bool else x.dtype
         total = x.sum(dim=0, dtype=dtype)
-        if self.group is None:
-            return total
-        part = total.cpu() if self._staged else total
-        dist.all_reduce(part, op=dist.ReduceOp.SUM, group=self.group)
-        return part.to(self.device) if self._staged else part
+        return total if self.ranks is None else self.ranks.sum(total,
+                                                                fresh=True)
+
+    def psum_tensors(self, tensors: list) -> list:
+        """Each of ``tensors`` (this process's float partials, one dtype)
+        summed over the ranks, in one all-reduce; the tensors themselves in
+        one process."""
+        if self.ranks is None:
+            return list(tensors)
+        return self.ranks.sum_tensors(tensors)
 
 
 def make_road_mesh(num_blocks: int, device=None, group=None) -> RoadMesh:
-    """A mesh of ``num_blocks`` road blocks on ``device`` (``None``: the
-    card; with a ``group``, ``cuda:<LOCAL_RANK>``, the group rank where the
-    environment names none), all held by this process, or split over the
-    ranks of the ``torch.distributed`` process ``group`` (see
-    :class:`RoadMesh`).  Raises where the group's size does not divide
-    ``num_blocks``."""
+    """A mesh of ``num_blocks`` road blocks (node-column blocks for the
+    training paths: ``sharded_ppo.make_node_mesh`` and
+    ``spatial_ppo.make_spatial_mesh`` are this function) on ``device``
+    (``None``: the card; with a ``group``, ``cuda:<LOCAL_RANK>``, the group
+    rank where the environment names none), all held by this process, or
+    split over the ranks of the ``torch.distributed`` process ``group``
+    (see :class:`RoadMesh`).  Raises where the group's size does not
+    divide ``num_blocks``."""
     return RoadMesh(num_blocks, device, group)
 
 
@@ -314,6 +313,195 @@ def _learned_block_choice(spec, network: Network, mesh: RoadMesh,
     return choice
 
 
+class RoadBlocks:
+    """The roads of ``network`` on the blocks of ``mesh``, and the sections
+    of a tick that read across blocks, shared by the sharded episode and
+    ``parallel.spatial_ppo``'s rollout.
+
+    ``rp`` roads padded to a multiple of the blocks, ``rl`` rows a block;
+    this process holds rows ``[lo, lo + n)``.  Per-road columns of these
+    rows are :attr:`tables`; the ring state of the held rows is a
+    :class:`~tarl_tpu_torch.state.RoadState` of ``n`` rows, the hourly
+    metrics ``[H, n]`` columns."""
+
+    def __init__(self, network: Network, mesh: RoadMesh, num_agents: int):
+        s_blocks = mesh.num_blocks
+        self.network, self.mesh = network, mesh
+        self.r, self.nmax = network.num_roads, network.nmax
+        self.rp = -(-self.r // s_blocks) * s_blocks
+        self.rl = self.rp // s_blocks
+        self.lo, self.n = mesh.first * self.rl, mesh.held * self.rl
+        self.a = num_agents
+        self.dev = dev = network.device
+        self.layout = upstream_pack_layout(self.r, self.nmax)
+        capacity = self.rows(network.capacity, 0.0)
+        self.tables = _Tables(
+            capacity=capacity,
+            free_flow=self.rows(network.free_flow, 1.0),
+            congestion_constant=self.rows(network.congestion_constant, 1.0),
+            road_dest=self.rows(network.road_dest, -1),
+            slots=ShardTables(
+                in_src=self.cols(network.in_src_tab, 0),
+                in_logit=self.cols(network.in_logit_tab, 0.0),
+                in_ok=self.cols(network.in_edge_ok, False),
+                capacity=capacity, road_order=network.road_order),
+        )
+        self.cap_p = self.pad(network.capacity, 0.0)
+        # The held block of each local row.
+        self.owner = torch.arange(self.n, device=dev) // self.rl
+
+    def pad(self, x, fill):
+        """``x`` with its leading (road) axis padded to ``rp``."""
+        if self.rp == self.r:
+            return x
+        tail = torch.full((self.rp - self.r,) + tuple(x.shape[1:]), fill,
+                          dtype=x.dtype, device=x.device)
+        return torch.cat([x, tail])
+
+    def rows(self, x, fill):
+        """The held blocks' rows of a per-road array."""
+        return self.pad(x, fill)[self.lo:self.lo + self.n]
+
+    def cols(self, x, fill):
+        """The held blocks' columns of a ``[*, R]`` array."""
+        return self.pad(x.t(), fill)[self.lo:self.lo + self.n].t() \
+            .contiguous()
+
+    def gather_rows(self, x):
+        """Every real road's rows of a held-rows array."""
+        mesh = self.mesh
+        return mesh.all_gather(x.reshape(mesh.held, self.rl,
+                                         *x.shape[1:]))[:self.r]
+
+    def gather_cols(self, x):
+        return self.gather_rows(x.t()).t().contiguous()
+
+    def block_sums(self, x) -> torch.Tensor:
+        """int32 ``[held]``: a held-rows int array summed per block."""
+        return x.view(self.mesh.held, self.rl).sum(dim=1, dtype=torch.int32)
+
+    def halo(self, ring: RoadState) -> Halo:
+        f32, i32 = torch.float32, torch.int32
+        local = torch.stack([
+            ring.head_ids(), ring.head_arrival().view(i32),
+            ring.head_departure().view(i32), ring.count, ring.head,
+            ring.head_dests()], dim=1)
+        g = self.mesh.all_gather(local.view(self.mesh.held, self.rl, 6)) \
+            .t().contiguous()
+        return Halo(g[0], g[1].view(f32), g[2].view(f32), g[3], g[4], g[5])
+
+    def merge_agents(self, local_rows, ids, valid) -> torch.Tensor:
+        """Agents written by some block: per-block marks of ``ids`` (at
+        local ring rows ``local_rows`` where ``valid``), summed by
+        ``psum``.  bool[A]."""
+        mesh, a = self.mesh, self.a
+        marks = scatter_set(
+            torch.zeros(mesh.held * a, dtype=torch.int32, device=self.dev),
+            torch.div(local_rows, self.rl, rounding_mode="floor") * a + ids,
+            1, valid)
+        return mesh.psum(marks.view(mesh.held, a)) > 0
+
+    def admit(self, blocks, agents, network, time, physics, ids, road_key,
+              dest, update_inserted=True, stamp_count=None):
+        """``_admit_candidates`` on road blocks: the admission math on the
+        global heads and counts, ring writes masked to the held blocks."""
+        ok, slot, dep_stamp = admission(blocks.head, blocks.count, network,
+                                        time, physics, road_key, self.nmax,
+                                        stamp_count)
+        local = road_key.long() - self.lo
+        mine = ok & (local >= 0) & (local < self.n)
+        ring = write_rings(blocks.ring, local, slot, mine, ids, dest,
+                           dep_stamp, time)
+        count = scatter_add(blocks.count, road_key, ok.to(torch.int32), ok)
+        if update_inserted:
+            agents = agents._replace(
+                inserted=agents.inserted | self.merge_agents(local, ids,
+                                                             mine))
+        return _Blocks(ring, blocks.head, count), agents, ok
+
+    def insert(self, agents, ring: RoadState, hl: Halo, selected_road, time,
+               physics, entry_road=None):
+        """The whole-population insert on the blocks: ``(agents, ring)``,
+        the ring's counts the held rows of the global counts."""
+        blocks, agents = insert_agents(
+            _Blocks(ring, hl.head, hl.count), agents, selected_road,
+            self.network, time, physics, entry_road=entry_road,
+            admit=self.admit)
+        return agents, blocks.ring._replace(
+            count=blocks.count[self.lo:self.lo + self.n])
+
+    def withdraw(self, agents, ring: RoadState, time, depth=None,
+                 escalate: bool = False):
+        """The withdraw on the held rows: ``(agents, ring, wcount)``, the
+        arrivals merged over the blocks."""
+        mesh, a, nmax = self.mesh, self.a, self.nmax
+        k = nmax if depth is None else min(depth, nmax)
+        marks = torch.zeros(mesh.held * a, dtype=torch.int32,
+                            device=self.dev)
+
+        def one_pass(head, count, marks):
+            ids, run, w = scan_run(ring, self.tables.road_dest, time, head,
+                                   count, k)
+            marks = scatter_set(marks, (self.owner[:, None] * a + ids)
+                                .reshape(-1), 1, run.reshape(-1))
+            return (torch.remainder(head + w, nmax).to(torch.int32),
+                    count - w, marks, w)
+
+        head, count, marks, wcount = one_pass(ring.head, ring.count, marks)
+        if escalate and k < nmax:
+            # Every held block scans again while any of them hit the depth:
+            # a pass changes nothing on a block whose runs stopped short.
+            last = wcount
+            while host_read(torch.any(last == k))[0]:
+                head, count, marks, last = one_pass(head, count, marks)
+                wcount = wcount + last
+        withdrew = mesh.psum(marks.view(mesh.held, a)) > 0
+        agents = agents._replace(
+            arrival=torch.where(withdrew, time, agents.arrival))
+        return agents, ring._replace(head=head, count=count), wcount
+
+    def core(self, ring: RoadState, hl: Halo, selected_road, time, k_dir,
+             physics, winner: Callable = fused_shard_winner):
+        """The blocks' winners (one ``winner`` call for the held blocks),
+        the tail push and the head pop: ``(ring, popped)``, ``popped`` bool
+        over the held rows."""
+        r, rp, lo, n = self.r, self.rp, self.lo, self.n
+        mesh = self.mesh
+        sel = selected_road[:r]
+        sel_enc = self.pad(torch.where((sel >= 0) & (sel < r), sel, r), r)
+        pack = pack_upstream(hl.departure, hl.count, self.cap_p, sel_enc,
+                             time, physics, r, self.nmax)
+        accept, win, agent, dest = winner(
+            pack, hl.ids, hl.dests, k_dir, self.tables.slots,
+            ring.count.to(torch.float32), lo, rp, physics, self.layout)
+        ring = push_winners(ring, self.tables, time, accept, agent, dest,
+                            physics)
+        winners = mesh.all_gather(win.view(mesh.held, self.rl))
+        popped = scatter_set(torch.zeros(rp, dtype=torch.bool,
+                                         device=self.dev),
+                             winners, True, winners < rp)[lo:lo + n]
+        return pop_heads(ring, popped), popped
+
+    def local_state(self, state: SimState) -> SimState:
+        """``state`` with its rings and hourly metrics cut to the held
+        rows."""
+        return state._replace(
+            road=RoadState(*(self.rows(f, 0) for f in state.road)),
+            metrics=state.metrics._replace(
+                hourly_counts=self.cols(state.metrics.hourly_counts, 0),
+                delta_tt_hourly=self.cols(state.metrics.delta_tt_hourly,
+                                          0.0)))
+
+    def global_state(self, st: SimState) -> SimState:
+        """The inverse of :meth:`local_state`, gathered over the blocks."""
+        return st._replace(
+            road=RoadState(*(self.gather_rows(f) for f in st.road)),
+            metrics=st.metrics._replace(
+                hourly_counts=self.gather_cols(st.metrics.hourly_counts),
+                delta_tt_hourly=self.gather_cols(
+                    st.metrics.delta_tt_hourly)))
+
+
 def run_episode_shard_map(
     state: SimState,
     network: Network,
@@ -349,85 +537,13 @@ def run_episode_shard_map(
             mesh.device.index is not None and dev.index != mesh.device.index):
         raise ValueError(f"the state lies on {dev}, the mesh on "
                          f"{mesh.device}")
-    s_blocks = mesh.num_blocks
-    r, nmax = network.num_roads, network.nmax
-    rp = -(-r // s_blocks) * s_blocks
-    rl = rp // s_blocks
-    lo, n = mesh.first * rl, mesh.held * rl
-    a = state.agents.num_agents
-    layout = upstream_pack_layout(r, nmax)
+    kit = RoadBlocks(network, mesh, state.agents.num_agents)
+    r, rl, lo, n = kit.r, kit.rl, kit.lo, kit.n
     lazy = sim.insert_backlog is not None and state.backlog is not None
     want_delta = (sim.record_road_optimality
                   or sim.record_road_optimality_hourly)
-
-    def pad(x, fill):
-        """``x`` with its leading (road) axis padded to ``rp``."""
-        if rp == r:
-            return x
-        tail = torch.full((rp - r,) + tuple(x.shape[1:]), fill,
-                          dtype=x.dtype, device=x.device)
-        return torch.cat([x, tail])
-
-    def rows(x, fill):
-        """The held blocks' rows of a per-road array."""
-        return pad(x, fill)[lo:lo + n]
-
-    def cols(x, fill):
-        """The held blocks' columns of a ``[*, R]`` array."""
-        return pad(x.t(), fill)[lo:lo + n].t().contiguous()
-
-    capacity = rows(network.capacity, 0.0)
-    tables = _Tables(
-        capacity=capacity,
-        free_flow=rows(network.free_flow, 1.0),
-        congestion_constant=rows(network.congestion_constant, 1.0),
-        road_dest=rows(network.road_dest, -1),
-        slots=ShardTables(
-            in_src=cols(network.in_src_tab, 0),
-            in_logit=cols(network.in_logit_tab, 0.0),
-            in_ok=cols(network.in_edge_ok, False),
-            capacity=capacity, road_order=network.road_order),
-    )
-    cap_p = pad(network.capacity, 0.0)
-    owner = torch.arange(n, device=dev) // rl     # held block of a local row
     learned = (None if policy.learned is None else
                _learned_block_choice(policy.learned, network, mesh, rl))
-
-    def halo(ring: RoadState) -> Halo:
-        f32, i32 = torch.float32, torch.int32
-        local = torch.stack([
-            ring.head_ids(), ring.head_arrival().view(i32),
-            ring.head_departure().view(i32), ring.count, ring.head,
-            ring.head_dests()], dim=1)
-        g = mesh.all_gather(local.view(mesh.held, rl, 6)).t().contiguous()
-        return Halo(g[0], g[1].view(f32), g[2].view(f32), g[3], g[4], g[5])
-
-    def merge_agents(local_rows, ids, valid) -> torch.Tensor:
-        """Agents written by some block: per-block marks of ``ids`` (at
-        local ring rows ``local_rows`` where ``valid``), summed by
-        ``psum``.  bool[A]."""
-        marks = scatter_set(
-            torch.zeros(mesh.held * a, dtype=torch.int32, device=dev),
-            torch.div(local_rows, rl, rounding_mode="floor") * a + ids, 1,
-            valid)
-        return mesh.psum(marks.view(mesh.held, a)) > 0
-
-    def admit(blocks, agents, network, time, physics, ids, road_key, dest,
-              update_inserted=True, stamp_count=None):
-        """``_admit_candidates`` on road blocks: the admission math on the
-        global heads and counts, ring writes masked to the held blocks."""
-        ok, slot, dep_stamp = admission(blocks.head, blocks.count, network,
-                                        time, physics, road_key, nmax,
-                                        stamp_count)
-        local = road_key.long() - lo
-        mine = ok & (local >= 0) & (local < n)
-        ring = write_rings(blocks.ring, local, slot, mine, ids, dest,
-                           dep_stamp, time)
-        count = scatter_add(blocks.count, road_key, ok.to(torch.int32), ok)
-        if update_inserted:
-            agents = agents._replace(
-                inserted=agents.inserted | merge_agents(local, ids, mine))
-        return _Blocks(ring, blocks.head, count), agents, ok
 
     def insert(st: SimState, ring: RoadState, hl: Halo):
         """Returns ``(st, ring, saturated)``."""
@@ -452,66 +568,38 @@ def run_episode_shard_map(
                 backlog=backlog._replace(qpack=qpack, qhead=qhead,
                                          qcount=qcount),
                 insert_ptr=ptr), ring, saturated
-        blocks = _Blocks(ring, hl.head, hl.count)
-        ptr, saturated = st.insert_ptr, 0.0
-        if sim.insert_window is not None:
-            entry_fn = entry_road = None
-            if policy.entry_lookup is not None:
-                def entry_fn(ids):
-                    return policy.entry_lookup(st, network, ids)
-            elif policy.entry is not None:
-                entry_road = policy.entry(st, network)
-            blocks, agents, ptr, saturated = insert_agents_windowed(
-                blocks, st.agents, st.selected_road, network, t,
-                st.insert_order, st.insert_ptr, sim.insert_window, physics,
-                entry_road=entry_road, entry_lookup=entry_fn,
-                sorted_fast=sim.sorted_population,
-                escalate=sim.insert_escalate, admit=admit)
-        else:
+        if sim.insert_window is None:
             entry_road = (policy.entry(st, network)
                           if policy.entry is not None else None)
-            blocks, agents = insert_agents(
-                blocks, st.agents, st.selected_road, network, t, physics,
-                entry_road=entry_road, admit=admit)
+            agents, ring = kit.insert(st.agents, ring, hl, st.selected_road,
+                                      t, physics, entry_road=entry_road)
+            return st._replace(agents=agents), ring, 0.0
+        entry_fn = entry_road = None
+        if policy.entry_lookup is not None:
+            def entry_fn(ids):
+                return policy.entry_lookup(st, network, ids)
+        elif policy.entry is not None:
+            entry_road = policy.entry(st, network)
+        blocks, agents, ptr, saturated = insert_agents_windowed(
+            _Blocks(ring, hl.head, hl.count), st.agents, st.selected_road,
+            network, t, st.insert_order, st.insert_ptr, sim.insert_window,
+            physics, entry_road=entry_road, entry_lookup=entry_fn,
+            sorted_fast=sim.sorted_population, escalate=sim.insert_escalate,
+            admit=kit.admit)
         ring = blocks.ring._replace(count=blocks.count[lo:lo + n])
         return st._replace(agents=agents, insert_ptr=ptr), ring, saturated
-
-    def withdraw(st: SimState, ring: RoadState):
-        """Returns ``(st, ring, wcount)``."""
-        t = st.time
-        k = nmax if sim.withdraw_depth is None else min(sim.withdraw_depth,
-                                                        nmax)
-        marks = torch.zeros(mesh.held * a, dtype=torch.int32, device=dev)
-
-        def one_pass(head, count, marks):
-            ids, run, w = scan_run(ring, tables.road_dest, t, head, count, k)
-            marks = scatter_set(marks, (owner[:, None] * a + ids).reshape(-1),
-                                1, run.reshape(-1))
-            return (torch.remainder(head + w, nmax).to(torch.int32),
-                    count - w, marks, w)
-
-        head, count, marks, wcount = one_pass(ring.head, ring.count, marks)
-        if sim.withdraw_escalate and k < nmax:
-            # Every held block scans again while any of them hit the depth:
-            # a pass changes nothing on a block whose runs stopped short.
-            last = wcount
-            while host_read(torch.any(last == k))[0]:
-                head, count, marks, last = one_pass(head, count, marks)
-                wcount = wcount + last
-        withdrew = mesh.psum(marks.view(mesh.held, a)) > 0
-        agents = st.agents._replace(
-            arrival=torch.where(withdrew, t, st.agents.arrival))
-        return (st._replace(agents=agents),
-                ring._replace(head=head, count=count), wcount)
 
     def tick(st: SimState) -> tuple[SimState, TickLog]:
         t = st.time
         ring = st.road
-        st, ring, saturated = insert(st, ring, halo(ring))
-        st, ring, wcount = withdraw(st, ring)
+        st, ring, saturated = insert(st, ring, kit.halo(ring))
+        agents, ring, wcount = kit.withdraw(st.agents, ring, t,
+                                            sim.withdraw_depth,
+                                            sim.withdraw_escalate)
+        st = st._replace(agents=agents)
 
         # --- choice: edge-sharded (learned) or replicated on the halo ---
-        hl = halo(ring)
+        hl = kit.halo(ring)
         if learned is not None:
             st = learned(st, hl)
         else:
@@ -524,20 +612,10 @@ def run_episode_shard_map(
 
         # --- core: the blocks' winners (K7), tail push, head pop ---
         key, k_dir = split(st.key)
-        sel = st.selected_road[:r]
-        sel_enc = pad(torch.where((sel >= 0) & (sel < r), sel, r), r)
-        pack = pack_upstream(hl.departure, hl.count, cap_p, sel_enc, t,
-                             physics, r, nmax)
-        accept, win, agent, dest = winner(
-            pack, hl.ids, hl.dests, k_dir, tables.slots,
-            ring.count.to(torch.float32), lo, rp, physics, layout)
         delta = (road_delta(hl.roads(r), network) if want_delta
                  else torch.zeros((0,), dtype=torch.float32, device=dev))
-        ring = push_winners(ring, tables, t, accept, agent, dest, physics)
-        winners = mesh.all_gather(win.view(mesh.held, rl))
-        popped = scatter_set(torch.zeros(rp, dtype=torch.bool, device=dev),
-                             winners, True, winners < rp)[lo:lo + n]
-        ring = pop_heads(ring, popped)
+        ring, popped = kit.core(ring, hl, st.selected_road, t, k_dir,
+                                physics, winner)
 
         # --- clock + metrics ---
         hour = min(max(int(np.float32(t) / np.float32(3600.0)), 0),
@@ -548,13 +626,10 @@ def run_episode_shard_map(
         delta_hourly = m.delta_tt_hourly
         if sim.record_road_optimality_hourly and want_delta:
             delta_hourly = delta_hourly.clone()
-            delta_hourly[hour] += rows(delta, 0.0)
-        per_block = (mesh.held, rl)
-        f32, i32 = torch.float32, torch.int32
-        on_way = mesh.psum(
-            ring.count.view(per_block).sum(dim=1, dtype=i32)).to(f32)
-        done = m.done_before + mesh.psum(
-            wcount.view(per_block).sum(dim=1, dtype=i32)).to(f32)
+            delta_hourly[hour] += kit.rows(delta, 0.0)
+        f32 = torch.float32
+        on_way = mesh.psum(kit.block_sums(ring.count)).to(f32)
+        done = m.done_before + mesh.psum(kit.block_sums(wcount)).to(f32)
         log = TickLog(
             departures=on_way - m.on_way_before + done - m.done_before,
             arrivals=done - m.done_before,
@@ -569,29 +644,12 @@ def run_episode_shard_map(
             metrics=MetricState(hourly, on_way, done, delta_hourly),
         ), log
 
-    st = state._replace(
-        road=RoadState(*(rows(f, 0) for f in state.road)),
-        metrics=state.metrics._replace(
-            hourly_counts=cols(state.metrics.hourly_counts, 0),
-            delta_tt_hourly=cols(state.metrics.delta_tt_hourly, 0.0)),
-    )
+    st = kit.local_state(state)
     logs = []
     for _ in range(num_steps):
         st, log = tick(st)
         logs.append(log)
-
-    def gather_rows(x):
-        return mesh.all_gather(x.reshape(mesh.held, rl, *x.shape[1:]))[:r]
-
-    def gather_cols(x):
-        return gather_rows(x.t()).t().contiguous()
-
-    final = st._replace(
-        road=RoadState(*(gather_rows(f) for f in st.road)),
-        metrics=st.metrics._replace(
-            hourly_counts=gather_cols(st.metrics.hourly_counts),
-            delta_tt_hourly=gather_cols(st.metrics.delta_tt_hourly)),
-    )
+    final = kit.global_state(st)
     if lazy:
         final = final._replace(agents=reconstruct_inserted(
             final.agents, final.backlog, final.insert_ptr))

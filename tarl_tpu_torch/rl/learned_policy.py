@@ -22,9 +22,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
+from ..config import DEFAULT_PHYSICS, PhysicsConfig
 from ..core import rng
 from ..network import Network
 from ..schema import agent_features_matrix
@@ -59,11 +61,12 @@ def rollout_context(state: SimState, network: Network,
                     pending_entrants: bool = False,
                     count: torch.Tensor | None = None,
                     head_ids: torch.Tensor | None = None,
-                    extra_obs: bool = False) -> torch.Tensor:
+                    extra_obs: bool = False,
+                    physics: PhysicsConfig = DEFAULT_PHYSICS) -> torch.Tensor:
     """x[N, 16] node context, value-identical to ``PPO._context``;
     ``count`` and ``head_ids`` override the road state's (a road-sharded
     driver's gathered globals).  With ``extra_obs`` the three congestion
-    columns follow (x[N, 19])."""
+    columns under ``physics`` follow (x[N, 19])."""
     nf = node_features(state, network, count=count)
     ai = agent_index(state, network, pending_entrants, head_ids=head_ids)
     rows = agent_features_matrix(state.agents)[ai.long()]
@@ -72,7 +75,8 @@ def rollout_context(state: SimState, network: Network,
     rows = torch.where(is_virtual, rows * keep[None, :], rows)
     cols = [nf, rows]
     if extra_obs:
-        cols.append(extra_node_features(state, network, count=count))
+        cols.append(extra_node_features(state, network, physics,
+                                        count=count))
     return torch.cat(cols, dim=-1)
 
 
@@ -89,6 +93,22 @@ def full_out_tables(network: Network):
     dev = network.device
     return (torch.as_tensor(ok, device=dev), torch.as_tensor(dst, device=dev),
             torch.as_tensor(attr, device=dev))
+
+
+def out_tables_with_ids(network: Network):
+    """:func:`full_out_tables` and the edge id of each slot beside them:
+    ``(ok, dst, attr, eid)``, each ``[KF, N]``, ``eid`` int32 with ``E`` on
+    the padding slots."""
+    from ..models.transformer.slot_forward import group_slots
+
+    e = network.full_src.shape[0]
+    ok, eid, _ = group_slots(network.full_src.cpu().numpy(),
+                             np.arange(e, dtype=np.int32),
+                             np.zeros(e, dtype=np.float32),
+                             network.num_nodes)
+    eid = torch.as_tensor(np.where(ok, eid, e).astype(np.int32),
+                          device=network.device)
+    return full_out_tables(network) + (eid,)
 
 
 def slot_logits(spec: LearnedSpec, x: torch.Tensor, network: Network,

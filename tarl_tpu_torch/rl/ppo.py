@@ -484,13 +484,16 @@ class PPO:
                 tree_map(lambda _: next(grads), leaves))
 
     def _update_epochs(self, params, opt_state: AdamState,
-                       buffer: Transition, advantages, returns, key: Key):
+                       buffer: Transition, advantages, returns, key: Key,
+                       grads_fn: Callable | None = None):
         """``rl.num_epochs`` epochs of clipped updates over permuted
         minibatches of the flat transition buffer; the remainder of
         ``n // minibatch_size`` is dropped, as the reference drops it.
         Returns ``((params, opt_state, key), stats)``, ``stats`` a list of
         ``(loss, aux, grad_norm)`` per update, ``grad_norm`` the global
-        norm of the unclipped gradients."""
+        norm of the unclipped gradients.  ``grads_fn`` replaces
+        :meth:`_loss_and_grads` (the sharded trainers' gradients)."""
+        grads_fn = grads_fn or self._loss_and_grads
         n = advantages.shape[0]
         mb = min(self.rl.minibatch_size, n)
         n_mb = max(n // mb, 1)
@@ -501,8 +504,8 @@ class PPO:
             for i in range(n_mb):
                 idx = perm[i * mb:(i + 1) * mb]
                 batch = Transition(*(a[idx] for a in buffer))
-                (loss, aux), grads = self._loss_and_grads(
-                    params, batch, advantages[idx], returns[idx])
+                (loss, aux), grads = grads_fn(params, batch, advantages[idx],
+                                              returns[idx])
                 params, opt_state = self.optimizer.update(grads, opt_state,
                                                           params)
                 stats.append((loss, aux, global_norm(grads)))

@@ -13,6 +13,10 @@
   versions (without counting a launch) and raise on inputs the kernels
   would not take; a segment layout or a K7 table the kernels would not
   take is refused where it is built or first used.
+* The sharded trainers (``parallel.sharded_ppo``, ``parallel.spatial_ppo``,
+  ``parallel.shard`` and ``parallel.mesh`` over a group), the dry run and
+  the legacy confirm import with those blocked, and their sources import
+  none of them.
 * ``main_torch.py --help`` lists the reference CLI's flags with ``jax``,
   ``tarl_tpu`` and ``pandas`` blocked, and importing the port imports
   neither pandas nor matplotlib.
@@ -93,6 +97,36 @@ def test_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 25
+
+
+@pytest.mark.parametrize("name", [
+    "parallel.sharded_ppo", "parallel.spatial_ppo", "parallel.dryrun",
+    "parallel.shard", "parallel.mesh", "core.response"])
+def test_training_at_scale_modules_without_jax(name):
+    """The sharded trainers, the dry run and the legacy confirm import
+    with jax, flax, optax and ``tarl_tpu`` blocked, and their sources
+    import none of them."""
+    import re
+
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in ("jax", "jaxlib", "flax", "optax", "orbax", "tarl_tpu"):
+            sys.modules[name] = None
+        mod = importlib.import_module("tarl_tpu_torch.{name}")
+        for fn in ("ShardedPPO", "make_node_mesh", "node_sharded_loss_fn",
+                   "SpatialPPO", "make_spatial_mesh", "dryrun_multichip",
+                   "response_step", "BatchedPPO", "make_mesh"):
+            if hasattr(mod, fn):
+                print(fn)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split(), name
+    path = os.path.join(REPO, "tarl_tpu_torch", *name.split(".")) + ".py"
+    src = open(path).read()
+    assert not re.search(r"^\s*(import|from)\s+(jax|flax|optax|orbax|"
+                         r"tarl_tpu)\b(?!_torch)", src, re.M), name
 
 
 def test_cli_without_jax_or_pandas():
