@@ -6,7 +6,13 @@
 Phases, in the order they run (any failure raises and exits nonzero;
 nothing is caught).  Every kernel's launch count is set to 0 just before
 the path that uses it runs and read just after; comparisons of a kernel
-with its plain version run outside those windows.
+with its plain version run outside those windows.  Phases 22, 23, 24a, 25
+and 26 and 24b's report, which feed later phases only numbers, run in two
+spawned processes (22, 23 and 26; 24a, 25 and the report) started after
+phase 21, beside phases 24b-c and 27 in this one (their times are taken
+with each other running); this process joins them before phase 28,
+within ``SIDE_TIMEOUT`` seconds.  Every log line starts with the seconds
+since the run began.
 
 1. Card: name and power limit (``nvidia-smi``), torch and CUDA versions;
    build the CUDA kernels from ``tarl_tpu_torch/csrc`` (``fused_winner``,
@@ -306,7 +312,8 @@ with its plain version run outside those windows.
    road and SRC node toward every DEST node; prints agent-steps/s,
    ms/tick, ms per refresh (CUDA events), sweeps and host reads per
    refresh, host reads per tick and the table's bytes; the equilibrium
-   report on the final state, timed.  Its first 600 ticks again with the
+   report on the final state, timed (in the second spawned process, on
+   the state this one writes).  Its first 600 ticks again with the
    plain K1 (bitwise, no K1 launch), and its first 1,200 under
    ``RoutingConfig(backend="primal")`` (uncapped: K2's resident form once
    a refresh): the same episode bitwise (the routing scratch and the
@@ -315,8 +322,9 @@ with its plain version run outside those windows.
    dual backend): ms (CUDA events), device ms (``torch.profiler``),
    sweeps, host reads, peak memory and the bound from the bytes each
    sweep moves.
-25. The CLI, ``tarl_tpu_torch.runner.main(argv)`` in this process on the
-   card, from ``build/cli`` (its ``data/``, ``save/`` and outputs).  (a)
+25. The CLI, ``tarl_tpu_torch.runner.main(argv)`` in the spawned process
+   on the card, from ``build/cli25`` (its ``data/``, ``save/`` and
+   outputs).  (a)
    The README's evaluation, ``--algo dijkstra --scenario Easy --mode eval
    --start-end-time 21600 28800 --timestep_size 2``: its average travel
    time, done count and ``equilibrium_report.json`` must equal phase 24a's
@@ -421,7 +429,9 @@ with its plain version run outside those windows.
    300 ticks, and Braess under ``strict_compat``, 300 ticks; (d) the
    headline (phase 2's exact mode) for 600 ticks in 2 spawned processes
    over gloo, 2 blocks each, and in 1 NCCL process of world size 1, all
-   started together on the one card: every rank's state bitwise phase 2's
+   started together on the one card at the phase's start and running
+   beside (a)-(c), whose times are taken with them running: every rank's
+   state bitwise phase 2's
    at tick 600, K7 once a tick on every rank, and the last gloo rank's K7
    launches (first column 480) bitwise the plain version's on its kept
    inputs.  ms/tick beside the serial runs'; (d)'s is a protocol check,
@@ -463,7 +473,17 @@ with its plain version run outside those windows.
    2's captured states after the direction step's push: K10's bare max
    bitwise the plain max.  ms per iteration split into collection, GAE
    and update beside phase 21's.
-31. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
+31. The golden trace's path (``tests/test_torch_reference_trace.py``, which
+   holds it against the upstream simulator's physics on the CPU): Braess
+   under strict-compat Dijkstra (refresh every 10 ticks) from 06:00 at 1 s
+   with the selections zeroed, 400 ticks of ``core.step.tick``, once with K1
+   and once with its plain version: each tick's packed state
+   (``schema.pack_state``) and agent rows and each refresh's table bitwise
+   between the runs, 400 K1 launches in the first and none in the second.
+   ``pack_state`` of phase 2's last state on the card bitwise the same state
+   packed on the CPU; ``routing.bellman_ford.congested_next_hop`` on phase
+   8's Grid8x8 evaluation state (mid-episode) on the card bitwise the CPU's.
+32. Last: a JSON line of the kernels (``fused_winner``, ``primal_relax``,
    ``segment_sum``, ``segment_max``, ``segment_argmax``, ``fused_core``,
    ``fused_shard_winner``, and the K3-K6 and K8a/K8b rows covered by
    ``primal_relax`` and ``fused_winner``; K3's and K5's rows the cluster
@@ -480,7 +500,9 @@ with its plain version run outside those windows.
    phase 28's in ``launches_batched``, and on phase 30's in
    ``launches_ppo_blocks``; K7's on phase 29's paths in
    ``launches_blocks`` and on phase 30's in ``launches_spatial_ppo``;
-   K10's bare max in phase 30f's ``bare_launches_response_step``),
+   K10's bare max in phase 30f's ``bare_launches_response_step``; K1's on
+   phase 31's path and in its plain run in ``launches_golden_trace`` and
+   ``launches_golden_trace_plain``),
    the card's name and power limit,
    then
    ``{"ok": true, "device": {...}}``.
@@ -488,9 +510,12 @@ with its plain version run outside those windows.
 Exits nonzero, printing no result, where no CUDA device is available or
 the package is missing beside this script.  Scenario files are written
 under ``build/scenarios``, phase 24's caches under ``build/save``, phase
-21's checkpoints under ``build/train``, phase 25's, 27's and 28's files
-under ``build/cli`` and phase 29's and 30's ranks' results under
-``build/blocks29`` and ``build/ppo30`` in the checkout.
+21's checkpoints under ``build/train``, phase 25's files under
+``build/cli25``, 27's and 28's under ``build/cli``, phases 22-26's
+results under ``build/side_phases0.pkl`` and ``build/side_phases1.pkl``
+(24b's report reads ``build/dual_report_state.pt``) and phase 29's and
+30's ranks' results under ``build/blocks29`` and ``build/ppo30`` in the
+checkout.
 """
 from __future__ import annotations
 
@@ -533,6 +558,8 @@ K8_GRID = 256                 # the TPU's tiled-winner record size
 SHARD_BLOCKS = 4              # road blocks of the sharded phases
 SHARD_TICKS = 1200            # the sharded headline's depth (phase 17)
 FUSED_TICKS = 1800            # the fused-core headline's depth (phase 13)
+TRACE_TICKS = 400             # the golden trace's depth (phase 31)
+SIDE_TIMEOUT = 1000.0         # the longest wait for phases 22-26 after 27
 PADDED_BLOCKS = 7             # 960 roads -> 7 blocks of 138, 6 rows inert
 # Operations K7 (and K1) does for each valid in-slot: the eligibility's
 # decode and compares, the score add and the running max.
@@ -655,8 +682,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 
+T0_ENV = "CHIP_SMOKE_T0"      # the run's start (epoch seconds), for log()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print ``msg`` after the seconds since the run began (the main
+    process's start, which spawned processes inherit through ``T0_ENV``)."""
+    t0 = float(os.environ.setdefault(T0_ENV, repr(time.time())))
+    print(f"[{time.time() - t0:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -1850,8 +1883,13 @@ def device_time_by_name(fn, args, calls: int = TIMED_CALLS,
             for _ in range(calls):
                 fn(*args)
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        # The profiler's raw records: ``prof.events()`` would build the
+        # host-side event tree first, tens of seconds for a plain
+        # version's 200 calls of ~230 kernels.
+        events = [(e.name(), e.duration_ns() / 1e3)
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA
+                  and not e.is_hidden_event()]
         if len(events) > len(best):
             best = events
         if events and len(events) % calls == 0:
@@ -1859,8 +1897,8 @@ def device_time_by_name(fn, args, calls: int = TIMED_CALLS,
     if not best:
         return None, 0.0
     by_name = collections.defaultdict(list)
-    for e in best:
-        by_name[e.name].append(e.time_range.end - e.time_range.start)
+    for name, us in best:
+        by_name[name].append(us)
     return ({name: sum(d) / len(d) * max(1, round(len(d) / calls)) / 1e3
              for name, d in by_name.items()}, len(best) / calls)
 
@@ -3029,7 +3067,7 @@ def learned_paths(dev, net, agents, card: str, eval_steps=EVAL_STEPS,
         f"done {ev16['done']}, on roads {ev16['on_road']}; set-up "
         f"{setup16:.2f} s; launches {scale_launches} ({card})")
     return {"net8": net8, "st8": st8, "ppo8": ppo8, "trained": trained,
-            "cap8": cap8, "cap_c": cap_c, "cap16": cap16,
+            "mid8": env8.sim, "cap8": cap8, "cap_c": cap_c, "cap16": cap16,
             "eval_launches": eval_launches,
             "collect_launches": collect_launches,
             "scale_launches": scale_launches}
@@ -3507,25 +3545,10 @@ def big_dual_relax(dev, card: str, grid: int = DUAL_BIG_GRID) -> dict:
             "card": card}
 
 
-def cli_default_phase(dev, card: str, root: str = None,
-                      dual_ticks: int = DUAL_TICKS,
-                      dual_agents: tuple = None) -> dict:
-    """Phase 24: the CLI's default path on the card: (a) the classical
-    rows through the facade, Braess in the eager tick; (b) the dual row
-    and its cross-checks with the plain K1 and the primal backend; (c) the
-    dual relax at the largest dual size.  Returns the numbers for the
-    results line."""
-    import torch
-
-    from tarl_tpu_torch.config import RoutingConfig
-    from tarl_tpu_torch.core import fused_winner
-    from tarl_tpu_torch.metrics.equilibrium import equilibrium_report
-    from tarl_tpu_torch.routing import bellman_ford as bf
-    from tarl_tpu_torch.state import sort_agents_by_departure
-
-    on_card = dev.type == "cuda"
+def classical_phase(dev, root: str = None) -> dict:
+    """Phase 24a: the CLI's classical rows through the facade, and Braess
+    in the eager tick.  Returns the rows and the eager run's numbers."""
     out = {"rows": {}}
-    # --- a. the classical rows ---
     for name in CLASSICAL_ROWS:
         res = classical_row(name, dev, root)
         check_classical_row(res)
@@ -3557,7 +3580,25 @@ def cli_default_phase(dev, card: str, root: str = None,
             f"s, withdraw {t.withdraw_time:.3f} s, choice "
             f"{t.choice_time:.3f} s, core {t.core_time:.3f} s, total "
             f"{t.total:.3f} s; K1 launches {eager['launches'][label]}")
+    return out
 
+
+def cli_default_phase(dev, card: str, report_path: str,
+                      dual_ticks: int = DUAL_TICKS,
+                      dual_agents: tuple = None) -> dict:
+    """Phase 24b-c, the rest of the CLI's default path on the card: (b) the
+    dual row and its cross-checks with the plain K1 and the primal
+    backend, its last state written to ``report_path`` for
+    :func:`dual_report_phase`; (c) the dual relax at the largest dual
+    size.  Returns the numbers for the results line."""
+    import torch
+
+    from tarl_tpu_torch.config import RoutingConfig
+    from tarl_tpu_torch.core import fused_winner
+    from tarl_tpu_torch.state import sort_agents_by_departure
+
+    on_card = dev.type == "cuda"
+    out = {}
     # --- b. the dual row ---
     if dual_agents is None:
         net, agents = load_scenario("Grid16x16_50000", 16, 16, 50000, dev)
@@ -3582,12 +3623,12 @@ def cli_default_phase(dev, card: str, root: str = None,
         f"{int(final.agents.done.sum())}, on roads "
         f"{int(final.road.count.sum())}, table {4 * n * n} bytes, "
         f"fused_winner calls {dual['winner_launches']} ({card})")
-    t0 = time.perf_counter()
-    report = equilibrium_report(final.agents, final.road, net, final.time)
-    out["dual_report_s"] = time.perf_counter() - t0
-    log(f"dual row equilibrium report in {out['dual_report_s']:.2f} s: "
-        + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-                    for k, v in report.items()))
+    # Written whole, then renamed: the reader waits for the name.
+    torch.save({"agents": {k: v.cpu() for k, v in
+                           final.agents._asdict().items()},
+                "road": {k: v.cpu() for k, v in final.road._asdict().items()},
+                "time": final.time}, report_path + ".part")
+    os.replace(report_path + ".part", report_path)
     # In context: the plain K1 from the same start.
     fused_winner.reset_launches()
     plain = dual_row(net, agents, ticks=DUAL_CONTEXT_TICKS,
@@ -3645,6 +3686,37 @@ def cli_default_phase(dev, card: str, root: str = None,
             f"bound {big['bound_ms']:.3f} ms by {big['bound_by']} "
             f"({big['sweep_bound_ms']:.4f} ms a sweep) ({card})")
     return out
+
+
+def dual_report_phase(dev, report_path: str,
+                      wait: float = SIDE_TIMEOUT) -> dict:
+    """Phase 24b's equilibrium report (the CLI's, as ``python main.py``
+    writes it) on the dual row's last state, which
+    :func:`cli_default_phase` writes to ``report_path`` in the main
+    process; waits for it up to ``wait`` seconds."""
+    import torch
+
+    from tarl_tpu_torch.metrics.equilibrium import equilibrium_report
+    from tarl_tpu_torch.state import AgentState, RoadState
+
+    deadline = time.monotonic() + wait
+    while not os.path.exists(report_path):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no dual row state at {report_path} "
+                                 f"within {wait:.0f} s")
+        time.sleep(0.5)
+    saved = torch.load(report_path)
+    net, _ = load_scenario("Grid16x16_50000", 16, 16, 50000, dev)
+    agents = AgentState(**{k: v.to(dev) for k, v in saved["agents"].items()})
+    road = RoadState(**{k: v.to(dev) for k, v in saved["road"].items()})
+    t0 = time.perf_counter()
+    report = equilibrium_report(agents, road, net, saved["time"])
+    seconds = time.perf_counter() - t0
+    log(f"dual row equilibrium report in {seconds:.2f} s (beside 24b-c, 27 "
+        f"and 22, 23 and 26): "
+        + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in report.items()))
+    return {"report": report, "seconds": seconds}
 
 
 # --- the CLI (phase 25) --------------------------------------------------------
@@ -5328,8 +5400,42 @@ def road_blocks_phase(dev, card: str, want600, learned8, gt_d,
     (``gt_d``), (c) phase 24b's dual row (``dual_blocks``) and Braess under
     ``strict_compat``, each on 4 road blocks against its serial run; (d)
     the headline ``scenario`` on 4 blocks in the spawned process
-    ``groups`` (gloo ranks and one NCCL rank), against phase 2's state
-    ``want600`` (state bits) at tick ``ticks``."""
+    ``groups`` (gloo ranks and one NCCL rank), started first and running
+    beside (a)-(c), against phase 2's state ``want600`` (state bits) at
+    tick ``ticks``."""
+    t_phase = time.perf_counter()
+    out = {}
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        # --- d. spawned first, joined after (c) ---
+        ranks = pool.submit(spawn_blocks, groups, ticks, scenario, str(dev))
+        _blocks_in_process(dev, card, learned8, gt_d, dual_blocks, ticks,
+                           out)
+        d = out["d"] = ranks.result()
+    check_processes(d, want600, ticks, dev.type == "cuda")
+    last = max(k for b, k in d if b == "gloo")
+    log(f"29d the headline on {SHARD_BLOCKS} blocks across processes ("
+        + ", ".join(f"{w} {b} rank(s) of {n} blocks" for b, w, n in groups)
+        + f"; gloo host-staged) started together on the one card at the "
+        f"phase's start, beside 29a-c, and joined "
+        f"{time.perf_counter() - t_phase:.1f} s after it: every "
+        f"rank's state bitwise phase 2's at tick {ticks}; K7 once a tick on "
+        f"every rank; the last gloo rank's K7 (first columns "
+        f"{d['gloo', last]['col0']}) bitwise its "
+        f"plain version on its kept inputs.  ms/tick, a protocol check and "
+        f"not a timing of work across cards: "
+        + ", ".join(f"{b} rank {k} (blocks {r['first']}-"
+                    f"{r['first'] + r['held'] - 1}) "
+                    f"{r['wall'] / ticks * 1e3:.3f}"
+                    for (b, k), r in sorted(d.items()))
+        + f" ({card})")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _blocks_in_process(dev, card: str, learned8, gt_d, dual_blocks,
+                       ticks: int, out: dict) -> None:
+    """Phase 29a-c in this process (see :func:`road_blocks_phase`), their
+    results into ``out``; 29d's ranks run beside them."""
     from tarl_tpu_torch.config import RoutingConfig, SimConfig
     from tarl_tpu_torch.core.step import init_sim_state
     from tarl_tpu_torch.io.matsim import load_network, load_population
@@ -5337,8 +5443,6 @@ def road_blocks_phase(dev, card: str, want600, learned8, gt_d,
     from tarl_tpu_torch.rl.learned_policy import make_learned_choice
     from tarl_tpu_torch.simulator import make_policy
 
-    t_phase = time.perf_counter()
-    out = {}
     # --- a. the learned MPNN ---
     net8, agents8, ppo8, trained = learned8
     sim = SimConfig(start_time=6 * 3600)
@@ -5390,27 +5494,6 @@ def road_blocks_phase(dev, card: str, want600, learned8, gt_d,
         f"at tick {c['ticks']} (done {c['done']}); {c['blocks_ms']:.3f} "
         f"ms/tick on blocks, serial {c['serial_ms']:.3f}; launches "
         f"{c['launches']} ({card})")
-    # --- d. across processes ---
-    t0 = time.perf_counter()
-    d = out["d"] = spawn_blocks(groups, ticks, scenario, str(dev))
-    check_processes(d, want600, ticks, dev.type == "cuda")
-    last = max(k for b, k in d if b == "gloo")
-    log(f"29d the headline on {SHARD_BLOCKS} blocks across processes ("
-        + ", ".join(f"{w} {b} rank(s) of {n} blocks" for b, w, n in groups)
-        + f"; gloo host-staged) started together on the one card, "
-        f"{time.perf_counter() - t0:.1f} s with their start-up: every "
-        f"rank's state bitwise phase 2's at tick {ticks}; K7 once a tick on "
-        f"every rank; the last gloo rank's K7 (first columns "
-        f"{d['gloo', last]['col0']}) bitwise its "
-        f"plain version on its kept inputs.  ms/tick, a protocol check and "
-        f"not a timing of work across cards: "
-        + ", ".join(f"{b} rank {k} (blocks {r['first']}-"
-                    f"{r['first'] + r['held'] - 1}) "
-                    f"{r['wall'] / ticks * 1e3:.3f}"
-                    for (b, k), r in sorted(d.items()))
-        + f" ({card})")
-    out["seconds"] = time.perf_counter() - t_phase
-    return out
 
 
 # --- sharded and spatial training (phase 30) ---------------------------------
@@ -6108,6 +6191,248 @@ def ppo_blocks_phase(dev, card: str, net8, st8, trained, single: list,
     return out
 
 
+# --- phases 22, 23, 24a, 25 and 26 in a spawned process ----------------------
+
+_DROPPED = object()
+
+
+def _plain_data(x):
+    """``x`` with only its plain data kept (numbers, strings, None, and
+    dicts, lists and tuples of them; a one-element tensor as its number),
+    everything else dropped: what the results line reads of a phase run in
+    another process."""
+    import numpy as np
+    import torch
+
+    if isinstance(x, dict):
+        return {k: v for k, v in ((k, _plain_data(v)) for k, v in x.items())
+                if v is not _DROPPED}
+    if isinstance(x, (list, tuple)):
+        items = [_plain_data(v) for v in x]
+        return _DROPPED if _DROPPED in items else items
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    if isinstance(x, np.generic):
+        return x.item()
+    if isinstance(x, torch.Tensor) and x.numel() == 1:
+        return x.item()
+    return _DROPPED
+
+
+REPORT_INPUT = os.path.join(ROOT, "build", "dual_report_state.pt")
+# The two spawned processes: phases 22, 23 and 26; 24a, 25 and 24b's
+# report.
+SIDE_LANES = (("mil", "rad", "city"), ("classical", "cli_run", "report"))
+
+
+def _side_phases(device: str, card: str, out_path: str, keys) -> None:
+    """A spawned process of phases 22, 23, 24a, 25 and 26 and 24b's
+    report (none of them feeds a later phase but through numbers), the
+    ones ``keys`` names: each as the main process would run it, with its
+    log lines; writes their numbers and its parses (:func:`note_parse`)
+    to ``out_path``."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    out = {}
+    for key, label, fn in (
+            ("mil", "million row", lambda: million_phase(dev, card)),
+            ("rad", "radial row", lambda: radial_phase(dev, card)),
+            ("classical", "classical rows",
+             lambda: classical_phase(dev)),
+            ("cli_run", "CLI", lambda: cli_phase(
+                dev, card, out["classical"]["rows"]["Easy dijkstra"],
+                root=os.path.join(ROOT, "build", "cli25"))),
+            ("city", "city row", lambda: city_phase(dev, card)),
+            ("report", "dual row report",
+             lambda: dual_report_phase(dev, REPORT_INPUT))):
+        if key not in keys:
+            continue
+        t0 = time.perf_counter()
+        out[key] = fn()
+        log(f"{label} phase in {time.perf_counter() - t0:.1f} s")
+    out = _plain_data(out)
+    out["parses"] = list(PARSES)
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def spawn_side_phases(device: str, card: str) -> list:
+    """Start :func:`_side_phases` once for each of ``SIDE_LANES``; returns
+    their ``(process, out_path)``.  The scenarios that several processes
+    read are written first, and the report's input of an earlier run is
+    removed."""
+    import multiprocessing
+
+    from tarl_tpu_torch.io.scenarios import ensure_scenario
+
+    for name in ("Braess", "Easy", "Bottleneck"):
+        ensure_scenario(os.path.join(ROOT, "build", "scenarios"), name)
+    if os.path.exists(REPORT_INPUT):
+        os.remove(REPORT_INPUT)
+    sides = []
+    for i, keys in enumerate(SIDE_LANES):
+        out_path = os.path.join(ROOT, "build", f"side_phases{i}.pkl")
+        if os.path.exists(out_path):
+            os.remove(out_path)
+        proc = multiprocessing.get_context("spawn").Process(
+            target=_side_phases, args=(device, card, out_path, keys))
+        proc.start()
+        sides.append((proc, out_path))
+    return sides
+
+
+def join_side_phases(sides, timeout: float = SIDE_TIMEOUT) -> dict:
+    """Join :func:`spawn_side_phases`'s processes within ``timeout``
+    seconds in all (killed and failing the run past it, as on a nonzero
+    exit) and return their numbers, the parses in one list."""
+    import pickle
+
+    deadline = time.monotonic() + timeout
+    out = {"parses": []}
+    for proc, out_path in sides:
+        proc.join(max(deadline - time.monotonic(), 0.0))
+    for proc, _ in sides:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+            raise AssertionError(f"phases 22-26 did not end within "
+                                 f"{timeout:.0f} s")
+        if proc.exitcode:
+            raise AssertionError(f"phases 22-26 exited with {proc.exitcode}")
+    for _, out_path in sides:
+        with open(out_path, "rb") as f:
+            res = pickle.load(f)
+        out["parses"] += res.pop("parses")
+        out.update(res)
+    return out
+
+
+# --- the golden trace's path and the packed view (phase 31) -----------------
+
+def golden_trace_run(net, agents, core, ticks: int = TRACE_TICKS) -> dict:
+    """``tests/test_torch_reference_trace.py``'s path on ``net``'s device:
+    strict-compat Dijkstra (refresh every 10 ticks) from 06:00 at 1 s, the
+    selections zeroed at the start, ``ticks`` of ``core.step.tick`` with
+    ``core`` as the winner; each tick's packed state and agent rows and the
+    table at each refresh kept on the device.  Launch counts are set to 0
+    just before the ticks and read just after."""
+    import torch
+
+    from tarl_tpu_torch.config import RoutingConfig, SimConfig
+    from tarl_tpu_torch.core.step import init_sim_state, tick
+    from tarl_tpu_torch.schema import agent_features_matrix, pack_state
+    from tarl_tpu_torch.simulator import make_policy
+
+    routing = RoutingConfig(strict_compat=True, refresh_rate=10)
+    sim = SimConfig(start_time=6 * 3600, timestep=1)
+    policy = make_policy("dijkstra", routing=routing)
+    state = init_sim_state(net, agents, sim=sim, policy=policy)
+    state = state._replace(
+        selected_road=torch.zeros_like(state.selected_road))
+    xs, rows, tables = [], [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    relax0 = relax_counts()
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        state, _ = tick(state, net, policy, sim=sim, core=core)
+        xs.append(pack_state(state.road, net, state.selected_road))
+        rows.append(agent_features_matrix(state.agents))
+        if t % routing.refresh_rate == 0:
+            tables.append(state.next_hop)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    relax = {k: v - relax0[k] for k, v in relax_counts().items()}
+    return {"x": torch.stack(xs), "rows": torch.stack(rows),
+            "tables": torch.stack(tables), "launches": counts(),
+            "relax": relax, "wall": wall,
+            "done": int(state.agents.done[1:].sum()),
+            "traversals": int(state.metrics.hourly_counts.sum())}
+
+
+def golden_trace_phase(dev, card: str, headline, net16, mid8,
+                       net8) -> dict:
+    """Phase 31.  (a) The golden trace's path on Braess twice, with K1 and
+    with its plain version: every tick's packed state and agent rows and
+    every refresh's table bitwise, 400 K1 launches in the kernel run and
+    none in the plain one.  (b) ``pack_state`` of the headline's last state
+    on the card against the same state packed on the CPU.  (c)
+    ``congested_next_hop`` on a mid-episode Grid8x8 state on the card
+    against the CPU's."""
+    import torch
+
+    from tarl_tpu_torch.core import fused_winner
+    from tarl_tpu_torch.io.matsim import load_network, load_population
+    from tarl_tpu_torch.io.scenarios import ensure_scenario
+    from tarl_tpu_torch.routing.bellman_ford import congested_next_hop
+    from tarl_tpu_torch.schema import pack_state
+
+    t_phase = time.perf_counter()
+    base = ensure_scenario(os.path.join(ROOT, "build", "scenarios"),
+                           "Braess")
+    net = load_network(os.path.join(base, "network"), device=dev)
+    agents, _ = load_population(os.path.join(base, "population"),
+                                os.path.join(base, "network"), device=dev)
+    kern = golden_trace_run(net, agents, fused_winner.direction_confirm)
+    plain = golden_trace_run(net, agents,
+                             fused_winner.direction_confirm_plain)
+    if (kern["launches"]["K1"], plain["launches"]["K1"]) != (TRACE_TICKS, 0):
+        raise AssertionError(f"golden trace: K1 launched "
+                             f"{kern['launches']['K1']} / "
+                             f"{plain['launches']['K1']} times (kernel / "
+                             f"plain run), expected {TRACE_TICKS} / 0")
+    for k in ("x", "rows", "tables"):
+        if not torch.equal(kern[k], plain[k]):
+            raise AssertionError(f"golden trace: the kernel and plain runs' "
+                                 f"{k} differ")
+    if kern["done"] <= 0 or kern["traversals"] <= 0:
+        raise AssertionError(f"golden trace: {kern['done']} arrived, "
+                             f"{kern['traversals']} traversals")
+    log(f"golden trace path (Braess, strict-compat dijkstra, "
+        f"{TRACE_TICKS} ticks): K1 {kern['launches']['K1']} launches, plain "
+        f"run {plain['launches']['K1']}; packed states "
+        f"{tuple(kern['x'].shape)}, agent rows {tuple(kern['rows'].shape)} "
+        f"and {kern['tables'].shape[0]} refresh tables bitwise between the "
+        f"runs; other launches {kern['launches']}, relax {kern['relax']}; "
+        f"done {kern['done']}; {kern['wall']:.2f} s kernel run, "
+        f"{plain['wall']:.2f} s plain run ({card})")
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    road16, sel16 = headline.road, headline.selected_road
+    x_card = pack_state(road16, net16, sel16)
+    x_cpu = pack_state(type(road16)(*(t.to(cpu) for t in road16)),
+                       net16.to(cpu), sel16.to(cpu))
+    if x_card.device.type != "cuda" or not torch.equal(x_card.cpu(), x_cpu):
+        raise AssertionError("pack_state on the card differs from the CPU's")
+    log(f"pack_state of the headline's last state: {tuple(x_card.shape)} on "
+        f"the card bitwise the CPU's, {int(road16.count.sum())} agents "
+        f"queued; {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    road8 = mid8.road
+    dist, table = congested_next_hop(road8, net8)
+    dist_c, table_c = congested_next_hop(
+        type(road8)(*(t.to(cpu) for t in road8)), net8.to(cpu))
+    if not (torch.equal(dist.cpu(), dist_c)
+            and torch.equal(table.cpu(), table_c)):
+        raise AssertionError("congested_next_hop on the card differs from "
+                             "the CPU's")
+    log(f"congested_next_hop on a mid-episode Grid8x8 state "
+        f"({int(road8.count.sum())} agents queued, N={net8.num_nodes}): "
+        f"distances and table on the card bitwise the CPU's; "
+        f"{time.perf_counter() - t0:.2f} s")
+    seconds = time.perf_counter() - t_phase
+    log(f"golden trace phase in {seconds:.1f} s")
+    return {"kernel": kern["launches"], "plain": plain["launches"],
+            "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -6133,6 +6458,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     physics = DEFAULT_PHYSICS
     t_start = time.perf_counter()
+    os.environ[T0_ENV] = repr(time.time())
 
     # --- 1. card ------------------------------------------------------------
     card = card_line()
@@ -6822,36 +7148,31 @@ def main() -> int:
     # --- 21. training ------------------------------------------------------
     train = training_phase(net8, trained, st8, card)
 
-    # --- 22. the million-agent row ----------------------------------------
-    t0 = time.perf_counter()
-    mil = million_phase(dev, card)
-    mil_sp = mil["sp"]
-    log(f"million row phase in {time.perf_counter() - t0:.1f} s")
+    # --- 22, 23, 24a, 25, 26: the million-agent row, the radial metro, the
+    # classical rows, the CLI and the irregular city, and 24b's report, in
+    # two spawned processes beside 24b-c and 27 ---------------------------
+    t_side = time.perf_counter()
+    side = spawn_side_phases(str(dev), card)
 
-    # --- 23. the radial metro -----------------------------------------------
+    # --- 24b-c. the dual row and the largest dual network ----------------
     t0 = time.perf_counter()
-    rad = radial_phase(dev, card)
-    rad_sp, rad_t = rad["sp"], rad["timed"]
-    log(f"radial row phase in {time.perf_counter() - t0:.1f} s")
-
-    # --- 24. the CLI's default evaluation ----------------------------------
-    t0 = time.perf_counter()
-    cli = cli_default_phase(dev, card)
-    log(f"CLI default phase in {time.perf_counter() - t0:.1f} s")
-
-    # --- 25. the CLI ---------------------------------------------------------
-    t0 = time.perf_counter()
-    cli_run = cli_phase(dev, card, cli["rows"]["Easy dijkstra"])
-    log(f"CLI phase in {time.perf_counter() - t0:.1f} s")
-
-    # --- 26. the irregular city ----------------------------------------------
-    t0 = time.perf_counter()
-    city = city_phase(dev, card)
-    log(f"city row phase in {time.perf_counter() - t0:.1f} s")
+    cli = cli_default_phase(dev, card, REPORT_INPUT)
+    log(f"CLI default phase (b, c) in {time.perf_counter() - t0:.1f} s")
 
     # --- 27. the Graph Transformer ------------------------------------------
     gt = transformer_phase(dev, card, net, agents)
     log(f"transformer phase in {gt['seconds']:.1f} s")
+
+    side = join_side_phases(side)
+    log(f"phases 22-26's processes joined {time.perf_counter() - t_side:.1f} "
+        f"s after their start")
+    PARSES.extend(side["parses"])
+    mil, rad, city, cli_run = (side[k] for k in ("mil", "rad", "city",
+                                                 "cli_run"))
+    mil_sp = mil["sp"]
+    rad_sp, rad_t = rad["sp"], rad["timed"]
+    cli.update(rows=side["classical"]["rows"],
+               eager=side["classical"]["eager"])
     gt_launches = {key: {
         "eval_braess": gt["a"]["launches"][key],
         "collection_braess": gt["b"]["collect"][key],
@@ -6900,7 +7221,11 @@ def main() -> int:
         **{f"30d_{b}_rank{k}": r["spatial_launches"]["K7"]
            for (b, k), r in sorted(ppo_blk["d"].items())}}
 
-    # --- 31. results ------------------------------------------------------
+    # --- 31. the golden trace's path and the packed view ------------------
+    gold = golden_trace_phase(dev, card, head["final"], net, res["mid8"],
+                              net8)
+
+    # --- 32. results ------------------------------------------------------
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     train_launches = train["launches"]
     kern_ms, plain_ms, kern_dev_ms, k1_bound = timings["Grid16x16"]
@@ -7035,11 +7360,14 @@ def main() -> int:
         "launches_transformer": gt_launches["K1"],
         "launches_batched": bat_launches["K1"],
         "launches_ppo_blocks": ppo_launches["K1"],
+        "launches_golden_trace": gold["kernel"]["K1"],
+        "launches_golden_trace_plain": gold["plain"]["K1"],
         "launches_from": "headline (phase 2); beside it the sp row (5), "
                          "training (21), the classical and dual rows (24), "
                          "the CLI (25), the city rows (26), the "
                          "transformer's paths (27), batched training "
-                         "(28) and sharded training (30)",
+                         "(28), sharded training (30) and the golden "
+                         "trace's path (31, its plain run beside it)",
     }, {
         "name": "primal_relax",
         "route": "cuda",

@@ -80,9 +80,12 @@ def init_sim_state(
     sim: SimConfig = DEFAULT_SIM,
     policy: Optional[Policy] = None,
     key: Optional[Key] = None,
+    next_hop: Optional[torch.Tensor] = None,
 ) -> SimState:
     """Fresh :class:`SimState` at ``sim.start_time`` on the network's
-    device; the routing scratch comes from ``policy.table_init``."""
+    device.  The routing scratch is ``next_hop`` where given, as it is;
+    else it comes from ``policy.table_init``, or the free-flow dual table
+    where the policy ``needs_next_hop``."""
     dev = network.device
     backlog = None
     if sim.insert_backlog is not None:
@@ -96,15 +99,17 @@ def init_sim_state(
                 "rule; this policy supplies per-agent entry roads")
         backlog = init_backlog_state(sim.insert_backlog,
                                      network.num_intersections, dev)
-    next_hop = torch.zeros((1, 1), dtype=torch.int32, device=dev)
-    sel_dest = None
-    if policy is not None and policy.table_init is not None:
-        next_hop = policy.table_init(network)
-    elif policy is not None and policy.needs_next_hop:
-        from ..routing.bellman_ford import all_pairs_next_hop_nbr
+    if next_hop is None:
+        if policy is not None and policy.table_init is not None:
+            next_hop = policy.table_init(network)
+        elif policy is not None and policy.needs_next_hop:
+            from ..routing.bellman_ford import all_pairs_next_hop_nbr
 
-        _, next_hop = all_pairs_next_hop_nbr(network.nbr, network.nbr_ok,
-                                             network.entry_cost())
+            _, next_hop = all_pairs_next_hop_nbr(
+                network.nbr, network.nbr_ok, network.entry_cost())
+        else:
+            next_hop = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    sel_dest = None
     if policy is not None and (policy.needs_next_hop
                                or policy.table_init is not None):
         sel_dest = torch.full((network.num_roads,), -1, dtype=torch.int32,

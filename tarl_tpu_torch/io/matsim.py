@@ -104,6 +104,15 @@ class ParsedNetwork:
     def num_intersections(self) -> int:
         return len(self.sorted_intersections)
 
+    def src_index(self, intersection: str) -> int:
+        """The SRC node of an intersection id, ``R + 2k``."""
+        k = self.sorted_intersections.index(intersection)
+        return self.num_roads + 2 * k
+
+    def dest_index(self, intersection: str) -> int:
+        """The DEST node of an intersection id, ``R + 2k + 1``."""
+        return self.src_index(intersection) + 1
+
 
 def parse_network_xml(file_path: str,
                       parser: Optional[str] = None) -> ParsedNetwork:
@@ -273,6 +282,16 @@ class PopulationStats:
     fallback: Optional[str] = None
     seconds: float = 0.0              # the population file's parse
 
+    def summary(self) -> str:
+        pct = (100 * self.selected_agents / self.total_agents
+               if self.total_agents else 0)
+        return (
+            f"{self.selected_agents}/{self.total_agents} agents selected "
+            f"({pct:.2f}%), {self.total_trips} trips; "
+            f"exclusions={self.exclusions}, "
+            f"invalid_coords={self.invalid_trip_coords}"
+        )
+
 
 # Dummy agent row 0: departure at 48 h, so it never departs.
 DUMMY_DEPARTURE = 48 * 3600.0
@@ -280,13 +299,40 @@ DUMMY_DEPARTURE = 48 * 3600.0
 
 def parse_population_xml(
     population_path: str, parsed_network: ParsedNetwork,
-    parser: Optional[str] = None,
+    parser: Optional[str] = None, *, verbose: bool = False,
 ) -> tuple[np.ndarray, PopulationStats]:
     """Parse a MATSim population into ``[A, 9]`` float32 trip rows in
     :class:`~tarl_tpu_torch.schema.AgentFeatureHelpers` column order, with
     ``parser`` (module docstring).  The native parser reads the network
     again from ``parsed_network.source_path``; where plans name
-    coordinates, the Python parser reads the whole population."""
+    coordinates, the Python parser reads the whole population.  With
+    ``verbose``, prints the statistics' summary and the departure
+    histogram, the same lines whichever parser read the file."""
+    rows, stats = _parse_population(population_path, parsed_network, parser)
+    if verbose:
+        print("👥 | Population created:", stats.summary())
+        print_departure_histogram(rows)
+    return rows, stats
+
+
+def print_departure_histogram(rows: np.ndarray) -> None:
+    """The hourly histogram of the trip rows' departures, empty hours
+    left out."""
+    dep = rows[1:, 2]
+    dep = dep[dep > 0]
+    if dep.size == 0:
+        return
+    hours = (dep // 3600).astype(int)
+    counts = np.bincount(hours, minlength=24)
+    print("📊 | Departure histogram (1h bins, empty hours omitted):")
+    for h in range(min(len(counts), 24)):
+        if counts[h] >= 1:
+            print(f"{h:02d}h : {counts[h]}")
+
+
+def _parse_population(population_path: str, parsed_network: ParsedNetwork,
+                      parser: Optional[str]
+                      ) -> tuple[np.ndarray, PopulationStats]:
     _check_parser(parser)
     actual = resolve_xml_path(population_path)
     t0 = time.perf_counter()
@@ -414,11 +460,15 @@ def load_population(
     network_path: str,
     device: torch.device | str | None = None,
     parser: Optional[str] = None,
+    *,
+    verbose: bool = False,
 ) -> tuple[AgentState, PopulationStats]:
     """MATSim population + network files -> :class:`AgentState`, both read
-    by ``parser`` (module docstring)."""
+    by ``parser`` (module docstring); ``verbose`` as in
+    :func:`parse_population_xml`."""
     from ..schema import agents_from_matrix
 
     parsed = parse_network_xml(network_path, parser)
-    rows, stats = parse_population_xml(population_path, parsed, parser)
+    rows, stats = parse_population_xml(population_path, parsed, parser,
+                                       verbose=verbose)
     return agents_from_matrix(rows, device=device), stats

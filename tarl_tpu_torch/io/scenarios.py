@@ -17,6 +17,9 @@ Available generators:
   and a random commuter population, the workhorse benchmark scenario.
 * :func:`two_link_scenario` — the reference's 2-link test network
   (tests/conftest.py:94-106).
+
+:func:`pad_network_xml` pads a network's XML with inert roads to a multiple
+of a block count.
 """
 from __future__ import annotations
 
@@ -381,3 +384,55 @@ def ensure_scenario(data_root: str, scenario: str) -> str:
     raise FileNotFoundError(
         f"Scenario '{scenario}' not found under {data_root} and no builtin generator exists."
     )
+
+
+def pad_network_xml(network_base: str, multiple: int) -> str:
+    """Pad a network to ``num_roads % multiple == 0`` with inert roads, for
+    the road-block episodes, which need ``R`` to divide into blocks.
+
+    Appends ``(-R) % multiple`` self-loop links, each on its own new
+    intersection ``~pad<k>``.  ``~`` sorts after every real id, so the real
+    intersections keep their ordinals, and a pad road's only turn edge is
+    its own loop: it never takes or gives a transfer, and the padded
+    simulation is the unpadded one on the real roads (the direction noise
+    is ``[KIN, R_pad]``, so the random policy's stream differs).
+
+    Writes ``<network_base>_pad<multiple>.xml`` beside the source (reusing
+    it where it exists) and returns its base path, without the extension;
+    ``network_base`` itself where no pad is needed.  Load the network and
+    the population against the returned path, so that the SRC/DEST
+    numbering (``R + 2k``) agrees."""
+    import xml.etree.ElementTree as ET
+
+    from .matsim import resolve_xml_path
+
+    src = resolve_xml_path(network_base)
+    out_base = f"{network_base}_pad{multiple}"
+    out_path = out_base + ".xml"
+    if os.path.exists(out_path):
+        return out_base
+    if src.endswith(".gz"):
+        with gzip.open(src, "rb") as f:
+            tree = ET.parse(f)
+    else:
+        tree = ET.parse(src)
+    root = tree.getroot()
+    links_el = root.find("links")
+    nodes_el = root.find("nodes")
+    if links_el is None:
+        raise ValueError("The XML file does not contain a 'links' element.")
+    links = [e for e in links_el if e.tag == "link"]
+    num_pad = (-len(links)) % multiple
+    if num_pad == 0:
+        return network_base
+    for k in range(num_pad):
+        nid = f"~pad{k}"
+        if nodes_el is not None:
+            ET.SubElement(nodes_el, "node", id=nid, x="0", y="0")
+        ET.SubElement(
+            links_el, "link",
+            id=f"~padlink{k}", attrib={"from": nid, "to": nid},
+            length="7.5", capacity="1", freespeed="7.5", permlanes="1",
+        )
+    tree.write(out_path)
+    return out_base

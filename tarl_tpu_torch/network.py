@@ -162,6 +162,31 @@ class Network:
         return (tuple(t.data_ptr() for _, t, _, _ in tables)
                 + self.edge_layout.pointers)
 
+    @property
+    def num_turn_edges(self) -> int:
+        return self.edge_src.shape[0]
+
+    @property
+    def num_full_edges(self) -> int:
+        return self.full_src.shape[0]
+
+    def src_node_indices(self) -> torch.Tensor:
+        """int32[I]: the SRC node of each intersection, ``R + 2k``."""
+        return self.num_roads + 2 * torch.arange(
+            self.num_intersections, dtype=torch.int32, device=self.device)
+
+    def dest_node_indices(self) -> torch.Tensor:
+        """int32[I]: the DEST node of each intersection, ``R + 2k + 1``."""
+        return self.src_node_indices() + 1
+
+    def dense_adjacency(self) -> torch.Tensor:
+        """bool[N, N] adjacency over the full edge list (for small networks
+        and tests: N^2 bytes)."""
+        n = self.num_nodes
+        adj = torch.zeros((n, n), dtype=torch.bool, device=self.device)
+        adj[self.full_src.long(), self.full_dst.long()] = True
+        return adj
+
     def entry_cost(self) -> torch.Tensor:
         """Free-flow cost of entering each node: ``fftt`` for roads, 0 for
         SRC/DEST nodes.  float32[N]."""

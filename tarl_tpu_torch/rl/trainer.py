@@ -6,7 +6,9 @@ Each iteration is one :meth:`~tarl_tpu_torch.rl.ppo.PPO.train_iteration`
 environments); this module is the host-side shell around it: the
 reference's scalars (TensorBoard through ``torch.utils.tensorboard`` where
 it imports, a CSV always), periodic greedy and stochastic evaluation
-rollouts, and checkpoints with resume.
+rollouts with each one's leg histogram as a TensorBoard figure (where
+TensorBoard and matplotlib, both optional, import), and checkpoints with
+resume.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import os
 import time as _time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..config import DEFAULT_RL, RLConfig
@@ -63,9 +66,41 @@ class MetricLogger:
                 w.writeheader()
                 w.writerows(self._rows)
 
+    def figure(self, step: int, tag: str, fig) -> None:
+        """A matplotlib figure to TensorBoard (nothing without a writer or
+        a figure)."""
+        if self.writer is not None and fig is not None:
+            self.writer.add_figure(tag, fig, step)
+
     def close(self) -> None:
         if self.writer is not None:
             self.writer.close()
+
+
+def _log_leg_histogram(logger: MetricLogger, step: int, tag: str,
+                       logs: dict) -> None:
+    """An evaluation's leg histogram as the figure ``{tag}/leg_histogram``,
+    from its per-step arrivals, occupancy and clock; nothing where
+    TensorBoard or matplotlib (both optional) is missing."""
+    if logger.writer is None:
+        return
+    from ..metrics.reporting import PlottingUnavailable, plot_leg_histogram
+
+    arrivals, on_net, times = (logs[k].cpu().numpy().astype(np.float64)
+                               for k in ("arrivals", "on_network", "time"))
+    # [departures, arrivals, on the network, clock] a step: the departures
+    # are the occupancy's change plus the arrivals.
+    values = np.stack([np.diff(on_net, prepend=0.0) + arrivals, arrivals,
+                       on_net, times], axis=1).tolist()
+    try:
+        fig = plot_leg_histogram(values, 1, output_dir=None)
+    except PlottingUnavailable:
+        return
+    logger.figure(step, f"{tag}/leg_histogram", fig)
+    if fig is not None:
+        import matplotlib.pyplot as plt
+
+        plt.close(fig)
 
 
 # The reference's scalar names for the IterationMetrics fields.
@@ -149,7 +184,9 @@ def ppo_train(
     state and congested costs), ``eval/avg_travel_time`` and
     ``eval/computation_time_ms`` (``eval_stochastic/...`` for the sampled
     ones), from keys of their own (``prng_key(it + s * 7919)``), so the
-    training trajectory does not depend on them.  ``track_best`` names an
+    training trajectory does not depend on them, and the figure
+    ``eval/leg_histogram`` (of the last sample) where TensorBoard and
+    matplotlib import.  ``track_best`` names an
     eval scalar to minimise: each improvement writes ``<checkpoint_dir>/
     best`` and ``best.json``.  ``ema_decay`` keeps an exponential moving
     average of the parameters, which every evaluation and the best
@@ -221,7 +258,7 @@ def ppo_train(
                 t_eval = _time.time()
                 acc: dict = {}
                 for s in range(n_samples):
-                    eval_env, rewards, _, _ = ppo.eval_rollout(
+                    eval_env, rewards, _, logs = ppo.eval_rollout(
                         eval_params, sim_state, prng_key(it + s * 7919),
                         eval_steps, deterministic=det)
                     fsim = eval_env.sim
@@ -240,6 +277,7 @@ def ppo_train(
                 acc[f"{tag}/computation_time_ms"] = (
                     (_time.time() - t_eval) * 1000.0 / n_samples)
                 logger.scalars(step, acc)
+                _log_leg_histogram(logger, step, tag, logs)
                 if track_best and track_best in acc and checkpoint_dir:
                     v = float(acc[track_best])
                     if best_metric is None or v < best_metric:

@@ -1,7 +1,8 @@
 """Shortest paths on the primal (intersection) graph by Bellman-Ford
 relaxation (ports ``tarl_tpu/routing/bellman_ford.py``: ``BIG``, the road
 and node cost functions, ``primal_all_pairs_dist``, ``primal_dest_dist``,
-``primal_next_roads`` and ``primal_relax_next_roads``).
+``primal_next_roads``, ``primal_relax_next_roads`` and
+``congested_next_hop``).
 
 Every relaxation goes through :func:`primal_relax_next_roads`: Jacobi
 min-plus sweeps over the out-slot table of each intersection, optionally
@@ -64,7 +65,8 @@ over the full edge list with optional per-edge costs (``strict_compat``'s
 table, with :func:`reference_edge_costs`), its own tie rule kept.  Both
 read their convergence flag every :data:`CHECK_EVERY` sweeps (where the
 reference reads none: its loop runs on the device) and add the sweeps they
-ran to :data:`DUAL_SWEEPS`.
+ran to :data:`DUAL_SWEEPS`.  :func:`congested_next_hop` is the latter under
+the current congestion.
 """
 from __future__ import annotations
 
@@ -726,3 +728,18 @@ def primal_dest_dist(
     return primal_relax_next_roads(road_cost, inter_out_road, inter_out_ok,
                                    road_to, dist0, max_iters,
                                    relax_only=True)[0]
+
+
+def congested_next_hop(
+    road: RoadState,
+    network: Network,
+    physics: PhysicsConfig = DEFAULT_PHYSICS,
+    max_iters: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """All-pairs ``(dist, next_hop)`` over the dual nodes under the current
+    congestion: :func:`node_entry_costs` relaxed over the full edge list by
+    :func:`all_pairs_next_hop`."""
+    return all_pairs_next_hop(
+        network.full_src, network.full_dst,
+        node_entry_costs(road, network, physics), network.num_nodes,
+        max_iters=max_iters)

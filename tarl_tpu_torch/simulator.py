@@ -15,8 +15,9 @@ tick ``run()`` with its four phase timers, ``run_fast(n)`` over the
 episode drivers, the per-tick logs and the road-optimality stores, and
 the reports of :mod:`~tarl_tpu_torch.metrics.reporting` on them
 (``plot_computation_time``, ``plot_leg_histogram``,
-``plot_road_optimality``, ``compute_node_metrics``, ``plot_daily_counts``)
-and ``get_info``.
+``plot_road_optimality``, ``compute_node_metrics``, ``plot_daily_counts``),
+``get_info``, and the packed view ``packed_x()`` with its column map
+``h``.
 """
 from __future__ import annotations
 
@@ -61,6 +62,7 @@ from .routing.policies import (
     random_choice,
     shortest_path_entry,
 )
+from .schema import FeatureHelpers, pack_state
 from .state import SimState, TickLog
 from .utils.timers import synchronize
 
@@ -381,6 +383,17 @@ class TransportationSimulator:
 
         return observe(self.state, self.network)
 
+    def packed_x(self) -> torch.Tensor:
+        """The packed ``x[N, 3*Nmax+7]`` view of the current state
+        (:func:`~tarl_tpu_torch.schema.pack_state`)."""
+        return pack_state(self.state.road, self.network,
+                          self.state.selected_road)
+
+    @property
+    def h(self) -> FeatureHelpers:
+        """The packed view's column map."""
+        return FeatureHelpers(Nmax=self.network.nmax)
+
     def average_travel_time(self) -> float:
         return float(average_travel_time(self.state.agents))
 
@@ -441,16 +454,12 @@ class TransportationSimulator:
     def get_info(self, road_id: int) -> str:
         """One road's occupancy, its first 15 queued agents (head first),
         its head's time to departure and selected road, and the clock."""
-        road = self.state.road
-        nmax = road.fifo_ids.shape[1]
-        head = int(road.head[road_id])
-        cols = [(head + j) % nmax for j in range(nmax)]
-        ids = road.fifo_ids[road_id].cpu().numpy()[cols]
-        cnt = int(road.count[road_id])
+        ids, _, dep = self.state.road.logical_view()
+        cnt = int(self.state.road.count[road_id])
         cap = float(self.network.capacity[road_id])
-        next_dep = float(road.fifo_departure[road_id, head]) - self.time
+        next_dep = float(dep[road_id, 0]) - self.time
         sel = int(self.state.selected_road[road_id])
         return (f"Road {road_id}: {cnt} / {cap:.0f}\n"
-                f"Queue: {ids[:15]}\n"
+                f"Queue: {ids[road_id, :15].cpu().numpy()}\n"
                 f"Next departure in {next_dep:.0f}s toward road {sel}\n"
                 f"Current time: {self.time:.0f}")

@@ -66,6 +66,24 @@ class RoadState(NamedTuple):
     def head_dests(self) -> torch.Tensor:
         return self._head_read(self.fifo_dest)
 
+    def tail_ids(self) -> torch.Tensor:
+        """Agent id at each FIFO tail (the last pushed); an empty road
+        gives the id stored at its head slot, so callers gate on
+        ``count > 0``."""
+        tail = (self.head + torch.clamp(self.count - 1, min=0)) % self.nmax
+        return self.fifo_ids.gather(1, tail.long()[:, None])[:, 0]
+
+    def logical_view(self) -> tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+        """``(ids, arrival, departure)`` with column j the logical slot j
+        (column 0 the head); dead slots keep their stale contents."""
+        cols = (self.head.long()[:, None]
+                + torch.arange(self.nmax, device=self.head.device)[None, :]
+                ) % self.nmax
+        return (self.fifo_ids.gather(1, cols),
+                self.fifo_arrival.gather(1, cols),
+                self.fifo_departure.gather(1, cols))
+
 
 def init_road_state(num_roads: int, nmax: int,
                     device: torch.device | str | None = None) -> RoadState:
@@ -153,8 +171,17 @@ class BacklogState(NamedTuple):
     qcount: torch.Tensor  # int32[S]
 
     @property
+    def capacity(self) -> int:
+        """Per-SRC queue depth Q."""
+        return self.qpack.shape[1]
+
+    @property
     def qids(self) -> torch.Tensor:
         return self.qpack[..., 0]
+
+    @property
+    def qdest(self) -> torch.Tensor:
+        return self.qpack[..., 1]
 
 
 def init_backlog_state(capacity: int, num_srcs: int,
