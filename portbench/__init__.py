@@ -1,0 +1,2 @@
+"""The benchmark of ``tarl_tpu_torch`` on one NVIDIA H100 (see
+``run.py``)."""
