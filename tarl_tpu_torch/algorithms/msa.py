@@ -32,6 +32,8 @@ from ..routing.bellman_ford import CHECK_EVERY, all_pairs_next_hop_nbr
 from ..state import AgentState
 
 _INF = float("inf")
+# The host reads' site (``core.sync``).
+_SITE = "algorithms.msa"
 
 
 class MSAResult(NamedTuple):
@@ -79,7 +81,8 @@ def assign_all_or_nothing(network: Network, road_cost: torch.Tensor,
         cur = torch.where(active, nxt, cur)
         # Roads entered this hop; R collects the rest and is dropped.
         flow.index_add_(0, torch.where(active & (cur < r), cur, r), od_vol)
-        if (step + 1) % CHECK_EVERY == 0 and not host_read(active.any())[0]:
+        if (step + 1) % CHECK_EVERY == 0 and not host_read(
+                active.any(), site=_SITE)[0]:
             break
     return flow[:r]
 
@@ -97,7 +100,7 @@ def solve_msa(network: Network, od_o, od_d, od_vol,
     flow = torch.zeros(network.num_roads, dtype=torch.float32, device=dev)
     gap = torch.tensor(_INF, device=dev)
     # The comparisons in float32, as the reference's.
-    while it < msa.max_iter and host_read(gap >= msa.tol)[0]:
+    while it < msa.max_iter and host_read(gap >= msa.tol, site=_SITE)[0]:
         cost = cost_fn(flow, network.free_flow, network.max_flow, msa)
         aux = assign_all_or_nothing(network, cost, od_o, od_d, od_vol)
         step = torch.tensor(1.0, device=dev) / torch.tensor(
@@ -107,7 +110,7 @@ def solve_msa(network: Network, od_o, od_d, od_vol,
         flow = new_flow
         it += 1
     return MSAResult(flow=flow, gap=gap, iterations=it,
-                     converged=bool(host_read(gap < msa.tol)[0]))
+                     converged=bool(host_read(gap < msa.tol, site=_SITE)[0]))
 
 
 def solve_frank_wolfe(network: Network, od_o, od_d, od_vol,
@@ -131,7 +134,8 @@ def solve_frank_wolfe(network: Network, od_o, od_d, od_vol,
                                  od_o, od_d, od_vol)
     it = 1
     l1 = rel = inf = torch.tensor(_INF, device=dev)
-    while it < msa.max_iter and host_read(rel >= msa.rel_gap_tol)[0]:
+    while it < msa.max_iter and host_read(rel >= msa.rel_gap_tol,
+                                          site=_SITE)[0]:
         cost = cost_fn(flow, ff, cap, msa)
         aux = assign_all_or_nothing(network, cost, od_o, od_d, od_vol)
         d = aux - flow
@@ -158,7 +162,8 @@ def solve_frank_wolfe(network: Network, od_o, od_d, od_vol,
     rel_final = (cost * (flow - aux)).sum() / total
     return MSAResult(
         flow=flow, gap=l1, iterations=it, rel_gap=rel_final,
-        converged=bool(host_read(rel_final < msa.rel_gap_tol)[0]))
+        converged=bool(host_read(rel_final < msa.rel_gap_tol,
+                                 site=_SITE)[0]))
 
 
 def solve_assignment(network: Network, od_o, od_d, od_vol,

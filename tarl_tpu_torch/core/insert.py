@@ -224,7 +224,8 @@ def insert_agents_windowed(
         else:
             inserted = agents2.inserted
         adv_t = torch.min(torch.where(settled, w, pos_w))
-        adv, sat = host_read(adv_t, win_dep[w - 1] <= time)
+        adv, sat = host_read(adv_t, win_dep[w - 1] <= time,
+                             site="insert.window")
         return road, inserted, adv, bool(sat), start
 
     count0 = road.count            # tick-start occupancy (stamp snapshot)
@@ -300,7 +301,7 @@ def backlog_frontier_append(
         qpack = scatter_set(qpack, flat + 1, dest[lo:lo + f], band)
         qcount = scatter_add(qcount, o, torch.ones_like(rank), band)
         stall = torch.where(pos == adv_t, due & ~roomok, False).sum()
-        adv, due_at_stop = host_read(adv_t, stall)
+        adv, due_at_stop = host_read(adv_t, stall, site="insert.frontier")
         overflow += float(due_at_stop)
         ptr = lo - 1 + adv
         if not (escalate and adv == f and ptr < a - 1):
@@ -396,7 +397,8 @@ def drain_backlog(road: RoadState, rows, rows_ok, head, count, g_safe,
             else rows_ok[:, None].expand(s, p).reshape(-1))
 
     cnt_s = c0_s
-    while host_read(torch.any(gvalid & (qcount > 0) & (rem_cap > cnt_s)))[0]:
+    while host_read(torch.any(gvalid & (qcount > 0) & (rem_cap > cnt_s)),
+                    site="insert.drain")[0]:
         take = torch.clamp(torch.minimum(qcount, rem_cap - cnt_s), 0, p)
         take = torch.where(gvalid, take, 0)
         phys = torch.remainder(qhead[:, None] + pcol, q).long()

@@ -13,7 +13,10 @@ PyTorch; with ``SimConfig.fused_core`` and at most 4,096 roads it is
 eligibility, the logits and the per-downstream Gumbel-max over the turn
 edges in one launch of kernel K12).  The episode functions are Python
 loops over ticks; the reference's ``lax.scan`` has no counterpart that
-eager PyTorch needs.
+eager PyTorch needs.  Each tick, its phases and the periodic refresh open
+spans (:mod:`~tarl_tpu_torch.utils.timers`): ``tick``, and under it
+``insert``, ``withdraw``, ``choice`` (with ``refresh`` under it) and
+``core``.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from ..state import (
     init_metric_state,
     init_road_state,
 )
+from ..utils.timers import span, spanned
 from .fused_core import fused_core_sample, fused_core_step
 from .fused_winner import apply_transfers, direction_confirm
 from .insert import (
@@ -158,6 +162,7 @@ def reset_sim_state(state: SimState, start_time) -> SimState:
     )
 
 
+@spanned("insert")
 def insert_phase(state: SimState, network: Network, policy: Policy,
                  sim: SimConfig = DEFAULT_SIM,
                  physics: PhysicsConfig = DEFAULT_PHYSICS,
@@ -202,6 +207,7 @@ def insert_phase(state: SimState, network: Network, policy: Policy,
     return state._replace(road=road, agents=agents), 0.0
 
 
+@spanned("withdraw")
 def withdraw_phase(state: SimState, network: Network,
                    sim: SimConfig = DEFAULT_SIM
                    ) -> tuple[SimState, torch.Tensor]:
@@ -214,6 +220,7 @@ def withdraw_phase(state: SimState, network: Network,
     return state._replace(road=road, agents=agents), wcount
 
 
+@spanned("core")
 def core_phase(
     state: SimState,
     network: Network,
@@ -292,6 +299,7 @@ def core_phase(
     return new_state, log
 
 
+@spanned("tick")
 def tick(
     state: SimState,
     network: Network,
@@ -318,7 +326,8 @@ def tick(
     state, saturated = insert_phase(state, network, policy, sim, physics,
                                     lazy_inserted)
     state, wcount = withdraw_phase(state, network, sim)
-    state, _ = (choice_fn or policy.choice)(state, network)
+    with span("choice"):
+        state, _ = (choice_fn or policy.choice)(state, network)
     return core_phase(state, network, wcount, saturated, sim, physics,
                       core=core, payload=payload)
 
@@ -383,7 +392,8 @@ def run_episode_periodic(
                          f"of periodic_rate={rate}")
 
     def refresh_choice(s, net):
-        buf = policy.refresh(s, net)
+        with span("refresh"):
+            buf = policy.refresh(s, net)
         return policy.lookup(s, net, buf)._replace(next_hop=buf), None
 
     def lookup_choice(s, net):

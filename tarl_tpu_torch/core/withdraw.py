@@ -73,7 +73,7 @@ def withdraw_agents(
                                             agents.arrival)
     if escalate and k < nmax:
         last = wcount
-        while host_read(torch.any(last == k))[0]:
+        while host_read(torch.any(last == k), site="withdraw.escalate")[0]:
             head, count, arrival, last = one_pass(head, count, arrival)
             wcount = wcount + last
     return (

@@ -122,7 +122,7 @@ class SegmentLayout:
     def dropped(self) -> bool:
         """Whether an id lay out of range: one counted host read
         (:func:`sync.host_read`), the first time it is asked."""
-        (end,) = sync.host_read(self.offsets[-1])
+        (end,) = sync.host_read(self.offsets[-1], site="ops.segment")
         return end != self.ids.shape[0]
 
 

@@ -452,7 +452,8 @@ class RoadBlocks:
             # Every held block scans again while any of them hit the depth:
             # a pass changes nothing on a block whose runs stopped short.
             last = wcount
-            while host_read(torch.any(last == k))[0]:
+            while host_read(torch.any(last == k),
+                            site="parallel.shard_map_episode")[0]:
                 head, count, marks, last = one_pass(head, count, marks)
                 wcount = wcount + last
         withdrew = mesh.psum(marks.view(mesh.held, a)) > 0

@@ -269,15 +269,17 @@ class SpatialPPO:
         dist_rows = (None if rl.reward_mode != "progress"
                      else kit.rows(ppo._dist_ff[:kit.r], 1e18))
         env, key = self._local(kit, ts.env), ts.key
-        t_high = host_read(torch.ceil(env.sim.time))[0]
+        t_high = host_read(torch.ceil(env.sim.time),
+                           site="parallel.spatial_ppo")[0]
         steps = []
         for _ in range(rl.rollout_steps):
             env2, key, tr = self._step(kit, env, key, ts.params, winner,
                                        dist_rows)
             t_high += ppo.sim_cfg.timestep
             if t_high > rl.episode_end:
-                ended, t_high = host_read(tr.done,
-                                          torch.ceil(env2.sim.time))
+                ended, t_high = host_read(
+                    tr.done, torch.ceil(env2.sim.time),
+                    site="parallel.spatial_ppo")
                 if ended:
                     env2 = self._reset(env2)
                     t_high = rl.episode_start

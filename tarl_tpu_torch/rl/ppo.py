@@ -407,7 +407,7 @@ class PPO:
         _require_full_f32()
         rl = self.rl
         step_dt = self.sim_cfg.timestep
-        t_high = host_read(torch.ceil(env.sim.time))[0]
+        t_high = host_read(torch.ceil(env.sim.time), site="rl.ppo")[0]
         steps = []
         for _ in range(rl.rollout_steps):
             key, k_sample = split(key)
@@ -422,7 +422,8 @@ class PPO:
                 dist_ff=self._dist_ff, core=core)
             t_high += step_dt
             if t_high > rl.episode_end:
-                ended, t_high = host_read(done, torch.ceil(env2.sim.time))
+                ended, t_high = host_read(done, torch.ceil(env2.sim.time),
+                                          site="rl.ppo")
                 if ended:
                     env2, obs2 = env_reset(env2.sim, self.network, rl,
                                            self.physics, self._dist_ff)

@@ -196,7 +196,7 @@ def _relax_batched(sweep, n: int, max_iters: int | None, dev):
             dist = new
         done += n_sweeps
         DUAL_SWEEPS += n_sweeps
-        if not host_read(changed)[0]:
+        if not host_read(changed, site="routing.bellman_ford")[0]:
             break
     return dist
 
@@ -390,7 +390,8 @@ def primal_relax_next_roads_plain(
     dist = dist0
     for _ in range(iters):
         new = _sweep_plain(dist, w, succ)
-        if max_iters is None and not host_read(torch.any(new < dist))[0]:
+        if max_iters is None and not host_read(
+                torch.any(new < dist), site="routing.bellman_ford")[0]:
             break
         dist = new
     if relax_only:

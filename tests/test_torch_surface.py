@@ -96,6 +96,9 @@ CUT = {
                              "direction_confirm_fused_tiled",
                              "fused_winner_ok", "fused_winner_tiled_ok",
                              "fused_shard_winner_ok"},
+    # Named timers nothing read; the port times its layers with spans.
+    "utils/timers.py": {"Stopwatch", "Stopwatch.time", "Stopwatch.summary",
+                        "Stopwatch.totals"},
 }
 
 
