@@ -16,16 +16,18 @@ since the run began.
 
 1. Card: name and power limit (``nvidia-smi``), torch and CUDA versions;
    build the CUDA kernels from ``tarl_tpu_torch/csrc`` (``fused_winner``,
-   ``primal_relax``, ``segment`` and ``fused_core``, one nvcc each, started
-   together),
+   ``primal_relax``, ``segment``, ``fused_core`` and ``choice``, one nvcc
+   each, started together),
    time the builds, and print each kernel's registers and spills
    (``nvcc -Xptxas -v``, run beside the builds).
 2. The headline episode: Grid16x16, 50,000 agents departing over 06:00-08:00,
    7,200 ticks of 1 s in bitwise-exact mode (per-SRC backlog insert Q=256,
    W=32, withdraw depth 2, both escalations, random route choice).  Asserts
-   a zero overflow monitor, conservation, arrivals, and one K1 launch per
+   a zero overflow monitor, conservation, arrivals, one K1 launch per
    tick (the kernel draws the tick's noise from its key: one launch and a
-   memset); prints agent-steps/s measured after a 64-tick warm-up.
+   memset) and one launch of the random choice's kernel per tick
+   (``csrc/choice.cu``); prints agent-steps/s measured after a 64-tick
+   warm-up.
 3. K1 against plain: the fused-winner kernel must equal its plain PyTorch
    version bitwise on all five outputs, with the clock on the host and on
    the device, on road states captured every 600 ticks of phase 2 and on
@@ -43,7 +45,8 @@ since the run began.
    after two warm-up periods.  Asserts conservation, arrivals, a finite
    table with a road for every pair, the relax kernel (K2) on each of the
    102 refreshes (the initial table's next-road pass counted apart) and
-   K1 on every tick; prints agent-steps/s, ms/tick, ms per refresh (CUDA
+   K1 on every tick and no launch of the random choice's kernel; prints
+   agent-steps/s, ms/tick, ms per refresh (CUDA
    events), the saturation monitor and host reads per tick.
 6. K2 against plain, bitwise on distances and next roads: K2 mode (8
    sweeps + next road) on the refresh inputs captured at every 20th
@@ -153,7 +156,7 @@ since the run began.
    per-downstream Gumbel-max over the turn edges in one launch (K12's
    fused entry, ``fused_core_sample``, noise drawn in the kernel) in place
    of K1.  Asserts a zero overflow monitor, conservation, arrivals, one
-   K12 launch per tick and no K1; prints agent-steps/s after the warm-up
+   K12 and one random-choice launch per tick and no K1; prints agent-steps/s after the warm-up
    and the average travel time beside phase 2's (the same law, another
    random stream).  Keeps K12's inputs (road state, selections, clock,
    key) every 600 ticks.
@@ -186,7 +189,9 @@ since the run began.
    tick logs to there,
    ``road_delta_tt`` bitwise or within the reference's ``rtol=1e-5,
    atol=1e-3`` (printing which held), a zero overflow monitor,
-   conservation, one K7 launch per tick and no K1; prints agent-steps/s
+   conservation, one K7 launch per tick and no K1, the random choice's
+   kernel once a tick (on the whole network, with the halo's roads);
+   prints agent-steps/s
    after the warm-up, ms/tick beside phase 2's and host reads per tick.
    Keeps K7's inputs every 600 ticks.
 18. The padded mesh: the first 600 ticks of the same episode on
@@ -249,8 +254,15 @@ since the run began.
    mode timed there, plain, kernel, global, global, kernel, plain, with
    device times, beside the bound.  Its exact_random row: backlog insert
    Q=256, W=64, both escalations, random choice, 1,020 ticks timed the
-   same way; asserts a zero overflow monitor and conservation, prints
-   the backlog's MB.
+   same way; asserts a zero overflow monitor, conservation and K1 and
+   the random choice's kernel once a tick, prints the backlog's MB.  The
+   random choice's kernel (``csrc/choice.cu``) against
+   ``random_choice_plain`` on the row's states captured every 200 ticks,
+   each with its own key and ``CHOICE_KEYS`` (words at and near 2**32 -
+   1): the selection and the key written back bitwise, one launch a
+   call; both timed on the middle state, plain, kernel, kernel, plain,
+   with each one's device time and device activities a call by kind
+   (kernels, memsets, copies), beside the kernel's bound by bytes.
 23. The radial metro (``scripts/bench_radial.py`` at full width, the
    reference's non-grid row): 64 rings of 128 spokes around a centre of 8
    spurs (32,528 roads, 8,193 intersections of K = 8 out-slots) and
@@ -349,14 +361,18 @@ since the run began.
    each timed (R, I, K, Nmax, ``renumbered`` and D printed).  The exact
    random row: backlog insert Q=8,192, W=32, withdraw depth 2, both
    escalations, 1,020 ticks timed from tick 20; asserts a zero overflow
-   monitor, conservation, arrivals and K1 once a tick; its first 300
-   ticks again with the plain K1, the state bitwise the kernel run's.  The
+   monitor, conservation, arrivals and K1 and the random choice's kernel
+   once a tick; its first 300 ticks again with the plain K1, the state
+   bitwise the kernel run's.  The random choice's kernel against its
+   plain version on the row's states captured every 300 ticks, as in
+   phase 22 (the renumbered city: KC = 7, ``road_order`` addressing).  The
    zoned sp row: ``RoutingConfig(refresh_rate=10, max_bf_iters=8,
    backend="primal")``, zoned tables over ``unique(_dest_inter(net,
    agents.dest))``, W=1,024, depth 2, no escalation, 1,020 ticks; K = 7
    slots a row, so every relax runs the global form (K6): asserts
    :func:`check_radial_sp`'s conditions (one global launch a refresh and
-   for the table init, that with no host read, K1 once a tick); the relax
+   for the table init, that with no host read, K1 once a tick, no
+   random-choice launch); the relax
    against plain, bitwise, on the refresh inputs captured at every 20th
    refresh, the first included, and on the cold start (8 sweeps with and
    without next roads, 1 sweep).  Prints ms/tick, agent-steps/s, ms per refresh and host reads
@@ -502,7 +518,12 @@ since the run began.
    ``launches_blocks`` and on phase 30's in ``launches_spatial_ppo``;
    K10's bare max in phase 30f's ``bare_launches_response_step``; K1's on
    phase 31's path and in its plain run in ``launches_golden_trace`` and
-   ``launches_golden_trace_plain``),
+   ``launches_golden_trace_plain``; and ``random_choice``, the kernel of
+   ``csrc/choice.cu``, which replaces no ``pallas_call``: its launches on
+   phase 2's headline, the fused-core and sharded headlines and the
+   million and city exact random rows, none on the sp rows, its times at
+   the million grid's shape and the city's (phases 22 and 26) and the
+   device activities a call of it and of its plain version by kind),
    the card's name and power limit,
    then
    ``{"ok": true, "device": {...}}``.
@@ -529,7 +550,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("fused_winner", "primal_relax", "segment", "fused_core")
+KERNELS = ("fused_winner", "primal_relax", "segment", "fused_core",
+           "choice")
 HEADLINE_TICKS = 7200
 WARMUP_TICKS = 64
 CAPTURE_EVERY = 600
@@ -680,6 +702,11 @@ SPAWN_TIMEOUT = 300           # (d): seconds for the spawned ranks in all
 PARSES: list = []
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# Tick keys the random choice's kernel is held to its plain version with on
+# every captured state of phases 22 and 26, besides the state's own: words
+# at and near 2**32 - 1 among them.
+CHOICE_KEYS = ((0, 0), (12345, 67890), (2 ** 32 - 1, 2 ** 32 - 1),
+               (2 ** 32 - 1, 0), (0, 2 ** 32 - 2))
 
 
 T0_ENV = "CHIP_SMOKE_T0"      # the run's start (epoch seconds), for log()
@@ -866,6 +893,7 @@ def sp_row(net, agents, ticks=SP_TICKS, warmup=SP_WARMUP_TICKS,
     from tarl_tpu_torch.core import fused_winner, sync
     from tarl_tpu_torch.core.step import init_sim_state, run_episode_periodic
     from tarl_tpu_torch.routing import bellman_ford as bf
+    from tarl_tpu_torch.routing import policies
     from tarl_tpu_torch.simulator import make_policy
 
     routing, sim = config or sp_row_config()
@@ -924,6 +952,7 @@ def sp_row(net, agents, ticks=SP_TICKS, warmup=SP_WARMUP_TICKS,
 
     fused_winner.reset_launches()
     bf.reset_launches()
+    policies.reset_launches()
     sync.reset()
     t0 = time.perf_counter()
     state0 = init_sim_state(net, agents, sim=sim, policy=policy)
@@ -971,6 +1000,7 @@ def sp_row(net, agents, ticks=SP_TICKS, warmup=SP_WARMUP_TICKS,
         "init_next_road_launches": init_next_road,
         "next_road_launches": bf.NEXT_ROAD_LAUNCHES,
         "winner_launches": fused_winner.LAUNCHES,
+        "choice_launches": policies.LAUNCHES,
         "routing": routing, "sim": sim,
     }
 
@@ -1011,11 +1041,96 @@ def check_sp_row(res, net, ticks=SP_TICKS) -> None:
     refreshes = ticks // res["routing"].refresh_rate
     expected = {"refreshes": refreshes, "relax_launches": refreshes,
                 "init_next_road_launches": 1, "next_road_launches": 1,
-                "winner_launches": ticks}
+                "winner_launches": ticks, "choice_launches": 0}
     for name, want in expected.items():
         if res[name] != want:
             raise AssertionError(f"sp row: {name} = {res[name]}, expected "
                                  f"{want}")
+
+
+# --- the random choice's kernel (phases 22 and 26) --------------------------
+
+def choice_bound_ms(net) -> tuple[float, int]:
+    """The random choice's least bytes and their time at the HBM peak, in
+    ms: each slot's ok flag, each node's selection in and out, one
+    destination for each node with an ok slot, and each road's
+    ``road_order`` entry on a renumbered network."""
+    kc, n = net.choice_dst_tab.shape
+    with_slot = int(net.choice_ok.any(dim=0).sum())
+    least = (kc * n + 8 * n + 4 * with_slot
+             + (4 * net.num_roads if net.renumbered else 0))
+    return least / HBM_BYTES_PER_S * 1e3, least
+
+
+def choice_row(label: str, net, states, card: str,
+               calls: int = TIMED_CALLS) -> dict:
+    """The random choice's kernel (``csrc/choice.cu`` through
+    ``policies.random_choice``) against ``random_choice_plain`` on a row's
+    captured ``states``, each with its own key and with ``CHOICE_KEYS``:
+    the selection and the key written back bitwise, one launch a call on
+    the card (none on the CPU, where the wrapper is the plain version).
+    On the card, both timed per call on the middle state, plain, kernel,
+    kernel, plain (CUDA events), and each one's device time and device
+    activities a call by kind (``torch.profiler``), beside the kernel's
+    bound.  Returns the numbers the kernels line reads."""
+    import torch
+
+    from tarl_tpu_torch.routing import policies
+
+    on_card = net.device.type == "cuda"
+    kernel, plain = policies.random_choice, policies.random_choice_plain
+    checked = 0
+    for s in states:
+        for key in (s.key, *CHOICE_KEYS):
+            st = s._replace(key=key)
+            before = policies.LAUNCHES
+            got, _ = kernel(st, net)
+            launched = policies.LAUNCHES - before
+            want, _ = plain(st, net)
+            if launched != int(on_card):
+                raise AssertionError(f"{label}: the random choice launched "
+                                     f"its kernel {launched} times in a "
+                                     f"call")
+            if got.key != want.key or not torch.equal(got.selected_road,
+                                                      want.selected_road):
+                diff = int((got.selected_road != want.selected_road).sum())
+                raise AssertionError(
+                    f"{label}: the random choice's kernel and plain version "
+                    f"differ at key {key}: {diff} nodes, keys written back "
+                    f"{got.key} and {want.key}")
+            checked += 1
+    kc, n = net.choice_dst_tab.shape
+    bound_ms, least = choice_bound_ms(net)
+    out = {"checked": checked, "n": n, "kc": kc,
+           "renumbered": bool(net.renumbered),
+           "ok_slots": int(net.choice_ok.sum()), "least_bytes": least,
+           "bound_ms": bound_ms}
+    log(f"random choice kernel vs plain, {label} (N={n}, KC={kc}, "
+        f"renumbered {net.renumbered}, {out['ok_slots']} ok slots): "
+        f"selection and key written back bitwise equal in {checked} calls "
+        f"({len(states)} captured states, each with its own key and "
+        f"{len(CHOICE_KEYS)} more), one launch a call ({card})")
+    if not on_card:
+        return out
+    args = (states[len(states) // 2], net)
+    p1, k1, k2, p2 = time_pair(kernel, plain, args, calls)
+    for name, fn in (("", kernel), ("plain_", plain)):
+        acts = device_activities(fn, args, calls)
+        per_name, _ = name_times(acts, calls)
+        out[f"{name}device_ms"] = (None if per_name is None
+                                   else sum(per_name.values()))
+        out[f"{name}activities"] = activity_kinds(acts, calls)
+    out.update(ms=min(k1, k2), plain_ms=min(p1, p2),
+               turns_ms=[p1, k1, k2, p2])
+    log(f"random choice, {label}: kernel {k1 * 1e3:.2f} / {k2 * 1e3:.2f} us "
+        f"per call, plain {p1 * 1e3:.2f} / {p2 * 1e3:.2f} us (plain, "
+        f"kernel, kernel, plain; CUDA events over {calls} calls); device "
+        f"{fmt_us(out['device_ms'])} per call in "
+        f"{out['activities']}, plain {fmt_us(out['plain_device_ms'])} in "
+        f"{out['plain_activities']} (torch.profiler, activities a call by "
+        f"kind); bound {bound_ms * 1e3:.4f} us by bytes ({least} bytes at "
+        f"3.35 TB/s) ({card})")
+    return out
 
 
 # --- the million-agent row (phase 22) ----------------------------------------
@@ -1106,7 +1221,8 @@ def check_million_sp(res, net, agents, d_n: int, ticks: int) -> None:
     """Phase 22's asserts on its sp row: conservation, arrivals, a finite
     table with a road for every pair, one cluster relax a refresh, the
     uncapped table init in one cluster launch (its next roads included)
-    with no host read, no global-form call, and K1 once a tick."""
+    with no host read, no global-form call, K1 once a tick and no launch
+    of the random choice's kernel."""
     import torch
 
     from tarl_tpu_torch.routing.bellman_ford import BIG
@@ -1132,12 +1248,13 @@ def check_million_sp(res, net, agents, d_n: int, ticks: int) -> None:
            "refresh relax calls": res["relax_launches"]
            - res["table_init"]["relax"],
            "forms": res["forms"], "table init": res["table_init"],
-           "winner_launches": res["winner_launches"]}
+           "winner_launches": res["winner_launches"],
+           "choice_launches": res["choice_launches"]}
     want = {"refreshes": refreshes, "refresh relax calls": refreshes,
             "forms": {"resident": 0, "cluster": refreshes + 1, "global": 0},
             "table init": {"relax": 1, "resident": 0, "cluster": 1,
                            "global": 0, "next_road": 0, "host_reads": 0},
-            "winner_launches": ticks}
+            "winner_launches": ticks, "choice_launches": 0}
     if got != want:
         raise AssertionError(f"million sp row: {got}, expected {want}")
 
@@ -1321,7 +1438,7 @@ def million_phase(dev, card: str, grid=MILLION_GRID,
                 f"{t['bound'][1]} ({card})")
 
     ex = headline_run(net, agents, sim_ex, Policy(choice=random_choice),
-                      ticks=ticks, warmup=warmup, capture_every=ticks)
+                      ticks=ticks, warmup=warmup, capture_every=context)
     backlog = ex["final"].backlog
     if ex["overflow"] != 0.0:
         raise AssertionError(f"million exact_random: overflow monitor "
@@ -1331,7 +1448,8 @@ def million_phase(dev, card: str, grid=MILLION_GRID,
         raise AssertionError(f"million exact_random conservation: "
                              f"{ex['on_road']} on roads, {ex['on_way']} on "
                              f"the way, {ex['done']} done")
-    if dev.type == "cuda" and ex["launches"]["K1"] != ticks:
+    if dev.type == "cuda" and (ex["launches"]["K1"],
+                               ex["launches"]["choice"]) != (ticks, ticks):
         raise AssertionError(f"million exact_random: launches "
                              f"{ex['launches']}")
     backlog_mb = backlog.qpack.numel() * 4 / 2 ** 20
@@ -1341,8 +1459,9 @@ def million_phase(dev, card: str, grid=MILLION_GRID,
         f"{ex['done']}, on the way {ex['on_way']}, overflow "
         f"{ex['overflow']}, host reads per tick {ex['syncs_per_tick']:.3f}, "
         f"backlog {backlog_mb:.1f} MB, launches {ex['launches']} ({card})")
+    choice = choice_row("million grid", net, ex["captured"], card)
     return {"sp": sp, "errs": errs, "timed": timed, "i_n": i_n,
-            "d_n": d_n}
+            "d_n": d_n, "choice": choice, "exact_launches": ex["launches"]}
 
 
 # --- the radial metro (phase 23) ---------------------------------------------
@@ -1412,7 +1531,7 @@ def check_radial_sp(res, net, agents, d_n: int, ticks: int,
     every pair (the network is strongly connected), one relax call a
     refresh, every one and the uncapped table init in the global form (one
     launch each), the table init with no host read, no resident or cluster
-    launch, and K1 once a tick."""
+    launch, K1 once a tick and no launch of the random choice's kernel."""
     import torch
 
     from tarl_tpu_torch.routing.bellman_ford import BIG
@@ -1438,12 +1557,13 @@ def check_radial_sp(res, net, agents, d_n: int, ticks: int,
            "refresh relax calls": res["relax_launches"]
            - res["table_init"]["relax"],
            "forms": res["forms"], "table init": res["table_init"],
-           "winner_launches": res["winner_launches"]}
+           "winner_launches": res["winner_launches"],
+           "choice_launches": res["choice_launches"]}
     want = {"refreshes": refreshes, "refresh relax calls": refreshes,
             "forms": {"resident": 0, "cluster": 0, "global": refreshes + 1},
             "table init": {"relax": 1, "resident": 0, "cluster": 0,
                            "global": 1, "next_road": 0, "host_reads": 0},
-            "winner_launches": ticks}
+            "winner_launches": ticks, "choice_launches": 0}
     if got != want:
         raise AssertionError(f"{label}: {got}, expected {want}")
 
@@ -1665,6 +1785,7 @@ def radial_phase(dev, card: str, rings=RADIAL_RINGS, spokes=RADIAL_SPOKES,
                              f"{ex['on_road']} on roads, {ex['on_way']} on "
                              f"the way, {ex['done']} done")
     if on_card and (ex["launches"]["K1"] != exact_ticks
+                    or ex["launches"]["choice"] != 0
                     or ex_relax["global"] != exact_ticks // 10 + 1):
         raise AssertionError(f"radial exact row: launches {ex['launches']}, "
                              f"relax {ex_relax}")
@@ -1868,8 +1989,31 @@ def device_time_by_name(fn, args, calls: int = TIMED_CALLS,
     """:func:`device_time_per_call`'s estimate per activity name: ``({name:
     ms per call}, activities per call)``, ``(None, 0.0)`` where nothing
     was recorded."""
+    return name_times(device_activities(fn, args, calls, attempts), calls)
+
+
+def name_times(activities, calls: int) -> tuple:
+    """``({name: ms per call}, activities per call)`` of the ``(name, us)``
+    records of ``calls`` calls: for each name, its mean duration times its
+    whole number of occurrences per call; ``(None, 0.0)`` where there are
+    none."""
     import collections
 
+    if not activities:
+        return None, 0.0
+    by_name = collections.defaultdict(list)
+    for name, us in activities:
+        by_name[name].append(us)
+    return ({name: sum(d) / len(d) * max(1, round(len(d) / calls)) / 1e3
+             for name, d in by_name.items()}, len(activities) / calls)
+
+
+def device_activities(fn, args, calls: int = TIMED_CALLS,
+                      attempts: int = 5) -> list:
+    """The device activities ``torch.profiler`` records over ``calls``
+    back-to-back calls after a warm-up, ``(name, us)`` each, from the
+    fullest of up to ``attempts`` windows (the first whose count is a
+    whole number per call); empty where no window recorded anything."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1894,13 +2038,19 @@ def device_time_by_name(fn, args, calls: int = TIMED_CALLS,
             best = events
         if events and len(events) % calls == 0:
             break
-    if not best:
-        return None, 0.0
-    by_name = collections.defaultdict(list)
-    for name, us in best:
-        by_name[name].append(us)
-    return ({name: sum(d) / len(d) * max(1, round(len(d) / calls)) / 1e3
-             for name, d in by_name.items()}, len(best) / calls)
+    return best
+
+
+def activity_kinds(activities, calls: int) -> dict:
+    """Device activities per call by kind, as the benchmark's trace reader
+    tells them apart: ``Memcpy ...`` a copy, ``Memset ...`` a memset,
+    anything else a kernel."""
+    kinds = {"kernel": 0, "memset": 0, "memcpy": 0}
+    for name, _ in activities:
+        kind = ("memcpy" if name.startswith("Memcpy") else
+                "memset" if name.startswith("Memset") else "kernel")
+        kinds[kind] += 1
+    return {k: v / calls for k, v in kinds.items()}
 
 
 def fmt_us(ms) -> str:
@@ -2442,19 +2592,23 @@ class Capture:
 def counts() -> dict:
     from tarl_tpu_torch.core import fused_core, fused_winner
     from tarl_tpu_torch.ops import segment as seg
+    from tarl_tpu_torch.routing import policies
 
     return {"K1": fused_winner.LAUNCHES, "K9": seg.SUM_LAUNCHES,
             "K10": seg.MAX_LAUNCHES, "K11": seg.ARGMAX_LAUNCHES,
-            "K12": fused_core.LAUNCHES, "K7": fused_winner.SHARD_LAUNCHES}
+            "K12": fused_core.LAUNCHES, "K7": fused_winner.SHARD_LAUNCHES,
+            "choice": policies.LAUNCHES}
 
 
 def reset_counts() -> None:
     from tarl_tpu_torch.core import fused_core, fused_winner, sync
     from tarl_tpu_torch.ops import segment as seg
+    from tarl_tpu_torch.routing import policies
 
     fused_winner.reset_launches()
     fused_core.reset_launches()
     seg.reset_launches()
+    policies.reset_launches()
     sync.reset()
 
 
@@ -2486,7 +2640,8 @@ def check_eval(env, agents_total: int, steps: int, launches: dict,
     if max_att is not None and not att < max_att:
         raise AssertionError(f"{label}: average travel time {att} s, not "
                              f"below {max_att} s")
-    want = {"K1": steps, "K11": steps, "K9": 0, "K10": 0, "K12": 0, "K7": 0}
+    want = {"K1": steps, "K11": steps, "K9": 0, "K10": 0, "K12": 0, "K7": 0,
+            "choice": 0}
     if on_card and launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{want}")
@@ -3021,7 +3176,7 @@ def learned_paths(dev, net, agents, card: str, eval_steps=EVAL_STEPS,
     collect_launches = counts()
     collect_reads = sync.HOST_READS
     want = {"K1": collect_steps, "K9": 0, "K10": collect_steps,
-            "K11": collect_steps, "K12": 0, "K7": 0}
+            "K11": collect_steps, "K12": 0, "K7": 0, "choice": 0}
     if on_card and collect_launches != want:
         raise AssertionError(f"collection launches {collect_launches}, "
                              f"expected {want}")
@@ -4014,7 +4169,7 @@ def city_phase(dev, card: str, num_intersections=CITY_INTERSECTIONS,
     ex = headline_run(net, agents, sim_ex, random_policy, ticks=ticks,
                       warmup=warmup, capture_every=context)
     check_headline(ex, "city exact random row",
-                   {"K1": ticks} if on_card else {})
+                   {"K1": ticks, "choice": ticks} if on_card else {})
     log(f"city exact random row (Q={CITY_BACKLOG}, W=32, depth 2, both "
         f"escalations), {ticks} ticks: {ex['rate']:.1f} agent-steps/s "
         f"({ex['measured']} ticks in {ex['wall']:.2f} s, "
@@ -4038,6 +4193,7 @@ def city_phase(dev, card: str, num_intersections=CITY_INTERSECTIONS,
         f"{context}")
     exact = {k: ex[k] for k in ("wall", "measured", "rate", "overflow",
                                 "done", "syncs_per_tick", "launches")}
+    choice = choice_row("city", net, ex["captured"], card)
     del ex, plain
 
     # --- the zoned sp row ---
@@ -4099,9 +4255,9 @@ def city_phase(dev, card: str, num_intersections=CITY_INTERSECTIONS,
     sp_out = {k: sp[k] for k in ("wall", "measured", "rate", "refresh_ms",
                                  "relax_ms", "refreshes", "forms",
                                  "table_init", "winner_launches",
-                                 "reads_per_tick")}
+                                 "choice_launches", "reads_per_tick")}
     return {"exact": exact, "sp": sp_out, "err": err, "seconds": secs,
-            "timed": timed,
+            "timed": timed, "choice": choice,
             "r": net.num_roads, "i_n": i_n, "d_n": d_n, "k_n": k_n,
             "nmax": net.nmax, "renumbered": net.renumbered}
 
@@ -4227,7 +4383,7 @@ def gt_recorded_eval(dev, card: str, steps=GT_EVAL_STEPS,
     loop_wall = time.perf_counter() - t0
     loop_counts = counts()
     want = {"K1": context, "K11": context, "K9": 0, "K10": 0, "K12": 0,
-            "K7": 0}
+            "K7": 0, "choice": 0}
     if on_card and loop_counts != want:
         raise AssertionError(f"27a: greedy launches {loop_counts}, "
                              f"expected {want}")
@@ -4263,7 +4419,8 @@ def gt_recorded_eval(dev, card: str, steps=GT_EVAL_STEPS,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts()
-    want = {"K1": steps, "K11": steps, "K9": 0, "K10": 0, "K12": 0, "K7": 0}
+    want = {"K1": steps, "K11": steps, "K9": 0, "K10": 0, "K12": 0, "K7": 0,
+            "choice": 0}
     if on_card and launches != want:
         raise AssertionError(f"27a: launches {launches}, expected {want}")
     if not bool(torch.isfinite(rewards).all()):
@@ -4343,7 +4500,7 @@ def gt_training(ppo, params, st, card: str, collect=GT_COLLECT_STEPS
     finally:
         ppo.rl = dataclasses.replace(ppo.rl, rollout_steps=steps)
     want = {"K1": collect, "K9": 0, "K10": collect, "K11": collect,
-            "K12": 0, "K7": 0}
+            "K12": 0, "K7": 0, "choice": 0}
     if on_card and c_counts != want:
         raise AssertionError(f"27b: collection launches {c_counts}, "
                              f"expected {want}")
@@ -4514,7 +4671,7 @@ def gt_learned_episode(dev, card: str, net, agents, params,
                        warmup=warmup, capture_every=context)
     choice_ms = sum(_ms_between(a, b) for a, b in marks[warmup:]) / ticks
     check_headline(res, "27d", {"K1": warmup + ticks, "K9": 0, "K10": 0,
-                                "K11": 0, "K12": 0, "K7": 0}
+                                "K11": 0, "K12": 0, "K7": 0, "choice": 0}
                    if on_card else {})
     # The slot twin against the flat forward on captured states.
     spec = policy.learned
@@ -4787,7 +4944,7 @@ def training_phase(net8, trained, st8, card: str,
                          checkpoint_dir=dir_b, **kw)
 
     want_run = {"K1": iterations * steps, "K9": 0, "K10": iterations * steps,
-                "K11": iterations * steps, "K12": 0, "K7": 0}
+                "K11": iterations * steps, "K12": 0, "K7": 0, "choice": 0}
     if on_card and run_counts != want_run:
         raise AssertionError(f"training: launches {run_counts}, expected "
                              f"{want_run}")
@@ -5027,7 +5184,7 @@ def batched_phase(net8, trained, st8, card: str, single: list,
         plain_counts = counts()
     kern, plain = probe.records
     want = {"K1": steps, "K9": 0, "K10": steps, "K11": steps, "K12": 0,
-            "K7": 0}
+            "K7": 0, "choice": 0}
     idle = {k: 0 for k in want}
     if on_card and (run_counts != want or kern["gae_launches"] != idle
                     or kern["update_launches"] != idle
@@ -5687,7 +5844,7 @@ def sharded_training(label: str, make_ppo, ts, card: str,
             row_err = _max_abs_diff(torch.where(ok, blk, 0.0),
                                     torch.where(ok, want_blk, 0.0))
     want = {"K1": steps, "K9": 0, "K10": steps, "K11": steps, "K12": 0,
-            "K7": 0}
+            "K7": 0, "choice": 0}
     idle = {k: 0 for k in want}
     for name, c, rec in (("unsharded", u_counts, rec_u),
                          ("sharded", s_counts, rec_s)):
@@ -5741,7 +5898,8 @@ def spatial_training(make_ppo, ts, want_traj, ts_u, card: str) -> dict:
         errs = grads.run()
     rec = probe.records[-1]
     traj = rec["trajs"][0]
-    want = {"K1": 0, "K9": 0, "K10": 0, "K11": 0, "K12": 0, "K7": steps}
+    want = {"K1": 0, "K9": 0, "K10": 0, "K11": 0, "K12": 0, "K7": steps,
+            "choice": 0}
     if on_card and (rec["collection_launches"] != want
                     or any(rec["update_launches"].values())):
         raise AssertionError(f"30c: launches {rec['collection_launches']} "
@@ -6487,7 +6645,7 @@ def main() -> int:
     policy = Policy(choice=random_choice)
     head = headline_run(net, agents, sim, policy)
     check_headline(head, "headline", {"K1": HEADLINE_TICKS, "K12": 0,
-                                      "K7": 0})
+                                      "K7": 0, "choice": HEADLINE_TICKS})
     captured = head["captured"]
     launches = head["launches"]["K1"]
     log(f"headline: {head['rate']:.1f} agent-steps/s ({head['measured']} "
@@ -6879,7 +7037,8 @@ def main() -> int:
     fc = headline_run(net, agents, sim_fc, policy, payload=cap12,
                       ticks=FUSED_TICKS)
     check_headline(fc, "fused-core headline", {"K12": FUSED_TICKS,
-                                               "K1": 0, "K7": 0})
+                                               "K1": 0, "K7": 0,
+                                               "choice": FUSED_TICKS})
     from tarl_tpu_torch.core.step import average_travel_time
 
     at_fc = captured[FUSED_TICKS // CAPTURE_EVERY - 1].agents
@@ -7014,7 +7173,8 @@ def main() -> int:
     sh = headline_run(net, agents, sim, policy, runner=sharded,
                       ticks=SHARD_TICKS)
     check_headline(sh, "sharded headline",
-                   {"K7": SHARD_TICKS, "K1": 0, "K12": 0})
+                   {"K7": SHARD_TICKS, "K1": 0, "K12": 0,
+                    "choice": SHARD_TICKS})
     mismatched = _diff_paths(
         to_numpy(head["captured"][SHARD_TICKS // CAPTURE_EVERY - 1]),
         to_numpy(sh["final"]))
@@ -7549,6 +7709,48 @@ def main() -> int:
         "device_ms_grid256": k7_t["Grid256x256"][2],
         "plain_ms_grid256": k7_t["Grid256x256"][1],
         "bound_ms_grid256": k7_t["Grid256x256"][3],
+    }, {
+        "name": "random_choice",
+        "route": "cuda",
+        "source": "tarl_tpu_torch/csrc/choice.cu",
+        "replaces": "no pallas_call: tarl_tpu/routing/policies.py:44 "
+                    "draws the noise in plain jnp, which XLA fuses",
+        "launches": head["launches"]["choice"],
+        "launches_from": "phase 2's headline, one launch a tick; the "
+                         "fused-core and sharded headlines, the million and "
+                         "city exact random rows beside it, and the sp rows "
+                         "(phases 5, 22, 23 and 26), none",
+        "launches_fused_core": fc["launches"]["choice"],
+        "launches_sharded": sh["launches"]["choice"],
+        "launches_million_exact": mil["exact_launches"]["choice"],
+        "launches_city_exact": city["exact"]["launches"]["choice"],
+        "launches_sp_rows": [sp["choice_launches"],
+                             mil_sp["choice_launches"],
+                             rad_sp["choice_launches"],
+                             city["sp"]["choice_launches"]],
+        "max_abs_err": 0.0,
+        "checked_calls": mil["choice"]["checked"] + city["choice"]["checked"],
+        "ms": mil["choice"]["ms"],
+        "device_ms": mil["choice"]["device_ms"],
+        "plain_ms": mil["choice"]["plain_ms"],
+        "plain_device_ms": mil["choice"]["plain_device_ms"],
+        "bound_ms": mil["choice"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": f"N={mil['choice']['n']}, KC={mil['choice']['kc']}, a "
+                 "captured state of the million exact_random row",
+        "activities": mil["choice"]["activities"],
+        "plain_activities": mil["choice"]["plain_activities"],
+        "ms_city": city["choice"]["ms"],
+        "device_ms_city": city["choice"]["device_ms"],
+        "plain_ms_city": city["choice"]["plain_ms"],
+        "plain_device_ms_city": city["choice"]["plain_device_ms"],
+        "bound_ms_city": city["choice"]["bound_ms"],
+        "shape_city": f"N={city['choice']['n']}, KC={city['choice']['kc']}, "
+                      "renumbered, a captured state of the city exact "
+                      "random row",
+        "activities_city": city["choice"]["activities"],
+        "plain_activities_city": city["choice"]["plain_activities"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

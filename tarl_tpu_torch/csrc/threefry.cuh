@@ -6,7 +6,7 @@
 // its noise from a tick key and an element index without a Gumbel matrix
 // in device memory.  gumbel_from_bits is jax.random.gumbel's float32
 // transform of those bits, shared by every kernel that draws its own
-// Gumbel noise (K1, K7 and K11).
+// Gumbel noise (K1, K7, K11 and the random choice of choice.cu).
 #pragma once
 
 #include <cfloat>

@@ -145,6 +145,21 @@ class Network:
         return tuple(t.data_ptr() for _, t, _, _ in tables)
 
     @functools.cached_property
+    def choice_tables(self) -> tuple[int, ...]:
+        """Addresses of the tables the random choice's kernel reads:
+        ``choice_ok``, ``choice_dst_tab`` and ``road_order``.  Checked once,
+        on first use, as :attr:`winner_tables` is."""
+        slots = (self.choice_dst_tab.shape[0], self.num_nodes)
+        tables = [
+            ("choice_ok", self.choice_ok, torch.bool, slots),
+            ("choice_dst_tab", self.choice_dst_tab, torch.int32, slots),
+            ("road_order", self.road_order, torch.int32, (self.num_roads,)),
+        ]
+        for name, t, dtype, shape in tables:
+            check_tensor(name, t, dtype, shape, self.device)
+        return tuple(t.data_ptr() for _, t, _, _ in tables)
+
+    @functools.cached_property
     def core_tables(self) -> tuple[int, ...]:
         """Addresses of the tables the fused core's sampler (K12, fused
         entry) reads: ``capacity``, ``edge_src``, ``edge_attr``, and the

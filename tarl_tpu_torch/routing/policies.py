@@ -10,6 +10,13 @@ A policy is a function ``choice(state, network) -> (state, entry_road)``
 that updates ``state.selected_road`` and optionally returns per-agent entry
 roads for insertion.
 
+``random_choice`` on a CUDA network is one launch of ``csrc/choice.cu``
+(nvcc into a shared library with a C interface, loaded with ctypes), which
+draws each slot's noise itself; on a CPU network it takes
+``random_choice_plain``, the same function in plain PyTorch.  The reference
+draws this noise in plain ``jnp``, where XLA fuses it: no Pallas kernel is
+replaced.
+
 The dual policy keeps the next-hop table over the dual nodes in
 ``state.next_hop`` (int32[N, N], rebuilt every ``refresh_rate``-th choice
 by :func:`~tarl_tpu_torch.routing.bellman_ford.all_pairs_next_hop_nbr`,
@@ -31,18 +38,20 @@ destinations.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .._build import check_tensor, current_stream, load_library
 from ..config import (
     DEFAULT_PHYSICS,
     DEFAULT_ROUTING,
     PhysicsConfig,
     RoutingConfig,
 )
-from ..core.rng import choice_gumbel, split
+from ..core.rng import choice_gumbel, key_words, split
 from ..ops.scatter import scatter_set
 from .bellman_ford import (
     BIG,
@@ -61,6 +70,17 @@ from .bellman_ford import (
 # A refresh_rate at or above this never refreshes (free-flow table only).
 _NEVER_REFRESH = 10 ** 9
 
+# Kernel launches through :func:`random_choice` (``csrc/choice.cu``), one
+# per call on a CUDA network; the plain version does not count.
+LAUNCHES = 0
+
+_CHOICE_FN = None
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+
 
 class ExternalChoice(NamedTuple):
     """Apply an externally supplied multi-hot action over the full edges
@@ -77,10 +97,11 @@ class ExternalChoice(NamedTuple):
         return state._replace(selected_road=sel), None
 
 
-def random_choice(state, network, gumbel: torch.Tensor | None = None):
+def random_choice_plain(state, network,
+                        gumbel: torch.Tensor | None = None):
     """Uniform next-road choice for every road and SRC node: Gumbel-max over
     each node's choice slots (slot-major ``[KC, N]`` noise, ascending slot,
-    strict ``>``).
+    strict ``>``), in plain PyTorch.
 
     The key is split first and the first half written back, as in the
     reference.  ``gumbel`` (optional) replaces the ``[KC, N]`` draw from
@@ -96,6 +117,49 @@ def random_choice(state, network, gumbel: torch.Tensor | None = None):
         take = s_k > best
         best = torch.where(take, s_k, best)
         sel = torch.where(take, network.choice_dst_tab[k], sel)
+    return state._replace(selected_road=sel, key=key), None
+
+
+def _choice_fn():
+    global _CHOICE_FN
+    if _CHOICE_FN is None:
+        fn = load_library("choice").tarl_random_choice
+        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        fn.argtypes = [p] * 4 + [u, u] + [i] * 4 + [p, p]
+        fn.restype = ctypes.c_int
+        _CHOICE_FN = fn
+    return _CHOICE_FN
+
+
+def random_choice(state, network, gumbel: torch.Tensor | None = None):
+    """:func:`random_choice_plain`'s choice: on a CUDA network one launch of
+    the hand-written kernel of ``csrc/choice.cu``, which draws the noise of
+    each ok slot itself at the matrix's canonical address, bitwise the
+    plain version's; on a CPU network, or where ``gumbel`` is given, the
+    plain version.  It raises on any other device and never falls back
+    from the kernel to the plain version.  ``state.selected_road`` must be
+    int32 ``[N]`` on the network's device, on either device; the network's
+    tables are checked once (:attr:`Network.choice_tables`)."""
+    global LAUNCHES
+    tables = network.choice_tables
+    dev = network.device
+    check_tensor("selected_road", state.selected_road, torch.int32,
+                 (network.num_nodes,), dev)
+    if dev.type == "cpu" or gumbel is not None:
+        return random_choice_plain(state, network, gumbel)
+    if dev.type != "cuda":
+        raise ValueError(f"random_choice: unsupported device {dev}")
+    key, sub = split(state.key)
+    k1, k2 = key_words(sub)
+    kc, n = network.choice_dst_tab.shape
+    sel = torch.empty(n, dtype=torch.int32, device=dev)
+    err = _choice_fn()(*tables, state.selected_road.data_ptr(), k1, k2, n,
+                       network.num_roads, kc, int(network.renumbered),
+                       sel.data_ptr(), current_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"random choice kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
     return state._replace(selected_road=sel, key=key), None
 
 
