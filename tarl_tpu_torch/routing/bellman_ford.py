@@ -48,7 +48,8 @@ makes no host read (the plain version reads its convergence test every
 sweep, counted by :mod:`~tarl_tpu_torch.core.sync`).  Each form's calls
 are counted apart (:data:`RESIDENT_LAUNCHES`, :data:`CLUSTER_LAUNCHES`,
 :data:`GLOBAL_LAUNCHES`; :data:`LAUNCHES` counts every call), one launch
-each.
+each; the cluster launches' blocks, tile widths, clusters at once and
+waves are summed beside them (:data:`CLUSTER_WAVES`).
 
 Left out: ``primal_delta_buckets``, ``epilogue_slot_tables``,
 ``_epilogue_rep_tables``, the row windows, the VMEM plans and every
@@ -94,6 +95,13 @@ RESIDENT_LAUNCHES = 0
 CLUSTER_LAUNCHES = 0
 GLOBAL_LAUNCHES = 0
 NEXT_ROAD_LAUNCHES = 0
+# What the cluster launches ran, each summed over CLUSTER_LAUNCHES: their
+# blocks a cluster, their tile widths, the clusters the card holds at once
+# (the cached occupancy answer) and their waves (:func:`cluster_waves`).
+CLUSTER_BLOCKS = 0
+CLUSTER_COLS = 0
+CLUSTER_AT_ONCE = 0
+CLUSTER_WAVES = 0
 
 # Sweeps between host reads of the convergence flag of the dual all-pairs
 # relaxations; sweeps past the fixpoint change nothing.
@@ -134,12 +142,14 @@ _GLOBAL_SYNC: dict = {}
 def reset_launches() -> None:
     global LAUNCHES, RESIDENT_LAUNCHES, CLUSTER_LAUNCHES, GLOBAL_LAUNCHES
     global NEXT_ROAD_LAUNCHES, DUAL_SWEEPS
+    global CLUSTER_BLOCKS, CLUSTER_COLS, CLUSTER_AT_ONCE, CLUSTER_WAVES
     LAUNCHES = 0
     RESIDENT_LAUNCHES = 0
     CLUSTER_LAUNCHES = 0
     GLOBAL_LAUNCHES = 0
     NEXT_ROAD_LAUNCHES = 0
     DUAL_SWEEPS = 0
+    CLUSTER_BLOCKS = CLUSTER_COLS = CLUSTER_AT_ONCE = CLUSTER_WAVES = 0
 
 
 # --- dual all-pairs relaxation ----------------------------------------------
@@ -439,9 +449,15 @@ def cluster_plan(i_n: int, d_n: int, k_n: int, max_iters: int | None,
         blocks *= 2
     cols = max(1, min(CLUSTER_TILE_COLS, d_n))
     if clusters:
-        waves = -(-(-(-d_n // cols)) // clusters)
+        waves = cluster_waves(d_n, cols, clusters)
         cols = max(1, -(-d_n // (waves * clusters)))
     return cols, blocks
+
+
+def cluster_waves(d_n: int, cols: int, clusters: int) -> int:
+    """The waves of a cluster launch: its ``ceil(d_n / cols)`` tiles, one a
+    cluster, over the ``clusters`` the card holds at once."""
+    return -(-(-(-d_n // cols)) // clusters)
 
 
 def _kernel_fns():
@@ -609,13 +625,28 @@ def _launch_global(road_cost, inter_out_road, inter_out_ok, road_to, dist0,
     return dist, road
 
 
+def _count_cluster(device, i_n: int, d_n: int, k_n: int, cols: int,
+                   blocks: int) -> None:
+    """Count one cluster launch of ``(cols, blocks)`` and what it ran: the
+    card's capacity is the answer :func:`launch_cluster_plan` cached for
+    the shape (no host read, no launch)."""
+    global CLUSTER_LAUNCHES, CLUSTER_BLOCKS, CLUSTER_COLS, CLUSTER_AT_ONCE
+    global CLUSTER_WAVES
+    fit = _CLUSTER_FIT[device.index, i_n, k_n, blocks]
+    CLUSTER_LAUNCHES += 1
+    CLUSTER_BLOCKS += blocks
+    CLUSTER_COLS += cols
+    CLUSTER_AT_ONCE += fit
+    CLUSTER_WAVES += cluster_waves(d_n, cols, fit)
+
+
 def _launch_relax(road_cost, inter_out_road, inter_out_ok, road_to, dist0,
                   max_iters, relax_only):
     """The relax in the form its shape takes: the resident kernel where
     :func:`resident_plan` gives a width, else the cluster kernel where
     :func:`cluster_plan` gives one, else the global form; each form's calls
     counted apart."""
-    global RESIDENT_LAUNCHES, CLUSTER_LAUNCHES, GLOBAL_LAUNCHES
+    global RESIDENT_LAUNCHES, GLOBAL_LAUNCHES
     i_n, k_n = inter_out_road.shape
     d_n = dist0.shape[1]
     iters = i_n - 1 if max_iters is None else int(max_iters)
@@ -629,7 +660,7 @@ def _launch_relax(road_cost, inter_out_road, inter_out_ok, road_to, dist0,
     plan = launch_cluster_plan(dist0.device, i_n, d_n, k_n, max_iters)
     if plan is not None:
         out = _launch_tiled("cluster", *args, *plan, iters)
-        CLUSTER_LAUNCHES += 1
+        _count_cluster(dist0.device, i_n, d_n, k_n, *plan)
         return out
     out = _launch_global(*args, iters)
     GLOBAL_LAUNCHES += 1

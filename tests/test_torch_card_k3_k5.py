@@ -15,7 +15,10 @@ numpy seeds:
   columns, as the million-agent row refreshes them, in every mode, and
   uncapped from the anchored cold start with no host read;
 * Grid256x256 (65,536 rows, clusters of 16, the card's non-portable
-  cluster size) with 16 columns at 8 sweeps.
+  cluster size) with 16 columns at 8 sweeps, and with 257 seeded columns
+  (the metropolitan grid's zoned tables) at 8 sweeps from a random warm
+  start and uncapped from the anchored cold start, each launch counted
+  with its plan.
 
 Modes: 8 sweeps and the next roads (K3's function), 8 sweeps alone (K5's),
 3 sweeps, and uncapped (up to I - 1 sweeps in one launch).  Distances and
@@ -148,3 +151,25 @@ def test_cluster_relax_grid256_sixteen_blocks():
     net = _grid(256, 256, dev)
     cost, tables, _, warm = _inputs(net, 16, seed=256)
     _check(cost, tables, warm, ((8, False),), blocks=16)
+
+
+@pytest.mark.cuda
+def test_cluster_relax_grid256_zoned_tables():
+    dev = _card()
+    net = _grid(256, 256, dev)
+    cost, tables, cold, warm = _inputs(net, 257, seed=257)
+    pbf.reset_launches()
+    _check(cost, tables, warm, ((8, False),), blocks=16)
+    _check(cost, tables, cold, ((None, False),), blocks=16)
+    fit = pbf._cluster_fit(dev, 65536, 4, 16)
+    assert (pbf.RESIDENT_LAUNCHES, pbf.GLOBAL_LAUNCHES) == (0, 0)
+    assert pbf.CLUSTER_LAUNCHES == 4
+    assert pbf.CLUSTER_BLOCKS == 4 * 16
+    assert pbf.CLUSTER_AT_ONCE == 4 * fit
+    # Two launches at the narrowed tile, two at the full width of 7.
+    cols = pbf.cluster_plan(65536, 257, 4, 8, fit)[0]
+    assert pbf.CLUSTER_COLS == 2 * cols + 2 * pbf.CLUSTER_TILE_COLS
+    assert pbf.CLUSTER_WAVES == 2 * pbf.cluster_waves(257, cols, fit) \
+        + 2 * pbf.cluster_waves(257, pbf.CLUSTER_TILE_COLS, fit)
+    reached = pbf.primal_relax_next_roads(cost, *tables, cold, None)[0]
+    assert float(reached.max()) < pbf.BIG

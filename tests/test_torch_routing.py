@@ -448,3 +448,58 @@ def test_cluster_plan_fills_the_last_wave(d_n, clusters, cols):
     waves = -(-(-(-d_n // pbf.CLUSTER_TILE_COLS)) // clusters)
     assert -(-d_n // got) <= waves * clusters    # no wave added
     assert got == 1 or -(-d_n // (got - 1)) > waves * clusters  # narrowest
+
+
+@pytest.mark.parametrize("clusters,plan,waves", [
+    (7, (7, 16), 6),   # 37 tiles of 7 in six waves of 7
+    (8, (7, 16), 5),   # 37 tiles in five waves of 8
+    (9, (6, 16), 5),   # five waves of 9 hold 45 tiles: narrowed to 43 of 6
+])
+def test_cluster_plan_grid256_zoned_tables(clusters, plan, waves):
+    """Grid256x256's zoned tables (65,536 rows, 257 columns) in clusters of
+    16 blocks, at 8 sweeps and uncapped, and the waves each plan runs."""
+    for iters in (8, None):
+        assert pbf.cluster_plan(65536, 257, 4, iters, clusters) == plan
+    assert pbf.cluster_waves(257, plan[0], clusters) == waves
+    assert pbf.cluster_waves(257, pbf.CLUSTER_TILE_COLS, clusters) >= waves
+
+
+def test_cluster_counters_add_each_launch_plan(monkeypatch):
+    """Each call of the cluster path adds its plan to the counters (blocks,
+    tile width, the cached capacity, waves) with no host read; the other
+    forms add nothing there; ``reset_launches`` zeroes them."""
+    from tarl_tpu_torch.core import sync
+
+    meta = torch.device("meta")
+    launched = []
+    monkeypatch.setattr(pbf, "_launch_tiled",
+                        lambda form, *a: launched.append((form, a[-3:])))
+    monkeypatch.setitem(pbf._CLUSTER_FIT, (None, 65536, 4, 16), 8)
+    monkeypatch.setitem(pbf._CLUSTER_FIT, (None, 16384, 4, 4), 30)
+
+    def relax(i_n, d_n, iters):
+        pbf._launch_relax(
+            torch.empty(4 * i_n, device=meta),
+            torch.empty((i_n, 4), dtype=torch.int32, device=meta),
+            torch.empty((i_n, 4), dtype=torch.bool, device=meta),
+            torch.empty(4 * i_n, dtype=torch.int32, device=meta),
+            torch.empty((i_n, d_n), device=meta), iters, False)
+
+    pbf.reset_launches()
+    reads = sync.HOST_READS
+    relax(65536, 257, 8)
+    relax(65536, 257, None)
+    assert launched == [("cluster", (7, 16, 8)), ("cluster", (7, 16, 65535))]
+    assert (pbf.CLUSTER_LAUNCHES, pbf.CLUSTER_BLOCKS, pbf.CLUSTER_COLS,
+            pbf.CLUSTER_AT_ONCE, pbf.CLUSTER_WAVES) == (2, 32, 14, 16, 10)
+    relax(16384, 257, 8)                  # the million grid: 52 tiles of 5
+    assert (pbf.CLUSTER_LAUNCHES, pbf.CLUSTER_BLOCKS, pbf.CLUSTER_COLS,
+            pbf.CLUSTER_AT_ONCE, pbf.CLUSTER_WAVES) == (3, 36, 19, 46, 12)
+    relax(4096, 257, 8)                   # the resident form
+    assert launched[-1][0] == "resident"
+    assert (pbf.RESIDENT_LAUNCHES, pbf.CLUSTER_LAUNCHES,
+            pbf.CLUSTER_WAVES) == (1, 3, 12)
+    assert sync.HOST_READS == reads
+    pbf.reset_launches()
+    assert (pbf.CLUSTER_LAUNCHES, pbf.CLUSTER_BLOCKS, pbf.CLUSTER_COLS,
+            pbf.CLUSTER_AT_ONCE, pbf.CLUSTER_WAVES) == (0, 0, 0, 0, 0)
